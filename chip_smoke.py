@@ -1,0 +1,509 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (torchain_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--steps N] [--kernels-only] [--profile] [--out DIR]
+
+Phases, in order; any failure exits non-zero before the last line:
+
+  1. print the card's name and power limit (nvidia-smi);
+  2. build every CUDA kernel from torchain_tpu_torch/csrc (nvcc, in
+     parallel) and print the build time and each kernel's register use;
+  3. at the main path's shapes (bench trigram graph, B=128, T_out=50,
+     P=80) hold each kernel against its plain PyTorch version on the card
+     and time both (CUDA events), beside the kernel's bound and, where one
+     exists, one PyTorch library call computing the same function;
+  4. the main path: full-width TDNN-F (hidden 768, bottleneck 96, prefinal
+     256, float32) trained for a few steps with the LF-MMI chain loss on
+     that batch through `make_train_step`; every kernel launch counter is
+     zeroed just before and read just after, and each must have moved;
+  5. a reference check on a small input: the first-step loss and gradient
+     norm on the card (kernels) against the CPU (plain versions);
+  6. one JSON line of kernel records, the nvidia-smi line, and the final
+     line `{"ok": true, "device": {...}}`.
+
+It imports torch, numpy and torchain_tpu_torch only.  Without a CUDA
+device, or outside a checkout of the repository, it fails.  With `--out`,
+the full result is also written to DIR/chip_smoke.json (and the profile
+table to DIR/profile.txt).
+"""
+
+from __future__ import annotations
+
+import argparse
+import copy
+import json
+import math
+import pathlib
+import subprocess
+import sys
+import time
+
+#: published H100 SXM peaks (NVIDIA data sheet): float32 outside the
+#: tensor cores, and HBM3 bandwidth
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+
+B, T_OUT = 128, 50
+LAYERS = 9
+
+
+def _log(*a):
+    print(*a, flush=True)
+
+
+def _time_ms(fn, reps: int) -> float:
+    """Mean device ms per call over `reps` calls (CUDA events), after one
+    warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _bound(flops: float, nbytes: float) -> tuple[float, str]:
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _check(name: str, what: str, got, want, atol: float, rtol: float) -> dict:
+    """Hold `got` (kernel) against `want` (plain version) element by element,
+    |got - want| <= atol + rtol * |want|, with the same non-finite entries.
+    Raises on disagreement; returns the errors for the kernels record."""
+    import torch
+
+    got, want = got.float(), want.float()
+    fin = torch.isfinite(want)
+    if not torch.equal(torch.isfinite(got), fin):
+        raise AssertionError(f"{name}: {what} differs from the plain version in non-finite entries")
+    diff = (got[fin] - want[fin]).abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    worst = float((diff - rtol * want[fin].abs()).max()) if diff.numel() else 0.0
+    _log(f"kernel {name}: {what} max_abs_err {err:.3g} (atol {atol:g}, rtol {rtol:g})")
+    if not worst <= atol:
+        raise AssertionError(f"{name}: {what} disagrees with the plain version")
+    return dict(what=what, max_abs_err=err, atol=atol, rtol=rtol)
+
+
+def build_main_path(seed: int):
+    """The bench configuration (bench.py _build): trigram phone LM over 40
+    phones, one ChainDataset batch of B=128 chunks of T_out=50."""
+    from torchain_tpu_torch.data import ChainDataset, synthetic_dataset
+    from torchain_tpu_torch.graphs import SupervisionOptions
+    from torchain_tpu_torch.models import TdnnfConfig
+
+    corpus = synthetic_dataset(
+        num_utts=2 * B,
+        num_phones=40,
+        feat_dim=40,
+        utt_frames_out=(T_OUT, T_OUT + 10),
+        seed=seed,
+        lm_order=3,
+        lm_extra_states=1000,
+    )
+    cfg = TdnnfConfig(
+        num_pdfs=corpus.tree.num_pdfs,
+        hidden_dim=768,
+        bottleneck_dim=96,
+        prefinal_dim=256,
+        num_layers=LAYERS,
+    )
+    left, right = cfg.context
+    dataset = ChainDataset(
+        corpus.utts,
+        corpus.tree,
+        corpus.norm_fst,
+        chunk_frames_out=T_OUT,
+        left_context=left,
+        right_context=right,
+        sup_opts=SupervisionOptions(left_tolerance=2, right_tolerance=2),
+    )
+    return corpus, cfg, dataset
+
+
+def check_kernels(den, sup, seed: int) -> list[dict]:
+    """Phase 3: each kernel against its plain version at the main path's
+    shapes, with times.  Raises on disagreement."""
+    import numpy as np
+    import torch
+
+    from torchain_tpu_torch.ops import den_resident as dr
+    from torchain_tpu_torch.ops import num_scan as ns
+
+    dev = den.V.device
+    P, S, K = den.num_pdfs, den.num_states, den.num_slots
+    KS = K * S
+    W = sup.frame_vocab.shape[-1]
+    T = T_OUT
+    rng = np.random.default_rng(seed)
+    # log-probs of the scale a fresh network emits
+    y = torch.as_tensor(rng.normal(size=(B, T, P)).astype(np.float32), device=dev)
+    leaky = 0.1
+    records = []
+
+    def record(name, source, replaces, checks, ms, plain_ms, flops, nbytes, lib_ms):
+        bound_ms, bound_by = _bound(flops, nbytes)
+        _log(
+            f"kernel {name}: {ms:.4f} ms  plain {plain_ms:.4f} ms"
+            f"  bound {bound_ms:.4f} ms ({bound_by})"
+            + (f"  library {lib_ms:.4f} ms" if lib_ms is not None else "")
+        )
+        records.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=0, max_abs_err=max(c["max_abs_err"] for c in checks),
+            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=lib_ms, checks=checks,
+        ))
+
+    # K1: denominator forward
+    yt = y.transpose(0, 1)
+    ymax = yt.max(-1).values.contiguous()
+    p = torch.exp(yt - ymax[..., None]).contiguous()
+    args1 = (p, den.V, den.slot_pdf, den.init, leaky)
+    logc_k, ah_k = dr.den_forward_kernel(*args1)
+    torch.cuda.synchronize()
+    logc_p, ah_p = dr.den_forward_plain(*args1)
+    torch.cuda.synchronize()
+    # f32 sums of 2176 products in another order, carried over 50 frames
+    # through the per-frame renormalisation.  log c is O(1); ah sums to 1
+    # over KS=4352 slots per frame, so its entries are held relative to
+    # their size (atol only for entries near 0).
+    checks1 = [
+        _check("den_forward", "logc", logc_k, logc_p, 1e-5, 0.0),
+        _check("den_forward", "ah", ah_k, ah_p, 1e-6, 1e-4),
+    ]
+    # the bound counts the products this graph needs: V's nonzeros (the
+    # kernels multiply the dense V, zeros included)
+    nnz = int(torch.count_nonzero(den.V))
+    record(
+        "den_forward", "torchain_tpu_torch/csrc/den_resident.cu",
+        "torchain_tpu/ops/den_resident.py:565", checks1,
+        _time_ms(lambda: dr.den_forward_kernel(*args1), 5),
+        _time_ms(lambda: dr.den_forward_plain(*args1), 5),
+        2.0 * T * B * nnz,
+        4.0 * (T * B * P + S * KS + KS + S + T * B * KS + T * B),
+        None,
+    )
+
+    # K2: denominator backward, on the plain forward's residuals
+    log_z = (logc_p.sum(0) + ymax.sum(0) + math.log1p(leaky)).contiguous()
+    F = torch.cumsum(logc_p + ymax, 0).contiguous()
+    args2 = (p, ah_p.contiguous(), F, ymax, log_z, den.V, den.slot_pdf,
+             den.pdf_offsets, den.pdf_slots, den.init, leaky)
+    g_k = dr.den_backward_kernel(*args2)
+    torch.cuda.synchronize()
+    g_p = dr.den_backward_plain(*args2)
+    torch.cuda.synchronize()
+    live = int(den.pdf_slots.numel())
+    # gamma sums to 1 over the P=80 pdfs of a frame: held relative to its
+    # size, as ah is
+    record(
+        "den_backward", "torchain_tpu_torch/csrc/den_resident.cu",
+        "torchain_tpu/ops/den_resident.py:615",
+        [_check("den_backward", "gamma", g_k, g_p, 1e-5, 1e-4)],
+        _time_ms(lambda: dr.den_backward_kernel(*args2), 5),
+        _time_ms(lambda: dr.den_backward_plain(*args2), 5),
+        2.0 * (T - 1) * B * nnz + 3.0 * T * B * live,
+        4.0 * (T * B * P + T * B * KS + 2 * T * B + B + S * KS + KS
+               + P + 1 + live + S + B * T * P),
+        None,
+    )
+
+    # K5: vocabulary gather (exact: a copy of selected values)
+    vocab = sup.frame_vocab
+    ys_k = ns.vocab_gather(y, vocab)
+    torch.cuda.synchronize()
+    ys_p = ns.vocab_gather_plain(y, vocab)
+    vocab64 = vocab.long()
+    record(
+        "vocab_gather", "torchain_tpu_torch/csrc/num_vocab.cu",
+        "torchain_tpu/ops/num_scan.py:140",
+        [_check("vocab_gather", "ysmall", ys_k, ys_p, 0.0, 0.0)],
+        _time_ms(lambda: ns.vocab_gather(y, vocab), 50),
+        _time_ms(lambda: ns.vocab_gather_plain(y, vocab), 50),
+        0.0,
+        4.0 * (B * T * P + 2 * B * T * W),
+        _time_ms(lambda: torch.gather(y, 2, vocab64), 50),
+    )
+
+    # K6: vocabulary scatter; pad slots (repeats of pdf 0 after the sorted
+    # prefix) carry exactly 0.0, as num_backward leaves them
+    valid = torch.ones_like(vocab, dtype=torch.bool)
+    valid[..., 1:] = vocab[..., 1:] > vocab[..., :-1]
+    gsm = torch.as_tensor(rng.random(size=(T, B, W)).astype(np.float32), device=dev)
+    gsm = torch.where(valid.transpose(0, 1), gsm, 0.0).contiguous()
+    g6_k = ns.vocab_scatter(gsm, vocab, P)
+    torch.cuda.synchronize()
+    g6_p = ns.vocab_scatter_plain(gsm, vocab, P)
+    gsm_bt = gsm.transpose(0, 1).contiguous()
+    record(
+        "vocab_scatter", "torchain_tpu_torch/csrc/num_vocab.cu",
+        "torchain_tpu/ops/num_scan.py:179",
+        [_check("vocab_scatter", "gamma_num", g6_k, g6_p, 0.0, 0.0)],
+        _time_ms(lambda: ns.vocab_scatter(gsm, vocab, P), 50),
+        _time_ms(lambda: ns.vocab_scatter_plain(gsm, vocab, P), 50),
+        1.0 * B * T * W,
+        4.0 * (2 * T * B * W + B * T * P),
+        _time_ms(
+            lambda: torch.zeros((B, T, P), device=dev).scatter_add_(2, vocab64, gsm_bt), 50
+        ),
+    )
+    return records
+
+
+def counters():
+    from torchain_tpu_torch.ops import den_resident as dr
+    from torchain_tpu_torch.ops import num_scan as ns
+
+    return {
+        "den_forward": dr.den_forward_kernel,
+        "den_backward": dr.den_backward_kernel,
+        "vocab_gather": ns.vocab_gather,
+        "vocab_scatter": ns.vocab_scatter,
+    }
+
+
+def train_steps(cfg, feat_dim, feats, den, sup, steps: int, seed: int):
+    """Phase 4: the main path.  Returns (losses, step ms list, launches)."""
+    import torch
+
+    from torchain_tpu_torch.models import TDNNF
+    from torchain_tpu_torch.ops import ChainLossOptions
+    from torchain_tpu_torch.train import create_train_state, make_train_step
+
+    model = TDNNF(cfg, feat_dim, device=feats.device,
+                  generator=torch.Generator().manual_seed(seed))
+    state = create_train_state(model, lr=1e-3)
+    step = make_train_step(
+        state,
+        ChainLossOptions(l2_regularize=5e-4, leaky_hmm_coefficient=0.1,
+                         xent_regularize=0.1),
+        max_grad_norm=5.0,
+    )
+    for fn in counters().values():
+        fn.launches = 0
+    losses, times = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step(feats, den, sup)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append({k: float(v) for k, v in m.items()})
+    launches = {k: fn.launches for k, fn in counters().items()}
+    return losses, times, launches, step
+
+
+def profile_steps(step, feats, den, sup, n: int, out_path: pathlib.Path | None) -> dict:
+    """--profile: torch.profiler over `n` more train steps.  Writes the
+    per-kernel table to `out_path`, where given; returns wall and
+    device-busy ms per step (device busy = the sum of the kernels' device
+    time; one stream, so they do not overlap), split into the port's
+    kernels, cuBLAS GEMMs and the rest."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step(feats, den, sup)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    from torch.autograd import DeviceType
+
+    # device kernels and copies only: an operator's own row repeats its
+    # kernels' time, and a user annotation's device row spans them
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
+            and "#" not in e.key]
+    if not kern:
+        raise AssertionError("the profiler recorded no device kernels")
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    ours = ("fwd_gemm", "fwd_norm", "bwd_gamma", "bwd_gemm", "bwd_norm",
+            "vocab_gather_kernel", "vocab_scatter_kernel")
+    is_ours = [any(k in e.key for k in ours) for e in kern]
+    is_gemm = [not o and ("gemm" in e.key.lower() or "sm90" in e.key) for e, o in zip(kern, is_ours)]
+    busy = sum(dev_us(e) for e in kern) / 1e3 / n
+    port = sum(dev_us(e) for e, o in zip(kern, is_ours) if o) / 1e3 / n
+    gemm = sum(dev_us(e) for e, g in zip(kern, is_gemm) if g) / 1e3 / n
+    launches = sum(e.count for e in kern) // n
+    rows = sorted(kern, key=dev_us, reverse=True)
+    lines = [f"{dev_us(e) / 1e3 / n:10.3f} ms/step {e.count // n:7d} launches/step  {e.key[:100]}"
+             for e in rows][:40]
+    if out_path is not None:
+        out_path.write_text("\n".join(lines) + "\n")
+    return dict(wall_ms=wall_ms, device_busy_ms=busy, idle_share=1.0 - busy / wall_ms,
+                port_kernels_ms=port, library_gemm_ms=gemm, other_ms=busy - port - gemm,
+                kernel_launches=launches, top=lines[:12])
+
+
+def reference_check(cfg, feat_dim, dataset, corpus, seed: int) -> dict:
+    """Phase 5: one loss + gradient on a small batch, on the card (kernels)
+    and on the CPU (plain versions), from the same weights."""
+    import torch
+
+    from torchain_tpu_torch.models import TDNNF
+    from torchain_tpu_torch.ops import ChainLossOptions, DeviceSupervision, auto_den_graph, chain_loss
+
+    small = next(dataset.batches(8, shuffle=False))
+    opts = ChainLossOptions(l2_regularize=5e-4, leaky_hmm_coefficient=0.1,
+                            xent_regularize=0.1)
+    model = TDNNF(cfg, feat_dim, device="cpu",
+                  generator=torch.Generator().manual_seed(seed + 1))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        m = copy.deepcopy(model).to(dev)
+        den = auto_den_graph(corpus.den_graph, device=dev)
+        sup = DeviceSupervision.from_host(small.sup, device=dev)
+        chain, xent = m(torch.as_tensor(small.feats, device=dev), train=True)
+        loss, aux = chain_loss(chain, xent, den, sup, opts)
+        loss.backward()
+        gn = torch.sqrt(sum(torch.sum(p.grad.double() ** 2) for p in m.parameters()))
+        out[dev] = dict(loss=float(loss.detach()), objf=float(aux["objf"].detach()), grad_norm=float(gn))
+    for k in ("loss", "objf", "grad_norm"):
+        a, b = out["cuda"][k], out["cpu"][k]
+        rel = abs(a - b) / max(abs(b), 1e-12)
+        out[f"{k}_rel_err"] = rel
+        # f32 sums in another order (cuBLAS vs the CPU BLAS, kernels vs
+        # plain) through 9 layers, the 50-frame recursions and a backward
+        if not (math.isfinite(a) and rel <= 1e-3):
+            raise AssertionError(f"reference check: {k} card {a} vs cpu {b}")
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--steps", type=int, default=10, help="train steps (>= 3)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="stop after phase 3 (build and kernel checks)")
+    ap.add_argument("--profile", action="store_true",
+                    help="after phase 4, trace 2 more steps with torch.profiler")
+    ap.add_argument("--out", type=pathlib.Path,
+                    help="directory for chip_smoke.json and profile.txt")
+    args = ap.parse_args(argv)
+    if args.steps < 3:
+        ap.error("--steps must be at least 3")
+
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the GPU only",
+              file=sys.stderr)
+        return 2
+    from torchain_tpu_torch import kernels
+    from torchain_tpu_torch.ops import DeviceSupervision, auto_den_graph
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    _log(smi)
+    _log("torch", torch.__version__, "cuda", torch.version.cuda,
+         "device", torch.cuda.get_device_name(0))
+
+    # phase 2: build
+    build_s = kernels.build(force=True)
+    _log(f"build: {build_s:.1f} s for {len(kernels.SIGNATURES)} sources")
+    for name in kernels.SIGNATURES:
+        log = (kernels.BUILD / f"{name}.log").read_text()
+        for line in log.splitlines():
+            if "Used" in line or "spill" in line:
+                _log(f"  ptxas {name}: {line.strip()}")
+    for name in kernels.SIGNATURES:
+        kernels.library(name)
+
+    # phase 3: kernels at the main path's shapes
+    t0 = time.perf_counter()
+    corpus, cfg, dataset = build_main_path(args.seed)
+    batch = next(dataset.batches(B, shuffle=False))
+    den = auto_den_graph(corpus.den_graph, device="cuda")
+    sup = DeviceSupervision.from_host(batch.sup, device="cuda").with_kernel_tables()
+    feats = torch.as_tensor(batch.feats, device="cuda")
+    _log(
+        f"main path set-up {time.perf_counter() - t0:.1f} s: den graph S={den.num_states}"
+        f" K={den.num_slots} P={den.num_pdfs}; batch feats {tuple(feats.shape)},"
+        f" numerator S={sup.max_states} W={sup.frame_vocab.shape[-1]}"
+    )
+    records = check_kernels(den, sup, args.seed)
+    result = dict(device=torch.cuda.get_device_name(0), nvidia_smi=smi,
+                  build_s=build_s, kernels=records)
+
+    if not args.kernels_only:
+        # phase 4: the main path
+        losses, times, launches, step = train_steps(
+            cfg, corpus.feat_dim, feats, den, sup, args.steps, args.seed
+        )
+        for i, (m, ms) in enumerate(zip(losses, times)):
+            _log(f"step {i}: {ms:.1f} ms  " + "  ".join(f"{k}={v:.6g}" for k, v in m.items()))
+        if not all(math.isfinite(m["loss"]) for m in losses):
+            raise AssertionError("non-finite loss on the main path")
+        if not losses[-1]["loss"] < losses[0]["loss"]:
+            raise AssertionError("the loss did not fall over the replayed batch")
+        for name, n in launches.items():
+            if n == 0:
+                raise AssertionError(f"kernel {name} was not launched on the main path")
+        for r in records:
+            r["launches"] = launches[r["name"]]
+        # the rate is all the audio of steps 2..N over the whole window of
+        # those steps; step 1 holds cuBLAS and allocator warm-up
+        window_ms = float(np.sum(times[1:]))
+        audio_s = (args.steps - 1) * B * T_OUT * 3 * 0.010
+        step_ms = window_ms / (args.steps - 1)
+        rate = audio_s / (window_ms / 1e3)
+        _log(f"launches on the main path ({args.steps} steps): {launches}")
+        _log(f"steps 2..{args.steps}: {window_ms:.1f} ms for {audio_s:.0f} audio-s,"
+             f" {step_ms:.2f} ms/step, {rate:.1f} audio-s/s; step 1 {times[0]:.1f} ms;"
+             f" peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        result.update(step_ms=step_ms, step_ms_all=times, audio_s_per_s=rate,
+                      losses=losses, launches=launches)
+
+        if args.profile:
+            if args.out:
+                args.out.mkdir(parents=True, exist_ok=True)
+            prof = profile_steps(step, feats, den, sup, 2,
+                                 args.out / "profile.txt" if args.out else None)
+            _log(f"profile (traced steps only): wall {prof['wall_ms']:.2f} ms/step,"
+                 f" device busy {prof['device_busy_ms']:.2f} ms/step (traced idle share"
+                 f" {prof['idle_share']:.3f}) in {prof['kernel_launches']} launches/step:"
+                 f" port kernels {prof['port_kernels_ms']:.2f}, cuBLAS GEMMs"
+                 f" {prof['library_gemm_ms']:.2f}, other {prof['other_ms']:.2f} ms/step")
+            for line in prof["top"]:
+                _log("  " + line)
+            result["profile"] = prof
+
+        # phase 5: reference check on a small input
+        ref = reference_check(cfg, corpus.feat_dim, dataset, corpus, args.seed)
+        _log("reference check (B=8, card vs cpu):", json.dumps(ref))
+        result["reference"] = ref
+
+    if args.out:
+        args.out.mkdir(parents=True, exist_ok=True)
+        (args.out / "chip_smoke.json").write_text(json.dumps(result, indent=1))
+    print(json.dumps({"kernels": records}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

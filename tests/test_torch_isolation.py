@@ -1,0 +1,101 @@
+"""The PyTorch port stands alone: it imports nothing of JAX or of the JAX
+package, imports on a machine without triton, nvcc or a GPU, and never
+quietly runs a plain version for a tensor that lies on another device than
+the CPU."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "torchain_tpu_torch"
+BANNED = ("jax", "jaxlib", "flax", "optax", "torchain_tpu", "triton")
+
+_PROBE = f"""
+import importlib, pkgutil, sys
+banned = {BANNED!r}
+def present():
+    return sorted(m for m in sys.modules if m.split('.')[0] in banned)
+before = present()
+import torchain_tpu_torch
+for info in pkgutil.walk_packages(torchain_tpu_torch.__path__, 'torchain_tpu_torch.'):
+    importlib.import_module(info.name)
+import chip_smoke
+print(sorted(set(present()) - set(before)))
+"""
+
+
+def test_port_imports_nothing_of_jax_in_a_fresh_interpreter():
+    proc = subprocess.run(
+        [sys.executable, "-c", _PROBE], cwd=str(ROOT), capture_output=True, text=True,
+        env={"PATH": "/usr/bin:/bin", "HOME": str(ROOT), "PYTHONPATH": str(ROOT)},
+        timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "[]"
+
+
+@pytest.mark.parametrize(
+    "path", sorted(str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")) + ["chip_smoke.py"]
+)
+def test_no_import_statement_names_jax(path):
+    tree = ast.parse((ROOT / path).read_text())
+    for node in ast.walk(tree):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            names = [node.module]
+        for n in names:
+            assert n.split(".")[0] not in BANNED[:-1], f"{path}:{node.lineno} imports {n}"
+
+
+def test_wrappers_raise_for_a_non_cpu_non_cuda_tensor():
+    """A wrapper takes its plain version only for CPU tensors; for any
+    other device it launches the kernel or raises (checked before any
+    build is attempted)."""
+    from torchain_tpu_torch.ops import den_resident as dr
+    from torchain_tpu_torch.ops import num_scan as ns
+
+    m = dict(device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        dr.den_forward_kernel(torch.empty(2, 1, 3, **m), torch.empty(4, 8, **m),
+                              torch.empty(8, dtype=torch.int32, **m), torch.empty(4, **m), 0.1)
+    with pytest.raises(ValueError, match="CUDA"):
+        ns.vocab_gather(torch.empty(1, 2, 3, **m), torch.empty(1, 2, 2, dtype=torch.int32, **m))
+    with pytest.raises(ValueError, match="CUDA"):
+        ns.vocab_scatter(torch.empty(2, 1, 2, **m), torch.empty(1, 2, 2, dtype=torch.int32, **m), 3)
+    assert dr.den_forward_kernel.launches == 0 and ns.vocab_gather.launches == 0
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    """No silent fallback when the kernels cannot be built."""
+    from torchain_tpu_torch import kernels
+
+    monkeypatch.setattr(kernels, "BUILD", tmp_path)
+    monkeypatch.setattr(kernels.shutil, "which", lambda _name: None)
+    monkeypatch.setattr(kernels, "NVCC_DEFAULT", str(tmp_path / "no-nvcc"))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        kernels.library("num_vocab")
+    assert "num_vocab" not in kernels._libs
+
+
+def test_auto_den_graph_keeps_the_requested_device():
+    from torchain_tpu_torch.graphs import DenGraph
+    from torchain_tpu_torch.ops import auto_den_graph
+
+    g = DenGraph(
+        num_states=2, num_pdfs=2,
+        in_offsets=np.array([0, 1, 2], np.int32), in_src=np.array([1, 0], np.int32),
+        in_pdf=np.array([0, 1], np.int32), in_logw=np.zeros(2, np.float32),
+        out_offsets=np.array([0, 1, 2], np.int32), out_dst=np.array([1, 0], np.int32),
+        out_pdf=np.array([1, 0], np.int32), out_logw=np.zeros(2, np.float32),
+        initial_probs=np.array([0.5, 0.5], np.float32),
+    )
+    den = auto_den_graph(g, pad_to=8, device="meta")
+    assert den.V.device.type == "meta" and den.num_states == 8

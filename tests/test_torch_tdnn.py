@@ -1,0 +1,99 @@
+"""TDNN-F of the PyTorch port (models/tdnn.py, ops/fused_bn.py) against the
+JAX package's flax TDNNF, from the same parameters carried over by
+convert.params_from_jax: outputs in train and eval mode, the gradient of a
+fixed scalar of the outputs with respect to every parameter, and the
+updated batchnorm running statistics.
+
+Tolerance: atol 1e-5 on outputs and statistics, and on each gradient
+rtol 1e-4 plus an atol of 1e-5 times that gradient's largest magnitude:
+float32 matmuls and batch reductions in another order, through a few
+layers of batchnorm (which divides by small per-channel spreads)."""
+
+import numpy as np
+import pytest
+
+pytest.importorskip("jax")
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from torchain_tpu.models import TDNNF as JTDNNF
+from torchain_tpu.models import TdnnfConfig as JCfg
+from torchain_tpu_torch.convert import _flatten, params_from_jax
+from torchain_tpu_torch.models import TDNNF, TdnnfConfig
+
+SMALL = dict(num_pdfs=11, hidden_dim=64, bottleneck_dim=16, prefinal_dim=32, num_layers=3)
+
+
+@pytest.fixture(scope="module")
+def setup():
+    jcfg, tcfg = JCfg(**SMALL), TdnnfConfig(**SMALL)
+    assert jcfg.context == tcfg.context
+    assert jcfg.layer_geometry() == tcfg.layer_geometry()
+    left, right = tcfg.context
+    B, T_out, F = 3, 6, 8
+    rng = np.random.default_rng(0)
+    feats = rng.normal(size=(B, T_out * 3 + left + right, F)).astype(np.float32)
+    jm = JTDNNF(jcfg)
+    variables = jm.init(jax.random.PRNGKey(3), jnp.asarray(feats), train=False)
+    # non-trivial running statistics, so eval mode is exercised
+    stats = jax.tree.map(
+        lambda v: v + jnp.asarray(rng.random(size=v.shape).astype(np.float32)),
+        variables["batch_stats"],
+    )
+    params = variables["params"]
+    tm = TDNNF(tcfg, F, device="cpu")
+    tm.load_state_dict(params_from_jax(params, stats, tcfg))
+    w = rng.normal(size=(B, T_out, SMALL["num_pdfs"])).astype(np.float32)
+    return jm, params, stats, tm, feats, w
+
+
+def test_eval_forward_matches(setup):
+    jm, params, stats, tm, feats, _ = setup
+    jc, jx = jm.apply({"params": params, "batch_stats": stats}, jnp.asarray(feats), train=False)
+    with torch.no_grad():
+        tc, tx = tm(torch.as_tensor(feats), train=False)
+    np.testing.assert_allclose(tc.numpy(), np.asarray(jc), atol=1e-5)
+    np.testing.assert_allclose(tx.numpy(), np.asarray(jx), atol=1e-5)
+
+
+def test_train_forward_grads_and_stats_match(setup):
+    jm, params, stats, tm, feats, w = setup
+    wj = jnp.asarray(w)
+
+    def jfn(p):
+        (c, x), upd = jm.apply({"params": p, "batch_stats": stats}, jnp.asarray(feats),
+                               train=True, mutable=["batch_stats"])
+        return jnp.sum(c * wj) + 0.5 * jnp.sum(x * wj), (c, x, upd["batch_stats"])
+
+    (_, (jc, jx, jstats)), jgrad = jax.value_and_grad(jfn, has_aux=True)(params)
+
+    tm.zero_grad()
+    tc, tx = tm(torch.as_tensor(feats), train=True)
+    (torch.sum(tc * torch.as_tensor(w)) + 0.5 * torch.sum(tx * torch.as_tensor(w))).backward()
+
+    np.testing.assert_allclose(tc.detach().numpy(), np.asarray(jc), atol=1e-5)
+    np.testing.assert_allclose(tx.detach().numpy(), np.asarray(jx), atol=1e-5)
+    named = dict(tm.named_parameters())
+    flat = _flatten(jgrad)
+    assert set(flat) == set(named)
+    for k, g in flat.items():
+        g = np.asarray(g)
+        np.testing.assert_allclose(named[k].grad.numpy(), g, rtol=1e-4,
+                                   atol=1e-5 * np.abs(g).max(), err_msg=k)
+    buffers = dict(tm.named_buffers())
+    flat_stats = _flatten(jstats)
+    assert set(flat_stats) == set(buffers)
+    for k, v in flat_stats.items():
+        np.testing.assert_allclose(buffers[k].numpy(), np.asarray(v), atol=1e-5, err_msg=k)
+
+
+def test_params_from_jax_rejects_mismatch(setup):
+    _, params, stats, _, _, _ = setup
+    bad = dict(params)
+    bad.pop("chain_head")
+    with pytest.raises(ValueError, match="missing"):
+        params_from_jax(bad, stats, TdnnfConfig(**SMALL))
+    with pytest.raises(ValueError, match="shape"):
+        params_from_jax(params, stats, TdnnfConfig(**{**SMALL, "num_pdfs": 12}))

@@ -1,0 +1,48 @@
+"""graphs — host-side compilers from linguistic structure to packed arrays.
+
+HMM topology + context tree (kaldi/src/hmm/), the phone-LM estimator
+(kaldi/src/chain/language-model.cc), the denominator-graph compiler
+(kaldi/src/chain/chain-den-graph.cc), and the supervision compiler
+(kaldi/src/chain/chain-supervision.cc).  Everything here runs on the host
+CPU at setup/data-loading time and emits packed numpy arrays for the
+device code in `torchain_tpu_torch.ops`.
+"""
+
+from torchain_tpu_torch.graphs.den_graph import (
+    DenGraph,
+    compile_den_graph,
+    make_den_fst,
+    make_normalization_fst,
+)
+from torchain_tpu_torch.graphs.phone_lm import PhoneLmOptions, estimate_phone_lm
+from torchain_tpu_torch.graphs.supervision import (
+    Supervision,
+    SupervisionOptions,
+    alignment_to_supervision_fst,
+    compile_supervision,
+    numerator_tables,
+    pad_and_stack_supervisions,
+    split_alignment_into_chunks,
+    subsample_alignment,
+)
+from torchain_tpu_torch.graphs.topology import BOUNDARY, ChainTopology, ContextTree
+
+__all__ = [
+    "BOUNDARY",
+    "ChainTopology",
+    "ContextTree",
+    "DenGraph",
+    "PhoneLmOptions",
+    "Supervision",
+    "SupervisionOptions",
+    "alignment_to_supervision_fst",
+    "compile_den_graph",
+    "compile_supervision",
+    "estimate_phone_lm",
+    "make_den_fst",
+    "make_normalization_fst",
+    "numerator_tables",
+    "pad_and_stack_supervisions",
+    "split_alignment_into_chunks",
+    "subsample_alignment",
+]

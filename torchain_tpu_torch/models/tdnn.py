@@ -1,0 +1,262 @@
+"""TDNN-F acoustic encoder (torch), port of torchain_tpu/models/tdnn.py for
+its default configuration (impl "dot", time-major trunk, fused batchnorm).
+
+Behavioral reference: the Kaldi chain recipes' TDNN-F (factored layers with
+a semi-orthogonal bottleneck, batchnorm, and scaled bypass connections —
+Povey et al. 2018) over [B, T, F] features with VALID context: the loader
+supplies exactly `left_context` + `right_context` extra input frames and
+one layer strides by frame_subsampling_factor.
+
+Parameters keep the JAX package's names and shapes (a width-2 tap kernel
+is [2, in, out], a dense kernel [in, out]; batchnorm has scale/bias and the
+running mean/var as buffers) so `convert.params_from_jax` is a plain
+renaming.  The model returns (chain_out, xent_out): [B, T_out, num_pdfs].
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+from torch import nn
+
+from torchain_tpu_torch.ops.fused_bn import bn_train, brb_bypass_train, brb_train
+
+_TRUNC_STD = 0.87962566103423978  # std of a unit normal truncated to [-2, 2]
+
+
+def lecun_normal_(t: torch.Tensor, fan_in: int, generator=None) -> torch.Tensor:
+    """flax's lecun_normal: truncated normal, variance 1/fan_in."""
+    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    with torch.no_grad():
+        return nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std, generator=generator)
+
+
+def _param(shape, device, fan_in=None, generator=None, fill=0.0):
+    # drawn on the CPU (where a CPU generator lives), then moved: the same
+    # seed gives the same weights on every device
+    t = torch.empty(shape, dtype=torch.float32)
+    if fan_in is None:
+        t.fill_(fill)
+    else:
+        lecun_normal_(t, fan_in, generator)
+    return nn.Parameter(t.to(device))
+
+
+class ChainBatchNorm(nn.Module):
+    """Batchnorm over all axes but the last (JAX package semantics: biased
+    variance clipped at 0, eps 1e-5, running stats updated as
+    m * old + (1 - m) * new with m = 0.99)."""
+
+    def __init__(self, C: int, momentum: float = 0.99, eps: float = 1e-5, device=None):
+        super().__init__()
+        self.momentum, self.eps = momentum, eps
+        self.scale = _param((C,), device, fill=1.0)
+        self.bias = _param((C,), device, fill=0.0)
+        self.register_buffer("mean", torch.zeros(C, device=device))
+        self.register_buffer("var", torch.ones(C, device=device))
+
+    def _update(self, mean, var):
+        m = self.momentum
+        with torch.no_grad():
+            self.mean.mul_(m).add_((1.0 - m) * mean)
+            self.var.mul_(m).add_((1.0 - m) * var)
+
+    def _eval_affine(self, dtype):
+        rstd = torch.rsqrt(self.var + self.eps)
+        a = (rstd * self.scale).to(dtype)
+        b = (self.bias - self.mean * rstd * self.scale).to(dtype)
+        return a, b
+
+    def forward(self, x, train: bool = False):
+        if not train:
+            a, b = self._eval_affine(x.dtype)
+            return x * a + b
+        y, mean, var = bn_train(x, self.scale, self.bias, self.eps)
+        self._update(mean, var)
+        return y
+
+
+class FusedPostBN(ChainBatchNorm):
+    """The TDNN-F layer tail relu(x + conv_bias) -> batchnorm
+    [-> + bypass_scale * bypass] as one op (ops.fused_bn.brb_*)."""
+
+    def forward(self, x, conv_bias, bypass=None, bypass_scale: float = 0.0, train=False):
+        if not train:
+            h = torch.clamp(x + conv_bias.to(x.dtype), min=0)
+            a, b = self._eval_affine(x.dtype)
+            y = h * a + b
+            if bypass is not None:
+                y = y + bypass_scale * bypass.to(y.dtype)
+            return y
+        if bypass is not None:
+            y, mean, var = brb_bypass_train(
+                x, conv_bias, self.scale, self.bias, bypass, self.eps, float(bypass_scale)
+            )
+        else:
+            y, mean, var = brb_train(x, conv_bias, self.scale, self.bias, self.eps)
+        self._update(mean, var)
+        return y
+
+
+class Dense(nn.Module):
+    """y = x @ kernel + bias, kernel [in, out] (flax nn.Dense layout)."""
+
+    def __init__(self, in_dim, out_dim, device=None, generator=None):
+        super().__init__()
+        self.kernel = _param((in_dim, out_dim), device, fan_in=in_dim, generator=generator)
+        self.bias = _param((out_dim,), device)
+
+    def forward(self, x):
+        return x @ self.kernel + self.bias
+
+
+class Prefinal(nn.Module):
+    """Kaldi's prefinal-chain / prefinal-xent block: linear bottleneck +
+    relu + batchnorm + affine to pdfs."""
+
+    def __init__(self, in_dim, dim, num_pdfs, device=None, generator=None):
+        super().__init__()
+        self.Dense_0 = Dense(in_dim, dim, device, generator)
+        self.BatchNorm_0 = ChainBatchNorm(dim, device=device)
+        self.Dense_1 = Dense(dim, num_pdfs, device, generator)
+
+    def forward(self, x, train: bool = False):
+        x = torch.relu(self.Dense_0(x))
+        x = self.BatchNorm_0(x, train)
+        return self.Dense_1(x.float())
+
+
+class _TapDot(nn.Module):
+    """A width-2 dilated 1-D conv over the time-major [T, B, C] trunk as
+    two matmuls (kernel [2, in, out]; tap 0 looks back `dilation` frames).
+    With `defer_bias` the bias is returned unapplied as (y, bias) for the
+    fused batchnorm tail."""
+
+    def __init__(self, in_feat, features, dilation=1, stride=1, use_bias=True,
+                 defer_bias=False, device=None, generator=None):
+        super().__init__()
+        self.features, self.dilation, self.stride = features, dilation, stride
+        self.defer_bias = defer_bias
+        # fan-in counts the receptive field, like nn.Conv's kernel
+        self.kernel = _param((2, in_feat, features), device, fan_in=2 * in_feat,
+                             generator=generator)
+        self.bias = _param((features,), device) if use_bias else None
+
+    def forward(self, x):
+        in_feat = x.shape[-1]
+        d, s = self.dilation, self.stride
+        t_out = (x.shape[0] - d - 1) // s + 1
+        if s == 1 and 2 * self.features <= in_feat:
+            # narrowing factor: project first, shift the narrow result
+            w = x @ self.kernel.permute(1, 0, 2).reshape(in_feat, 2 * self.features)
+            y = w[:t_out, :, : self.features] + w[d:, :, self.features :]
+        else:
+            lag = x[0 : (t_out - 1) * s + 1 : s]
+            now = x[d : d + (t_out - 1) * s + 1 : s]
+            y = lag @ self.kernel[0] + now @ self.kernel[1]
+        if self.bias is None:
+            return y
+        if self.defer_bias:
+            return y, self.bias
+        return y + self.bias
+
+
+class TdnnfLayer(nn.Module):
+    """One factored layer: linear (context [-d, 0]) -> bottleneck -> affine
+    (context [0, +d]) -> relu -> batchnorm, with a scaled bypass."""
+
+    def __init__(self, in_dim, hidden_dim, bottleneck_dim, dilation=1, stride=1,
+                 bypass_scale=0.66, device=None, generator=None):
+        super().__init__()
+        self.dilation, self.stride, self.bypass_scale = dilation, stride, bypass_scale
+        self.linear_pre = _TapDot(in_dim, bottleneck_dim, dilation, stride,
+                                  use_bias=False, device=device, generator=generator)
+        self.affine = _TapDot(bottleneck_dim, hidden_dim, dilation, defer_bias=True,
+                              device=device, generator=generator)
+        self.BatchNorm_0 = FusedPostBN(hidden_dim, device=device)
+
+    def forward(self, x, train: bool = False):  # x [T, B, C]
+        h, cb = self.affine(self.linear_pre(x))
+        d = self.dilation
+        crop = x[d :: self.stride][: h.shape[0]]
+        if crop.shape[-1] == h.shape[-1]:
+            return self.BatchNorm_0(h, cb, crop, self.bypass_scale, train=train)
+        return self.BatchNorm_0(h, cb, train=train)
+
+
+@dataclasses.dataclass(frozen=True)
+class TdnnfConfig:
+    num_pdfs: int = 120
+    hidden_dim: int = 768
+    bottleneck_dim: int = 96
+    prefinal_dim: int = 256
+    num_layers: int = 9
+    #: layer index that strides by frame_subsampling_factor
+    subsample_layer: int = 1
+    frame_subsampling_factor: int = 3
+    #: dilation per layer after the subsample layer (Kaldi time-stride 3)
+    dilation: int = 3
+
+    def layer_geometry(self) -> list[tuple[int, int]]:
+        """(dilation, stride) per tdnnf layer."""
+        out = []
+        for i in range(self.num_layers):
+            if i == 0:
+                out.append((1, 1))
+            elif i == self.subsample_layer:
+                out.append((1, self.frame_subsampling_factor))
+            else:
+                out.append((self.dilation, 1))
+        return out
+
+    @property
+    def context(self) -> tuple[int, int]:
+        left = right = 0
+        rate = 1
+        for d, s in self.layer_geometry():
+            left += d * rate  # factor 1 looks back d (pre-stride rate)
+            rate *= s
+            right += d * rate  # factor 2 looks ahead d (post-stride rate)
+        return left, right
+
+
+class InputProj(nn.Module):
+    """The k=1 input convolution (kernel [1, F, H], flax nn.Conv layout)."""
+
+    def __init__(self, feat_dim, hidden_dim, device=None, generator=None):
+        super().__init__()
+        self.kernel = _param((1, feat_dim, hidden_dim), device, fan_in=feat_dim,
+                             generator=generator)
+        self.bias = _param((hidden_dim,), device)
+
+    def forward(self, x):
+        return x @ self.kernel[0] + self.bias
+
+
+class TDNNF(nn.Module):
+    """Factored TDNN stack with chain + xent heads (float32)."""
+
+    def __init__(self, cfg: TdnnfConfig, feat_dim: int, device="cuda", generator=None):
+        super().__init__()
+        self.config = cfg
+        H = cfg.hidden_dim
+        self.input_proj = InputProj(feat_dim, H, device, generator)
+        self.BatchNorm_0 = ChainBatchNorm(H, device=device)
+        for i, (d, s) in enumerate(cfg.layer_geometry()):
+            setattr(self, f"tdnnf{i}", TdnnfLayer(
+                H, H, cfg.bottleneck_dim, dilation=d, stride=s,
+                device=device, generator=generator,
+            ))
+        self.chain_head = Prefinal(H, cfg.prefinal_dim, cfg.num_pdfs, device, generator)
+        self.xent_head = Prefinal(H, cfg.prefinal_dim, cfg.num_pdfs, device, generator)
+
+    def forward(self, feats, train: bool = False):
+        x = torch.relu(self.input_proj(feats.float()))
+        x = self.BatchNorm_0(x, train)
+        x = x.transpose(0, 1)  # [B, T, C] -> [T, B, C]
+        for i in range(self.config.num_layers):
+            x = getattr(self, f"tdnnf{i}")(x, train)
+        x = x.transpose(0, 1)
+        return self.chain_head(x, train), self.xent_head(x, train)

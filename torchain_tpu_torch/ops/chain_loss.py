@@ -1,0 +1,190 @@
+"""The chain (LF-MMI) objective with a custom gradient — the public loss API.
+
+Behavioral reference: kaldi/src/chain/chain-training.{h,cc}
+(`ChainTrainingOptions`, `ComputeChainObjfAndDeriv`); port of
+torchain_tpu/ops/chain_loss.py:
+
+    objf     = sum_b weight_b * (num_logprob_b - den_logprob_b)
+    l2_term  = -0.5 * l2_regularize * ||y||^2
+    oor_term = -out_of_range_regularize * sum relu(|y| - 30)^2
+    xent     = sum gamma_num . log_softmax(xent_output)  (occupancies are a
+               constant target, Kaldi semantics)
+    loss     = -(objf + l2_term + oor_term + xent_regularize * xent) / weight
+
+Numeric-failure containment (chain-training.cc): sequences whose objective
+or occupancies go non-finite get zero fwd-bwd gradients and a penalty
+objective of -10 per frame; training continues.
+
+Autograd never traces the recursions: `chain_logprobs` is an
+autograd.Function whose backward is the denominator beta pass (kernel K2)
+emitting the occupancy gradient directly.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from torchain_tpu_torch.ops import den_resident, num_scan
+from torchain_tpu_torch.ops.device_graphs import DeviceSupervision
+
+
+@dataclasses.dataclass(frozen=True)
+class ChainLossOptions:
+    """Mirrors Kaldi ChainTrainingOptions (chain-training.h ~L40)."""
+
+    l2_regularize: float = 0.0
+    leaky_hmm_coefficient: float = 0.1
+    xent_regularize: float = 0.0
+    out_of_range_regularize: float = 0.01
+    out_of_range_limit: float = 30.0
+    #: penalty objf per frame substituted on numeric failure
+    failure_penalty_per_frame: float = -10.0
+
+
+class _ChainLogprobs(torch.autograd.Function):
+    """(num_logprob [B], den_logprob [B], gamma_num [B, T, P]).
+
+    The forward runs the numerator forward-backward (gamma_num) and the
+    denominator forward; the backward runs the denominator backward and
+    returns g_num*gamma_num + g_den*gamma_den, zeroed per sequence where it
+    is non-finite, then scaled by the frame weights.  gamma_num (the xent
+    target) is a constant output: its cotangent is dropped."""
+
+    @staticmethod
+    def forward(ctx, y, den, sup, leaky):
+        yd = y.detach().float().contiguous()
+        ysmall = num_scan.vocab_gather(yd, sup.frame_vocab)
+        num_logp, alphas = num_scan.num_forward(yd, sup, ysmall=ysmall)
+        gamma_num = num_scan.num_backward(yd, sup, num_logp, alphas, ysmall=ysmall)
+        den_logz, den_res = den_resident.den_forward(yd, den, leaky)
+        ctx.den, ctx.sup, ctx.leaky, ctx.den_res = den, sup, leaky, den_res
+        ctx.y_dtype = y.dtype
+        ctx.save_for_backward(gamma_num)
+        ctx.mark_non_differentiable(gamma_num)
+        return num_logp, den_logz, gamma_num
+
+    @staticmethod
+    def backward(ctx, g_num, g_den, _g_gamma_dropped):
+        (gamma_num,) = ctx.saved_tensors
+        gamma_den = den_resident.den_backward(ctx.den, ctx.den_res, ctx.leaky)
+        ctx.den_res = None
+        raw = g_num[:, None, None] * gamma_num + g_den[:, None, None] * gamma_den
+        ok = (
+            torch.isfinite(raw.sum((1, 2)))
+            & torch.isfinite(g_num)
+            & torch.isfinite(g_den)
+        )
+        dy = torch.where(ok[:, None, None], raw, 0.0)
+        fw = ctx.sup.frame_weights
+        if fw is not None:
+            dy = dy * fw[:, :, None]
+        return dy.to(ctx.y_dtype), None, None, None
+
+
+def chain_logprobs(y, den, sup, leaky: float):
+    return _ChainLogprobs.apply(y, den, sup, leaky)
+
+
+def chain_loss(
+    nnet_output: torch.Tensor,  # [B, T, P] chain-head outputs
+    xent_output: torch.Tensor | None,  # [B, T, P] xent-head logits, or None
+    den: den_resident.DeviceResidentDenGraph,
+    sup: DeviceSupervision,
+    opts: ChainLossOptions = ChainLossOptions(),
+) -> tuple[torch.Tensor, dict]:
+    """Returns (loss scalar to minimize, aux dict of per-batch statistics).
+
+    aux keys: objf (per-frame MMI objective), l2_term, oor_term, xent_objf
+    (all already normalized by `weight`), weight, num_failed."""
+    y = nnet_output
+    B, T, P = y.shape
+    num_logp, den_logz, gamma_num = chain_logprobs(
+        y, den, sup, opts.leaky_hmm_coefficient
+    )
+    seq_w = sup.weight  # [B]
+    per_seq = num_logp - den_logz
+    ok = torch.isfinite(per_seq)
+    # where() zeroes the gradient of failed sequences
+    per_seq = torch.where(ok, per_seq, opts.failure_penalty_per_frame * T)
+    objf = torch.sum(seq_w * per_seq)
+    weight = torch.sum(seq_w) * T
+
+    # deriv_weights semantics ([K] nnet-chain-training.cc): the l2/oor
+    # derivative rows are scaled by the frame weights while the reported
+    # values stay unweighted
+    fw = sup.frame_weights
+
+    def _fw_sum(term):  # term [B, T, P] per-element contributions
+        if fw is None:
+            return torch.sum(term)
+        w3 = fw[:, :, None]
+        return torch.sum(term.detach() * (1.0 - w3) + term * w3)
+
+    l2_term = -0.5 * opts.l2_regularize * _fw_sum(torch.square(y))
+    oor = torch.clamp(torch.abs(y) - opts.out_of_range_limit, min=0.0)
+    oor_term = -opts.out_of_range_regularize * _fw_sum(torch.square(oor))
+
+    if xent_output is not None:
+        # row-decomposed cross-entropy (no [B, T, P] log_softmax):
+        #   sum_p tgt * log_softmax(x) = sum_p tgt*x - (sum_p tgt) * lse(x)
+        x = xent_output
+        xent_tgt = gamma_num * seq_w[:, None, None]
+        m = torch.amax(x, dim=-1, keepdim=True).detach()
+        lse = m[..., 0] + torch.log(torch.sum(torch.exp(x - m), dim=-1))  # [B, T]
+        row = torch.sum(xent_tgt * x, dim=-1) - torch.sum(xent_tgt, dim=-1) * lse
+        if fw is None:
+            xent_objf = torch.sum(row)
+        else:
+            xent_objf = torch.sum(row.detach() * (1.0 - fw) + row * fw)
+    else:
+        xent_objf = y.new_zeros(())
+
+    total = objf + l2_term + oor_term + opts.xent_regularize * xent_objf
+    # guard: an all-zero-weight batch must not produce inf/nan loss
+    weight_safe = torch.clamp(weight, min=1e-8)
+    loss = -total / weight_safe
+    aux = dict(
+        objf=objf / weight_safe,
+        l2_term=l2_term / weight_safe,
+        oor_term=oor_term / weight_safe,
+        xent_objf=xent_objf / weight_safe,
+        weight=weight,
+        num_failed=torch.sum(~ok).float(),
+    )
+    return loss, aux
+
+
+class ChainResults:
+    """Running accumulator of chain statistics, printed per interval
+    (torchain's ChainResults)."""
+
+    def __init__(self) -> None:
+        self.tot_objf = 0.0
+        self.tot_l2 = 0.0
+        self.tot_xent = 0.0
+        self.tot_weight = 0.0
+        self.tot_failed = 0.0
+        self.steps = 0
+
+    def add(self, aux: dict) -> None:
+        w = float(aux["weight"])
+        self.tot_objf += float(aux["objf"]) * w
+        self.tot_l2 += float(aux["l2_term"]) * w
+        self.tot_xent += float(aux["xent_objf"]) * w
+        self.tot_weight += w
+        self.tot_failed += float(aux.get("num_failed", 0.0))
+        self.steps += 1
+
+    @property
+    def objf(self) -> float:
+        return self.tot_objf / max(self.tot_weight, 1e-20)
+
+    def __str__(self) -> str:
+        w = max(self.tot_weight, 1e-20)
+        return (
+            f"chain objf/frame={self.tot_objf / w:.4f} "
+            f"l2={self.tot_l2 / w:.4f} xent={self.tot_xent / w:.4f} "
+            f"weight={self.tot_weight:.0f} failed_seqs={self.tot_failed:.0f}"
+        )

@@ -1,0 +1,169 @@
+"""Device-side (torch) containers for the packed numerator supervision, and
+the choice of denominator representation.
+
+`DeviceSupervision` is the tensor twin of the host-side
+`graphs.Supervision` (the moral equivalent of Kaldi's NnetChainSupervision,
+kaldi/src/nnet3/nnet-chain-example.h), split at the frame-0 / steady-state
+boundary exactly as the JAX package's DeviceSupervision is."""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from torchain_tpu_torch.graphs.den_graph import DenGraph
+from torchain_tpu_torch.graphs.supervision import (  # noqa: F401 (re-exported)
+    Supervision,
+    _frame_vocab_tables,
+    frame_vocab_width,
+)
+
+
+def auto_den_graph(host_graph: DenGraph, pad_to: int = 128, device="cuda"):
+    """The denominator representation for `host_graph`.  This port has one:
+    the slot-dense graph of ops/den_resident.py, kept in float32.  The
+    dense, scan and de Bruijn forms of the JAX package are not ported."""
+    from torchain_tpu_torch.ops.den_resident import DeviceResidentDenGraph
+
+    return DeviceResidentDenGraph.from_host(host_graph, pad_to=pad_to, device=device)
+
+
+@dataclasses.dataclass
+class DeviceSupervision:
+    """Batched packed numerator supervision, SPLIT at the frame-0 /
+    steady-state boundary: frame 0 concentrates the normalization FST's
+    initial fan-in (up to ~50 arcs/state) while frames >= 1 need only a few
+    (arcs are left-packed per (b, t, s) row, so the static split is exact).
+
+    Index tensors are int64 (the dtype torch's gathers take); the JAX
+    package narrows them to int16 — the values are identical.
+    `frame_vocab` [B, T, W] holds each frame's distinct pdfs (0-padded) and
+    `pdf_local*` each arc's index into its frame's vocabulary."""
+
+    in_src0: torch.Tensor  # int64 [B, S, K]
+    in_logw0: torch.Tensor  # float32 [B, S, K]
+    pdf_local0: torch.Tensor  # int64 [B, S, K]
+    in_src_r: torch.Tensor  # int64 [B, T-1, S, Kst]
+    in_logw_r: torch.Tensor  # float32 [B, T-1, S, Kst]
+    pdf_local_r: torch.Tensor  # int64 [B, T-1, S, Kst]
+    final_logw: torch.Tensor  # float32 [B, S]
+    weight: torch.Tensor  # float32 [B]
+    frame_vocab: torch.Tensor  # int32 [B, T, W]
+    num_frames: int
+    max_states: int
+    max_arcs: int
+    num_pdfs: int
+    #: arc-slot width of the steady triple (frames >= 1), rounded
+    steady_arcs: int = 0
+    #: optional per-frame DERIVATIVE weights [B, T] (deriv_weights
+    #: semantics, [K] nnet-chain-training.cc ApplyDerivWeights): scale the
+    #: output-derivative rows and the xent term, not the objf
+    frame_weights: torch.Tensor | None = None
+    #: optional kernel-layout steady tables [T-1, Kr, S, B] (int32/f32),
+    #: the layout the resident numerator kernels of the JAX package read;
+    #: filled by `with_kernel_tables()`
+    src_k: torch.Tensor | None = None
+    pdf_local_k: torch.Tensor | None = None
+    logw_k: torch.Tensor | None = None
+
+    def to(self, device) -> "DeviceSupervision":
+        return dataclasses.replace(
+            self,
+            **{
+                f.name: getattr(self, f.name).to(device)
+                for f in dataclasses.fields(self)
+                if isinstance(getattr(self, f.name), torch.Tensor)
+            },
+        )
+
+    def with_kernel_tables(self) -> "DeviceSupervision":
+        """A copy carrying the [T-1, Kr, S, B] int32/f32 steady tables."""
+        if self.in_src_r.shape[1] == 0:
+            return self
+        return dataclasses.replace(
+            self,
+            src_k=self.in_src_r.to(torch.int32).permute(1, 3, 2, 0).contiguous(),
+            pdf_local_k=self.pdf_local_r.to(torch.int32)
+            .permute(1, 3, 2, 0)
+            .contiguous(),
+            logw_k=self.in_logw_r.permute(1, 3, 2, 0).contiguous(),
+        )
+
+    @staticmethod
+    def from_host(s: Supervision, device="cuda") -> "DeviceSupervision":
+        """From a batched (pad_and_stack_supervisions) or single supervision;
+        a single one gets a leading batch dim of 1."""
+        in_src = s.in_src if s.in_src.ndim == 4 else s.in_src[None]
+        in_pdf = None
+        if s.in_pdf is not None:
+            in_pdf = s.in_pdf if s.in_pdf.ndim == 4 else s.in_pdf[None]
+        in_logw = s.in_logw if s.in_logw.ndim == 4 else s.in_logw[None]
+        final = s.final_logw if s.final_logw.ndim == 2 else s.final_logw[None]
+        B = in_src.shape[0]
+        pre_fv, pre_pl, pre_need = s.frame_vocab, s.pdf_local, s.steady_need
+        cap_v = s.vocab_cap
+        if (
+            pre_fv is not None
+            and pre_pl is not None
+            and pre_need is not None
+            and (cap_v is None or pre_fv.shape[-1] == cap_v)
+        ):
+            # tables precomputed at supervision-compile time
+            frame_vocab = pre_fv if pre_fv.ndim == 3 else pre_fv[None]
+            pdf_local = pre_pl if pre_pl.ndim == 4 else pre_pl[None]
+            if cap_v is None and frame_vocab.shape[-1] % 8:
+                # single-chunk tables carry the unrounded W; round to 8
+                W8 = -(-frame_vocab.shape[-1] // 8) * 8
+                pad = W8 - frame_vocab.shape[-1]
+                frame_vocab = np.pad(frame_vocab, ((0, 0), (0, 0), (0, pad)))
+            need = int(pre_need)
+        else:
+            if in_pdf is None:
+                raise ValueError(
+                    "supervision stacked with materialize_pdf=False but "
+                    "without precomputed numerator tables; cannot derive "
+                    "frame_vocab/pdf_local"
+                )
+            frame_vocab, pdf_local = _frame_vocab_tables(
+                np.asarray(in_src), np.asarray(in_pdf), pad_to=cap_v
+            )
+            need = 1
+            if in_src.shape[1] > 1:
+                need = int(max(1, (np.asarray(in_src[:, 1:]) >= 0).sum(-1).max()))
+        K = in_src.shape[-1]
+        steady = min(K, -(-need // 4) * 4)  # round to 4, capped at K
+        if s.steady_cap is not None:
+            if need > s.steady_cap:
+                raise ValueError(
+                    f"steady frames need {need} arc slots > steady cap {s.steady_cap}"
+                )
+            steady = min(K, int(s.steady_cap))
+
+        def t(a, dtype):
+            return torch.as_tensor(np.ascontiguousarray(a)).to(device=device, dtype=dtype)
+
+        return DeviceSupervision(
+            in_src0=t(in_src[:, 0], torch.int64),
+            in_logw0=t(in_logw[:, 0], torch.float32),
+            pdf_local0=t(pdf_local[:, 0], torch.int64),
+            in_src_r=t(in_src[:, 1:, :, :steady], torch.int64),
+            in_logw_r=t(in_logw[:, 1:, :, :steady], torch.float32),
+            pdf_local_r=t(pdf_local[:, 1:, :, :steady], torch.int64),
+            final_logw=t(final, torch.float32),
+            frame_vocab=t(frame_vocab, torch.int32),
+            weight=torch.broadcast_to(
+                torch.as_tensor(s.weight, dtype=torch.float32), (B,)
+            ).contiguous().to(device),
+            num_frames=int(s.num_frames),
+            max_states=int(s.max_states),
+            max_arcs=int(s.max_arcs),
+            num_pdfs=int(s.num_pdfs),
+            steady_arcs=steady,
+            frame_weights=(
+                None
+                if s.frame_weights is None
+                else t(s.frame_weights, torch.float32)
+            ),
+        )
