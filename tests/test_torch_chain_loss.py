@@ -33,8 +33,14 @@ CORPUS = dict(num_utts=6, num_phones=4, feat_dim=8, utt_frames_out=(9, 12), seed
 OPTS = dict(l2_regularize=5e-4, leaky_hmm_coefficient=0.1, xent_regularize=0.1)
 
 
-def _side(pkg_data, pkg_graphs, B=3, T=9):
-    c = pkg_data.synthetic_dataset(**CORPUS)
+#: the production configuration's kind of graph (left-biphone tree, 4-gram
+#: phone LM with extra states) at toy size
+BIPHONE_4GRAM = dict(num_utts=8, num_phones=5, feat_dim=8, utt_frames_out=(9, 12), seed=4,
+                     context_width=2, lm_order=4, lm_extra_states=40)
+
+
+def _side(pkg_data, pkg_graphs, B=3, T=9, corpus=CORPUS):
+    c = pkg_data.synthetic_dataset(**corpus)
     ds = pkg_data.ChainDataset(
         c.utts, c.tree, c.norm_fst, chunk_frames_out=T, left_context=2,
         right_context=2,
@@ -99,6 +105,48 @@ def test_chain_loss_matches_jax(case):
             rtol=1e-4, atol=1e-7)
     else:
         assert float(aux_t["num_failed"]) == 0.0
+
+
+@pytest.mark.parametrize("resident", ["0", "force"])
+def test_biphone_4gram_chain_loss_matches_jax(monkeypatch, resident):
+    """A left-biphone, 4-gram corpus through the host tables, the den
+    packing and the loss on both sides, under both numerator configurations
+    of the JAX package (XLA scan; resident Pallas kernels in interpret
+    mode).  Host tables and the packed V are equal exactly; the loss and
+    gradients to the tolerances of test_chain_loss_matches_jax."""
+    monkeypatch.setenv("TORCHAIN_NUM_RESIDENT", resident)
+    (jg, jb), (tg, tb) = (_side(jdata, jgraphs, corpus=BIPHONE_4GRAM),
+                          _side(tdata, tgraphs, corpus=BIPHONE_4GRAM))
+    for name in ("in_src", "in_logw", "final_logw", "frame_vocab", "pdf_local"):
+        np.testing.assert_array_equal(getattr(tb, name), getattr(jb, name), err_msg=name)
+    jden = JResident.from_host(jg, pad_to=8, dtype=jnp.float32)
+    tden = TResident.from_host(tg, pad_to=8, device="cpu")
+    assert tden.num_slots == jden.num_slots == 2 and tden.num_pdfs == jg.num_pdfs
+    np.testing.assert_array_equal(tden.V.numpy(), np.asarray(jden.V))
+    jsup = JSup.from_host(jb).with_kernel_tables()
+    tsup = TSup.from_host(tb, device="cpu").with_kernel_tables()
+    assert tsup.steady_arcs == jsup.steady_arcs < tsup.max_arcs
+    B, T = jb.in_src.shape[:2]
+    rng = np.random.default_rng(12)
+    y = rng.normal(size=(B, T, jg.num_pdfs)).astype(np.float32)
+    x = rng.normal(size=(B, T, jg.num_pdfs)).astype(np.float32)
+
+    def jloss(y, x):
+        return jops.chain_loss(y, x, jden, jsup, jops.ChainLossOptions(**OPTS))
+
+    (l_j, aux_j), (dy_j, dx_j) = jax.value_and_grad(jloss, argnums=(0, 1), has_aux=True)(
+        jnp.asarray(y), jnp.asarray(x))
+    yt = torch.tensor(y, requires_grad=True)
+    xt = torch.tensor(x, requires_grad=True)
+    l_t, aux_t = tops.chain_loss(yt, xt, tden, tsup, tops.ChainLossOptions(**OPTS))
+    l_t.backward()
+    np.testing.assert_allclose(float(l_t.detach()), float(l_j), rtol=1e-5)
+    for k in aux_j:
+        np.testing.assert_allclose(float(aux_t[k].detach()), float(aux_j[k]), rtol=1e-5,
+                                   atol=1e-7, err_msg=k)
+    assert float(aux_t["num_failed"]) == 0.0
+    np.testing.assert_allclose(yt.grad.numpy(), np.asarray(dy_j), rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(dx_j), rtol=1e-4, atol=1e-6)
 
 
 def test_chain_results_accumulates():

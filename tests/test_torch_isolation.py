@@ -60,6 +60,7 @@ def test_wrappers_raise_for_a_non_cpu_non_cuda_tensor():
     other device it launches the kernel or raises (checked before any
     build is attempted)."""
     from torchain_tpu_torch.ops import den_resident as dr
+    from torchain_tpu_torch.ops import num_resident as nr
     from torchain_tpu_torch.ops import num_scan as ns
 
     m = dict(device="meta")
@@ -70,7 +71,17 @@ def test_wrappers_raise_for_a_non_cpu_non_cuda_tensor():
         ns.vocab_gather(torch.empty(1, 2, 3, **m), torch.empty(1, 2, 2, dtype=torch.int32, **m))
     with pytest.raises(ValueError, match="CUDA"):
         ns.vocab_scatter(torch.empty(2, 1, 2, **m), torch.empty(1, 2, 2, dtype=torch.int32, **m), 3)
+    # B=1, T-1=2, S=3, Kr=4, W=5
+    tables = (torch.empty(1, 2, 3, 4, dtype=torch.int64, **m),
+              torch.empty(1, 2, 3, 4, dtype=torch.int64, **m), torch.empty(1, 2, 3, 4, **m))
+    ysm = torch.empty(1, 2, 5, **m)
+    with pytest.raises(ValueError, match="CUDA"):
+        nr.steady_forward(torch.empty(1, 3, **m), *tables, ysm)
+    with pytest.raises(ValueError, match="CUDA"):
+        nr.steady_backward(*tables, ysm, torch.empty(2, 1, 3, **m), torch.empty(1, 3, **m),
+                           torch.empty(1, **m))
     assert dr.den_forward_kernel.launches == 0 and ns.vocab_gather.launches == 0
+    assert nr.steady_forward.launches == 0 and nr.steady_backward.launches == 0
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

@@ -1,8 +1,12 @@
 """Numerator of the PyTorch port (ops/num_scan.py): the plain versions of
 kernels K5 (vocabulary gather) and K6 (vocabulary scatter) against the JAX
 package's Pallas kernels in interpret mode, and the numerator forward-
-backward against the JAX package's XLA-scan configuration
-(TORCHAIN_NUM_RESIDENT=0), on the same supervision batch and log-probs."""
+backward against both configurations of the JAX package, the XLA scan
+(TORCHAIN_NUM_RESIDENT=0) and the resident Pallas kernels in interpret mode
+(TORCHAIN_NUM_RESIDENT=force), on the same supervision batch and log-probs.
+The port has one path, and it must agree with both."""
+
+import dataclasses
 
 import types
 
@@ -114,3 +118,58 @@ def test_numerator_matches_jax_scan(setup, monkeypatch):
     # pdf 0 is a real vocabulary entry somewhere in this batch, and its
     # occupancy survived the scatter
     assert (g_t[ok][..., 0] > 0).any()
+
+
+@pytest.mark.parametrize("placed", [False, True], ids=["live_tables", "placed_tables"])
+def test_numerator_matches_jax_resident(setup, monkeypatch, placed):
+    """The same comparison against the JAX package's resident kernels
+    (Pallas, interpret mode), with and without tables prepared at batch
+    placement on either side; same tolerances as against the scan."""
+    jsup, tsup, y, _ = setup
+    if placed:
+        jsup, tsup = jsup.with_kernel_tables(), tsup.with_kernel_tables()
+        assert tsup.kernel_pre is not None
+    monkeypatch.setenv("TORCHAIN_NUM_RESIDENT", "force")
+    yj = jnp.asarray(y)
+    lp_j, al_j = jns.num_forward(yj, jsup)
+    g_j = np.asarray(jns.num_backward(yj, jsup, lp_j, al_j))
+    yt = torch.as_tensor(y)
+    lp_t, al_t = tns.num_forward(yt, tsup)
+    g_t = tns.num_backward(yt, tsup, lp_t, al_t).numpy()
+    lp_j, lp_t = np.asarray(lp_j), lp_t.numpy()
+    assert np.isneginf(lp_j[1]) and np.isneginf(lp_t[1])
+    ok = np.isfinite(lp_j)
+    np.testing.assert_allclose(lp_t[ok], lp_j[ok], rtol=1e-5)
+    assert al_t.shape == al_j.shape == (y.shape[1] + 1, y.shape[0], tsup.max_states)
+    np.testing.assert_allclose(np.asarray(al_t), np.asarray(al_j), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(g_t, g_j, atol=1e-5)
+    assert (g_t[1] == 0).all()
+
+
+@pytest.mark.parametrize("resident", ["0", "force"])
+def test_numerator_single_frame(setup, monkeypatch, resident):
+    """T = 1 has no steady frames: only the wide frame-0 step runs."""
+    jsup, tsup, y, _ = setup
+    monkeypatch.setenv("TORCHAIN_NUM_RESIDENT", resident)
+
+    def cut(sup):
+        return dataclasses.replace(
+            sup, in_src_r=sup.in_src_r[:, :0], in_logw_r=sup.in_logw_r[:, :0],
+            pdf_local_r=sup.pdf_local_r[:, :0], frame_vocab=sup.frame_vocab[:, :1],
+            num_frames=1,
+        )
+
+    jsup1, tsup1 = cut(jsup), cut(tsup)
+    assert tsup1.with_kernel_tables().kernel_pre is None
+    n3 = tns.num_resident.steady_forward.launches
+    yj, yt = jnp.asarray(y[:, :1]), torch.as_tensor(y[:, :1])
+    lp_j, al_j = jns.num_forward(yj, jsup1)
+    g_j = np.asarray(jns.num_backward(yj, jsup1, lp_j, al_j))
+    lp_t, al_t = tns.num_forward(yt, tsup1)
+    g_t = tns.num_backward(yt, tsup1, lp_t, al_t).numpy()
+    assert al_t.shape == al_j.shape == (2, y.shape[0], tsup.max_states)
+    np.testing.assert_allclose(np.asarray(al_t), np.asarray(al_j), rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(np.isfinite(lp_t.numpy()), np.isfinite(np.asarray(lp_j)))
+    np.testing.assert_allclose(g_t, g_j, atol=1e-5)
+    assert g_t.shape == (y.shape[0], 1, y.shape[2])
+    assert tns.num_resident.steady_forward.launches == n3

@@ -1,13 +1,23 @@
 """The slice as a whole: three chain training steps of a small TDNN-F on
 the same batch, with the JAX package's make_train_step (resident
-denominator kernels in interpret mode, numerator as XLA scan:
-TORCHAIN_NUM_RESIDENT=0) and with the port's make_train_step, from the
-same parameters (convert.params_from_jax).
+denominator kernels in interpret mode; the numerator as XLA scan,
+TORCHAIN_NUM_RESIDENT=0, and as resident Pallas kernels in interpret mode,
+=force) and with the port's make_train_step, from the same parameters
+(convert.params_from_jax).
 
-Tolerance: rtol 1e-4 on every per-step metric; after step 3, atol 1e-5 on
-the parameters and the batchnorm statistics.  Parameter elements whose
-step-1 gradient is below 1e-6 in magnitude are left out: there Adam's
-g / (|g| + eps) turns float32 rounding of g into a different step."""
+Tolerance, float32 trunk: rtol 1e-4 on every per-step metric; after step 3,
+atol 1e-5 on the parameters and the batchnorm statistics.  Parameter
+elements whose step-1 gradient is below 1e-6 in magnitude are left out:
+there Adam's g / (|g| + eps) turns float32 rounding of g into a different
+step.
+
+Tolerance, bfloat16 trunk: the two frameworks round bfloat16 sums at other
+places (tests/test_torch_tdnn.py), and Adam turns a gradient element whose
+sign differs into a step of the full learning rate the other way, 1e-3 per
+step.  Metrics rtol 2e-2 (6.6e-3 seen); parameters (float32 on both sides) atol 6e-3, the
+most three steps can part them (3.9e-3 seen), and at least 60% of their
+elements within 1e-4 (79% seen; the median difference is 4e-5); statistics
+atol 2e-3 (5.5e-4 seen)."""
 
 import numpy as np
 import pytest
@@ -53,10 +63,25 @@ def _batch(pkg_data, pkg_graphs, cfg):
 
 
 def test_three_train_steps_match_jax(monkeypatch):
-    monkeypatch.setenv("TORCHAIN_NUM_RESIDENT", "0")
+    _three_train_steps(monkeypatch, "0")
+
+
+def test_three_train_steps_match_jax_resident_numerator(monkeypatch):
+    _three_train_steps(monkeypatch, "force")
+
+
+@pytest.mark.parametrize("resident", ["0", "force"])
+def test_three_train_steps_bf16_trunk_match_jax(monkeypatch, resident):
+    _three_train_steps(monkeypatch, resident, bf16=True)
+
+
+def _three_train_steps(monkeypatch, resident, bf16=False):
+    monkeypatch.setenv("TORCHAIN_NUM_RESIDENT", resident)
     jc, _ = _batch(jdata, jgraphs, TdnnfConfig(num_pdfs=1, **SMALL))
     P = jc.tree.num_pdfs
-    jcfg, tcfg = JCfg(num_pdfs=P, **SMALL), TdnnfConfig(num_pdfs=P, **SMALL)
+    jcfg = JCfg(num_pdfs=P, dtype=jnp.bfloat16 if bf16 else jnp.float32, **SMALL)
+    tcfg = TdnnfConfig(num_pdfs=P, dtype=torch.bfloat16 if bf16 else torch.float32, **SMALL)
+    m_rtol, p_atol, s_atol = (2e-2, 6e-3, 2e-3) if bf16 else (1e-4, 1e-5, 1e-5)
     jc, jbatch = _batch(jdata, jgraphs, jcfg)
     tc, tbatch = _batch(tdata, tgraphs, tcfg)
     np.testing.assert_array_equal(jbatch.feats, tbatch.feats)
@@ -90,20 +115,26 @@ def test_three_train_steps_match_jax(monkeypatch):
         losses.append(float(tm["loss"]))
         assert set(tm) == set(jm)
         for k in jm:
-            np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=1e-4, atol=1e-7,
+            np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=m_rtol, atol=1e-7,
                                        err_msg=f"step {i + 1} {k}")
     assert state.step == STEPS
     # the replayed batch is being learned
     assert losses[-1] < losses[0]
 
     named = dict(model.named_parameters())
+    close = total = 0
     for k, v in _flatten(jax.tree.map(np.asarray, jstate.params)).items():
+        assert named[k].dtype == torch.float32 and v.dtype == np.float32
         keep = grad1[k].abs().numpy() >= 1e-6
-        np.testing.assert_allclose(named[k].detach().numpy()[keep], v[keep], atol=1e-5,
-                                   err_msg=k)
+        got = named[k].detach().numpy()[keep]
+        np.testing.assert_allclose(got, v[keep], atol=p_atol, err_msg=k)
+        close += int((np.abs(got - v[keep]) <= 1e-4).sum())
+        total += got.size
+    # bfloat16: 79% of the elements were within 1e-4 when this was written
+    assert close >= (0.6 if bf16 else 1.0) * total
     buffers = dict(model.named_buffers())
     for k, v in _flatten(jax.tree.map(np.asarray, jstate.batch_stats)).items():
-        np.testing.assert_allclose(buffers[k].numpy(), v, atol=1e-5, err_msg=k)
+        np.testing.assert_allclose(buffers[k].numpy(), v, atol=s_atol, err_msg=k)
 
 
 def test_clip_by_global_norm_matches_optax():

@@ -25,10 +25,11 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "build"
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 
 #: C entry points per source: argument types (pointers and the stream as
-#: c_void_p, sizes as c_int, scalars as c_float); every one returns int
+#: c_void_p, sizes as c_int, element strides as c_longlong, scalars as
+#: c_float); every one returns int
 SIGNATURES: dict[str, dict[str, list]] = {
     "den_resident": {
         # p, V, slot_pdf, init, sigma, ah, cpart, logc, T, B, P, S, K, leaky, stream
@@ -42,6 +43,14 @@ SIGNATURES: dict[str, dict[str, list]] = {
         "vocab_gather": [_P] * 3 + [_I] * 4 + [_P],
         # gsm, vocab, gamma, B, T, P, W, stream
         "vocab_scatter": [_P] * 3 + [_I] * 4 + [_P],
+    },
+    "num_resident": {
+        # src, lpdf, logw, ysm, ysm strides (b, t), alpha1, out,
+        # B, T-1, S, Kr, W, threads, stream
+        "num_steady_forward": [_P] * 4 + [_L] * 2 + [_P] * 2 + [_I] * 6 + [_P],
+        # src, lpdf, logw, ysm, ysm strides (b, t), alphas, final_logw, log_p,
+        # gsm, beta1, B, T-1, S, Kr, W, threads, stream
+        "num_steady_backward": [_P] * 4 + [_L] * 2 + [_P] * 5 + [_I] * 6 + [_P],
     },
 }
 

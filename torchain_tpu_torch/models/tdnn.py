@@ -7,6 +7,13 @@ Povey et al. 2018) over [B, T, F] features with VALID context: the loader
 supplies exactly `left_context` + `right_context` extra input frames and
 one layer strides by frame_subsampling_factor.
 
+`TdnnfConfig.dtype` is the compute dtype of the trunk (float32, or bfloat16
+for the production configuration): parameters stay float32 and are cast
+where they are used, batchnorm statistics are float32 sums, and the last
+Dense of each head runs in float32 on a float32 input, so both outputs are
+float32.  The casts are explicit (no autocast), so the CPU and the card do
+the same thing.
+
 Parameters keep the JAX package's names and shapes (a width-2 tap kernel
 is [2, in, out], a dense kernel [in, out]; batchnorm has scale/bias and the
 running mean/var as buffers) so `convert.params_from_jax` is a plain
@@ -21,7 +28,12 @@ import math
 import torch
 from torch import nn
 
-from torchain_tpu_torch.ops.fused_bn import bn_train, brb_bypass_train, brb_train
+from torchain_tpu_torch.ops.fused_bn import (
+    bn_train,
+    brb_bypass_train,
+    brb_train,
+    rounded_scalar,
+)
 
 _TRUNC_STD = 0.87962566103423978  # std of a unit normal truncated to [-2, 2]
 
@@ -88,7 +100,7 @@ class FusedPostBN(ChainBatchNorm):
             a, b = self._eval_affine(x.dtype)
             y = h * a + b
             if bypass is not None:
-                y = y + bypass_scale * bypass.to(y.dtype)
+                y = y + rounded_scalar(bypass_scale, y.dtype) * bypass.to(y.dtype)
             return y
         if bypass is not None:
             y, mean, var = brb_bypass_train(
@@ -101,24 +113,29 @@ class FusedPostBN(ChainBatchNorm):
 
 
 class Dense(nn.Module):
-    """y = x @ kernel + bias, kernel [in, out] (flax nn.Dense layout)."""
+    """y = x @ kernel + bias, kernel [in, out] (flax nn.Dense layout),
+    computed in `dtype` (input, kernel and bias are cast to it)."""
 
-    def __init__(self, in_dim, out_dim, device=None, generator=None):
+    def __init__(self, in_dim, out_dim, device=None, generator=None, dtype=torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.kernel = _param((in_dim, out_dim), device, fan_in=in_dim, generator=generator)
         self.bias = _param((out_dim,), device)
 
     def forward(self, x):
-        return x @ self.kernel + self.bias
+        dt = self.dtype
+        return x.to(dt) @ self.kernel.to(dt) + self.bias.to(dt)
 
 
 class Prefinal(nn.Module):
     """Kaldi's prefinal-chain / prefinal-xent block: linear bottleneck +
-    relu + batchnorm + affine to pdfs."""
+    relu + batchnorm + affine to pdfs.  Always emits float32 (the chain
+    loss runs its recursions in float32 whatever the trunk computes in)."""
 
-    def __init__(self, in_dim, dim, num_pdfs, device=None, generator=None):
+    def __init__(self, in_dim, dim, num_pdfs, device=None, generator=None,
+                 dtype=torch.float32):
         super().__init__()
-        self.Dense_0 = Dense(in_dim, dim, device, generator)
+        self.Dense_0 = Dense(in_dim, dim, device, generator, dtype)
         self.BatchNorm_0 = ChainBatchNorm(dim, device=device)
         self.Dense_1 = Dense(dim, num_pdfs, device, generator)
 
@@ -135,10 +152,10 @@ class _TapDot(nn.Module):
     fused batchnorm tail."""
 
     def __init__(self, in_feat, features, dilation=1, stride=1, use_bias=True,
-                 defer_bias=False, device=None, generator=None):
+                 defer_bias=False, device=None, generator=None, dtype=torch.float32):
         super().__init__()
         self.features, self.dilation, self.stride = features, dilation, stride
-        self.defer_bias = defer_bias
+        self.defer_bias, self.dtype = defer_bias, dtype
         # fan-in counts the receptive field, like nn.Conv's kernel
         self.kernel = _param((2, in_feat, features), device, fan_in=2 * in_feat,
                              generator=generator)
@@ -148,19 +165,20 @@ class _TapDot(nn.Module):
         in_feat = x.shape[-1]
         d, s = self.dilation, self.stride
         t_out = (x.shape[0] - d - 1) // s + 1
+        kernel = self.kernel.to(self.dtype)
         if s == 1 and 2 * self.features <= in_feat:
             # narrowing factor: project first, shift the narrow result
-            w = x @ self.kernel.permute(1, 0, 2).reshape(in_feat, 2 * self.features)
+            w = x @ kernel.permute(1, 0, 2).reshape(in_feat, 2 * self.features)
             y = w[:t_out, :, : self.features] + w[d:, :, self.features :]
         else:
             lag = x[0 : (t_out - 1) * s + 1 : s]
             now = x[d : d + (t_out - 1) * s + 1 : s]
-            y = lag @ self.kernel[0] + now @ self.kernel[1]
+            y = lag @ kernel[0] + now @ kernel[1]
         if self.bias is None:
             return y
         if self.defer_bias:
             return y, self.bias
-        return y + self.bias
+        return y + self.bias.to(self.dtype)
 
 
 class TdnnfLayer(nn.Module):
@@ -168,13 +186,13 @@ class TdnnfLayer(nn.Module):
     (context [0, +d]) -> relu -> batchnorm, with a scaled bypass."""
 
     def __init__(self, in_dim, hidden_dim, bottleneck_dim, dilation=1, stride=1,
-                 bypass_scale=0.66, device=None, generator=None):
+                 bypass_scale=0.66, device=None, generator=None, dtype=torch.float32):
         super().__init__()
         self.dilation, self.stride, self.bypass_scale = dilation, stride, bypass_scale
-        self.linear_pre = _TapDot(in_dim, bottleneck_dim, dilation, stride,
-                                  use_bias=False, device=device, generator=generator)
+        self.linear_pre = _TapDot(in_dim, bottleneck_dim, dilation, stride, use_bias=False,
+                                  device=device, generator=generator, dtype=dtype)
         self.affine = _TapDot(bottleneck_dim, hidden_dim, dilation, defer_bias=True,
-                              device=device, generator=generator)
+                              device=device, generator=generator, dtype=dtype)
         self.BatchNorm_0 = FusedPostBN(hidden_dim, device=device)
 
     def forward(self, x, train: bool = False):  # x [T, B, C]
@@ -193,6 +211,8 @@ class TdnnfConfig:
     bottleneck_dim: int = 96
     prefinal_dim: int = 256
     num_layers: int = 9
+    #: compute dtype of the trunk (parameters stay float32)
+    dtype: torch.dtype = torch.float32
     #: layer index that strides by frame_subsampling_factor
     subsample_layer: int = 1
     frame_subsampling_factor: int = 3
@@ -225,35 +245,38 @@ class TdnnfConfig:
 class InputProj(nn.Module):
     """The k=1 input convolution (kernel [1, F, H], flax nn.Conv layout)."""
 
-    def __init__(self, feat_dim, hidden_dim, device=None, generator=None):
+    def __init__(self, feat_dim, hidden_dim, device=None, generator=None,
+                 dtype=torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.kernel = _param((1, feat_dim, hidden_dim), device, fan_in=feat_dim,
                              generator=generator)
         self.bias = _param((hidden_dim,), device)
 
     def forward(self, x):
-        return x @ self.kernel[0] + self.bias
+        dt = self.dtype
+        return x.to(dt) @ self.kernel[0].to(dt) + self.bias.to(dt)
 
 
 class TDNNF(nn.Module):
-    """Factored TDNN stack with chain + xent heads (float32)."""
+    """Factored TDNN stack with chain + xent heads (float32 outputs)."""
 
     def __init__(self, cfg: TdnnfConfig, feat_dim: int, device="cuda", generator=None):
         super().__init__()
         self.config = cfg
-        H = cfg.hidden_dim
-        self.input_proj = InputProj(feat_dim, H, device, generator)
+        H, dt = cfg.hidden_dim, cfg.dtype
+        self.input_proj = InputProj(feat_dim, H, device, generator, dt)
         self.BatchNorm_0 = ChainBatchNorm(H, device=device)
         for i, (d, s) in enumerate(cfg.layer_geometry()):
             setattr(self, f"tdnnf{i}", TdnnfLayer(
                 H, H, cfg.bottleneck_dim, dilation=d, stride=s,
-                device=device, generator=generator,
+                device=device, generator=generator, dtype=dt,
             ))
-        self.chain_head = Prefinal(H, cfg.prefinal_dim, cfg.num_pdfs, device, generator)
-        self.xent_head = Prefinal(H, cfg.prefinal_dim, cfg.num_pdfs, device, generator)
+        self.chain_head = Prefinal(H, cfg.prefinal_dim, cfg.num_pdfs, device, generator, dt)
+        self.xent_head = Prefinal(H, cfg.prefinal_dim, cfg.num_pdfs, device, generator, dt)
 
     def forward(self, feats, train: bool = False):
-        x = torch.relu(self.input_proj(feats.float()))
+        x = torch.relu(self.input_proj(feats))
         x = self.BatchNorm_0(x, train)
         x = x.transpose(0, 1)  # [B, T, C] -> [T, B, C]
         for i in range(self.config.num_layers):

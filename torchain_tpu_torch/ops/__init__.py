@@ -2,7 +2,8 @@
 
   device_graphs.py  DeviceSupervision (torch tensors), auto_den_graph
   den_resident.py   denominator forward-backward: kernels K1, K2
-  num_scan.py       numerator forward-backward: kernels K5, K6
+  num_scan.py       numerator forward-backward: frame 0, kernels K5, K6
+  num_resident.py   numerator steady-frame recursions: kernels K3, K4
   chain_loss.py     the objective, with a custom autograd.Function
   fused_bn.py       train-mode batchnorm with closed-form backward
 """

@@ -19,6 +19,7 @@ from torchain_tpu_torch.graphs.supervision import (  # noqa: F401 (re-exported)
     _frame_vocab_tables,
     frame_vocab_width,
 )
+from torchain_tpu_torch.ops.num_resident import kernel_tables
 
 
 def auto_den_graph(host_graph: DenGraph, pad_to: int = 128, device="cuda"):
@@ -61,8 +62,8 @@ class DeviceSupervision:
     #: semantics, [K] nnet-chain-training.cc ApplyDerivWeights): scale the
     #: output-derivative rows and the xent term, not the objf
     frame_weights: torch.Tensor | None = None
-    #: optional kernel-layout steady tables [T-1, Kr, S, B] (int32/f32),
-    #: the layout the resident numerator kernels of the JAX package read;
+    #: optional steady tables as the resident numerator kernels (K3/K4)
+    #: read them: int32 / int32 / float32 [B, T-1, S, Kst] contiguous;
     #: filled by `with_kernel_tables()`
     src_k: torch.Tensor | None = None
     pdf_local_k: torch.Tensor | None = None
@@ -79,17 +80,25 @@ class DeviceSupervision:
         )
 
     def with_kernel_tables(self) -> "DeviceSupervision":
-        """A copy carrying the [T-1, Kr, S, B] int32/f32 steady tables."""
+        """A copy that also carries the steady tables in the kernels' types,
+        prepared once when the batch is placed so that a replayed batch
+        pays no conversion per step.  The int64 tables stay for the plain
+        path."""
         if self.in_src_r.shape[1] == 0:
             return self
-        return dataclasses.replace(
-            self,
-            src_k=self.in_src_r.to(torch.int32).permute(1, 3, 2, 0).contiguous(),
-            pdf_local_k=self.pdf_local_r.to(torch.int32)
-            .permute(1, 3, 2, 0)
-            .contiguous(),
-            logw_k=self.in_logw_r.permute(1, 3, 2, 0).contiguous(),
+        src_k, pdf_local_k, logw_k = kernel_tables(
+            self.in_src_r, self.pdf_local_r, self.in_logw_r
         )
+        return dataclasses.replace(
+            self, src_k=src_k, pdf_local_k=pdf_local_k, logw_k=logw_k
+        )
+
+    @property
+    def kernel_pre(self) -> tuple | None:
+        """(src_k, pdf_local_k, logw_k) where placed, else None."""
+        if self.src_k is None:
+            return None
+        return self.src_k, self.pdf_local_k, self.logw_k
 
     @staticmethod
     def from_host(s: Supervision, device="cuda") -> "DeviceSupervision":

@@ -13,7 +13,15 @@ written as one multiply-add per element.  Each function returns
 
 from __future__ import annotations
 
+import functools
+
 import torch
+
+
+@functools.lru_cache(maxsize=None)
+def rounded_scalar(value: float, dtype: torch.dtype) -> float:
+    """`value` rounded to `dtype`: the scalar a `dtype` computation uses."""
+    return float(torch.tensor(value, dtype=dtype))
 
 
 def _moments(x):
@@ -75,7 +83,7 @@ class _BrbTrain(torch.autograd.Function):
         h = torch.clamp(x + cb.to(x.dtype), min=0)
         y, mean, var, rstd, sf32 = _apply(h, scale, bias, eps)
         if byp is not None:
-            y = y + bypass_scale * byp.to(y.dtype)
+            y = y + rounded_scalar(bypass_scale, y.dtype) * byp.to(y.dtype)
         ctx.bypass_scale = bypass_scale
         ctx.has_byp = byp is not None
         ctx.save_for_backward(x, cb, mean, rstd, sf32)
@@ -90,7 +98,7 @@ class _BrbTrain(torch.autograd.Function):
         dh, dscale, dbias = _bwd_core(h, mean, rstd, sf32, dy)
         dx = torch.where(xp > 0, dh, torch.zeros((), dtype=x.dtype))
         dcb = torch.sum(dx, dim=tuple(range(x.dim() - 1)), dtype=torch.float32)
-        dbyp = ctx.bypass_scale * dy if ctx.has_byp else None
+        dbyp = rounded_scalar(ctx.bypass_scale, dy.dtype) * dy if ctx.has_byp else None
         return dx, dcb, dscale, dbias, dbyp, None, None
 
 

@@ -1,0 +1,236 @@
+"""Numerator steady-frame recursions, each as one kernel: K3 (forward) and
+K4 (backward).
+
+Behavioral reference: kaldi/src/chain/chain-numerator.cc
+(`NumeratorComputation`).  Port of torchain_tpu/ops/num_resident.py
+(`steady_forward`, `steady_backward`): the log-semiring alpha/beta
+recursions over the packed per-frame arc tensors for frames 1..T-1, the
+whole frame loop inside one launch.  Frame 0 (the normalization FST's wide
+initial fan-in) stays outside, in ops/num_scan.py, at the full arc width.
+
+  * K3 `steady_forward`: next[s] = lse_k(alpha[src[s, k]] + logw[s, k]
+    + ysm[t, lpdf[s, k]]) over the arcs with src >= 0; a state without
+    arcs gets -inf.
+  * K4 `steady_backward`, frames in reverse: arc_w = logw + ysm[lpdf]
+    + beta[s]; post = exp(alpha[src] + arc_w - log_p); gsm[w] = sum of post
+    over the arcs with lpdf == w; beta_prev[s'] = lse of arc_w over the
+    arcs with src == s'.  A sequence whose log_p is not finite gets
+    exactly zero occupancies.
+
+On a CUDA tensor each is one launch of csrc/num_resident.cu (one thread
+block per sequence); on a CPU tensor the plain PyTorch version beside it
+runs the same recursion as a loop over frames.  There is no other
+fallback.
+
+The kernels read the arc tables as int32 `src` and `lpdf` and float32
+`logw`, each [B, T-1, S, Kr] contiguous: `kernel_tables` converts the int64
+tables the plain path indexes with, once, when a batch is placed
+(`DeviceSupervision.with_kernel_tables`), and the wrappers take the result
+as `pre`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from torchain_tpu_torch import kernels
+
+NEG_INF = float("-inf")
+
+#: shared memory a block may use without opting in to more
+_SMEM_LIMIT = 48 * 1024
+
+
+def emit(ysm: torch.Tensor, pdf_local: torch.Tensor) -> torch.Tensor:
+    """ysm [B, W], pdf_local [B, S, K] -> emission log-probs [B, S, K]."""
+    B = ysm.shape[0]
+    return ysm.gather(1, pdf_local.reshape(B, -1)).view(pdf_local.shape)
+
+
+def select_src(x: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """x [B, S], src [B, S, K] (values in [0, S), -1 = pad) -> [B, S, K]
+    with x[b, src[b, s, k]] (pad slots yield -inf)."""
+    B = x.shape[0]
+    sel = x.gather(1, src.clamp(min=0).reshape(B, -1)).view(src.shape)
+    return torch.where(src >= 0, sel, NEG_INF)
+
+
+def forward_step(alpha, ysm, src, lpdf, logw):
+    """One frame of the alpha recursion: alpha [B, S] -> next alpha [B, S]."""
+    vals = select_src(alpha, src) + torch.where(src >= 0, logw + emit(ysm, lpdf), 0.0)
+    return torch.logsumexp(vals, dim=-1)
+
+
+def backward_step(beta, ysm, src, lpdf, logw, alpha_t, log_p):
+    """One frame of the beta recursion.  beta [B, S]: log-betas of the
+    frame's destination states; alpha_t [B, S]: alphas of its source
+    states.  Returns (beta of the source states [B, S], vocabulary-space
+    occupancies of the frame [B, W']) with W' = ysm.shape[-1]."""
+    S, W = beta.shape[1], ysm.shape[-1]
+    valid = torch.isfinite(log_p)
+    safe_logp = torch.where(valid, log_p, 0.0)
+    arc_w = torch.where(src >= 0, logw + emit(ysm, lpdf), NEG_INF) + beta[:, :, None]
+    hit_src = src[..., None] == torch.arange(S, device=beta.device)  # [B, S, K, S']
+    prev = torch.logsumexp(
+        torch.where(hit_src, arc_w[..., None], NEG_INF), dim=(1, 2)
+    )  # [B, S'], stabilized per source state
+    post = torch.where(
+        valid[:, None, None],
+        torch.exp(select_src(alpha_t, src) + arc_w - safe_logp[:, None, None]),
+        0.0,
+    )  # [B, S, K] per-arc occupancies
+    hit_w = lpdf[..., None] == torch.arange(W, device=beta.device)  # [B, S, K, W]
+    gsm = torch.where(hit_w, post[..., None], 0.0).sum((1, 2))
+    return prev, gsm
+
+
+def kernel_tables(src, lpdf, logw):
+    """The (src, lpdf, logw) tables as K3/K4 read them: int32, int32 and
+    float32, [B, T-1, S, Kr] contiguous."""
+    return (
+        src.to(torch.int32).contiguous(),
+        lpdf.to(torch.int32).contiguous(),
+        logw.to(torch.float32).contiguous(),
+    )
+
+
+def _rows(ysm: torch.Tensor, like: torch.Tensor, B: int, Tm1: int) -> torch.Tensor:
+    """ysm [B, T-1, W] checked against `like`'s device, with unit stride
+    along W (a time slice of the [B, T, W] gather is taken as it is: the
+    kernels get its strides)."""
+    if ysm.device != like.device or ysm.dtype != torch.float32 or ysm.shape[:2] != (B, Tm1):
+        raise TypeError(f"ysm: expected float32 [{B}, {Tm1}, W] on {like.device}")
+    return ysm if ysm.stride(-1) == 1 else ysm.contiguous()
+
+
+def _block_threads(n: int) -> int:
+    return min(1024, max(64, -(-n // 32) * 32))
+
+
+def _check_tables(pre, B, Tm1, S, Kr):
+    for name, x, dtype in zip(
+        ("src", "lpdf", "logw"), pre, (torch.int32, torch.int32, torch.float32)
+    ):
+        kernels.check_tensor(name, x, dtype, (B, Tm1, S, Kr))
+
+
+# ---------------------------------------------------------------------------
+# K3: forward
+# ---------------------------------------------------------------------------
+
+
+def steady_forward_plain(alpha1, src, lpdf, logw, ysm):
+    """Plain PyTorch K3: the alpha recursion as a loop over frames.  Index
+    tables of any integer dtype."""
+    src, lpdf = src.long(), lpdf.long()
+    alpha, rest = alpha1, []
+    for t in range(src.shape[1]):
+        alpha = forward_step(alpha, ysm[:, t], src[:, t], lpdf[:, t], logw[:, t])
+        rest.append(alpha)
+    if not rest:
+        return alpha1, alpha1.new_empty((0,) + tuple(alpha1.shape))
+    return alpha, torch.stack(rest)
+
+
+def steady_forward(
+    alpha1: torch.Tensor,  # [B, S] alpha after the frame-0 step
+    src: torch.Tensor,  # [B, T-1, S, Kr] steady slice (any integer dtype)
+    lpdf: torch.Tensor,  # [B, T-1, S, Kr]
+    logw: torch.Tensor,  # [B, T-1, S, Kr] f32
+    ysm: torch.Tensor,  # [B, T-1, W] f32 emissions of frames 1..T-1
+    pre: tuple | None = None,  # kernel_tables(src, lpdf, logw)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K3.  Returns (aT [B, S], alphas_rest [T-1, B, S]).  Launches
+    csrc/num_resident.cu:num_steady_forward on a CUDA tensor."""
+    if alpha1.device.type == "cpu":
+        return steady_forward_plain(alpha1, src, lpdf, logw, ysm)
+    B, Tm1, S, Kr = src.shape
+    W = ysm.shape[-1]
+    kernels.check_tensor("alpha1", alpha1, torch.float32, (B, S))
+    if pre is None:
+        pre = kernel_tables(src, lpdf, logw)
+    _check_tables(pre, B, Tm1, S, Kr)
+    ysm = _rows(ysm, alpha1, B, Tm1)
+    if Tm1 == 0:
+        return alpha1, alpha1.new_empty((0, B, S))
+    smem = 4 * (S * Kr + S + W)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"steady_forward: S*Kr = {S * Kr} arc slots exceed shared memory")
+    out = torch.empty((Tm1, B, S), device=alpha1.device, dtype=torch.float32)
+    lib = kernels.library("num_resident")
+    err = lib.num_steady_forward(
+        pre[0].data_ptr(), pre[1].data_ptr(), pre[2].data_ptr(), ysm.data_ptr(),
+        ysm.stride(0), ysm.stride(1), alpha1.data_ptr(), out.data_ptr(),
+        B, Tm1, S, Kr, W, _block_threads(S * Kr), kernels.stream_of(alpha1.device),
+    )
+    kernels.check(lib, err, "num_steady_forward")
+    steady_forward.launches += 1
+    return out[-1], out
+
+
+steady_forward.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K4: backward
+# ---------------------------------------------------------------------------
+
+
+def steady_backward_plain(src, lpdf, logw, ysm, alphas, final_logw, log_p):
+    """Plain PyTorch K4: the beta recursion as a reverse loop over frames."""
+    src, lpdf = src.long(), lpdf.long()
+    Tm1 = src.shape[1]
+    beta, gsm = final_logw, [None] * Tm1
+    for t in range(Tm1 - 1, -1, -1):
+        beta, gsm[t] = backward_step(
+            beta, ysm[:, t], src[:, t], lpdf[:, t], logw[:, t], alphas[t], log_p
+        )
+    if not gsm:
+        return final_logw, final_logw.new_empty((0, ysm.shape[0], ysm.shape[-1]))
+    return beta, torch.stack(gsm)
+
+
+def steady_backward(
+    src: torch.Tensor,  # [B, T-1, S, Kr] steady slice (frames 1..T-1)
+    lpdf: torch.Tensor,
+    logw: torch.Tensor,
+    ysm: torch.Tensor,  # [B, T-1, W] emissions of frames 1..T-1
+    alphas: torch.Tensor,  # [T-1, B, S] alphas of frames 1..T-1 (sources)
+    final_logw: torch.Tensor,  # [B, S]
+    log_p: torch.Tensor,  # [B] (may be non-finite)
+    pre: tuple | None = None,  # kernel_tables(src, lpdf, logw)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K4.  Returns (beta1 [B, S], gsm_rest [T-1, B, W]).  Launches
+    csrc/num_resident.cu:num_steady_backward on a CUDA tensor."""
+    if final_logw.device.type == "cpu":
+        return steady_backward_plain(src, lpdf, logw, ysm, alphas, final_logw, log_p)
+    B, Tm1, S, Kr = src.shape
+    W = ysm.shape[-1]
+    kernels.check_tensor("final_logw", final_logw, torch.float32, (B, S))
+    kernels.check_tensor("alphas", alphas, torch.float32, (Tm1, B, S))
+    kernels.check_tensor("log_p", log_p, torch.float32, (B,))
+    if pre is None:
+        pre = kernel_tables(src, lpdf, logw)
+    _check_tables(pre, B, Tm1, S, Kr)
+    ysm = _rows(ysm, final_logw, B, Tm1)
+    if Tm1 == 0:
+        return final_logw, final_logw.new_empty((0, B, W))
+    smem = 4 * (4 * S * Kr + 2 * S + W)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"steady_backward: S*Kr = {S * Kr} arc slots exceed shared memory")
+    dev = final_logw.device
+    gsm = torch.empty((Tm1, B, W), device=dev, dtype=torch.float32)
+    beta1 = torch.empty((B, S), device=dev, dtype=torch.float32)
+    lib = kernels.library("num_resident")
+    err = lib.num_steady_backward(
+        pre[0].data_ptr(), pre[1].data_ptr(), pre[2].data_ptr(), ysm.data_ptr(),
+        ysm.stride(0), ysm.stride(1), alphas.data_ptr(), final_logw.data_ptr(),
+        log_p.data_ptr(), gsm.data_ptr(), beta1.data_ptr(),
+        B, Tm1, S, Kr, W, _block_threads(max(S * Kr, S + W)), kernels.stream_of(dev),
+    )
+    kernels.check(lib, err, "num_steady_backward")
+    steady_backward.launches += 1
+    return beta1, gsm
+
+
+steady_backward.launches = 0
