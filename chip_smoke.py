@@ -6,20 +6,27 @@
 Phases, in order; any failure exits non-zero before the last line:
 
   1. print the card's name and power limit (nvidia-smi);
-  2. build every CUDA kernel from torchain_tpu_torch/csrc (nvcc, in
-     parallel) and print the build time and each kernel's register use;
-  3. at the shapes of both paths (B=128, T_out=50; the bench's trigram
-     graph, P=80, and its production graph, a 4-gram phone LM over a
-     left-biphone tree, P=1680) hold each of the six kernels against its
-     plain PyTorch version on the card and time both (CUDA events), beside
-     the kernel's bound and, where one exists, one PyTorch library call
-     computing the same function;
-  4. two paths, each a full-width TDNN-F (9 layers, hidden 768, bottleneck
-     96, prefinal 256) trained for a few steps with the LF-MMI chain loss
-     on one replayed batch through `make_train_step`: (a) the trigram graph
-     with a float32 trunk, (b) the production graph with a bfloat16 trunk.
-     Every kernel launch counter is zeroed just before a path and read just
-     after, each must have moved, and the loss must fall;
+  2. build every CUDA kernel from torchain_tpu_torch/csrc (five sources,
+     one nvcc each, in parallel) and print the build time and each kernel's
+     register use;
+  3. hold each of the ten kernels against its plain PyTorch version on the
+     card and time both (CUDA events), beside the kernel's bound and, where
+     one exists, one PyTorch library call computing the same function: the
+     six chain-loss kernels at the shapes of both graphs (B=128, T_out=50;
+     the bench's trigram graph, P=80, and its production graph, a 4-gram
+     phone LM over a left-biphone tree, P=1680), the attention and
+     feed-forward kernels at the conformer's shapes (qkv [128, 50, 768], 4
+     heads; xn [6400, 256], F=1024) with bfloat16 and with float32 operands;
+  4. four paths, each a full-width model trained for a few steps with the
+     LF-MMI chain loss on one replayed batch through `make_train_step`:
+     (a) TDNN-F (9 layers, hidden 768, bottleneck 96, prefinal 256) on the
+     trigram graph with a float32 trunk, (b) the same on the production
+     graph with a bfloat16 trunk, (c) the conformer (8 blocks x 256, 4
+     heads, F=1024, conv kernel 15, bfloat16 trunk) on the trigram graph,
+     (d) the same with the fused feed-forward (`ffn_impl="fused"`).  Every
+     kernel launch counter is zeroed just before a path and read just
+     after, each kernel of that path must have moved, and the loss must
+     fall; (d)'s first loss must agree with (c)'s;
   5. a reference check on a small input for each path: the first-step loss
      and gradient norm on the card (kernels) against the CPU (plain
      versions);
@@ -36,6 +43,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import functools
 import json
 import math
 import pathlib
@@ -44,8 +52,10 @@ import sys
 import time
 
 #: published H100 SXM peaks (NVIDIA data sheet): float32 outside the
-#: tensor cores, and HBM3 bandwidth
+#: tensor cores, dense bfloat16 in the tensor cores (the peak for products
+#: of bfloat16 operands, whatever unit a kernel uses), and HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
 B, T_OUT = 128, 50
@@ -73,8 +83,8 @@ def _time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _bound(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+def _bound(flops: float, nbytes: float, peak_flops: float = PEAK_F32_FLOPS) -> tuple[float, str]:
+    t_ops = flops / peak_flops * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -98,41 +108,72 @@ def _check(name: str, what: str, got, want, atol: float, rtol: float) -> dict:
     return dict(what=what, max_abs_err=err, atol=atol, rtol=rtol)
 
 
-#: the two configurations of bench.py: its main one (`_build` on the
-#: trigram corpus of `main`) and `production_config`
+DEN_NUM = ("den_forward", "den_backward", "num_steady_forward", "num_steady_backward",
+           "vocab_gather", "vocab_scatter")
+ATTENTION = ("attention_forward", "attention_backward")
+FFN = ("ffn_forward", "ffn_backward")
+
+#: the paths: the two configurations of bench.py (its main one, `_build` on
+#: the trigram corpus of `main`, and `production_config`) with the TDNN-F,
+#: and the conformer that tools/ab_conformer5.py and tools/bench_matrix.py
+#: measure on the trigram corpus, with both feed-forward lowerings.
+#: `kernels` are those a path must launch
 PATHS = {
-    "trigram": dict(corpus=dict(lm_order=3, lm_extra_states=1000), dtype="float32"),
+    "trigram": dict(corpus=dict(lm_order=3, lm_extra_states=1000), dtype="float32",
+                    model="tdnnf", kernels=DEN_NUM),
     "production": dict(corpus=dict(context_width=2, lm_order=4, lm_extra_states=2000),
-                       dtype="bfloat16"),
+                       dtype="bfloat16", model="tdnnf", kernels=DEN_NUM),
+    "conformer": dict(corpus=dict(lm_order=3, lm_extra_states=1000), dtype="bfloat16",
+                      model="conformer", ffn_impl="dense", kernels=DEN_NUM + ATTENTION),
+    "conformer_ffn": dict(corpus=dict(lm_order=3, lm_extra_states=1000), dtype="bfloat16",
+                          model="conformer", ffn_impl="fused",
+                          kernels=DEN_NUM + ATTENTION + FFN),
 }
 
+#: the conformer of the conformer paths
+CONFORMER = dict(dim=256, num_layers=8, num_heads=4)
 
-def build_path(name: str, seed: int):
-    """One bench configuration: the corpus over 40 phones, the full-width
-    TDNN-F config in the path's trunk dtype, and a ChainDataset of chunks
-    of T_out=50."""
-    import torch
 
-    from torchain_tpu_torch.data import ChainDataset, synthetic_dataset
-    from torchain_tpu_torch.graphs import SupervisionOptions
-    from torchain_tpu_torch.models import TdnnfConfig
+@functools.lru_cache(maxsize=None)
+def _corpus(seed: int, options: tuple):
+    """The synthetic corpus over 40 phones for one graph (made once: the
+    trigram one serves three paths)."""
+    from torchain_tpu_torch.data import synthetic_dataset
 
-    corpus = synthetic_dataset(
+    return synthetic_dataset(
         num_utts=2 * B,
         num_phones=40,
         feat_dim=40,
         utt_frames_out=(T_OUT, T_OUT + 10),
         seed=seed,
-        **PATHS[name]["corpus"],
+        **dict(options),
     )
-    cfg = TdnnfConfig(
-        num_pdfs=corpus.tree.num_pdfs,
-        hidden_dim=768,
-        bottleneck_dim=96,
-        prefinal_dim=256,
-        num_layers=LAYERS,
-        dtype=getattr(torch, PATHS[name]["dtype"]),
-    )
+
+
+def build_path(name: str, seed: int):
+    """One configuration: the path's corpus, the full-width model config in
+    the path's trunk dtype, and a ChainDataset of chunks of T_out=50."""
+    import torch
+
+    from torchain_tpu_torch.data import ChainDataset
+    from torchain_tpu_torch.graphs import SupervisionOptions
+    from torchain_tpu_torch.models import ConformerConfig, TdnnfConfig
+
+    path = PATHS[name]
+    corpus = _corpus(seed, tuple(sorted(path["corpus"].items())))
+    dtype = getattr(torch, path["dtype"])
+    if path["model"] == "conformer":
+        cfg = ConformerConfig(num_pdfs=corpus.tree.num_pdfs, dtype=dtype,
+                              ffn_impl=path["ffn_impl"], **CONFORMER)
+    else:
+        cfg = TdnnfConfig(
+            num_pdfs=corpus.tree.num_pdfs,
+            hidden_dim=768,
+            bottleneck_dim=96,
+            prefinal_dim=256,
+            num_layers=LAYERS,
+            dtype=dtype,
+        )
     left, right = cfg.context
     dataset = ChainDataset(
         corpus.utts,
@@ -146,10 +187,36 @@ def build_path(name: str, seed: int):
     return corpus, cfg, dataset
 
 
+def make_model(cfg, feat_dim: int, device, seed: int):
+    """The path's model with weights drawn from `seed`."""
+    import torch
+
+    from torchain_tpu_torch.models import TDNNF, Conformer, ConformerConfig
+
+    cls = Conformer if isinstance(cfg, ConformerConfig) else TDNNF
+    return cls(cfg, feat_dim, device=device, generator=torch.Generator().manual_seed(seed))
+
+
+def _record(measured, name, label, checks, ms, plain_ms, flops, nbytes, lib_ms,
+            peak_flops=PEAK_F32_FLOPS, **extra):
+    bound_ms, bound_by = _bound(flops, nbytes, peak_flops)
+    _log(
+        f"kernel {name} [{label}]: {ms:.4f} ms  plain {plain_ms:.4f} ms"
+        f"  bound {bound_ms:.5f} ms ({bound_by})"
+        + (f"  library {lib_ms:.4f} ms" if lib_ms is not None else "")
+        + "".join(f"  {k} {v:.4f}" for k, v in extra.items())
+    )
+    measured[name] = dict(
+        max_abs_err=max(c["max_abs_err"] for c in checks),
+        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=lib_ms, checks=checks, **extra,
+    )
+
+
 def check_kernels(den, sup, seed: int, path: str) -> dict[str, dict]:
-    """Phase 3: each kernel against its plain version at one path's shapes,
-    with times.  Returns the measurements by kernel name; raises on
-    disagreement."""
+    """Phase 3, chain loss: each of K1-K6 against its plain version at one
+    graph's shapes, with times.  Returns the measurements by kernel name;
+    raises on disagreement."""
     import numpy as np
     import torch
 
@@ -169,17 +236,7 @@ def check_kernels(den, sup, seed: int, path: str) -> dict[str, dict]:
     measured = {}
 
     def record(name, checks, ms, plain_ms, flops, nbytes, lib_ms):
-        bound_ms, bound_by = _bound(flops, nbytes)
-        _log(
-            f"kernel {name} [{path}]: {ms:.4f} ms  plain {plain_ms:.4f} ms"
-            f"  bound {bound_ms:.5f} ms ({bound_by})"
-            + (f"  library {lib_ms:.4f} ms" if lib_ms is not None else "")
-        )
-        measured[name] = dict(
-            max_abs_err=max(c["max_abs_err"] for c in checks),
-            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=lib_ms, checks=checks,
-        )
+        _record(measured, name, path, checks, ms, plain_ms, flops, nbytes, lib_ms)
 
     # K1: denominator forward
     yt = y.transpose(0, 1)
@@ -326,7 +383,133 @@ def check_kernels(den, sup, seed: int, path: str) -> dict[str, dict]:
     return measured
 
 
-#: the six kernels: (wrapper module, wrapper, source, the TPU kernel replaced)
+def check_conformer_kernels(seed: int, dtype_name: str) -> dict[str, dict]:
+    """Phase 3, conformer: K7f, K7b, K10f and K10b against their plain
+    versions at the conformer path's shapes (B=128, T=50, 4 heads of 64;
+    N = B*T = 6400 rows, D=256, F=1024) with operands of one dtype, with
+    times.  Returns the measurements by kernel name; raises on
+    disagreement."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from torchain_tpu_torch.ops import attention as at
+    from torchain_tpu_torch.ops import fused_ffn as ff
+
+    dev = torch.device("cuda")
+    dtype = getattr(torch, dtype_name)
+    bf16 = dtype == torch.bfloat16
+    esz = 2 if bf16 else 4
+    peak = PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS
+    D, H, Fh, T = CONFORMER["dim"], CONFORMER["num_heads"], 4 * CONFORMER["dim"], T_OUT
+    dh, N = D // H, B * T_OUT
+    rng = np.random.default_rng(seed)
+    measured = {}
+
+    def rand(*shape, scale=1.0):
+        return torch.as_tensor(rng.standard_normal(shape).astype(np.float32) * scale, device=dev)
+
+    # K7f / K7b.  qkv of the scale a LayerNorm followed by a fresh Dense
+    # gives, the bias of the scale of a trained table
+    label = f"conformer {dtype_name}"
+    qkv, g = rand(B, T, 3 * D).to(dtype), rand(B, T, D).to(dtype)
+    bias = rand(H, T, T, scale=0.3)
+    scale = 1.0 / math.sqrt(dh)
+    out_k = at.attention_forward(qkv, bias, H, scale)
+    torch.cuda.synchronize()
+    out_p = at.attention_forward_plain(qkv, bias, H, scale)
+    # float32: sums of 64 and 50 float32 products in another order, outputs
+    # of order 1.  bfloat16: both sides round the same float32 value up to
+    # that reordering, so they sit at most one rounding step (2^-8) apart
+    tol = (2e-2, 1e-2) if bf16 else (5e-5, 1e-5)
+    q4, k4, v4 = at._heads(qkv, H)
+    bias_t = bias.to(dtype)
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q4, k4, v4, attn_mask=bias_t[None], scale=scale)
+    _record(
+        measured, "attention_forward", label,
+        [_check(f"attention_forward [{label}]", "out", out_k, out_p, *tol)],
+        _time_ms(lambda: at.attention_forward(qkv, bias, H, scale), 50),
+        _time_ms(lambda: at.attention_forward_plain(qkv, bias, H, scale), 20),
+        4.0 * B * H * T * T * dh,
+        esz * (B * T * 3 * D + B * T * D) + 4.0 * H * T * T,
+        _time_ms(sdpa, 50), peak,
+        einsum_ms=_time_ms(lambda: at.reference_relpos_attention(qkv, bias, H, scale), 20),
+    )
+    dqkv_k, dbias_k = at.attention_backward(qkv, bias, g, H, scale)
+    torch.cuda.synchronize()
+    dqkv_p, dbias_p = at.attention_backward_plain(qkv, bias, g, H, scale)
+    # dbias is a float32 sum over the 128 batch rows of terms of order 0.1,
+    # from the same operands on both sides
+    checks = [
+        _check(f"attention_backward [{label}]", "dqkv", dqkv_k, dqkv_p, *tol),
+        _check(f"attention_backward [{label}]", "dbias", dbias_k, dbias_p, 1e-4, 1e-4),
+    ]
+    # the library's way: autograd through the einsum formulation (backward only)
+    qkv_r, bias_r = qkv.clone().requires_grad_(), bias.clone().requires_grad_()
+    ref_out = at.reference_relpos_attention(qkv_r, bias_r, H, scale)
+    _record(
+        measured, "attention_backward", label, checks,
+        _time_ms(lambda: at.attention_backward(qkv, bias, g, H, scale), 50),
+        _time_ms(lambda: at.attention_backward_plain(qkv, bias, g, H, scale), 20),
+        10.0 * B * H * T * T * dh,
+        esz * (2 * B * T * 3 * D + B * T * D) + 8.0 * H * T * T,
+        _time_ms(lambda: torch.autograd.grad(ref_out, (qkv_r, bias_r), g, retain_graph=True), 20),
+        peak,
+    )
+    del ref_out, qkv_r, bias_r
+
+    # K10f / K10b.  xn as a LayerNorm leaves it, weights of the scale of
+    # their initialiser (variance 1 / fan-in), cast to the trunk dtype
+    xn, res, gf = rand(N, D).to(dtype), rand(N, D).to(dtype), rand(N, D).to(dtype)
+    w1, w2 = rand(D, Fh, scale=D ** -0.5).to(dtype), rand(Fh, D, scale=Fh ** -0.5).to(dtype)
+    b1, b2 = rand(Fh, scale=0.1), rand(D, scale=0.1)
+    o_k = ff.ffn_forward(xn, res, w1, b1, w2, b2, 0.5)
+    torch.cuda.synchronize()
+    o_p = ff.ffn_forward_plain(xn, res, w1, b1, w2, b2, 0.5)
+    # float32: sums of 256 and 1024 products in another order
+    tol = (2e-2, 1e-2) if bf16 else (1e-4, 1e-4)
+
+    def dense_chain(x, r, a1, c1, a2, c2):
+        u = x @ a1 + c1.to(dtype)
+        return r + 0.5 * ((u * torch.sigmoid(u)) @ a2 + c2.to(dtype))
+
+    _record(
+        measured, "ffn_forward", label,
+        [_check(f"ffn_forward [{label}]", "out", o_k, o_p, *tol)],
+        _time_ms(lambda: ff.ffn_forward(xn, res, w1, b1, w2, b2, 0.5), 20),
+        _time_ms(lambda: ff.ffn_forward_plain(xn, res, w1, b1, w2, b2, 0.5), 20),
+        4.0 * N * D * Fh,
+        esz * (3 * N * D + 2 * D * Fh) + 4.0 * (Fh + D),
+        _time_ms(lambda: dense_chain(xn, res, w1, b1, w2, b2), 20), peak,
+    )
+    grads_k = ff.ffn_backward(xn, gf, w1, b1, w2, 0.5)
+    torch.cuda.synchronize()
+    grads_p = ff.ffn_backward_plain(xn, gf, w1, b1, w2, 0.5)
+    # the weight and bias gradients are float32 sums over 6400 rows (entries
+    # up to ~100).  With bfloat16 operands a hidden activation or a dh that
+    # sits on a rounding boundary may round the other way (the float32
+    # values differ in the last bit), which moves one term of a weight
+    # gradient's sum by one bfloat16 step; db1 sums the unrounded dh
+    wtol = (5e-2, 1e-3) if bf16 else (1e-3, 1e-4)
+    tols = dict(dx=tol, dw1=wtol, db1=(1e-3, 1e-4), dw2=wtol, db2=(1e-3, 1e-4))
+    checks = [_check(f"ffn_backward [{label}]", what, a, b, *tols[what])
+              for what, a, b in zip(tols, grads_k, grads_p)]
+    leaves = [t.clone().requires_grad_() for t in (xn, w1, b1, w2, b2)]
+    chain_out = dense_chain(leaves[0], res, *leaves[1:])
+    _record(
+        measured, "ffn_backward", label, checks,
+        _time_ms(lambda: ff.ffn_backward(xn, gf, w1, b1, w2, 0.5), 20),
+        _time_ms(lambda: ff.ffn_backward_plain(xn, gf, w1, b1, w2, 0.5), 20),
+        10.0 * N * D * Fh,
+        esz * (3 * N * D + 2 * D * Fh) + 4.0 * (Fh + 2 * D * Fh + Fh + D),
+        _time_ms(lambda: torch.autograd.grad(chain_out, leaves, gf, retain_graph=True), 20),
+        peak,
+    )
+    return measured
+
+
+#: the ten kernels: (wrapper module, wrapper, source, the TPU kernel replaced)
 KERNELS = {
     "den_forward": ("den_resident", "den_forward_kernel",
                     "torchain_tpu_torch/csrc/den_resident.cu",
@@ -344,6 +527,16 @@ KERNELS = {
                      "torchain_tpu/ops/num_scan.py:140"),
     "vocab_scatter": ("num_scan", "vocab_scatter", "torchain_tpu_torch/csrc/num_vocab.cu",
                       "torchain_tpu/ops/num_scan.py:179"),
+    "attention_forward": ("attention", "attention_forward",
+                          "torchain_tpu_torch/csrc/attention.cu",
+                          "torchain_tpu/ops/attention.py:219"),
+    "attention_backward": ("attention", "attention_backward",
+                           "torchain_tpu_torch/csrc/attention.cu",
+                           "torchain_tpu/ops/attention.py:258"),
+    "ffn_forward": ("fused_ffn", "ffn_forward", "torchain_tpu_torch/csrc/fused_ffn.cu",
+                    "torchain_tpu/ops/fused_ffn.py:200"),
+    "ffn_backward": ("fused_ffn", "ffn_backward", "torchain_tpu_torch/csrc/fused_ffn.cu",
+                     "torchain_tpu/ops/fused_ffn.py:239"),
 }
 
 
@@ -361,12 +554,10 @@ def train_steps(cfg, feat_dim, feats, den, sup, steps: int, seed: int):
     """Phase 4: one path.  Returns (losses, step ms list, launches, step)."""
     import torch
 
-    from torchain_tpu_torch.models import TDNNF
     from torchain_tpu_torch.ops import ChainLossOptions
     from torchain_tpu_torch.train import create_train_state, make_train_step
 
-    model = TDNNF(cfg, feat_dim, device=feats.device,
-                  generator=torch.Generator().manual_seed(seed))
+    model = make_model(cfg, feat_dim, feats.device, seed)
     state = create_train_state(model, lr=1e-3)
     step = make_train_step(
         state,
@@ -419,7 +610,10 @@ def profile_steps(step, feats, den, sup, n: int, out_path: pathlib.Path | None) 
 
     ours = ("fwd_gemm", "fwd_norm", "bwd_gamma", "bwd_gemm", "bwd_norm",
             "vocab_gather_kernel", "vocab_scatter_kernel",
-            "steady_fwd_kernel", "steady_bwd_kernel")
+            "steady_fwd_kernel", "steady_bwd_kernel",
+            "attn_fwd_kernel", "attn_bwd_kernel", "dbias_reduce_kernel",
+            "ffn_fwd_kernel", "ffn_bwd_rows_kernel", "ffn_bwd_weights_kernel",
+            "sum_parts_kernel")
     is_ours = [any(k in e.key for k in ours) for e in kern]
     # cuBLAS names its Hopper bf16 kernels "nvjet_..."
     is_gemm = [not o and any(k in e.key.lower() for k in ("gemm", "sm90", "nvjet"))
@@ -442,8 +636,9 @@ def profile_steps(step, feats, den, sup, n: int, out_path: pathlib.Path | None) 
 #: in another order (cuBLAS vs the CPU BLAS, kernels vs plain) through 9
 #: layers, the 50-frame recursions and a backward.  bfloat16: the card's and
 #: the CPU's matrix products round their bfloat16 results from sums taken in
-#: another order, layer after layer (on an H100 at B=8: loss 2.3e-4, objf
-#: 6.3e-4, gradient norm 1.3e-3)
+#: another order, layer after layer (on an H100 at B=8, TDNN-F: loss 2.3e-4,
+#: objf 6.3e-4, gradient norm 1.3e-3).  The same gate holds the first loss of
+#: the conformer with the fused feed-forward to that of the dense one
 REFERENCE_RTOL = {"float32": 1e-3, "bfloat16": 1e-2}
 
 
@@ -452,14 +647,12 @@ def reference_check(cfg, feat_dim, dataset, corpus, seed: int, path: str) -> dic
     and on the CPU (plain versions), from the same weights."""
     import torch
 
-    from torchain_tpu_torch.models import TDNNF
     from torchain_tpu_torch.ops import ChainLossOptions, DeviceSupervision, auto_den_graph, chain_loss
 
     small = next(dataset.batches(8, shuffle=False))
     opts = ChainLossOptions(l2_regularize=5e-4, leaky_hmm_coefficient=0.1,
                             xent_regularize=0.1)
-    model = TDNNF(cfg, feat_dim, device="cpu",
-                  generator=torch.Generator().manual_seed(seed + 1))
+    model = make_model(cfg, feat_dim, "cpu", seed + 1)
     rtol = REFERENCE_RTOL[PATHS[path]["dtype"]]
     out = dict(rtol=rtol)
     for dev in ("cuda", "cpu"):
@@ -480,10 +673,11 @@ def reference_check(cfg, feat_dim, dataset, corpus, seed: int, path: str) -> dic
     return out
 
 
-def run_path(path: str, args, result: dict) -> dict[str, dict]:
-    """Phases 3 to 5 for one path.  Returns the kernel measurements at its
-    shapes by kernel name, each with the path's launch count; fills
-    result[path] with the path's numbers."""
+def run_path(path: str, args, result: dict, check_den_num: bool):
+    """Phases 3 to 5 for one path; phase 3 (K1-K6 at this path's graph) only
+    with `check_den_num`.  Returns (those measurements by kernel name or
+    None, the path's launch counts by kernel name) and fills result[path]
+    with the path's numbers."""
     import numpy as np
     import torch
 
@@ -506,10 +700,10 @@ def run_path(path: str, args, result: dict) -> dict[str, dict]:
     )
     _log(f"path {path}: set-up {setup_s:.1f} s; feats {tuple(feats.shape)}"
          f" trunk {PATHS[path]['dtype']}; " + json.dumps(sizes))
-    measured = check_kernels(den, sup, args.seed, path)
+    measured = check_kernels(den, sup, args.seed, path) if check_den_num else None
     out = result[path] = dict(setup_s=setup_s, sizes=sizes)
     if args.kernels_only:
-        return measured
+        return measured, {}
 
     # phase 4: the path itself
     torch.cuda.reset_peak_memory_stats()
@@ -523,9 +717,10 @@ def run_path(path: str, args, result: dict) -> dict[str, dict]:
     if not losses[-1]["loss"] < losses[0]["loss"]:
         raise AssertionError(f"the loss did not fall over the replayed batch ({path})")
     for name, n in launches.items():
-        if n == 0:
+        if name in PATHS[path]["kernels"] and n == 0:
             raise AssertionError(f"kernel {name} was not launched on the {path} path")
-        measured[name]["launches"] = n
+        if name not in PATHS[path]["kernels"] and n != 0:
+            raise AssertionError(f"kernel {name} is not of the {path} path, yet it counted {n}")
     # the rate is all the audio of steps 2..N over the whole window of
     # those steps; step 1 holds cuBLAS and allocator warm-up
     window_ms = float(np.sum(times[1:]))
@@ -558,7 +753,7 @@ def run_path(path: str, args, result: dict) -> dict[str, dict]:
     ref = reference_check(cfg, corpus.feat_dim, dataset, corpus, args.seed, path)
     _log(f"{path} reference check (B=8, card vs cpu):", json.dumps(ref))
     out["reference"] = ref
-    return measured
+    return measured, launches
 
 
 def main(argv=None) -> int:
@@ -606,16 +801,37 @@ def main(argv=None) -> int:
 
     # phases 3 to 5, path by path
     result = dict(device=torch.cuda.get_device_name(0), nvidia_smi=smi, build_s=build_s)
-    trigram = run_path("trigram", args, result)
-    production = run_path("production", args, result)
-    # one record per kernel: the trigram path's numbers at the top level,
-    # the production path's under "production"
-    records = [
-        dict(name=name, route="cuda", source=source, replaces=replaces,
-             launches=trigram[name].pop("launches", 0), **trigram[name],
-             production=production[name])
-        for name, (_, _, source, replaces) in KERNELS.items()
-    ]
+    launches = {}
+    trigram, launches["trigram"] = run_path("trigram", args, result, True)
+    production, launches["production"] = run_path("production", args, result, True)
+    conformer = {dt: check_conformer_kernels(args.seed, dt) for dt in ("bfloat16", "float32")}
+    _, launches["conformer"] = run_path("conformer", args, result, False)
+    _, launches["conformer_ffn"] = run_path("conformer_ffn", args, result, False)
+    if not args.kernels_only:
+        # the two feed-forward lowerings start from the same weights and batch
+        a = result["conformer"]["losses"][0]["loss"]
+        b = result["conformer_ffn"]["losses"][0]["loss"]
+        rel = abs(a - b) / abs(a)
+        _log(f"first loss, conformer {a:.6g} vs conformer_ffn {b:.6g}: rel {rel:.3g}"
+             f" (gate {REFERENCE_RTOL['bfloat16']:g})")
+        result["conformer_ffn"]["first_loss_rel_to_dense"] = rel
+        if not rel <= REFERENCE_RTOL["bfloat16"]:
+            raise AssertionError("the fused feed-forward's first loss departs from the dense one's")
+    # one record per kernel.  K1-K6: the trigram graph's numbers at the top
+    # level, the production graph's under "production".  K7, K10: bfloat16
+    # operands (the conformer paths' trunk) at the top level, float32 under
+    # "float32".  `launches` is the count of the first path that must run
+    # the kernel; every path's count is under "launches_by_path"
+    records = []
+    for name, (_, _, source, replaces) in KERNELS.items():
+        first = next(p for p in PATHS if name in PATHS[p]["kernels"])
+        by_path = {p: n.get(name, 0) for p, n in launches.items()}
+        if name in DEN_NUM:
+            numbers = dict(**trigram[name], production=production[name])
+        else:
+            numbers = dict(**conformer["bfloat16"][name], float32=conformer["float32"][name])
+        records.append(dict(name=name, route="cuda", source=source, replaces=replaces,
+                            launches=by_path[first], launches_by_path=by_path, **numbers))
     result["kernels"] = records
 
     if args.out:

@@ -19,7 +19,9 @@ import torch
 import torchain_tpu_torch.data as tdata
 import torchain_tpu_torch.graphs as tgraphs
 from torchain_tpu_torch.ops import DeviceSupervision, auto_den_graph
+from torchain_tpu_torch.ops import attention as at
 from torchain_tpu_torch.ops import den_resident as dr
+from torchain_tpu_torch.ops import fused_ffn as ff
 from torchain_tpu_torch.ops import num_resident as nr
 from torchain_tpu_torch.ops import num_scan as ns
 
@@ -224,3 +226,191 @@ def test_chain_loss_on_card_matches_cpu(setup):
         out[d] = (loss.detach().cpu(), yy.grad.cpu())
     torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=1e-4, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# K7f / K7b: relative-position attention
+# ---------------------------------------------------------------------------
+
+DTYPES = [torch.float32, torch.bfloat16]
+
+
+def _attn_case(dev, B, T, H, dh, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    qkv = torch.as_tensor(rng.normal(size=(B, T, 3 * H * dh)), dtype=torch.float32, device=dev)
+    bias = torch.as_tensor(rng.normal(size=(H, T, T)) * 0.3, dtype=torch.float32, device=dev)
+    g = torch.as_tensor(rng.normal(size=(B, T, H * dh)), dtype=torch.float32, device=dev)
+    return qkv.to(dtype), bias, g.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "B,T,H,dh", [(3, 17, 4, 16), (2, 23, 2, 32), (5, 50, 4, 64), (1, 1, 1, 8), (2, 33, 3, 24)],
+    ids=["T17", "T23", "main_path_heads", "one_frame", "three_heads"],
+)
+def test_attention_kernels_match_plain(dev, B, T, H, dh, dtype):
+    qkv, bias, g = _attn_case(dev, B, T, H, dh, dtype)
+    scale = 1.0 / math.sqrt(dh)
+    n_f, n_b = at.attention_forward.launches, at.attention_backward.launches
+    out = at.attention_forward(qkv, bias, H, scale)
+    dqkv, dbias = at.attention_backward(qkv, bias, g, H, scale)
+    torch.cuda.synchronize()
+    assert (at.attention_forward.launches, at.attention_backward.launches) == (n_f + 1, n_b + 1)
+    out_p = at.attention_forward_plain(qkv, bias, H, scale)
+    dqkv_p, dbias_p = at.attention_backward_plain(qkv, bias, g, H, scale)
+    assert out.dtype == dqkv.dtype == dtype and dbias.dtype == torch.float32
+    # float32 sums of dh and T terms in another order; bfloat16 outputs may
+    # sit one rounding step apart (2^-8 relative)
+    tol = dict(atol=2e-5, rtol=1e-5) if dtype == torch.float32 else dict(atol=2e-2, rtol=1e-2)
+    torch.testing.assert_close(out, out_p, **tol)
+    torch.testing.assert_close(dqkv, dqkv_p, **tol)
+    # dbias is float32 whatever qkv is: B slices added in batch order
+    torch.testing.assert_close(dbias, dbias_p, atol=5e-5, rtol=1e-4)
+    # the same kernels twice give the same bits (no atomics)
+    assert torch.equal(at.attention_forward(qkv, bias, H, scale), out)
+    again = at.attention_backward(qkv, bias, g, H, scale)
+    assert torch.equal(again[0], dqkv) and torch.equal(again[1], dbias)
+
+
+def test_attention_function_on_card_matches_cpu(dev):
+    qkv, bias, g = _attn_case(dev, 3, 19, 2, 16, torch.float32, seed=1)
+    grads = {}
+    for d in ("cuda", "cpu"):
+        q, b = (t.detach().to(d).clone().requires_grad_() for t in (qkv, bias))
+        out = at.fused_relpos_attention(q, b, 2, 0.25)
+        torch.sum(out * g.to(d)).backward()
+        grads[d] = (out.detach().cpu(), q.grad.cpu(), b.grad.cpu())
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(a, b, atol=5e-5, rtol=1e-4)
+
+
+def test_attention_kernels_raise_on_wrong_input(dev):
+    qkv, bias, g = _attn_case(dev, 2, 9, 2, 8, torch.float32)
+    with pytest.raises(TypeError):
+        at.attention_forward(qkv.double(), bias, 2, 0.3)
+    with pytest.raises(TypeError):
+        at.attention_forward(qkv, bias.half(), 2, 0.3)
+    with pytest.raises(ValueError):
+        at.attention_forward(qkv, bias[:, :, :-1].contiguous(), 2, 0.3)
+    with pytest.raises(ValueError):
+        at.attention_forward(qkv[:, :, :-1], bias, 2, 0.3)
+    with pytest.raises(TypeError):  # g in another dtype than qkv
+        at.attention_backward(qkv, bias, g.bfloat16(), 2, 0.3)
+    with pytest.raises(ValueError):
+        at.attention_backward(qkv, bias, g[:, :-1].contiguous(), 2, 0.3)
+
+
+def test_attention_beyond_the_shared_memory_limit_raises(dev):
+    """T * dh and T * T must fit one block's shared memory; beyond that the
+    wrappers raise, they do not fall back."""
+    T, H, dh = 400, 1, 64
+    qkv = torch.zeros(1, T, 3 * H * dh, device=dev)
+    bias = torch.zeros(H, T, T, device=dev)
+    n = at.attention_forward.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        at.attention_forward(qkv, bias, H, 0.1)
+    with pytest.raises(ValueError, match="shared memory"):
+        at.attention_backward(qkv, bias, torch.zeros(1, T, H * dh, device=dev), H, 0.1)
+    assert at.attention_forward.launches == n
+
+
+# ---------------------------------------------------------------------------
+# K10f / K10b: fused feed-forward
+# ---------------------------------------------------------------------------
+
+
+def _ffn_case(dev, N, D, F, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    r = lambda *s: torch.as_tensor(rng.standard_normal(s), dtype=torch.float32, device=dev)  # noqa: E731
+    xn, res, g = r(N, D).to(dtype), r(N, D).to(dtype), r(N, D).to(dtype)
+    w1, w2 = (r(D, F) * 0.3).to(dtype), (r(F, D) * 0.3).to(dtype)
+    return xn, res, w1, r(F) * 0.1, w2, r(D) * 0.1, g
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "N,D,F", [(48, 128, 256), (1040, 128, 256), (37, 96, 192), (5, 24, 56), (70, 300, 130)],
+    ids=["aligned", "many_rows", "non_aligned", "tiny", "wide_rows"],
+)
+def test_ffn_kernels_match_plain(dev, N, D, F, dtype):
+    xn, res, w1, b1, w2, b2, g = _ffn_case(dev, N, D, F, dtype)
+    n_f, n_b = ff.ffn_forward.launches, ff.ffn_backward.launches
+    out = ff.ffn_forward(xn, res, w1, b1, w2, b2, 0.5)
+    grads = ff.ffn_backward(xn, g, w1, b1, w2, 0.5)
+    torch.cuda.synchronize()
+    assert (ff.ffn_forward.launches, ff.ffn_backward.launches) == (n_f + 1, n_b + 1)
+    out_p = ff.ffn_forward_plain(xn, res, w1, b1, w2, b2, 0.5)
+    grads_p = ff.ffn_backward_plain(xn, g, w1, b1, w2, 0.5)
+    assert out.dtype == grads[0].dtype == dtype
+    assert all(t.dtype == torch.float32 for t in grads[1:])
+    # float32: sums of D, F or N terms in another order.  bfloat16: out and dx
+    # may sit a rounding step apart; a hidden activation on a rounding
+    # boundary moves a weight-gradient sum by one bfloat16 step of one term
+    if dtype == torch.float32:
+        tol = [dict(atol=1e-4, rtol=1e-4)] * 6
+    else:
+        tol = [dict(atol=3e-2, rtol=2e-2)] * 2 + [dict(atol=2e-2, rtol=1e-2)] * 4
+    for got, want, kw, name in zip((out, *grads), (out_p, *grads_p), tol,
+                                   ("out", "dx", "dw1", "db1", "dw2", "db2")):
+        torch.testing.assert_close(got, want, **kw, msg=lambda m, name=name: f"{name}: {m}")
+    # the same kernels twice give the same bits (no atomics)
+    assert torch.equal(ff.ffn_forward(xn, res, w1, b1, w2, b2, 0.5), out)
+    for a, b in zip(ff.ffn_backward(xn, g, w1, b1, w2, 0.5), grads):
+        assert torch.equal(a, b)
+
+
+def test_ffn_apply_on_card_matches_cpu(dev):
+    xn, res, w1, b1, w2, b2, g = _ffn_case(dev, 2 * 13, 40, 72, torch.float32, seed=1)
+    grads = {}
+    for d in ("cuda", "cpu"):
+        args = [t.to(d).reshape(2, 13, 40).clone().requires_grad_() for t in (xn, res)]
+        args += [t.to(d).clone().requires_grad_() for t in (w1, b1, w2, b2)]
+        out = ff.ffn_apply(*args)
+        torch.sum(out * g.to(d).reshape(2, 13, 40)).backward()
+        grads[d] = [out.detach().cpu()] + [a.grad.cpu() for a in args]
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+def test_ffn_kernels_raise_on_wrong_input(dev):
+    xn, res, w1, b1, w2, b2, g = _ffn_case(dev, 12, 16, 32, torch.float32)
+    with pytest.raises(TypeError):
+        ff.ffn_forward(xn.double(), res.double(), w1, b1, w2, b2, 0.5)
+    with pytest.raises(TypeError):  # weights must already be in the trunk dtype
+        ff.ffn_forward(xn.bfloat16(), res.bfloat16(), w1, b1, w2, b2, 0.5)
+    with pytest.raises(TypeError):
+        ff.ffn_forward(xn, res, w1, b1.double(), w2, b2, 0.5)
+    with pytest.raises(ValueError):
+        ff.ffn_forward(xn, res, w1, b1, w2.t().contiguous(), b2, 0.5)
+    with pytest.raises(ValueError):
+        ff.ffn_backward(xn, g[:-1], w1, b1, w2, 0.5)
+    with pytest.raises(ValueError, match="shared memory"):  # a row tile too wide for one block
+        D = 2048
+        ff.ffn_forward(torch.zeros(4, D, device=dev), torch.zeros(4, D, device=dev),
+                       torch.zeros(D, 8, device=dev), torch.zeros(8, device=dev),
+                       torch.zeros(8, D, device=dev), torch.zeros(D, device=dev), 0.5)
+
+
+@pytest.mark.parametrize("ffn_impl", ["dense", "fused"])
+def test_conformer_on_card_matches_cpu(dev, ffn_impl):
+    """A small float32 conformer through K7f/K7b (and K10f/K10b) on the card
+    against the plain versions on the CPU, from the same weights."""
+    import copy
+
+    from torchain_tpu_torch.models import Conformer, ConformerConfig
+
+    cfg = ConformerConfig(num_pdfs=11, dim=32, num_layers=2, num_heads=2, prefinal_dim=16,
+                          ffn_impl=ffn_impl)
+    model = Conformer(cfg, 8, device="cpu", generator=torch.Generator().manual_seed(0))
+    feats = torch.randn(3, 7 * 3 + 4, 8, generator=torch.Generator().manual_seed(1))
+    n7, n10 = at.attention_backward.launches, ff.ffn_backward.launches
+    out = {}
+    for d in ("cuda", "cpu"):
+        m = copy.deepcopy(model).to(d)
+        c, x = m(feats.to(d), train=True)
+        (c.square().sum() + x.sum()).backward()
+        out[d] = [c.detach().cpu()] + [p.grad.cpu() for p in m.parameters()]
+    assert at.attention_backward.launches == n7 + 2
+    assert ff.ffn_backward.launches == n10 + (4 if ffn_impl == "fused" else 0)
+    for a, b in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(a, b, atol=1e-4 * max(1.0, float(b.abs().max())), rtol=1e-3)

@@ -1,0 +1,117 @@
+"""ops/fused_ffn.py of the PyTorch port against the JAX package's
+torchain_tpu.ops.fused_ffn: the plain versions of kernels K10f / K10b
+against the Pallas kernels in interpret mode (`_ffn_fused(..., 0.5, True)`,
+d=128, f=256, as tests/test_fused_ffn.py runs them), and `ffn_apply`
+against the JAX `ffn_apply` at a shape the TPU kernel does not take (d=96,
+f=192).  Inputs are made with numpy from a seed and handed to both sides.
+
+Tolerance: forward rtol/atol 2e-5 in float32 (256-term float32 sums in
+another order); the six gradients rtol/atol 2e-4 (sums over up to 1040
+rows); bfloat16 forward rtol/atol 2e-2 (one rounding step of the output,
+and of a hidden activation that sits on a rounding boundary).  The
+bfloat16 gradients are held to 2e-2 of each gradient's largest entry."""
+
+import numpy as np
+import pytest
+
+pytest.importorskip("jax")
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from torchain_tpu.ops import fused_ffn as jf
+from torchain_tpu_torch.ops import fused_ffn as tf
+
+NAMES = ["xn", "res", "w1", "b1", "w2", "b2"]
+
+
+def _setup(n, d, f, seed):
+    rng = np.random.default_rng(seed)
+    r = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    args = [r(n, d), r(n, d), r(d, f) * 0.3, r(f) * 0.1, r(f, d) * 0.3, r(d) * 0.1]
+    return args, r(n, d)
+
+
+def _jax_fused(args, g, jdt=jnp.float32):
+    """Output and the six gradients of the interpret-mode Pallas pair."""
+    jargs = [jnp.asarray(a) for a in args]
+    jargs[0], jargs[1] = jargs[0].astype(jdt), jargs[1].astype(jdt)
+
+    def loss(*a):
+        out = jf._ffn_fused(*a, 0.5, True)
+        return jnp.sum(out.astype(jnp.float32) * g), out
+
+    (_, out), grads = jax.value_and_grad(loss, argnums=tuple(range(6)), has_aux=True)(*jargs)
+    return np.asarray(out, np.float32), [np.asarray(x, np.float32) for x in grads]
+
+
+@pytest.mark.parametrize("n", [48, 1040])
+def test_plain_twins_match_jax_kernels_float32(n):
+    args, g = _setup(n, 128, 256, seed=0)
+    j_out, j_grads = _jax_fused(args, g)
+    xn, res, w1, b1, w2, b2 = (torch.tensor(a) for a in args)
+    out = tf.ffn_forward_plain(xn, res, w1, b1, w2, b2, 0.5)
+    np.testing.assert_allclose(out.numpy(), j_out, rtol=2e-5, atol=2e-5)
+    dx, dw1, db1, dw2, db2 = tf.ffn_backward_plain(xn, torch.tensor(g), w1, b1, w2, 0.5)
+    for got, want, name in zip((dx, torch.tensor(g), dw1, db1, dw2, db2), j_grads, NAMES):
+        np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4, err_msg=f"grad {name}")
+    # on a CPU tensor the wrappers take the plain versions, without a launch
+    assert torch.equal(tf.ffn_forward(xn, res, w1, b1, w2, b2, 0.5), out)
+    assert torch.equal(tf.ffn_backward(xn, torch.tensor(g), w1, b1, w2, 0.5)[1], dw1)
+    assert tf.ffn_forward.launches == 0 and tf.ffn_backward.launches == 0
+
+
+def test_plain_twins_match_jax_kernels_bfloat16():
+    args, g = _setup(64, 128, 256, seed=1)
+    j_out, j_grads = _jax_fused(args, g, jnp.bfloat16)
+    xn, res, w1, b1, w2, b2 = (torch.tensor(a) for a in args)
+    xn, res = xn.to(torch.bfloat16), res.to(torch.bfloat16)
+    out = tf.ffn_forward_plain(xn, res, w1, b1, w2, b2, 0.5)
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_allclose(out.float().numpy(), j_out, rtol=2e-2, atol=2e-2)
+    # the backward keeps the Pallas body's roundings: g, h and dhb rounded to
+    # bfloat16, db1 from the unrounded dh
+    tg = torch.tensor(g).to(torch.bfloat16)
+    dx, dw1, db1, dw2, db2 = tf.ffn_backward_plain(xn, tg, w1, b1, w2, 0.5)
+    assert dx.dtype == torch.bfloat16 and dw1.dtype == db1.dtype == torch.float32
+    for got, want, name in zip((dx, tg, dw1, db1, dw2, db2), j_grads, NAMES):
+        np.testing.assert_allclose(got.float().numpy(), want, atol=2e-2 * np.abs(want).max(),
+                                   err_msg=f"grad {name}")
+
+
+@pytest.mark.parametrize("lead", [(32,), (2, 16)])
+def test_ffn_apply_matches_jax_at_a_non_aligned_shape(lead):
+    n = int(np.prod(lead))
+    args, g = _setup(n, 96, 192, seed=2)
+    jargs = [jnp.asarray(a) for a in args]
+    jargs[0], jargs[1] = jargs[0].reshape(*lead, 96), jargs[1].reshape(*lead, 96)
+    jg = jnp.asarray(g).reshape(*lead, 96)
+
+    def loss(*a):
+        out = jf.ffn_apply(*a, 0.5)
+        return jnp.sum(out * jg), out
+
+    (_, j_out), j_grads = jax.value_and_grad(loss, argnums=tuple(range(6)), has_aux=True)(*jargs)
+    targs = [torch.tensor(np.asarray(a)).requires_grad_() for a in jargs]
+    out = tf.ffn_apply(*targs, 0.5)
+    assert out.shape == (*lead, 96)
+    torch.sum(out * torch.tensor(np.asarray(jg))).backward()
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(j_out), rtol=2e-5, atol=2e-5)
+    for t, want, name in zip(targs, j_grads, NAMES):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(want), rtol=2e-4, atol=2e-4,
+                                   err_msg=f"grad {name}")
+
+
+def test_plain_backward_is_the_gradient_of_the_forward_float32():
+    """In float32 nothing is rounded, so the written-out backward equals
+    autograd of the plain forward."""
+    args, g = _setup(40, 24, 56, seed=3)
+    targs = [torch.tensor(a, dtype=torch.float64).requires_grad_() for a in args]
+    xn, res, w1, b1, w2, b2 = targs
+    u = xn @ w1 + b1
+    out = res + 0.5 * ((u * torch.sigmoid(u)) @ w2 + b2)
+    torch.sum(out * torch.tensor(g, dtype=torch.float64)).backward()
+    got = tf.ffn_backward_plain(*(torch.tensor(a) for a in (args[0], g, args[2], args[3], args[4])), 0.5)
+    for t, want in zip(got, (xn, w1, b1, w2, b2)):
+        np.testing.assert_allclose(t.numpy(), want.grad.numpy(), rtol=2e-4, atol=2e-5)

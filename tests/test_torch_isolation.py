@@ -84,6 +84,47 @@ def test_wrappers_raise_for_a_non_cpu_non_cuda_tensor():
     assert nr.steady_forward.launches == 0 and nr.steady_backward.launches == 0
 
 
+def test_attention_and_ffn_wrappers_raise_for_a_non_cpu_non_cuda_tensor():
+    """K7f, K7b, K10f and K10b likewise: no plain version for a tensor that
+    is not on the CPU, and the refusal comes before any build."""
+    from torchain_tpu_torch import kernels
+    from torchain_tpu_torch.ops import attention as at
+    from torchain_tpu_torch.ops import fused_ffn as ff
+
+    m = dict(device="meta")
+    qkv, bias = torch.empty(2, 5, 3 * 8, **m), torch.empty(2, 5, 5, **m)
+    with pytest.raises(ValueError, match="CUDA"):
+        at.attention_forward(qkv, bias, 2, 0.5)
+    with pytest.raises(ValueError, match="CUDA"):
+        at.attention_backward(qkv, bias, torch.empty(2, 5, 8, **m), 2, 0.5)
+    with pytest.raises(ValueError, match="CUDA"):
+        at.fused_relpos_attention(qkv, bias, 2, 0.5)
+    xn, w1, b1 = torch.empty(6, 8, **m), torch.empty(8, 16, **m), torch.empty(16, **m)
+    w2, b2 = torch.empty(16, 8, **m), torch.empty(8, **m)
+    with pytest.raises(ValueError, match="CUDA"):
+        ff.ffn_forward(xn, xn, w1, b1, w2, b2, 0.5)
+    with pytest.raises(ValueError, match="CUDA"):
+        ff.ffn_backward(xn, xn, w1, b1, w2, 0.5)
+    with pytest.raises(ValueError, match="CUDA"):
+        ff.ffn_apply(xn, xn, w1, b1, w2, b2)
+    assert at.attention_forward.launches == 0 and at.attention_backward.launches == 0
+    assert ff.ffn_forward.launches == 0 and ff.ffn_backward.launches == 0
+    assert "attention" not in kernels._libs and "fused_ffn" not in kernels._libs
+
+
+@pytest.mark.parametrize("name", ["attention", "fused_ffn"])
+def test_every_kernel_source_is_registered(name):
+    """kernels.build compiles what SIGNATURES names: each source under
+    csrc/ has an entry, and each entry point named there is in the source."""
+    from torchain_tpu_torch import kernels
+
+    assert {p.stem for p in kernels.CSRC.glob("*.cu")} == set(kernels.SIGNATURES)
+    text = (kernels.CSRC / f"{name}.cu").read_text()
+    for fn in kernels.SIGNATURES[name]:
+        assert f" {fn}(" in text, fn
+    assert "atomicAdd" not in text
+
+
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     """No silent fallback when the kernels cannot be built."""
     from torchain_tpu_torch import kernels

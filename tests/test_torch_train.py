@@ -1,5 +1,6 @@
-"""The slice as a whole: three chain training steps of a small TDNN-F on
-the same batch, with the JAX package's make_train_step (resident
+"""The training path as a whole: three chain training steps of a small
+TDNN-F, and of a small conformer, on the same batch, with the JAX package's
+make_train_step (resident
 denominator kernels in interpret mode; the numerator as XLA scan,
 TORCHAIN_NUM_RESIDENT=0, and as resident Pallas kernels in interpret mode,
 =force) and with the port's make_train_step, from the same parameters
@@ -17,7 +18,18 @@ sign differs into a step of the full learning rate the other way, 1e-3 per
 step.  Metrics rtol 2e-2 (6.6e-3 seen); parameters (float32 on both sides) atol 6e-3, the
 most three steps can part them (3.9e-3 seen), and at least 60% of their
 elements within 1e-4 (79% seen; the median difference is 4e-5); statistics
-atol 2e-3 (5.5e-4 seen)."""
+atol 2e-3 (5.5e-4 seen).
+
+The conformer (2 blocks, dim 32, 2 heads; attention kernels in interpret
+mode on the JAX side) is held to the same tolerances, with the dense and
+the fused feed-forward, but for two things that follow from the depthwise
+bias, which sits in front of a train-mode batchnorm and so has a true
+gradient of 0: it is left out like every element with a tiny step-1
+gradient, and the running means of those batchnorms, which follow it, get
+atol 1e-4; float32 parameters get atol 3e-5.  The bfloat16 case replaces
+`torch.sigmoid` by XLA's CPU form of a bfloat16 logistic (exp, add and
+divide each rounded), as tests/test_torch_conformer.py explains, and
+compiles the JAX step with `xla_allow_excess_precision` off."""
 
 import numpy as np
 import pytest
@@ -33,6 +45,8 @@ import torchain_tpu.data as jdata
 import torchain_tpu.graphs as jgraphs
 import torchain_tpu_torch.data as tdata
 import torchain_tpu_torch.graphs as tgraphs
+from torchain_tpu.models import Conformer as JConformer
+from torchain_tpu.models import ConformerConfig as JConformerCfg
 from torchain_tpu.models import TDNNF as JTDNNF
 from torchain_tpu.models import TdnnfConfig as JCfg
 from torchain_tpu.ops import ChainLossOptions as JOpts
@@ -41,13 +55,14 @@ from torchain_tpu.ops.device_graphs import DeviceSupervision as JSup
 from torchain_tpu.train import create_train_state as j_create
 from torchain_tpu.train import make_train_step as j_make_step
 from torchain_tpu_torch.convert import _flatten, params_from_jax
-from torchain_tpu_torch.models import TDNNF, TdnnfConfig
+from torchain_tpu_torch.models import TDNNF, Conformer, ConformerConfig, TdnnfConfig
 from torchain_tpu_torch.ops import ChainLossOptions, DeviceSupervision, auto_den_graph
 from torchain_tpu_torch.train import create_train_state, make_train_step
 
 CORPUS = dict(num_utts=6, num_phones=4, feat_dim=8, utt_frames_out=(7, 9), seed=2)
 SMALL = dict(hidden_dim=64, bottleneck_dim=16, prefinal_dim=32, num_layers=3)
 OPTS = dict(l2_regularize=5e-4, leaky_hmm_coefficient=0.1, xent_regularize=0.1)
+SMALL_CONFORMER = dict(dim=32, num_layers=2, num_heads=2, prefinal_dim=16)
 B, T_OUT, STEPS = 3, 6, 3
 
 
@@ -75,20 +90,38 @@ def test_three_train_steps_bf16_trunk_match_jax(monkeypatch, resident):
     _three_train_steps(monkeypatch, resident, bf16=True)
 
 
-def _three_train_steps(monkeypatch, resident, bf16=False):
+@pytest.mark.parametrize(
+    "ffn_impl,bf16", [("dense", False), ("fused", False), ("dense", True)],
+    ids=["dense-float32", "fused_ffn-float32", "dense-bfloat16"],
+)
+def test_three_train_steps_conformer_match_jax(monkeypatch, ffn_impl, bf16):
+    family = (JConformer, JConformerCfg, Conformer, ConformerConfig,
+              dict(ffn_impl=ffn_impl, **SMALL_CONFORMER))
+    if not bf16:
+        _three_train_steps(monkeypatch, "force", family=family, conformer=True)
+        return
+    monkeypatch.setattr(torch, "sigmoid", lambda x: 1.0 / (1.0 + torch.exp(-x)))
+    _three_train_steps(monkeypatch, "force", bf16=True, family=family, conformer=True)
+
+
+def _three_train_steps(monkeypatch, resident, bf16=False,
+                       family=(JTDNNF, JCfg, TDNNF, TdnnfConfig, SMALL), conformer=False):
+    JModel, JConfig, TModel, TConfig, small = family
     monkeypatch.setenv("TORCHAIN_NUM_RESIDENT", resident)
-    jc, _ = _batch(jdata, jgraphs, TdnnfConfig(num_pdfs=1, **SMALL))
+    jc, _ = _batch(jdata, jgraphs, TConfig(num_pdfs=1, **small))
     P = jc.tree.num_pdfs
-    jcfg = JCfg(num_pdfs=P, dtype=jnp.bfloat16 if bf16 else jnp.float32, **SMALL)
-    tcfg = TdnnfConfig(num_pdfs=P, dtype=torch.bfloat16 if bf16 else torch.float32, **SMALL)
+    jcfg = JConfig(num_pdfs=P, dtype=jnp.bfloat16 if bf16 else jnp.float32, **small)
+    tcfg = TConfig(num_pdfs=P, dtype=torch.bfloat16 if bf16 else torch.float32, **small)
     m_rtol, p_atol, s_atol = (2e-2, 6e-3, 2e-3) if bf16 else (1e-4, 1e-5, 1e-5)
+    if conformer and not bf16:
+        p_atol = 3e-5  # 1.1e-5 seen, on an element whose later gradients are small
     jc, jbatch = _batch(jdata, jgraphs, jcfg)
     tc, tbatch = _batch(tdata, tgraphs, tcfg)
     np.testing.assert_array_equal(jbatch.feats, tbatch.feats)
 
     # JAX side: the bench's construction (bench.py _build), small widths
     feats = jnp.asarray(jbatch.feats)
-    jstate = j_create(JTDNNF(jcfg), feats,
+    jstate = j_create(JModel(jcfg), feats,
                       optax.chain(optax.clip_by_global_norm(5.0), optax.adam(1e-3)),
                       rng=jax.random.PRNGKey(1))
     init_params = jax.tree.map(np.asarray, jstate.params)
@@ -96,9 +129,14 @@ def _three_train_steps(monkeypatch, resident, bf16=False):
     jden = JResident.from_host(jc.den_graph, pad_to=8, dtype=jnp.float32)
     jsup = JSup.from_host(jbatch.sup).with_kernel_tables()
     jstep = j_make_step(JOpts(**OPTS), donate=False)
+    if conformer and bf16:
+        # round where the program says: by default XLA keeps float32 values
+        # where it fuses two bfloat16 ops, which the eager port cannot mirror
+        jstep = jstep.lower(jstate, feats, jden, jsup).compile(
+            compiler_options={"xla_allow_excess_precision": False})
 
     # port, from the same parameters
-    model = TDNNF(tcfg, tc.feat_dim, device="cpu")
+    model = TModel(tcfg, tc.feat_dim, device="cpu")
     model.load_state_dict(params_from_jax(init_params, init_stats, tcfg))
     state = create_train_state(model, lr=1e-3)
     step = make_train_step(state, ChainLossOptions(**OPTS), max_grad_norm=5.0)
@@ -134,7 +172,13 @@ def _three_train_steps(monkeypatch, resident, bf16=False):
     assert close >= (0.6 if bf16 else 1.0) * total
     buffers = dict(model.named_buffers())
     for k, v in _flatten(jax.tree.map(np.asarray, jstate.batch_stats)).items():
-        np.testing.assert_allclose(buffers[k].numpy(), v, atol=s_atol, err_msg=k)
+        atol = s_atol
+        if conformer and k.endswith("BatchNorm_0.mean") and k.startswith("block"):
+            # the depthwise bias sits in front of this batchnorm: its true
+            # gradient is 0, Adam turns the rounding noise into steps of 1e-3
+            # either way, and the batch mean follows the bias (2.8e-5 seen)
+            atol = max(s_atol, 1e-4)
+        np.testing.assert_allclose(buffers[k].numpy(), v, atol=atol, err_msg=k)
 
 
 def test_clip_by_global_norm_matches_optax():

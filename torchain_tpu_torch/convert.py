@@ -1,12 +1,14 @@
-"""Carry parameters from the JAX package's flax TDNNF into this port.
+"""Carry parameters from the JAX package's flax models into this port.
 
 `params_from_jax(params, batch_stats, cfg)` flattens the flax `params` and
 `batch_stats` trees (nested dicts of numpy-convertible arrays, e.g.
 `tdnnf0/linear_pre/kernel [2, in, out]`, `input_proj/kernel [1, F, H]`,
-`chain_head/BatchNorm_0/scale`) onto the port's `state_dict` keys
-(`tdnnf0.linear_pre.kernel`, ...).  The port keeps flax's names and
-shapes, so the mapping is a renaming; every key and shape is checked
-against a model built from `cfg`.
+`block0/attn_qkv/kernel [D, 3D]`, `chain_head/BatchNorm_0/scale`) onto the
+port's `state_dict` keys (`tdnnf0.linear_pre.kernel`, ...).  The model
+family follows the config: a `TdnnfConfig` gives a `TDNNF`, a
+`ConformerConfig` a `Conformer`.  The port keeps flax's names and shapes,
+so the mapping is a renaming; every key and shape is checked against a
+model built from `cfg`.
 """
 
 from __future__ import annotations
@@ -14,7 +16,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from torchain_tpu_torch.models.conformer import Conformer, ConformerConfig
 from torchain_tpu_torch.models.tdnn import TDNNF, TdnnfConfig
+
+#: per config type: the model class and the input layer whose kernel
+#: [K, feat_dim, out] tells the feature dimension
+_FAMILIES = {
+    TdnnfConfig: (TDNNF, "input_proj.kernel"),
+    ConformerConfig: (Conformer, "frontend.kernel"),
+}
 
 
 def _flatten(tree, prefix=""):
@@ -28,12 +38,20 @@ def _flatten(tree, prefix=""):
     return out
 
 
-def params_from_jax(params, batch_stats, cfg: TdnnfConfig) -> dict[str, torch.Tensor]:
-    """A state_dict for `TDNNF(cfg, feat_dim)` holding the flax values.
-    Raises on a missing, extra or mis-shaped entry."""
+def params_from_jax(
+    params, batch_stats, cfg: TdnnfConfig | ConformerConfig
+) -> dict[str, torch.Tensor]:
+    """A state_dict for `TDNNF(cfg, feat_dim)` or `Conformer(cfg, feat_dim)`,
+    by the type of `cfg`, holding the flax values.  Raises on a missing,
+    extra or mis-shaped entry."""
+    if type(cfg) not in _FAMILIES:
+        raise TypeError(f"expected a TdnnfConfig or a ConformerConfig, got {type(cfg).__name__}")
+    model_cls, input_kernel = _FAMILIES[type(cfg)]
     flat = {**_flatten(params), **_flatten(batch_stats)}
-    feat_dim = np.shape(flat["input_proj.kernel"])[1]
-    ref = TDNNF(cfg, feat_dim, device="meta").state_dict()
+    if input_kernel not in flat:
+        raise ValueError(f"flax tree mismatch: missing ['{input_kernel}']")
+    feat_dim = np.shape(flat[input_kernel])[1]
+    ref = model_cls(cfg, feat_dim, device="meta").state_dict()
     missing = sorted(set(ref) - set(flat))
     extra = sorted(set(flat) - set(ref))
     if missing or extra:

@@ -29,7 +29,8 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlon
 
 #: C entry points per source: argument types (pointers and the stream as
 #: c_void_p, sizes as c_int, element strides as c_longlong, scalars as
-#: c_float); every one returns int
+#: c_float); every one returns int (a CUDA error code, or for the
+#: `*_shared_*` and `*_per_block` queries a size)
 SIGNATURES: dict[str, dict[str, list]] = {
     "den_resident": {
         # p, V, slot_pdf, init, sigma, ah, cpart, logc, T, B, P, S, K, leaky, stream
@@ -51,6 +52,26 @@ SIGNATURES: dict[str, dict[str, list]] = {
         # src, lpdf, logw, ysm, ysm strides (b, t), alphas, final_logw, log_p,
         # gsm, beta1, B, T-1, S, Kr, W, threads, stream
         "num_steady_backward": [_P] * 4 + [_L] * 2 + [_P] * 5 + [_I] * 6 + [_P],
+    },
+    "attention": {
+        # qkv, bias, out, B, T, H, dh, scale, is_bf16, stream
+        "attention_forward": [_P] * 3 + [_I] * 4 + [_F, _I, _P],
+        # qkv, bias, g, dqkv, dl scratch, dbias, B, T, H, dh, scale, is_bf16, stream
+        "attention_backward": [_P] * 6 + [_I] * 4 + [_F, _I, _P],
+        # T, dh, backward -> bytes of shared memory per block; the device's limit
+        "attention_shared_bytes": [_I] * 3,
+        "attention_shared_limit": [],
+    },
+    "fused_ffn": {
+        # xn, res, w1, b1, w2, b2, out, N, D, F, alpha, is_bf16, stream
+        "ffn_forward": [_P] * 7 + [_I] * 3 + [_F, _I, _P],
+        # xn, g, w1, b1, w1t, w2t, dx, hbuf, dhbuf, db1_part, db2_part,
+        # dw1, db1, dw2, db2, N, D, F, alpha, is_bf16, stream
+        "ffn_backward": [_P] * 15 + [_I] * 3 + [_F, _I, _P],
+        # rows per block; D, is_bf16, backward -> bytes per block; the limit
+        "ffn_rows_per_block": [],
+        "ffn_shared_bytes": [_I] * 3,
+        "ffn_shared_limit": [],
     },
 }
 

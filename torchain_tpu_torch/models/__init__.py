@@ -1,5 +1,13 @@
-"""models — the TDNN-F encoder with chain + xent heads."""
+"""models — the TDNN-F and conformer encoders with chain + xent heads."""
 
-from torchain_tpu_torch.models.tdnn import TDNNF, ChainBatchNorm, TdnnfConfig
+from torchain_tpu_torch.models.conformer import Conformer, ConformerConfig
+from torchain_tpu_torch.models.tdnn import TDNNF, ChainBatchNorm, TdnnfConfig, continuous_dropout
 
-__all__ = ["TDNNF", "ChainBatchNorm", "TdnnfConfig"]
+__all__ = [
+    "TDNNF",
+    "ChainBatchNorm",
+    "Conformer",
+    "ConformerConfig",
+    "TdnnfConfig",
+    "continuous_dropout",
+]

@@ -127,6 +127,23 @@ class Dense(nn.Module):
         return x.to(dt) @ self.kernel.to(dt) + self.bias.to(dt)
 
 
+def continuous_dropout(x, rate, train: bool, generator: torch.Generator | None = None,
+                       time_axis: int = 1):
+    """Kaldi's dropout-per-dim-continuous (the chain recipes' dropout):
+    multiply each channel by a value uniform in [1 - 2p, 1 + 2p], shared
+    across time within an utterance.  The expectation is exactly 1, so there
+    is no train/eval rescale.  Identity when not training, when `rate` is
+    None, or when no generator is given.  `time_axis` names the axis the
+    mask is shared over (1 for [B, T, C], 0 for the time-major [T, B, C]).
+    The mask is drawn on the generator's device."""
+    if not train or rate is None or generator is None:
+        return x
+    shape = list(x.shape)
+    shape[time_axis] = 1
+    u = torch.rand(shape, generator=generator, device=generator.device) * 2.0 - 1.0
+    return x * (1.0 + 2.0 * float(rate) * u.to(device=x.device, dtype=x.dtype))
+
+
 class Prefinal(nn.Module):
     """Kaldi's prefinal-chain / prefinal-xent block: linear bottleneck +
     relu + batchnorm + affine to pdfs.  Always emits float32 (the chain

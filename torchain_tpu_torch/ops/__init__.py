@@ -6,11 +6,17 @@
   num_resident.py   numerator steady-frame recursions: kernels K3, K4
   chain_loss.py     the objective, with a custom autograd.Function
   fused_bn.py       train-mode batchnorm with closed-form backward
+  fused_ln.py       LayerNorm with closed-form backward
+  attention.py      relative-position attention: kernels K7f, K7b
+  fused_ffn.py      conformer feed-forward half-step: kernels K10f, K10b
 """
 
+from torchain_tpu_torch.ops.attention import fused_relpos_attention, reference_relpos_attention
 from torchain_tpu_torch.ops.chain_loss import ChainLossOptions, ChainResults, chain_loss
 from torchain_tpu_torch.ops.den_resident import DeviceResidentDenGraph
 from torchain_tpu_torch.ops.device_graphs import DeviceSupervision, auto_den_graph
+from torchain_tpu_torch.ops.fused_ffn import ffn_apply
+from torchain_tpu_torch.ops.fused_ln import ln_apply
 
 __all__ = [
     "ChainLossOptions",
@@ -19,4 +25,8 @@ __all__ = [
     "DeviceSupervision",
     "auto_den_graph",
     "chain_loss",
+    "ffn_apply",
+    "fused_relpos_attention",
+    "ln_apply",
+    "reference_relpos_attention",
 ]
