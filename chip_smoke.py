@@ -6,27 +6,35 @@
 Phases, in order; any failure exits non-zero before the last line:
 
   1. print the card's name and power limit (nvidia-smi);
-  2. build every CUDA kernel from torchain_tpu_torch/csrc (five sources,
+  2. build every CUDA kernel from torchain_tpu_torch/csrc (eight sources,
      one nvcc each, in parallel) and print the build time and each kernel's
      register use;
-  3. hold each of the ten kernels against its plain PyTorch version on the
-     card and time both (CUDA events), beside the kernel's bound and, where
-     one exists, one PyTorch library call computing the same function: the
-     six chain-loss kernels at the shapes of both graphs (B=128, T_out=50;
-     the bench's trigram graph, P=80, and its production graph, a 4-gram
-     phone LM over a left-biphone tree, P=1680), the attention and
-     feed-forward kernels at the conformer's shapes (qkv [128, 50, 768], 4
-     heads; xn [6400, 256], F=1024) with bfloat16 and with float32 operands;
-  4. four paths, each a full-width model trained for a few steps with the
+  3. hold each of the fifteen kernels against its plain PyTorch version on
+     the card and time both (CUDA events), beside the kernel's bound and,
+     where one exists, one PyTorch library call computing the same function:
+     the six chain-loss kernels of the standard supervision at the shapes of
+     both graphs (B=128, T_out=50; the bench's trigram graph, P=80, and its
+     production graph, a 4-gram phone LM over a left-biphone tree, P=1680),
+     the flat-start numerator kernels at the e2e batches of both corpora,
+     the fused dense-denominator kernels at the trigram graph's Moore form
+     (also against the matrix-product recursion of ops/den_dense.py), the
+     attention and feed-forward kernels at the conformer's shapes (qkv
+     [128, 50, 768], 4 heads; xn [6400, 256], F=1024) with bfloat16 and with
+     float32 operands, and the shared-memory probe against the device's
+     opt-in limit;
+  4. six paths, each a full-width model trained for a few steps with the
      LF-MMI chain loss on one replayed batch through `make_train_step`:
      (a) TDNN-F (9 layers, hidden 768, bottleneck 96, prefinal 256) on the
      trigram graph with a float32 trunk, (b) the same on the production
      graph with a bfloat16 trunk, (c) the conformer (8 blocks x 256, 4
      heads, F=1024, conv kernel 15, bfloat16 trunk) on the trigram graph,
-     (d) the same with the fused feed-forward (`ffn_impl="fused"`).  Every
-     kernel launch counter is zeroed just before a path and read just
-     after, each kernel of that path must have moved, and the loss must
-     fall; (d)'s first loss must agree with (c)'s;
+     (d) the same with the fused feed-forward (`ffn_impl="fused"`), (e)
+     flat-start training: (a)'s model on whole-utterance e2e supervision
+     (`E2eChainDataset`), (f) (a) with the dense Moore denominator in its
+     fused form.  Every kernel launch counter is zeroed just before a path
+     and read just after, each kernel of that path must have moved and no
+     other, and the loss must fall; (d)'s first loss must agree with (c)'s
+     and (f)'s with (a)'s;
   5. a reference check on a small input for each path: the first-step loss
      and gradient norm on the card (kernels) against the CPU (plain
      versions);
@@ -108,16 +116,24 @@ def _check(name: str, what: str, got, want, atol: float, rtol: float) -> dict:
     return dict(what=what, max_abs_err=err, atol=atol, rtol=rtol)
 
 
-DEN_NUM = ("den_forward", "den_backward", "num_steady_forward", "num_steady_backward",
-           "vocab_gather", "vocab_scatter")
+DEN = ("den_forward", "den_backward")
+NUM = ("num_steady_forward", "num_steady_backward", "vocab_gather", "vocab_scatter")
+DEN_NUM = DEN + NUM
 ATTENTION = ("attention_forward", "attention_backward")
 FFN = ("ffn_forward", "ffn_backward")
+E2E = ("e2e_forward", "e2e_backward")
+DENSE = ("dense_den_forward", "dense_den_backward")
+PROBE = ("probe_smem",)
 
 #: the paths: the two configurations of bench.py (its main one, `_build` on
 #: the trigram corpus of `main`, and `production_config`) with the TDNN-F,
 #: and the conformer that tools/ab_conformer5.py and tools/bench_matrix.py
-#: measure on the trigram corpus, with both feed-forward lowerings.
-#: `kernels` are those a path must launch
+#: measure on the trigram corpus, with both feed-forward lowerings; then the
+#: TDNN-F on the trigram corpus with flat-start supervision
+#: (`python -m torchain_tpu.cli.train --e2e`) and with the dense Moore
+#: denominator in its fused form (the JAX package's TORCHAIN_USE_PALLAS=1).
+#: `kernels` are those a path must launch; `sup` and `den` name the
+#: supervision and the denominator form where they are not the standard ones
 PATHS = {
     "trigram": dict(corpus=dict(lm_order=3, lm_extra_states=1000), dtype="float32",
                     model="tdnnf", kernels=DEN_NUM),
@@ -128,6 +144,10 @@ PATHS = {
     "conformer_ffn": dict(corpus=dict(lm_order=3, lm_extra_states=1000), dtype="bfloat16",
                           model="conformer", ffn_impl="fused",
                           kernels=DEN_NUM + ATTENTION + FFN),
+    "e2e": dict(corpus=dict(lm_order=3, lm_extra_states=1000), dtype="float32",
+                model="tdnnf", sup="e2e", kernels=DEN + E2E),
+    "dense": dict(corpus=dict(lm_order=3, lm_extra_states=1000), dtype="float32",
+                  model="tdnnf", den="dense_fused", kernels=DENSE + NUM),
 }
 
 #: the conformer of the conformer paths
@@ -152,11 +172,11 @@ def _corpus(seed: int, options: tuple):
 
 def build_path(name: str, seed: int):
     """One configuration: the path's corpus, the full-width model config in
-    the path's trunk dtype, and a ChainDataset of chunks of T_out=50."""
+    the path's trunk dtype, and a dataset of T_out=50: a ChainDataset of
+    chunks or, for flat-start supervision, an E2eChainDataset of whole
+    utterances trimmed to that length."""
     import torch
 
-    from torchain_tpu_torch.data import ChainDataset
-    from torchain_tpu_torch.graphs import SupervisionOptions
     from torchain_tpu_torch.models import ConformerConfig, TdnnfConfig
 
     path = PATHS[name]
@@ -174,17 +194,40 @@ def build_path(name: str, seed: int):
             num_layers=LAYERS,
             dtype=dtype,
         )
+    return corpus, cfg, make_dataset(corpus, cfg, path.get("sup") == "e2e")
+
+
+def make_dataset(corpus, cfg, e2e: bool):
+    """Batches of T_out=50 with the model's acoustic context."""
+    from torchain_tpu_torch.data import ChainDataset, E2eChainDataset
+    from torchain_tpu_torch.graphs import SupervisionOptions
+
     left, right = cfg.context
-    dataset = ChainDataset(
-        corpus.utts,
-        corpus.tree,
-        corpus.norm_fst,
-        chunk_frames_out=T_OUT,
-        left_context=left,
-        right_context=right,
-        sup_opts=SupervisionOptions(left_tolerance=2, right_tolerance=2),
+    common = dict(chunk_frames_out=T_OUT, left_context=left, right_context=right)
+    if e2e:
+        return E2eChainDataset(corpus.utts, corpus.tree, corpus.norm_fst, **common)
+    return ChainDataset(
+        corpus.utts, corpus.tree, corpus.norm_fst,
+        sup_opts=SupervisionOptions(left_tolerance=2, right_tolerance=2), **common,
     )
-    return corpus, cfg, dataset
+
+
+def place(path: str, corpus, batch, device):
+    """The path's denominator graph and the batch's supervision on `device`,
+    each in the form the path names."""
+    from torchain_tpu_torch.ops import (
+        DeviceDenseDenGraph,
+        DeviceE2eSupervision,
+        DeviceSupervision,
+        auto_den_graph,
+    )
+
+    if PATHS[path].get("den") == "dense_fused":
+        den = DeviceDenseDenGraph.from_host(corpus.dense_den, device=device, fused=True)
+    else:
+        den = auto_den_graph(corpus.den_graph, device=device)
+    cls = DeviceE2eSupervision if PATHS[path].get("sup") == "e2e" else DeviceSupervision
+    return den, cls.from_host(batch.sup, device=device).with_kernel_tables()
 
 
 def make_model(cfg, feat_dim: int, device, seed: int):
@@ -509,34 +552,279 @@ def check_conformer_kernels(seed: int, dtype_name: str) -> dict[str, dict]:
     return measured
 
 
-#: the ten kernels: (wrapper module, wrapper, source, the TPU kernel replaced)
+def check_e2e_kernels(sup, seed: int, label: str) -> dict[str, dict]:
+    """Phase 3, flat-start numerator: K8f and K8b against their plain
+    versions on one e2e batch's own tables, with the per-arc emissions of a
+    seeded y, with times.  Returns the measurements by kernel name; raises
+    on disagreement."""
+    import numpy as np
+    import torch
+
+    from torchain_tpu_torch.ops import num_e2e as ne
+    from torchain_tpu_torch.ops import num_resident as nr
+
+    dev = sup.in_src.device
+    Bs, S, K = sup.in_src.shape
+    T, P = T_OUT, sup.num_pdfs
+    rng = np.random.default_rng(seed)
+    y = torch.as_tensor(rng.normal(size=(Bs, T, P)).astype(np.float32), device=dev)
+    ylocal = ne._arc_emissions(y, sup)
+    src, logw, pre = sup.in_src, sup.in_logw, sup.kernel_pre
+    live = int((src >= 0).sum())
+    measured = {}
+    rest_k = nr.e2e_forward_resident(ylocal, src, logw, pre=pre)
+    torch.cuda.synchronize()
+    rest_p = nr.e2e_forward_plain(ylocal, src, logw)
+    # f32 log-sum-exps of a few terms per state in another order, carried
+    # over 50 frames; -inf (unreachable states) in the same places.  The
+    # bound is bytes, each once, and of ylocal the live slots only (pad slots
+    # hold nothing the function needs); operations count live arcs.  The 50
+    # dependent frames set a latency floor it does not see
+    table_bytes = 8.0 * Bs * S * K + 4.0 * Bs * S  # int32 src, f32 logw, int32 nk
+    _record(
+        measured, "e2e_forward", label,
+        [_check(f"e2e_forward [{label}]", "alphas", rest_k, rest_p, 1e-5, 1e-5)],
+        _time_ms(lambda: nr.e2e_forward_resident(ylocal, src, logw, pre=pre), 20),
+        _time_ms(lambda: nr.e2e_forward_plain(ylocal, src, logw), 3),
+        4.0 * T * live + 2.0 * Bs * T * S,
+        4.0 * T * live + table_bytes + 4.0 * T * Bs * S,
+        None,
+    )
+    # sequence 1 made impossible (no final state, so log p = -inf) and
+    # sequence 2 given a NaN log p: exact zeros for both
+    final = sup.final_logw.clone()
+    final[1] = -math.inf
+    log_p = torch.logsumexp(rest_p[-1] + final, dim=-1)
+    if not (torch.isneginf(log_p[1]) and int(torch.isfinite(log_p).sum()) == Bs - 1):
+        raise AssertionError(f"e2e_backward [{label}]: expected one impossible sequence")
+    log_p[2] = math.nan
+    a0 = torch.full((1, Bs, S), -math.inf, device=dev)
+    a0[:, :, 0] = 0.0
+    alphas = torch.cat([a0, rest_p[:-1]])
+    args = (ylocal, alphas, src, logw, final, log_p)
+    post_k = nr.e2e_backward_resident(*args, pre=pre)
+    torch.cuda.synchronize()
+    post_p = nr.e2e_backward_plain(*args)
+    if not bool((post_k[1:3] == 0).all()):
+        raise AssertionError(f"e2e_backward [{label}]: a sequence without a finite log p"
+                             " has posteriors")
+    if not bool(torch.equal(post_k, nr.e2e_backward_resident(*args, pre=pre))):
+        raise AssertionError(f"e2e_backward [{label}]: two launches differ")
+    # posteriors are probabilities: exp of a float32 sum of magnitude ~100,
+    # whose last bit (8e-6) becomes that relative error; the betas inside
+    # differ by the order of their log-sum-exps.  Bytes: ylocal's live
+    # slots read, post written in full (its pad slots are zeros the contract
+    # asks for)
+    by_bytes = 4.0 * (Bs * (S + 1) + pre[4].numel())
+    _record(
+        measured, "e2e_backward", label,
+        [_check(f"e2e_backward [{label}]", "post", post_k, post_p, 1e-5, 1e-4)],
+        _time_ms(lambda: nr.e2e_backward_resident(*args, pre=pre), 20),
+        _time_ms(lambda: nr.e2e_backward_plain(*args), 3),
+        8.0 * T * live + 2.0 * Bs * T * S,
+        4.0 * T * live + 4.0 * Bs * T * S * K + 8.0 * Bs * S * K + by_bytes
+        + 4.0 * (T * Bs * S + Bs * S + Bs),
+        None,
+    )
+    return measured
+
+
+def dense_forward_library(pe, den, leaky: float):
+    """K9f's function (pe in, logc and sigma_hats out) as the frame loop of
+    ops/den_dense.py runs it: cuBLAS products with V and the one-hot E_mat."""
+    import torch
+
+    from torchain_tpu_torch.ops.den_dense import leak
+
+    T, Bs, _ = pe.shape
+    sigma = den.init_orig.expand(Bs, den.num_orig)
+    logc = pe.new_empty((T, Bs))
+    sig = pe.new_empty((T, Bs, den.num_orig))
+    for t in range(T):
+        sig[t] = sigma
+        alpha = (leak(sigma, den.init_orig, leaky) @ den.V) * pe[t]
+        c = alpha.sum(-1, keepdim=True)
+        logc[t] = torch.log(c[:, 0])
+        sigma = (alpha / c) @ den.E_mat
+    return logc, sig
+
+
+def dense_backward_library(pe, den, sig, fscale, ymax_t, leaky: float):
+    """K9b's function (gout out) as the frame loop of ops/den_dense.py runs
+    it: cuBLAS products with V^T and E_mat^T."""
+    import torch
+
+    from torchain_tpu_torch.ops.den_dense import leak, leak_t
+
+    T, Bs, E = pe.shape
+    init = den.init_orig
+    bh = pe.new_ones((Bs, E))
+    G = pe.new_full((Bs, 1), math.log1p(leaky) if leaky > 0.0 else 0.0)
+    gout = pe.new_empty((T, Bs, E))
+    for t in range(T - 1, -1, -1):
+        ah = pe[t] * (leak(sig[t], init, leaky) @ den.V)
+        gout[t] = ah * bh * torch.exp(fscale[t][:, None] + G)
+        nb = leak_t((pe[t] * bh) @ den.V.T, init, leaky) @ den.E_mat.T
+        d = nb.max(-1, keepdim=True).values
+        d = torch.where(d > 0, d, torch.ones_like(d))
+        bh = nb / d
+        G = G + ymax_t[t][:, None] + torch.log(d)
+    return gout
+
+
+def check_dense_kernels(den, y, label: str) -> dict[str, dict]:
+    """Phase 3, dense Moore denominator: K9f and K9b against their plain
+    versions at one graph, with the pe of `y` [B, T, P] (the path's own
+    network output on its batch), and the whole fused recursion
+    (ops/den_pallas.py) against the matrix-product recursion of
+    ops/den_dense.py.  The library form they are timed against is that
+    recursion's frame loop under the kernels' own contract (pe in; gout
+    out), which it must match too.  Returns the measurements by kernel name;
+    raises on disagreement."""
+    import torch
+
+    from torchain_tpu_torch.ops import den_dense as dd
+    from torchain_tpu_torch.ops import den_pallas as dp
+
+    S, E, T = den.num_orig, den.num_exp, y.shape[1]
+    leaky = 0.1
+    measured = {}
+    log_z, res = dp.den_forward(y, den, leaky)  # K9f
+    gamma = dp.den_backward(den, res, leaky)  # K9b
+    torch.cuda.synchronize()
+    pe, sig_k, logc_k = res["pe"], res["sigma_hats"], res["logc"]
+    logc_p, sig_p = dp.dense_forward_plain(pe, den, leaky)
+    logc_l, sig_l = dense_forward_library(pe, den, leaky)
+    log_z_d, res_d = dd.den_forward(y, den, leaky)
+    gamma_d = dd.den_backward(den, res_d, leaky)
+    nnz = int(torch.count_nonzero(den.V))
+    # f32 sums of S = 2176 products in another order, carried over 50 frames
+    # through the per-frame renormalisation: log c is O(1), sigma_hats sums
+    # to 1 over a frame's states (held relative to its size).  log Z, the
+    # sum of 50 log c and 50 ymax, is of order 100
+    checks = [
+        _check(f"dense_den_forward [{label}]", "logc", logc_k, logc_p, 1e-5, 0.0),
+        _check(f"dense_den_forward [{label}]", "sigma_hats", sig_k, sig_p, 1e-6, 1e-4),
+        _check(f"dense_den_forward [{label}]", "log_z vs den_dense", log_z, log_z_d, 1e-4, 1e-5),
+        _check(f"dense_den_forward [{label}]", "logc vs library", logc_k, logc_l, 1e-5, 0.0),
+        _check(f"dense_den_forward [{label}]", "sigma_hats vs library", sig_k, sig_l, 1e-6, 1e-4),
+    ]
+    _record(
+        measured, "dense_den_forward", label, checks,
+        _time_ms(lambda: dp.dense_forward_kernel(pe, den, leaky), 5),
+        _time_ms(lambda: dp.dense_forward_plain(pe, den, leaky), 5),
+        2.0 * T * B * nnz,
+        4.0 * (T * B * E + S * E + 2 * S + 1 + den.real_exp + T * B + T * B * S),
+        _time_ms(lambda: dense_forward_library(pe, den, leaky), 5),
+    )
+    ymax_t = res["ymax"].T.contiguous()
+    F = torch.cumsum(logc_p + ymax_t, 0)
+    fscale = torch.cat([F.new_zeros((1, B)), F[:-1]]) + ymax_t - res["log_z"]
+    args = (pe, den, sig_p, fscale, ymax_t, leaky)
+    gout_k = dp.dense_backward_kernel(*args)
+    torch.cuda.synchronize()
+    gout_p = dp.dense_backward_plain(*args)
+    gout_l = dense_backward_library(*args)
+    # the occupancies of a frame sum to 1 over the expanded states (and
+    # gamma over the pdfs): entries held relative to their size.  exp(fscale
+    # + G) is O(1) only because G follows the per-frame renormalisation
+    rowsum = gout_k.sum(-1)
+    checks = [
+        _check(f"dense_den_backward [{label}]", "gout", gout_k, gout_p, 1e-6, 1e-4),
+        _check(f"dense_den_backward [{label}]", "frame sums", rowsum,
+               torch.ones_like(rowsum), 1e-4, 0.0),
+        _check(f"dense_den_backward [{label}]", "gamma vs den_dense", gamma, gamma_d, 1e-5, 1e-4),
+        _check(f"dense_den_backward [{label}]", "gout vs library", gout_k, gout_l, 1e-6, 1e-4),
+    ]
+    if not bool((gout_k[..., den.real_exp:] == 0).all()):
+        raise AssertionError("dense_den_backward: occupancy on a padded expanded state")
+    if not bool(torch.equal(gout_k, dp.dense_backward_kernel(*args))):
+        raise AssertionError("dense_den_backward: two launches differ")
+    _record(
+        measured, "dense_den_backward", label, checks,
+        _time_ms(lambda: dp.dense_backward_kernel(*args), 5),
+        _time_ms(lambda: dp.dense_backward_plain(*args), 5),
+        2.0 * (2 * T - 1) * B * nnz + 6.0 * T * B * E,
+        4.0 * (T * B * E + S * E + S + E + T * B * S + 2 * T * B + T * B * E),
+        _time_ms(lambda: dense_backward_library(*args), 5),
+    )
+    return measured
+
+
+def check_probe() -> tuple[dict[str, dict], int]:
+    """Phase 3, T1: the largest shared memory a block gets, found by the
+    probe, against the device's opt-in limit.  Returns (the measurements by
+    kernel name, the number of launches the phase made)."""
+    import torch
+
+    from torchain_tpu_torch import kernels
+    from torchain_tpu_torch.tools import probe_smem as ps
+
+    limit = kernels.library("probe_smem").probe_smem_limit()
+    ps.try_size.launches = 0
+    # every default size below the limit, the limit itself and 1 KiB beyond
+    sizes = sorted({k for k in ps.DEFAULT_SIZES_KIB if k * 1024 < limit}
+                   | {limit // 1024, limit // 1024 + 1})
+    best = ps.largest(sizes, log=lambda line: _log("probe_smem: " + line))
+    launches = ps.try_size.launches
+    _log(f"probe_smem: largest {best} KiB; the device's opt-in limit is {limit} bytes")
+    if best != limit // 1024:
+        raise AssertionError(f"probe_smem: largest {best} KiB, the limit is {limit} bytes")
+    x = torch.arange(1, ps.LANES + 1, dtype=torch.float32, device="cuda")
+    measured = {}
+    _record(
+        measured, "probe_smem", f"{best} KiB",
+        [_check("probe_smem", "2x + 3x", ps.try_size(x, best), ps.try_size_plain(x), 0.0, 0.0)],
+        _time_ms(lambda: ps.try_size(x, best), 50),
+        _time_ms(lambda: ps.try_size_plain(x), 50),
+        3.0 * ps.LANES, 8.0 * ps.LANES, None,
+        largest_kib=float(best), limit_bytes=float(limit),
+    )
+    return measured, launches
+
+
+#: the fifteen kernels: (wrapper module, wrapper, source, the TPU kernel replaced)
 KERNELS = {
-    "den_forward": ("den_resident", "den_forward_kernel",
+    "den_forward": ("ops.den_resident", "den_forward_kernel",
                     "torchain_tpu_torch/csrc/den_resident.cu",
                     "torchain_tpu/ops/den_resident.py:565"),
-    "den_backward": ("den_resident", "den_backward_kernel",
+    "den_backward": ("ops.den_resident", "den_backward_kernel",
                      "torchain_tpu_torch/csrc/den_resident.cu",
                      "torchain_tpu/ops/den_resident.py:615"),
-    "num_steady_forward": ("num_resident", "steady_forward",
+    "num_steady_forward": ("ops.num_resident", "steady_forward",
                            "torchain_tpu_torch/csrc/num_resident.cu",
                            "torchain_tpu/ops/num_resident.py:158"),
-    "num_steady_backward": ("num_resident", "steady_backward",
+    "num_steady_backward": ("ops.num_resident", "steady_backward",
                             "torchain_tpu_torch/csrc/num_resident.cu",
                             "torchain_tpu/ops/num_resident.py:207"),
-    "vocab_gather": ("num_scan", "vocab_gather", "torchain_tpu_torch/csrc/num_vocab.cu",
+    "vocab_gather": ("ops.num_scan", "vocab_gather", "torchain_tpu_torch/csrc/num_vocab.cu",
                      "torchain_tpu/ops/num_scan.py:140"),
-    "vocab_scatter": ("num_scan", "vocab_scatter", "torchain_tpu_torch/csrc/num_vocab.cu",
+    "vocab_scatter": ("ops.num_scan", "vocab_scatter", "torchain_tpu_torch/csrc/num_vocab.cu",
                       "torchain_tpu/ops/num_scan.py:179"),
-    "attention_forward": ("attention", "attention_forward",
+    "attention_forward": ("ops.attention", "attention_forward",
                           "torchain_tpu_torch/csrc/attention.cu",
                           "torchain_tpu/ops/attention.py:219"),
-    "attention_backward": ("attention", "attention_backward",
+    "attention_backward": ("ops.attention", "attention_backward",
                            "torchain_tpu_torch/csrc/attention.cu",
                            "torchain_tpu/ops/attention.py:258"),
-    "ffn_forward": ("fused_ffn", "ffn_forward", "torchain_tpu_torch/csrc/fused_ffn.cu",
+    "ffn_forward": ("ops.fused_ffn", "ffn_forward", "torchain_tpu_torch/csrc/fused_ffn.cu",
                     "torchain_tpu/ops/fused_ffn.py:200"),
-    "ffn_backward": ("fused_ffn", "ffn_backward", "torchain_tpu_torch/csrc/fused_ffn.cu",
+    "ffn_backward": ("ops.fused_ffn", "ffn_backward", "torchain_tpu_torch/csrc/fused_ffn.cu",
                      "torchain_tpu/ops/fused_ffn.py:239"),
+    "e2e_forward": ("ops.num_resident", "e2e_forward_resident",
+                    "torchain_tpu_torch/csrc/num_e2e.cu",
+                    "torchain_tpu/ops/num_resident.py:319"),
+    "e2e_backward": ("ops.num_resident", "e2e_backward_resident",
+                     "torchain_tpu_torch/csrc/num_e2e.cu",
+                     "torchain_tpu/ops/num_resident.py:356"),
+    "dense_den_forward": ("ops.den_pallas", "dense_forward_kernel",
+                          "torchain_tpu_torch/csrc/den_dense.cu",
+                          "torchain_tpu/ops/den_pallas.py:118"),
+    "dense_den_backward": ("ops.den_pallas", "dense_backward_kernel",
+                           "torchain_tpu_torch/csrc/den_dense.cu",
+                           "torchain_tpu/ops/den_pallas.py:160"),
+    "probe_smem": ("tools.probe_smem", "try_size", "torchain_tpu_torch/csrc/probe_smem.cu",
+                   "tools/probe_vmem.py:27"),
 }
 
 
@@ -545,7 +833,7 @@ def counters():
     import importlib
 
     return {
-        name: getattr(importlib.import_module(f"torchain_tpu_torch.ops.{mod}"), fn)
+        name: getattr(importlib.import_module(f"torchain_tpu_torch.{mod}"), fn)
         for name, (mod, fn, _, _) in KERNELS.items()
     }
 
@@ -613,7 +901,8 @@ def profile_steps(step, feats, den, sup, n: int, out_path: pathlib.Path | None) 
             "steady_fwd_kernel", "steady_bwd_kernel",
             "attn_fwd_kernel", "attn_bwd_kernel", "dbias_reduce_kernel",
             "ffn_fwd_kernel", "ffn_bwd_rows_kernel", "ffn_bwd_weights_kernel",
-            "sum_parts_kernel")
+            "sum_parts_kernel", "e2e_fwd_kernel", "e2e_bwd_kernel", "dense_fwd_",
+            "dense_bwd_")
     is_ours = [any(k in e.key for k in ours) for e in kern]
     # cuBLAS names its Hopper bf16 kernels "nvjet_..."
     is_gemm = [not o and any(k in e.key.lower() for k in ("gemm", "sm90", "nvjet"))
@@ -647,7 +936,7 @@ def reference_check(cfg, feat_dim, dataset, corpus, seed: int, path: str) -> dic
     and on the CPU (plain versions), from the same weights."""
     import torch
 
-    from torchain_tpu_torch.ops import ChainLossOptions, DeviceSupervision, auto_den_graph, chain_loss
+    from torchain_tpu_torch.ops import ChainLossOptions, chain_loss
 
     small = next(dataset.batches(8, shuffle=False))
     opts = ChainLossOptions(l2_regularize=5e-4, leaky_hmm_coefficient=0.1,
@@ -657,8 +946,7 @@ def reference_check(cfg, feat_dim, dataset, corpus, seed: int, path: str) -> dic
     out = dict(rtol=rtol)
     for dev in ("cuda", "cpu"):
         m = copy.deepcopy(model).to(dev)
-        den = auto_den_graph(corpus.den_graph, device=dev)
-        sup = DeviceSupervision.from_host(small.sup, device=dev)
+        den, sup = place(path, corpus, small, dev)
         chain, xent = m(torch.as_tensor(small.feats, device=dev), train=True)
         loss, aux = chain_loss(chain, xent, den, sup, opts)
         loss.backward()
@@ -673,34 +961,75 @@ def reference_check(cfg, feat_dim, dataset, corpus, seed: int, path: str) -> dic
     return out
 
 
-def run_path(path: str, args, result: dict, check_den_num: bool):
-    """Phases 3 to 5 for one path; phase 3 (K1-K6 at this path's graph) only
-    with `check_den_num`.  Returns (those measurements by kernel name or
-    None, the path's launch counts by kernel name) and fills result[path]
+def _sizes(den, sup) -> dict:
+    """What a path's graph and batch measure, by their forms."""
+    import torch
+
+    from torchain_tpu_torch.ops import DeviceDenseDenGraph, DeviceE2eSupervision
+
+    if isinstance(den, DeviceDenseDenGraph):
+        sizes = dict(den_form="dense_fused" if den.fused else "dense", den_states=den.num_orig,
+                     den_expanded=den.real_exp, den_expanded_padded=den.num_exp)
+    else:
+        sizes = dict(den_form="resident", den_states=den.real_states,
+                     den_states_padded=den.num_states, den_slots=den.num_slots)
+    sizes.update(pdfs=den.num_pdfs, v_bytes=den.V.numel() * 4,
+                 v_nonzero=int(torch.count_nonzero(den.V)),
+                 num_states=sup.max_states, num_arcs_full=sup.max_arcs)
+    if isinstance(sup, DeviceE2eSupervision):
+        used = (sup.in_src >= 0).any(-1).sum(-1)
+        sizes.update(sup_form="e2e", arcs_live=int((sup.in_src >= 0).sum()),
+                     arc_slots=sup.in_src.numel(), vocab_width=sup.vocab.shape[-1],
+                     states_used_min=int(used.min()), states_used_max=int(used.max()))
+    else:
+        sizes.update(sup_form="chunks", num_arcs_steady=sup.in_src_r.shape[-1],
+                     vocab_width=sup.frame_vocab.shape[-1],
+                     steady_arcs_live=int((sup.in_src_r >= 0).sum()),
+                     steady_slots=sup.in_src_r.numel())
+    return sizes
+
+
+def run_path(path: str, args, result: dict, checks: tuple = ()):
+    """Phases 3 to 5 for one path.  Phase 3 holds the kernel groups named in
+    `checks` against their plain versions at this path's corpus: "den_num"
+    (K1-K6 on the path's graph and batch), "e2e" (K8f/K8b on the corpus's
+    flat-start batch, the path's own where it trains on one), "dense"
+    (K9f/K9b on the path's graph).  Returns (those measurements by kernel
+    name, the path's launch counts by kernel name) and fills result[path]
     with the path's numbers."""
     import numpy as np
     import torch
 
-    from torchain_tpu_torch.ops import DeviceSupervision, auto_den_graph
+    from torchain_tpu_torch.ops import DeviceE2eSupervision
 
     t0 = time.perf_counter()
     corpus, cfg, dataset = build_path(path, args.seed)
     batch = next(dataset.batches(B, shuffle=False))
-    den = auto_den_graph(corpus.den_graph, device="cuda")
-    sup = DeviceSupervision.from_host(batch.sup, device="cuda").with_kernel_tables()
+    den, sup = place(path, corpus, batch, "cuda")
     feats = torch.as_tensor(batch.feats, device="cuda")
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    sizes = dict(
-        den_states=den.real_states, den_states_padded=den.num_states, den_slots=den.num_slots,
-        pdfs=den.num_pdfs, v_bytes=den.V.numel() * 4, v_nonzero=int(torch.count_nonzero(den.V)),
-        num_states=sup.max_states, num_arcs_full=sup.max_arcs,
-        num_arcs_steady=sup.in_src_r.shape[-1], vocab_width=sup.frame_vocab.shape[-1],
-        steady_arcs_live=int((sup.in_src_r >= 0).sum()), steady_slots=sup.in_src_r.numel(),
-    )
+    sizes = _sizes(den, sup)
     _log(f"path {path}: set-up {setup_s:.1f} s; feats {tuple(feats.shape)}"
          f" trunk {PATHS[path]['dtype']}; " + json.dumps(sizes))
-    measured = check_kernels(den, sup, args.seed, path) if check_den_num else None
+    measured = {}
+    if "den_num" in checks:
+        measured.update(check_kernels(den, sup, args.seed, path))
+    if "e2e" in checks:
+        e2e_sup = sup
+        if not isinstance(sup, DeviceE2eSupervision):
+            e2e_batch = next(make_dataset(corpus, cfg, e2e=True).batches(B, shuffle=False))
+            e2e_sup = DeviceE2eSupervision.from_host(e2e_batch.sup, device="cuda")
+            e2e_sup = e2e_sup.with_kernel_tables()
+            _log(f"e2e batch of the {path} corpus: tables {tuple(e2e_sup.in_src.shape)},"
+                 f" {int((e2e_sup.in_src >= 0).sum())} live arcs")
+        measured.update(check_e2e_kernels(e2e_sup, args.seed, path))
+    if "dense" in checks:
+        # the network output of the path's first step: its model, its batch
+        with torch.no_grad():
+            y, _ = make_model(cfg, corpus.feat_dim, "cuda", args.seed)(feats, train=True)
+        measured.update(check_dense_kernels(den, y.float(), path))
+        del y
     out = result[path] = dict(setup_s=setup_s, sizes=sizes)
     if args.kernels_only:
         return measured, {}
@@ -799,39 +1128,56 @@ def main(argv=None) -> int:
     for name in kernels.SIGNATURES:
         kernels.library(name)
 
-    # phases 3 to 5, path by path
+    # phases 3 to 5, path by path.  `numbers` gathers one record per kernel:
+    # K1-K6 and K8 the trigram corpus's numbers at the top level and the
+    # production corpus's under "production"; K9 the trigram graph's (the
+    # production graph has no dense form: its V would exceed what
+    # `synthetic_dataset` builds); K7, K10 bfloat16 operands (the conformer
+    # paths' trunk) at the top level and float32 under "float32"
     result = dict(device=torch.cuda.get_device_name(0), nvidia_smi=smi, build_s=build_s)
-    launches = {}
-    trigram, launches["trigram"] = run_path("trigram", args, result, True)
-    production, launches["production"] = run_path("production", args, result, True)
+    launches, numbers = {}, {}
+    measured, launches["trigram"] = run_path("trigram", args, result, ("den_num",))
+    numbers.update(measured)
+    measured, launches["production"] = run_path("production", args, result, ("den_num", "e2e"))
+    second = measured
     conformer = {dt: check_conformer_kernels(args.seed, dt) for dt in ("bfloat16", "float32")}
-    _, launches["conformer"] = run_path("conformer", args, result, False)
-    _, launches["conformer_ffn"] = run_path("conformer_ffn", args, result, False)
+    numbers.update({k: dict(**v, float32=conformer["float32"][k])
+                    for k, v in conformer["bfloat16"].items()})
+    _, launches["conformer"] = run_path("conformer", args, result)
+    _, launches["conformer_ffn"] = run_path("conformer_ffn", args, result)
+    measured, launches["e2e"] = run_path("e2e", args, result, ("e2e",))
+    numbers.update(measured)
+    measured, launches["dense"] = run_path("dense", args, result, ("dense",))
+    numbers.update(measured)
+    for name, m in second.items():
+        numbers[name] = dict(**numbers[name], production=m)
+    measured, probe_launches = check_probe()
+    numbers.update(measured)
+    launches["probe"] = {k: (probe_launches if k in PROBE else 0) for k in KERNELS}
     if not args.kernels_only:
-        # the two feed-forward lowerings start from the same weights and batch
-        a = result["conformer"]["losses"][0]["loss"]
-        b = result["conformer_ffn"]["losses"][0]["loss"]
-        rel = abs(a - b) / abs(a)
-        _log(f"first loss, conformer {a:.6g} vs conformer_ffn {b:.6g}: rel {rel:.3g}"
-             f" (gate {REFERENCE_RTOL['bfloat16']:g})")
-        result["conformer_ffn"]["first_loss_rel_to_dense"] = rel
-        if not rel <= REFERENCE_RTOL["bfloat16"]:
-            raise AssertionError("the fused feed-forward's first loss departs from the dense one's")
-    # one record per kernel.  K1-K6: the trigram graph's numbers at the top
-    # level, the production graph's under "production".  K7, K10: bfloat16
-    # operands (the conformer paths' trunk) at the top level, float32 under
-    # "float32".  `launches` is the count of the first path that must run
-    # the kernel; every path's count is under "launches_by_path"
+        # pairs of paths that start from the same weights and batch: the two
+        # feed-forward lowerings, and two independent denominators
+        for a_path, b_path, what in (("conformer", "conformer_ffn", "first_loss_rel_to_dense"),
+                                     ("trigram", "dense", "first_loss_rel_to_resident")):
+            gate = REFERENCE_RTOL[PATHS[b_path]["dtype"]]
+            a = result[a_path]["losses"][0]["loss"]
+            b = result[b_path]["losses"][0]["loss"]
+            rel = abs(a - b) / abs(a)
+            _log(f"first loss, {a_path} {a:.6g} vs {b_path} {b:.6g}: rel {rel:.3g}"
+                 f" (gate {gate:g})")
+            result[b_path][what] = rel
+            if not rel <= gate:
+                raise AssertionError(f"the first loss of {b_path} departs from {a_path}'s")
+    # `launches` is the count of the first path that must run the kernel (the
+    # probe's: its own phase); every path's count is under "launches_by_path"
+    must = {**{p: PATHS[p]["kernels"] for p in PATHS}, "probe": PROBE}
     records = []
     for name, (_, _, source, replaces) in KERNELS.items():
-        first = next(p for p in PATHS if name in PATHS[p]["kernels"])
+        first = next(p for p in must if name in must[p])
         by_path = {p: n.get(name, 0) for p, n in launches.items()}
-        if name in DEN_NUM:
-            numbers = dict(**trigram[name], production=production[name])
-        else:
-            numbers = dict(**conformer["bfloat16"][name], float32=conformer["float32"][name])
         records.append(dict(name=name, route="cuda", source=source, replaces=replaces,
-                            launches=by_path[first], launches_by_path=by_path, **numbers))
+                            launches=by_path[first], launches_by_path=by_path,
+                            **numbers[name]))
     result["kernels"] = records
 
     if args.out:

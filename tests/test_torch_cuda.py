@@ -414,3 +414,207 @@ def test_conformer_on_card_matches_cpu(dev, ffn_impl):
     assert ff.ffn_backward.launches == n10 + (4 if ffn_impl == "fused" else 0)
     for a, b in zip(out["cuda"], out["cpu"]):
         torch.testing.assert_close(a, b, atol=1e-4 * max(1.0, float(b.abs().max())), rtol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# K8f / K8b: the flat-start numerator recursions
+# ---------------------------------------------------------------------------
+
+
+def _e2e_case(dev, B, T, S, K, seed, holes=False):
+    """Random cyclic tables with odd sizes: left-packed rows (or, with
+    `holes`, live slots anywhere in a row), a self-loop on every state so
+    that mass survives, states without arcs, sequence 1 (where there is
+    one) without a final state."""
+    rng = np.random.default_rng(seed)
+    if holes:
+        pad = rng.random(size=(B, S, K)) < 0.6
+    else:
+        pad = np.arange(K) >= rng.integers(0, K + 1, size=(B, S, 1))
+    src = np.where(pad, -1, rng.integers(0, S, size=(B, S, K)))
+    src[:, :, 0] = np.arange(S)  # self-loops
+    src[:, S - 1, :] = -1  # a state without arcs
+    logw = np.where(src < 0, -np.inf, rng.normal(size=(B, S, K))).astype(np.float32)
+    t = lambda a, dt: torch.as_tensor(a, dtype=dt, device=dev)  # noqa: E731
+    ylocal = t(rng.normal(size=(B, T, S, K)), torch.float32)
+    final = t(np.where(rng.random(size=(B, S)) < 0.5, -np.inf, 0.0), torch.float32)
+    final[:, 0] = 0.0
+    if B > 1:
+        final[1] = -np.inf
+    return ylocal, t(src, torch.int64), t(logw, torch.float32), final
+
+
+@pytest.mark.parametrize("placed", [False, True], ids=["live_tables", "placed_tables"])
+@pytest.mark.parametrize(
+    "B,T,S,K,holes",
+    [(5, 9, 7, 3, False), (3, 1, 5, 1, False), (2, 12, 70, 37, True), (2, 3, 300, 120, False)],
+    ids=["odd_sizes", "one_frame", "holes_and_wide_rows", "tables_beyond_shared_memory"],
+    # the last: 8 bytes a slot, more than a block's shared memory holds; the
+    # kernels read the tables from device memory, so no S * K is too large
+)
+def test_e2e_kernels_match_plain(dev, B, T, S, K, holes, placed):
+    ylocal, src, logw, final = _e2e_case(dev, B, T, S, K, seed=S, holes=holes)
+    pre = nr.e2e_kernel_tables(src, logw) if placed else None
+    n_f, n_b = nr.e2e_forward_resident.launches, nr.e2e_backward_resident.launches
+    rest_k = nr.e2e_forward_resident(ylocal, src, logw, pre=pre)
+    torch.cuda.synchronize()
+    rest_p = nr.e2e_forward_plain(ylocal, src, logw)
+    _close_where_finite(rest_k, rest_p)
+    assert torch.isneginf(rest_k[:, :, S - 1]).all()  # the state without arcs
+    assert torch.equal(nr.e2e_forward_resident(ylocal, src, logw, pre=pre), rest_k)
+
+    log_p = torch.logsumexp(rest_p[-1] + final, dim=-1)
+    if B > 1:
+        assert torch.isneginf(log_p[1])
+    if B > 2:
+        log_p[2] = math.nan
+    a0 = torch.full((1, B, S), -math.inf, device=dev)
+    a0[:, :, 0] = 0.0
+    alphas = torch.cat([a0, rest_p[:-1]])
+    args = (ylocal, alphas, src, logw, final, log_p)
+    post_k = nr.e2e_backward_resident(*args, pre=pre)
+    torch.cuda.synchronize()
+    post_p = nr.e2e_backward_plain(*args)
+    assert torch.isfinite(post_k).all()
+    torch.testing.assert_close(post_k, post_p, atol=1e-5, rtol=1e-4)
+    assert (post_k[(src < 0)[:, None].expand_as(post_k)] == 0).all()
+    if B > 1:
+        assert (post_k[1] == 0).all()
+    if B > 2:
+        assert (post_k[2] == 0).all()
+    assert torch.equal(nr.e2e_backward_resident(*args, pre=pre), post_k)
+    assert (nr.e2e_forward_resident.launches, nr.e2e_backward_resident.launches) == (
+        n_f + 2, n_b + 2)
+
+
+def test_e2e_kernels_raise_on_wrong_dtype_and_shape(dev):
+    ylocal, src, logw, final = _e2e_case(dev, 2, 4, 5, 3, seed=0)
+    with pytest.raises(TypeError):
+        nr.e2e_forward_resident(ylocal.double(), src, logw)
+    with pytest.raises(ValueError):
+        nr.e2e_forward_resident(ylocal, src[:, :4], logw[:, :4])
+    alphas = torch.zeros(4, 2, 5, device=dev)
+    log_p = torch.zeros(2, device=dev)
+    with pytest.raises(ValueError):
+        nr.e2e_backward_resident(ylocal, alphas[:3], src, logw, final, log_p)
+    with pytest.raises(TypeError):
+        nr.e2e_backward_resident(ylocal, alphas, src, logw, final, log_p.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        nr.e2e_forward_resident(ylocal.transpose(2, 3).contiguous().transpose(2, 3), src, logw)
+
+
+def test_e2e_path_on_the_card_matches_the_cpu(dev):
+    """ops/num_e2e.py end to end: card (K8f, K8b) against CPU (plain)."""
+    from torchain_tpu_torch.ops import DeviceE2eSupervision
+    from torchain_tpu_torch.ops import num_e2e as ne
+
+    c = tdata.synthetic_dataset(num_utts=10, num_phones=8, feat_dim=8, utt_frames_out=(12, 16),
+                                seed=3, lm_order=3, lm_extra_states=40)
+    ds = tdata.E2eChainDataset(c.utts, c.tree, c.norm_fst, chunk_frames_out=12,
+                               left_context=3, right_context=3)
+    host = next(ds.batches(4, shuffle=False)).sup
+    y = torch.as_tensor(np.random.default_rng(5).normal(size=(4, 12, c.tree.num_pdfs)),
+                        dtype=torch.float32)
+    out = {}
+    for d in ("cpu", dev):
+        sup = DeviceE2eSupervision.from_host(host, device=d).with_kernel_tables()
+        lp, al = ne.e2e_forward(y.to(d), sup)
+        out[str(d)] = (lp.cpu(), ne.e2e_backward(y.to(d), sup, lp, al).cpu())
+    (lp_c, g_c), (lp_k, g_k) = out["cpu"], out[str(dev)]
+    torch.testing.assert_close(lp_k, lp_c, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(g_k, g_c, atol=1e-5, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# K9f / K9b: the fused dense Moore denominator
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def dense_graph(dev):
+    from torchain_tpu_torch.ops import DeviceDenseDenGraph
+
+    c = tdata.synthetic_dataset(num_utts=12, num_phones=6, feat_dim=8,
+                                utt_frames_out=(9, 12), seed=1, lm_order=3,
+                                lm_extra_states=50, context_width=2)
+    # pad_to 24: odd tile edges, and padded expanded states
+    dense = tgraphs.make_dense_den_graph(c.den_graph, pad_to=24)
+    g = DeviceDenseDenGraph.from_host(dense, device=dev, fused=True)
+    assert g.real_exp < g.num_exp
+    return g
+
+
+@pytest.mark.parametrize("leaky", [0.0, 0.1])
+@pytest.mark.parametrize("B,T", [(5, 9), (3, 1), (70, 4)],
+                         ids=["odd_sizes", "one_frame", "more_rows_than_a_tile"])
+def test_dense_den_kernels_match_plain_and_den_dense(dev, dense_graph, leaky, B, T):
+    from torchain_tpu_torch.ops import den_dense as dd
+    from torchain_tpu_torch.ops import den_pallas as dp
+
+    g = dense_graph
+    y = torch.as_tensor(np.random.default_rng(B).normal(size=(B, T, g.num_pdfs)),
+                        dtype=torch.float32, device=dev)
+    n = (dp.dense_forward_kernel.launches, dp.dense_backward_kernel.launches)
+    log_z, res = dp.den_forward(y, g, leaky)
+    gamma = dp.den_backward(g, res, leaky)
+    torch.cuda.synchronize()
+    assert (dp.dense_forward_kernel.launches, dp.dense_backward_kernel.launches) == (
+        n[0] + 1, n[1] + 1)
+    logc_p, sig_p = dp.dense_forward_plain(res["pe"], g, leaky)
+    # float32 sums in another order: 1e-5 on values of order 1
+    torch.testing.assert_close(res["logc"], logc_p, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(res["sigma_hats"], sig_p, atol=1e-6, rtol=1e-4)
+    ymax_t = res["ymax"].T.contiguous()
+    F = torch.cumsum(logc_p + ymax_t, 0)
+    fscale = torch.cat([F.new_zeros((1, B)), F[:-1]]) + ymax_t - res["log_z"]
+    args = (res["pe"], g, sig_p, fscale, ymax_t, leaky)
+    gout_k = dp.dense_backward_kernel(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(gout_k, dp.dense_backward_plain(*args), atol=1e-6, rtol=1e-4)
+    assert (gout_k[..., g.real_exp:] == 0).all()
+    torch.testing.assert_close(gout_k.sum(-1), torch.ones(T, B, device=dev), atol=1e-4, rtol=0)
+    # the same kernel twice gives the same bits (no atomics)
+    assert torch.equal(dp.dense_backward_kernel(*args), gout_k)
+    # and the fused recursion agrees with the matrix-product one
+    log_z_d, res_d = dd.den_forward(y, g, leaky)
+    torch.testing.assert_close(log_z, log_z_d, atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(gamma, dd.den_backward(g, res_d, leaky), atol=1e-5, rtol=1e-4)
+
+
+def test_dense_den_kernels_raise_on_wrong_dtype_and_shape(dev, dense_graph):
+    from torchain_tpu_torch.ops import den_pallas as dp
+
+    g = dense_graph
+    pe = torch.rand(3, 2, g.num_exp, device=dev)
+    with pytest.raises(TypeError):
+        dp.dense_forward_kernel(pe.double(), g, 0.1)
+    with pytest.raises(ValueError):
+        dp.dense_forward_kernel(pe[..., :-1].contiguous(), g, 0.1)
+    sig = torch.rand(3, 2, g.num_orig, device=dev)
+    with pytest.raises(ValueError):
+        dp.dense_backward_kernel(pe, g, sig[:2], torch.zeros(3, 2, device=dev),
+                                 torch.zeros(3, 2, device=dev), 0.1)
+
+
+# ---------------------------------------------------------------------------
+# T1: the shared-memory probe
+# ---------------------------------------------------------------------------
+
+
+def test_probe_smem_finds_the_device_limit(dev):
+    from torchain_tpu_torch import kernels
+    from torchain_tpu_torch.tools import probe_smem as ps
+
+    limit = kernels.library("probe_smem").probe_smem_limit() // 1024
+    lines = []
+    best = ps.largest([16, 48, 100, limit, limit + 1, limit + 64], log=lines.append)
+    assert best == limit
+    assert sum("PASS" in line for line in lines) == 4 and "FAIL" in lines[-1]
+    x = torch.arange(128, dtype=torch.float32, device=dev)
+    assert torch.equal(ps.try_size(x, limit), ps.try_size_plain(x))
+    with pytest.raises(RuntimeError):
+        ps.try_size(x, limit + 1)
+    # a refused size leaves the device usable
+    assert torch.equal(ps.try_size(x, 64), 5.0 * x)
+    with pytest.raises(TypeError):
+        ps.try_size(x.double(), 64)

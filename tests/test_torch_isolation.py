@@ -112,7 +112,72 @@ def test_attention_and_ffn_wrappers_raise_for_a_non_cpu_non_cuda_tensor():
     assert "attention" not in kernels._libs and "fused_ffn" not in kernels._libs
 
 
-@pytest.mark.parametrize("name", ["attention", "fused_ffn"])
+def test_e2e_dense_and_probe_wrappers_raise_for_a_non_cpu_non_cuda_tensor():
+    """K8f, K8b, K9f, K9b and T1 likewise, through the wrappers and through
+    the entry points that reach them (ops/num_e2e.py, ops/den_pallas.py and
+    the chain loss's dispatch): no plain version for a tensor that is not
+    on the CPU, and the refusal comes before any build."""
+    from torchain_tpu_torch import kernels
+    from torchain_tpu_torch.graphs import DenGraph, make_dense_den_graph
+    from torchain_tpu_torch.ops import DeviceDenseDenGraph, chain_loss
+    from torchain_tpu_torch.ops import den_pallas as dp
+    from torchain_tpu_torch.ops import num_resident as nr
+    from torchain_tpu_torch.tools import probe_smem as ps
+
+    m = dict(device="meta")
+    # B=2, T=3, S=4, K=2
+    ylocal, src = torch.empty(2, 3, 4, 2, **m), torch.empty(2, 4, 2, dtype=torch.int64, **m)
+    logw = torch.empty(2, 4, 2, **m)
+    with pytest.raises(ValueError, match="CUDA"):
+        nr.e2e_forward_resident(ylocal, src, logw)
+    with pytest.raises(ValueError, match="CUDA"):
+        nr.e2e_backward_resident(ylocal, torch.empty(3, 2, 4, **m), src, logw,
+                                 torch.empty(2, 4, **m), torch.empty(2, **m))
+    host = DenGraph(
+        num_states=2, num_pdfs=2,
+        in_offsets=np.array([0, 1, 2], np.int32), in_src=np.array([1, 0], np.int32),
+        in_pdf=np.array([0, 1], np.int32), in_logw=np.zeros(2, np.float32),
+        out_offsets=np.array([0, 1, 2], np.int32), out_dst=np.array([1, 0], np.int32),
+        out_pdf=np.array([1, 0], np.int32), out_logw=np.zeros(2, np.float32),
+        initial_probs=np.array([0.5, 0.5], np.float32),
+    )
+    g = DeviceDenseDenGraph.from_host(make_dense_den_graph(host, pad_to=4), device="meta",
+                                      fused=True)
+    assert g.V.device.type == "meta" and g.fused and g.real_exp == 2 and g.num_exp == 4
+    pe = torch.empty(3, 2, g.num_exp, **m)
+    with pytest.raises(ValueError, match="CUDA"):
+        dp.dense_forward_kernel(pe, g, 0.1)
+    with pytest.raises(ValueError, match="CUDA"):
+        dp.dense_backward_kernel(pe, g, torch.empty(3, 2, g.num_orig, **m),
+                                 torch.empty(3, 2, **m), torch.empty(3, 2, **m), 0.1)
+    with pytest.raises(ValueError, match="CUDA"):
+        ps.try_size(torch.empty(128, **m), 64)
+    assert nr.e2e_forward_resident.launches == 0 and nr.e2e_backward_resident.launches == 0
+    assert dp.dense_forward_kernel.launches == 0 and dp.dense_backward_kernel.launches == 0
+    assert ps.try_size.launches == 0
+    assert not {"num_e2e", "den_dense", "probe_smem"} & set(kernels._libs)
+    assert chain_loss is not None
+
+
+def test_probe_smem_runs_its_plain_version_on_cpu_tensors(capsys):
+    """T1's wrapper on a CPU tensor returns 5x without a launch; the loop
+    over sizes reports PASS per size; the command refuses to run without a card."""
+    from torchain_tpu_torch.tools import probe_smem as ps
+
+    x = torch.arange(128, dtype=torch.float32)
+    assert torch.equal(ps.try_size(x, 64), 5.0 * x)
+    with pytest.raises(ValueError, match="1 KiB"):
+        ps.try_size(x, 0)
+    lines = []
+    assert ps.largest([64, 16], device="cpu", log=lines.append) == 64
+    assert lines == ["shared memory 16 KiB: PASS", "shared memory 64 KiB: PASS"]
+    assert ps.try_size.launches == 0
+    if not torch.cuda.is_available():
+        assert ps.main([]) == 2
+        assert "no CUDA device" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("name", ["attention", "fused_ffn", "num_e2e", "den_dense", "probe_smem"])
 def test_every_kernel_source_is_registered(name):
     """kernels.build compiles what SIGNATURES names: each source under
     csrc/ has an entry, and each entry point named there is in the source."""

@@ -29,7 +29,15 @@ gradient, and the running means of those batchnorms, which follow it, get
 atol 1e-4; float32 parameters get atol 3e-5.  The bfloat16 case replaces
 `torch.sigmoid` by XLA's CPU form of a bfloat16 logistic (exp, add and
 divide each rounded), as tests/test_torch_conformer.py explains, and
-compiles the JAX step with `xla_allow_excess_precision` off."""
+compiles the JAX step with `xla_allow_excess_precision` off.
+
+Two further paths train the same small float32 TDNN-F to the float32
+tolerances: flat-start (e2e) supervision from E2eChainDataset with the
+resident denominator, under both numerator configurations of the JAX
+package, and the standard supervision with the dense Moore denominator
+(ops/den_dense.py and, `fused`, the plain versions of K9f/K9b in
+ops/den_pallas.py; the JAX side runs den_dense, which off its accelerator is
+the only form its dispatcher picks)."""
 
 import numpy as np
 import pytest
@@ -77,6 +85,40 @@ def _batch(pkg_data, pkg_graphs, cfg):
     return c, next(ds.batches(B, shuffle=False))
 
 
+def _e2e_batch(pkg_data, pkg_graphs, cfg):
+    c = pkg_data.synthetic_dataset(**CORPUS)
+    left, right = cfg.context
+    ds = pkg_data.E2eChainDataset(c.utts, c.tree, c.norm_fst, chunk_frames_out=T_OUT,
+                                  left_context=left, right_context=right)
+    return c, next(ds.batches(B, shuffle=False))
+
+
+@pytest.mark.parametrize("resident", ["0", "force"])
+def test_three_e2e_train_steps_match_jax(monkeypatch, resident):
+    from torchain_tpu.ops.num_e2e import DeviceE2eSupervision as JE2e
+    from torchain_tpu_torch.ops import DeviceE2eSupervision
+
+    _three_train_steps(
+        monkeypatch, resident, batch_fn=_e2e_batch,
+        sups=(lambda b: JE2e.from_host(b.sup),
+              lambda b: DeviceE2eSupervision.from_host(b.sup, device="cpu").with_kernel_tables()),
+    )
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["den_dense", "fused"])
+def test_three_dense_denominator_train_steps_match_jax(monkeypatch, fused):
+    from torchain_tpu.ops.device_graphs import DeviceDenseDenGraph as JDense
+    from torchain_tpu_torch.ops import DeviceDenseDenGraph
+
+    _three_train_steps(
+        monkeypatch, "force",
+        dens=(lambda c: JDense.from_host(jgraphs.make_dense_den_graph(c.den_graph, pad_to=8)),
+              lambda c: DeviceDenseDenGraph.from_host(
+                  tgraphs.make_dense_den_graph(c.den_graph, pad_to=8), device="cpu",
+                  fused=fused)),
+    )
+
+
 def test_three_train_steps_match_jax(monkeypatch):
     _three_train_steps(monkeypatch, "0")
 
@@ -105,18 +147,29 @@ def test_three_train_steps_conformer_match_jax(monkeypatch, ffn_impl, bf16):
 
 
 def _three_train_steps(monkeypatch, resident, bf16=False,
-                       family=(JTDNNF, JCfg, TDNNF, TdnnfConfig, SMALL), conformer=False):
+                       family=(JTDNNF, JCfg, TDNNF, TdnnfConfig, SMALL), conformer=False,
+                       batch_fn=None, sups=None, dens=None):
+    """`batch_fn`, `sups` and `dens` replace the standard batch, the
+    (JAX, port) supervision placement and the (JAX, port) denominator graph
+    (default: ChainDataset, DeviceSupervision, the resident graph)."""
     JModel, JConfig, TModel, TConfig, small = family
+    batch_fn = batch_fn or _batch
+    j_sup, t_sup = sups or (
+        lambda b: JSup.from_host(b.sup).with_kernel_tables(),
+        lambda b: DeviceSupervision.from_host(b.sup, device="cpu").with_kernel_tables())
+    j_den, t_den = dens or (
+        lambda c: JResident.from_host(c.den_graph, pad_to=8, dtype=jnp.float32),
+        lambda c: auto_den_graph(c.den_graph, pad_to=8, device="cpu"))
     monkeypatch.setenv("TORCHAIN_NUM_RESIDENT", resident)
-    jc, _ = _batch(jdata, jgraphs, TConfig(num_pdfs=1, **small))
+    jc, _ = batch_fn(jdata, jgraphs, TConfig(num_pdfs=1, **small))
     P = jc.tree.num_pdfs
     jcfg = JConfig(num_pdfs=P, dtype=jnp.bfloat16 if bf16 else jnp.float32, **small)
     tcfg = TConfig(num_pdfs=P, dtype=torch.bfloat16 if bf16 else torch.float32, **small)
     m_rtol, p_atol, s_atol = (2e-2, 6e-3, 2e-3) if bf16 else (1e-4, 1e-5, 1e-5)
     if conformer and not bf16:
         p_atol = 3e-5  # 1.1e-5 seen, on an element whose later gradients are small
-    jc, jbatch = _batch(jdata, jgraphs, jcfg)
-    tc, tbatch = _batch(tdata, tgraphs, tcfg)
+    jc, jbatch = batch_fn(jdata, jgraphs, jcfg)
+    tc, tbatch = batch_fn(tdata, tgraphs, tcfg)
     np.testing.assert_array_equal(jbatch.feats, tbatch.feats)
 
     # JAX side: the bench's construction (bench.py _build), small widths
@@ -126,8 +179,8 @@ def _three_train_steps(monkeypatch, resident, bf16=False,
                       rng=jax.random.PRNGKey(1))
     init_params = jax.tree.map(np.asarray, jstate.params)
     init_stats = jax.tree.map(np.asarray, jstate.batch_stats)
-    jden = JResident.from_host(jc.den_graph, pad_to=8, dtype=jnp.float32)
-    jsup = JSup.from_host(jbatch.sup).with_kernel_tables()
+    jden = j_den(jc)
+    jsup = j_sup(jbatch)
     jstep = j_make_step(JOpts(**OPTS), donate=False)
     if conformer and bf16:
         # round where the program says: by default XLA keeps float32 values
@@ -140,8 +193,8 @@ def _three_train_steps(monkeypatch, resident, bf16=False,
     model.load_state_dict(params_from_jax(init_params, init_stats, tcfg))
     state = create_train_state(model, lr=1e-3)
     step = make_train_step(state, ChainLossOptions(**OPTS), max_grad_norm=5.0)
-    tden = auto_den_graph(tc.den_graph, pad_to=8, device="cpu")
-    tsup = DeviceSupervision.from_host(tbatch.sup, device="cpu").with_kernel_tables()
+    tden = t_den(tc)
+    tsup = t_sup(tbatch)
     tfeats = torch.as_tensor(tbatch.feats)
 
     grad1, losses = None, []

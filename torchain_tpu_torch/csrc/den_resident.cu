@@ -34,41 +34,15 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "den_tiles.cuh"
+
 namespace {
 
-constexpr int BM = 64;   // rows (sequences) per tile
-constexpr int BN = 64;   // columns per tile
-constexpr int BK = 16;   // depth per shared-memory stage
-constexpr int TM = 4;    // rows per thread   (ty + 16 * i)
-constexpr int TN = 4;    // columns per thread (tx + 16 * j)
-constexpr int NTHREADS = 256;
-constexpr int ROW_THREADS = 256;
-// shared tiles are padded by one column: the A stores (and K2's V store) run
-// k fastest across a warp, which on an unpadded 64-float row stride would put
-// 16 threads on one bank
-constexpr int LDA = BM + 1;
-constexpr int LDB = BN + 1;
+using namespace den_tiles;
 
 __device__ __forceinline__ float emission(const float* p_row, const int* slot_pdf, int e) {
   const int q = slot_pdf[e];
   return q >= 0 ? p_row[q] : 0.0f;
-}
-
-// acc[i][j] += A[ty + 16 i, :] . B[:, tx + 16 j] over one BK stage
-__device__ __forceinline__ void tile_fma(float (*As)[LDA], float (*Bs)[LDB],
-                                         int ty, int tx, float acc[TM][TN]) {
-#pragma unroll
-  for (int kk = 0; kk < BK; ++kk) {
-    float a[TM], b[TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i) a[i] = As[kk][ty + 16 * i];
-#pragma unroll
-    for (int j = 0; j < TN; ++j) b[j] = Bs[kk][tx + 16 * j];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-  }
 }
 
 // K1 (a): alpha = (sigma @ V) * pe_t for one frame; per-tile row sums of
@@ -124,33 +98,6 @@ fwd_gemm(const float* __restrict__ sigma, const float* __restrict__ V,
     for (int off = 8; off > 0; off >>= 1) rs += __shfl_xor_sync(0xffffffffu, rs, off, 16);
     if (tx == 0 && gm < B) cpart[(size_t)gm * gridDim.x + blockIdx.x] = rs;
   }
-}
-
-// deterministic block sum (fixed tree); every thread gets the result
-__device__ float block_sum(float v, float* red) {
-  const int tid = threadIdx.x;
-  red[tid] = v;
-  __syncthreads();
-  for (int s = blockDim.x / 2; s > 0; s >>= 1) {
-    if (tid < s) red[tid] += red[tid + s];
-    __syncthreads();
-  }
-  const float out = red[0];
-  __syncthreads();
-  return out;
-}
-
-__device__ float block_max(float v, float* red) {
-  const int tid = threadIdx.x;
-  red[tid] = v;
-  __syncthreads();
-  for (int s = blockDim.x / 2; s > 0; s >>= 1) {
-    if (tid < s) red[tid] = fmaxf(red[tid], red[tid + s]);
-    __syncthreads();
-  }
-  const float out = red[0];
-  __syncthreads();
-  return out;
 }
 
 // K1 (b): one block per sequence b.  c = sum of the tile row sums,

@@ -3,6 +3,7 @@
 from torchain_tpu_torch.data.loader import (
     ChainBatch,
     ChainDataset,
+    E2eChainDataset,
     SyntheticCorpus,
     Utterance,
     synthetic_dataset,
@@ -11,6 +12,7 @@ from torchain_tpu_torch.data.loader import (
 __all__ = [
     "ChainBatch",
     "ChainDataset",
+    "E2eChainDataset",
     "SyntheticCorpus",
     "Utterance",
     "synthetic_dataset",

@@ -32,7 +32,12 @@ from torchain_tpu_torch.graphs import (
     make_den_fst,
     make_normalization_fst,
 )
-from torchain_tpu_torch.graphs.den_graph import DenGraph
+from torchain_tpu_torch.graphs.den_graph import DenGraph, DenseDenGraph, make_dense_den_graph
+from torchain_tpu_torch.graphs.e2e import (
+    compile_e2e_supervision,
+    make_e2e_supervision_fst,
+    pad_and_stack_e2e,
+)
 from torchain_tpu_torch.graphs.supervision import (
     Supervision,
     pad_and_stack_supervisions,
@@ -202,11 +207,122 @@ class ChainDataset:
                 )
 
 
+class E2eChainDataset:
+    """Flat-start (alignment-free) batch iterator: whole utterances,
+    bucketed to a common output length per batch (features and transcripts
+    trimmed to the bucket boundary), cyclic e2e numerator graphs.
+
+    Kaldi parity: the e2e egs path of flat-start LF-MMI
+    (chain-generic-numerator.h); transcripts come from `Utterance.alignment`
+    phone identities — durations are ignored."""
+
+    def __init__(
+        self,
+        utts: list[Utterance],
+        tree: ContextTree,
+        norm_fst: Fst,
+        chunk_frames_out: int = 50,
+        left_context: int = 10,
+        right_context: int = 10,
+        frame_subsampling_factor: int = 3,
+        seed: int = 0,
+    ):
+        self.tree = tree
+        self.norm_fst = norm_fst
+        if norm_fst.has_epsilons():  # check ONCE (compose gets b_ready=True)
+            raise ValueError("normalization FST must be epsilon-free")
+        self._norm_ready = arcsort(norm_fst)  # sort ONCE, reuse per utt
+        self.left_context = left_context
+        self.right_context = right_context
+        self.fsf = frame_subsampling_factor
+        self.chunk_frames_out = chunk_frames_out
+        self.seed = seed
+        self.rng = np.random.default_rng(seed)
+        self.utts = utts
+        self.num_dropped = 0
+        #: compiled e2e supervision per utterance index, reused across
+        #: epochs (inputs are deterministic functions of the utterance and
+        #: chunk_frames_out) — same role as ChainDataset's cross-epoch
+        #: cache; entry-capped to bound host RAM on huge corpora
+        self._sup_cache: dict[int, object] = {}
+        self.sup_cache_size = 100_000
+
+    def _sup_of(self, ui: int):
+        """Compiled e2e supervision of utterance #ui, or None if it must be
+        dropped; cached across epochs (first epoch pays compilation)."""
+        if ui in self._sup_cache:
+            return self._sup_cache[ui]
+        utt = self.utts[ui]
+        t_out = self.chunk_frames_out
+        sup = None
+        if utt.feats.shape[0] // self.fsf >= t_out:
+            phones = [p for p, _ in utt.alignment]
+            # trim: keep phones whose (approximate) start lies in the window
+            durs_in = [d for _, d in utt.alignment]
+            starts = np.cumsum([0] + durs_in)[:-1] // self.fsf
+            keep = [p for p, s in zip(phones, starts) if s < t_out]
+            if keep and len(keep) <= t_out:
+                try:
+                    fst = make_e2e_supervision_fst(
+                        keep, self.tree, self._norm_ready, norm_ready=True
+                    )
+                    sup = compile_e2e_supervision(fst, t_out, self.tree.num_pdfs)
+                except ValueError:
+                    sup = None
+        if len(self._sup_cache) < self.sup_cache_size:
+            self._sup_cache[ui] = sup
+        return sup
+
+    def batches(
+        self,
+        batch_size: int,
+        shuffle: bool = True,
+        drop_last: bool = True,
+        epoch: int | None = None,
+        num_threads: int = 0,  # accepted for ChainDataset API parity;
+        # e2e batches stack cached per-utterance supervisions, so the
+        # threaded batch assembly has nothing to parallelize here
+    ):
+        rng = (
+            np.random.default_rng((self.seed, epoch)) if epoch is not None else self.rng
+        )
+        order = list(range(len(self.utts)))
+        if shuffle:
+            rng.shuffle(order)
+        t_out = self.chunk_frames_out
+        feats_buf, sups_buf = [], []
+        for ui in order:
+            utt = self.utts[ui]
+            first_visit = ui not in self._sup_cache
+            sup = self._sup_of(ui)
+            if sup is None:
+                if first_visit:  # count each dropped utterance once
+                    self.num_dropped += 1
+                continue
+            t0 = -self.left_context
+            t1 = t_out * self.fsf + self.right_context
+            idx = np.clip(np.arange(t0, t1), 0, utt.feats.shape[0] - 1)
+            feats_buf.append(utt.feats[idx])
+            sups_buf.append(sup)
+            if len(sups_buf) == batch_size:
+                yield ChainBatch(
+                    feats=np.stack(feats_buf).astype(np.float32),
+                    sup=pad_and_stack_e2e(sups_buf),
+                )
+                feats_buf, sups_buf = [], []
+        if feats_buf and not drop_last:
+            yield ChainBatch(
+                feats=np.stack(feats_buf).astype(np.float32),
+                sup=pad_and_stack_e2e(sups_buf),
+            )
+
+
 @dataclasses.dataclass
 class SyntheticCorpus:
     utts: list[Utterance]
     tree: ContextTree
     den_graph: DenGraph
+    dense_den: DenseDenGraph | None
     norm_fst: Fst
     den_fst: Fst
     feat_dim: int
@@ -264,6 +380,9 @@ def synthetic_dataset(
     )
     den_fst = make_den_fst(lm, tree)
     graph = compile_den_graph(den_fst, tree.num_pdfs)
+    # the dense Moore form only while its V [S, E] stays small (the JAX
+    # package's threshold): larger graphs use the slot-dense or sparse forms
+    dense = make_dense_den_graph(graph) if graph.num_states <= 2500 else None
     norm = make_normalization_fst(den_fst, graph.initial_probs)
 
     pdf_means = rng.normal(size=(tree.num_pdfs, feat_dim)).astype(np.float32) * 2.0
@@ -291,6 +410,7 @@ def synthetic_dataset(
         utts=utts,
         tree=tree,
         den_graph=graph,
+        dense_den=dense,
         norm_fst=norm,
         den_fst=den_fst,
         feat_dim=feat_dim,

@@ -5,7 +5,8 @@ Behavioral reference: kaldi/src/chain/chain-den-graph.{h,cc}
 `initial_probs_` as the stationary distribution via ~100 power iterations,
 `GetNormalizationFst`).  The packed form is `DenGraph` (CSR arc tensors,
 by-dst and by-src); ops/den_resident.py re-packs it into the slot-dense
-matrix the denominator kernels consume.
+matrix the resident denominator kernels consume, and `DenseDenGraph` is the
+state-split Moore form of ops/den_dense.py and ops/den_pallas.py.
 
 The expansion from phone LM to HMM acceptor is epsilon-free by construction:
 emissions ride on transitions labeled by the SOURCE topo state's pdf class
@@ -148,6 +149,32 @@ class DenGraph:
         return int(self.in_src.shape[0])
 
 
+@dataclasses.dataclass
+class DenseDenGraph:
+    """Moore-machine (state-split) dense factorization for ops/den_dense.py and
+    ops/den_pallas.py.
+
+    Expanded state e = distinct (dst_state, pdf) pair of the arc set.
+      orig_of_exp[e]  original dst state of e
+      pdf_of_exp[e]   pdf emitted on entering e
+      V[s, e]         prob-space transition mass from original state s into
+                      expanded state e (sum of arc probs), EXCLUDING emission
+      init_exp[e]     sum over arcs into e of initial_prob[src] * arc_prob
+    Padded to multiples of `pad_to` (extra rows/cols are zero).
+    """
+
+    num_pdfs: int
+    num_orig: int  # padded original-state count
+    num_exp: int  # padded expanded-state count
+    real_orig: int
+    real_exp: int
+    V: np.ndarray  # float32 [num_orig, num_exp]
+    orig_of_exp: np.ndarray  # int32 [num_exp] (padding rows point at a dump slot)
+    pdf_of_exp: np.ndarray  # int32 [num_exp]
+    init_exp: np.ndarray  # float32 [num_exp]
+    initial_probs: np.ndarray  # float32 [num_orig]
+
+
 def _stationary_distribution(
     num_states: int,
     arcs: list[tuple[int, int, int, float]],
@@ -242,6 +269,63 @@ def compile_den_graph(
         out_logw=logw[by_src],
         out_offsets=out_offsets,
         initial_probs=initial.astype(np.float32),
+    )
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def make_dense_den_graph(graph: DenGraph, pad_to: int = 128) -> DenseDenGraph:
+    """State-split the arc set into the dense Moore factorization.
+
+    Both state axes are padded to multiples of `pad_to` (default 128, the
+    JAX package's, so that the two packages' tables are equal)."""
+    S = graph.num_states
+    # in_* arrays are sorted by dst; recover each arc's dst from the offsets,
+    # then form expanded states as the distinct (dst, pdf) pairs
+    dst = np.repeat(np.arange(S, dtype=np.int64), np.diff(graph.in_offsets))
+    key = dst * graph.num_pdfs + graph.in_pdf.astype(np.int64)
+    uniq, exp_of_arc = np.unique(key, return_inverse=True)
+    E = uniq.shape[0]
+    orig_of_exp = (uniq // graph.num_pdfs).astype(np.int32)
+    pdf_of_exp = (uniq % graph.num_pdfs).astype(np.int32)
+
+    prob = np.exp(graph.in_logw.astype(np.float64))
+    V = np.zeros((S, E), dtype=np.float64)
+    np.add.at(V, (graph.in_src.astype(np.int64), exp_of_arc), prob)
+    init_exp = np.zeros(E, dtype=np.float64)
+    np.add.at(
+        init_exp,
+        exp_of_arc,
+        graph.initial_probs.astype(np.float64)[graph.in_src] * prob,
+    )
+
+    S_pad = _round_up(S, pad_to)
+    E_pad = _round_up(E, pad_to)
+    V_pad = np.zeros((S_pad, E_pad), dtype=np.float32)
+    V_pad[:S, :E] = V
+    orig_pad = np.zeros(E_pad, dtype=np.int32)
+    orig_pad[:E] = orig_of_exp
+    # padding expanded-states point at original state 0 but have zero mass
+    pdf_pad = np.zeros(E_pad, dtype=np.int32)
+    pdf_pad[:E] = pdf_of_exp
+    init_pad = np.zeros(E_pad, dtype=np.float32)
+    init_pad[:E] = init_exp
+    init_orig_pad = np.zeros(S_pad, dtype=np.float32)
+    init_orig_pad[:S] = graph.initial_probs
+
+    return DenseDenGraph(
+        num_pdfs=graph.num_pdfs,
+        num_orig=S_pad,
+        num_exp=E_pad,
+        real_orig=S,
+        real_exp=E,
+        V=V_pad,
+        orig_of_exp=orig_pad,
+        pdf_of_exp=pdf_pad,
+        init_exp=init_pad,
+        initial_probs=init_orig_pad,
     )
 
 

@@ -1,8 +1,8 @@
 """Build and load the package's hand-written CUDA kernels.
 
-Each `csrc/<name>.cu` has a plain C interface and is compiled by `nvcc` for
-Hopper (`sm_90a`) into `build/lib<name>.so`, then loaded with ctypes.  The
-build happens at first use, from the sources in this checkout, all sources
+Each `csrc/<name>.cu` (with the `csrc/*.cuh` it includes) has a plain C
+interface and is compiled by `nvcc` for Hopper (`sm_90a`) into
+`build/lib<name>.so`, then loaded with ctypes.  The build happens at first use, from the sources in this checkout, all sources
 at once (one `nvcc` process each, started together).  Nothing here runs at
 import time: the CPU-only test machine has neither `nvcc` nor a card.
 
@@ -30,7 +30,7 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlon
 #: C entry points per source: argument types (pointers and the stream as
 #: c_void_p, sizes as c_int, element strides as c_longlong, scalars as
 #: c_float); every one returns int (a CUDA error code, or for the
-#: `*_shared_*` and `*_per_block` queries a size)
+#: `*_shared_*`, `*_limit` and `*_per_block` queries a size)
 SIGNATURES: dict[str, dict[str, list]] = {
     "den_resident": {
         # p, V, slot_pdf, init, sigma, ah, cpart, logc, T, B, P, S, K, leaky, stream
@@ -52,6 +52,29 @@ SIGNATURES: dict[str, dict[str, list]] = {
         # src, lpdf, logw, ysm, ysm strides (b, t), alphas, final_logw, log_p,
         # gsm, beta1, B, T-1, S, Kr, W, threads, stream
         "num_steady_backward": [_P] * 4 + [_L] * 2 + [_P] * 5 + [_I] * 6 + [_P],
+    },
+    "num_e2e": {
+        # ylocal, src, logw, nk, out, B, T, S, K, threads, stream
+        "e2e_forward": [_P] * 5 + [_I] * 5 + [_P],
+        # ylocal, alphas, src, logw, final_logw, log_p, by_off, by_arc, post,
+        # B, T, S, K, L, threads, stream
+        "e2e_backward": [_P] * 9 + [_I] * 6 + [_P],
+        # the most dynamic shared memory a block may ask for, in bytes
+        "e2e_shared_limit": [],
+    },
+    "den_dense": {
+        # pe, V, orig_off, orig_exps, init, sigma, alpha, cpart, logc, sig,
+        # T, B, S, E, leaky, stream
+        "dense_den_forward": [_P] * 10 + [_I] * 4 + [_F, _P],
+        # pe, V, orig_of_exp, init, sig, fscale, ymax, bh, G, sigma, vpart,
+        # gout, T, B, S, E, real_exp, splits, leaky, stream
+        "dense_den_backward": [_P] * 12 + [_I] * 6 + [_F, _P],
+    },
+    "probe_smem": {
+        # x, out, KiB of dynamic shared memory, stream
+        "probe_smem": [_P] * 2 + [_I, _P],
+        # the device's opt-in limit per block, in bytes
+        "probe_smem_limit": [],
     },
     "attention": {
         # qkv, bias, out, B, T, H, dh, scale, is_bf16, stream
@@ -108,11 +131,14 @@ def build(names=tuple(SIGNATURES), force: bool = False) -> float:
     `-Xptxas -v`) beside the library.  Returns the wall seconds taken;
     raises with the compiler's output if any build fails."""
     BUILD.mkdir(parents=True, exist_ok=True)
+    # a header (*.cuh) may be shared by several sources: a newer one makes
+    # every library stale
+    headers = max((h.stat().st_mtime for h in CSRC.glob("*.cuh")), default=0.0)
     todo = [
         n for n in names
         if force
         or not _lib_path(n).exists()
-        or _lib_path(n).stat().st_mtime < (CSRC / f"{n}.cu").stat().st_mtime
+        or _lib_path(n).stat().st_mtime < max(headers, (CSRC / f"{n}.cu").stat().st_mtime)
     ]
     t0 = time.perf_counter()
     procs = []

@@ -16,8 +16,14 @@ or occupancies go non-finite get zero fwd-bwd gradients and a penalty
 objective of -10 per frame; training continues.
 
 Autograd never traces the recursions: `chain_logprobs` is an
-autograd.Function whose backward is the denominator beta pass (kernel K2)
-emitting the occupancy gradient directly.
+autograd.Function whose backward is the denominator beta pass emitting the
+occupancy gradient directly.
+
+The numerator is chosen by the supervision's type (`DeviceSupervision`:
+ops/num_scan.py; `DeviceE2eSupervision`: ops/num_e2e.py) and the
+denominator by the graph's (`DeviceResidentDenGraph`: ops/den_resident.py;
+`DeviceDenseDenGraph`: ops/den_dense.py or, when the graph was built with
+`fused=True`, ops/den_pallas.py; `DeviceDenGraph`: ops/den_scan.py).
 """
 
 from __future__ import annotations
@@ -26,8 +32,20 @@ import dataclasses
 
 import torch
 
-from torchain_tpu_torch.ops import den_resident, num_scan
-from torchain_tpu_torch.ops.device_graphs import DeviceSupervision
+from torchain_tpu_torch.ops import (
+    den_dense,
+    den_pallas,
+    den_resident,
+    den_scan,
+    num_e2e,
+    num_scan,
+)
+from torchain_tpu_torch.ops.device_graphs import (
+    DeviceDenGraph,
+    DeviceDenseDenGraph,
+    DeviceSupervision,
+)
+from torchain_tpu_torch.ops.num_e2e import DeviceE2eSupervision
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,6 +61,42 @@ class ChainLossOptions:
     failure_penalty_per_frame: float = -10.0
 
 
+def _num_forward_backward(y, sup):
+    """(num_logprob [B], gamma_num [B, T, P]) by supervision flavor:
+    frame-synchronous tolerance lattices (NumeratorComputation) or cyclic
+    e2e graphs (GenericNumeratorComputation).  Either way y is indexed once
+    and both passes share the result."""
+    if isinstance(sup, DeviceE2eSupervision):
+        ylocal = num_e2e._arc_emissions(y, sup)
+        num_logp, alphas = num_e2e.e2e_forward(y, sup, ylocal=ylocal)
+        return num_logp, num_e2e.e2e_backward(y, sup, num_logp, alphas, ylocal=ylocal)
+    ysmall = num_scan.vocab_gather(y, sup.frame_vocab)
+    num_logp, alphas = num_scan.num_forward(y, sup, ysmall=ysmall)
+    return num_logp, num_scan.num_backward(y, sup, num_logp, alphas, ysmall=ysmall)
+
+
+def _den_forward(y, den, leaky):
+    """(log_z [B], residuals) by graph type."""
+    if isinstance(den, den_resident.DeviceResidentDenGraph):
+        return den_resident.den_forward(y, den, leaky)
+    if isinstance(den, DeviceDenseDenGraph):
+        return (den_pallas if den.fused else den_dense).den_forward(y, den, leaky)
+    if isinstance(den, DeviceDenGraph):
+        log_z, alphas = den_scan.den_forward(y, den, leaky)
+        return log_z, dict(alphas=alphas)
+    raise TypeError(f"no denominator recursion for {type(den).__name__}")
+
+
+def _den_backward(y, den, leaky, log_z, res):
+    """gamma_den [B, T, P] by graph type, from the residuals of
+    `_den_forward` on the same graph."""
+    if isinstance(den, den_resident.DeviceResidentDenGraph):
+        return den_resident.den_backward(den, res, leaky)
+    if isinstance(den, DeviceDenseDenGraph):
+        return (den_pallas if den.fused else den_dense).den_backward(den, res, leaky)
+    return den_scan.den_backward(y, den, log_z, res["alphas"], leaky)
+
+
 class _ChainLogprobs(torch.autograd.Function):
     """(num_logprob [B], den_logprob [B], gamma_num [B, T, P]).
 
@@ -55,20 +109,23 @@ class _ChainLogprobs(torch.autograd.Function):
     @staticmethod
     def forward(ctx, y, den, sup, leaky):
         yd = y.detach().float().contiguous()
-        ysmall = num_scan.vocab_gather(yd, sup.frame_vocab)
-        num_logp, alphas = num_scan.num_forward(yd, sup, ysmall=ysmall)
-        gamma_num = num_scan.num_backward(yd, sup, num_logp, alphas, ysmall=ysmall)
-        den_logz, den_res = den_resident.den_forward(yd, den, leaky)
+        num_logp, gamma_num = _num_forward_backward(yd, sup)
+        den_logz, den_res = _den_forward(yd, den, leaky)
         ctx.den, ctx.sup, ctx.leaky, ctx.den_res = den, sup, leaky, den_res
         ctx.y_dtype = y.dtype
-        ctx.save_for_backward(gamma_num)
+        # the sparse recursion's backward reads y again; the others carry
+        # what they need in their residuals
+        needs_y = isinstance(den, DeviceDenGraph)
+        ctx.save_for_backward(gamma_num, den_logz, *((yd,) if needs_y else ()))
         ctx.mark_non_differentiable(gamma_num)
         return num_logp, den_logz, gamma_num
 
     @staticmethod
     def backward(ctx, g_num, g_den, _g_gamma_dropped):
-        (gamma_num,) = ctx.saved_tensors
-        gamma_den = den_resident.den_backward(ctx.den, ctx.den_res, ctx.leaky)
+        gamma_num, den_logz, *rest = ctx.saved_tensors
+        gamma_den = _den_backward(
+            rest[0] if rest else None, ctx.den, ctx.leaky, den_logz, ctx.den_res
+        )
         ctx.den_res = None
         raw = g_num[:, None, None] * gamma_num + g_den[:, None, None] * gamma_den
         ok = (
@@ -90,8 +147,8 @@ def chain_logprobs(y, den, sup, leaky: float):
 def chain_loss(
     nnet_output: torch.Tensor,  # [B, T, P] chain-head outputs
     xent_output: torch.Tensor | None,  # [B, T, P] xent-head logits, or None
-    den: den_resident.DeviceResidentDenGraph,
-    sup: DeviceSupervision,
+    den: den_resident.DeviceResidentDenGraph | DeviceDenseDenGraph | DeviceDenGraph,
+    sup: DeviceSupervision | DeviceE2eSupervision,
     opts: ChainLossOptions = ChainLossOptions(),
 ) -> tuple[torch.Tensor, dict]:
     """Returns (loss scalar to minimize, aux dict of per-batch statistics).

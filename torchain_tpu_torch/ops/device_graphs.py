@@ -1,10 +1,14 @@
-"""Device-side (torch) containers for the packed numerator supervision, and
-the choice of denominator representation.
+"""Device-side (torch) containers for the packed graphs, and the choice of
+denominator representation.
 
-`DeviceSupervision` is the tensor twin of the host-side
-`graphs.Supervision` (the moral equivalent of Kaldi's NnetChainSupervision,
-kaldi/src/nnet3/nnet-chain-example.h), split at the frame-0 / steady-state
-boundary exactly as the JAX package's DeviceSupervision is."""
+`DeviceDenGraph` and `DeviceDenseDenGraph` are the tensor twins of the
+host-side `graphs.DenGraph` / `graphs.DenseDenGraph` (Kaldi's
+DenominatorGraph arrays, kaldi/src/chain/chain-den-graph.h); the slot-dense
+`DeviceResidentDenGraph` lives beside its kernels in ops/den_resident.py.
+`DeviceSupervision` is the twin of `graphs.Supervision` (Kaldi's
+NnetChainSupervision, kaldi/src/nnet3/nnet-chain-example.h), split at the
+frame-0 / steady-state boundary exactly as the JAX package's is; the
+flat-start `DeviceE2eSupervision` lives in ops/num_e2e.py."""
 
 from __future__ import annotations
 
@@ -13,7 +17,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from torchain_tpu_torch.graphs.den_graph import DenGraph
+from torchain_tpu_torch.graphs.den_graph import DenGraph, DenseDenGraph
 from torchain_tpu_torch.graphs.supervision import (  # noqa: F401 (re-exported)
     Supervision,
     _frame_vocab_tables,
@@ -22,10 +26,139 @@ from torchain_tpu_torch.graphs.supervision import (  # noqa: F401 (re-exported)
 from torchain_tpu_torch.ops.num_resident import kernel_tables
 
 
+def _to_device(obj, device):
+    """A copy of a dataclass of tensors with every tensor field on `device`."""
+    return dataclasses.replace(
+        obj,
+        **{
+            f.name: getattr(obj, f.name).to(device)
+            for f in dataclasses.fields(obj)
+            if isinstance(getattr(obj, f.name), torch.Tensor)
+        },
+    )
+
+
+@dataclasses.dataclass
+class DeviceDenGraph:
+    """Sparse arc-list denominator graph for the log-semiring recursion of
+    ops/den_scan.py: the arcs sorted by destination (alpha) and by source
+    (beta).  Index tensors are int64 (the dtype torch's indexing takes)."""
+
+    # view sorted by dst (forward: reduce over in-arcs)
+    in_src: torch.Tensor  # int64 [A]
+    in_pdf: torch.Tensor  # int64 [A]
+    in_logw: torch.Tensor  # float32 [A]
+    in_dst: torch.Tensor  # int64 [A] (sorted)
+    # view sorted by src (backward: reduce over out-arcs)
+    out_src: torch.Tensor  # int64 [A] (sorted)
+    out_dst: torch.Tensor  # int64 [A]
+    out_pdf: torch.Tensor  # int64 [A]
+    out_logw: torch.Tensor  # float32 [A]
+    log_init: torch.Tensor  # float32 [S]
+    num_states: int
+    num_pdfs: int
+
+    def to(self, device) -> "DeviceDenGraph":
+        return _to_device(self, device)
+
+    @staticmethod
+    def from_host(g: DenGraph, device="cuda") -> "DeviceDenGraph":
+        states = np.arange(g.num_states, dtype=np.int64)
+        in_dst = np.repeat(states, np.diff(g.in_offsets))
+        out_src = np.repeat(states, np.diff(g.out_offsets))
+        with np.errstate(divide="ignore"):
+            log_init = np.log(g.initial_probs.astype(np.float64)).astype(np.float32)
+
+        def t(a, dtype):
+            return torch.as_tensor(np.ascontiguousarray(a)).to(device=device, dtype=dtype)
+
+        return DeviceDenGraph(
+            in_src=t(g.in_src, torch.int64),
+            in_pdf=t(g.in_pdf, torch.int64),
+            in_logw=t(g.in_logw, torch.float32),
+            in_dst=t(in_dst, torch.int64),
+            out_src=t(out_src, torch.int64),
+            out_dst=t(g.out_dst, torch.int64),
+            out_pdf=t(g.out_pdf, torch.int64),
+            out_logw=t(g.out_logw, torch.float32),
+            log_init=t(log_init, torch.float32),
+            num_states=int(g.num_states),
+            num_pdfs=int(g.num_pdfs),
+        )
+
+
+@dataclasses.dataclass
+class DeviceDenseDenGraph:
+    """Dense Moore-machine denominator graph (float32).  The one-hot
+    matrices E_mat [E, S] (expanded -> original segment sum) and P_mat
+    [P, E] (pdf broadcast) turn the recursion's gathers and scatters into
+    matrix products, as in the JAX package; ops/den_dense.py multiplies
+    them.  The fused kernels of ops/den_pallas.py index instead: they read
+    `orig_of_exp` and the list of each original state's expanded states
+    (`orig_offsets` / `orig_exps`, the REAL expanded states only: the
+    padded ones have all-zero rows in E_mat although `orig_of_exp` points
+    them at state 0).
+
+    `fused` chooses the recursion for this graph in ops/chain_loss.py:
+    False, ops/den_dense.py (the JAX package's default); True, the fused
+    kernels K9f/K9b of ops/den_pallas.py (the JAX package's
+    TORCHAIN_USE_PALLAS=1).  The choice is the caller's, made at
+    `from_host`: there is no fit test and no fallback."""
+
+    V: torch.Tensor  # float32 [S, E]
+    E_mat: torch.Tensor  # float32 [E, S] one-hot
+    P_mat: torch.Tensor  # float32 [P, E] one-hot
+    init_orig: torch.Tensor  # float32 [S]
+    orig_of_exp: torch.Tensor  # int32 [E]
+    pdf_of_exp: torch.Tensor  # int32 [E]
+    orig_offsets: torch.Tensor  # int32 [S + 1]
+    orig_exps: torch.Tensor  # int32 [real_exp]
+    num_orig: int
+    num_exp: int
+    num_pdfs: int
+    real_exp: int
+    fused: bool = False
+
+    def to(self, device) -> "DeviceDenseDenGraph":
+        return _to_device(self, device)
+
+    @staticmethod
+    def from_host(
+        d: DenseDenGraph, device="cuda", fused: bool = False
+    ) -> "DeviceDenseDenGraph":
+        real = np.arange(d.real_exp)
+        E_mat = np.zeros((d.num_exp, d.num_orig), dtype=np.float32)
+        E_mat[real, d.orig_of_exp[: d.real_exp]] = 1.0
+        P_mat = np.zeros((d.num_pdfs, d.num_exp), dtype=np.float32)
+        P_mat[d.pdf_of_exp[: d.real_exp], real] = 1.0
+        orig = d.orig_of_exp[: d.real_exp].astype(np.int64)
+        counts = np.bincount(orig, minlength=d.num_orig)
+        offsets = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+        t = lambda a: torch.as_tensor(np.ascontiguousarray(a)).to(device)  # noqa: E731
+        return DeviceDenseDenGraph(
+            V=t(d.V.astype(np.float32)),
+            E_mat=t(E_mat),
+            P_mat=t(P_mat),
+            init_orig=t(d.initial_probs.astype(np.float32)),
+            orig_of_exp=t(d.orig_of_exp.astype(np.int32)),
+            pdf_of_exp=t(d.pdf_of_exp.astype(np.int32)),
+            orig_offsets=t(offsets),
+            orig_exps=t(np.argsort(orig, kind="stable").astype(np.int32)),
+            num_orig=int(d.num_orig),
+            num_exp=int(d.num_exp),
+            num_pdfs=int(d.num_pdfs),
+            real_exp=int(d.real_exp),
+            fused=bool(fused),
+        )
+
+
 def auto_den_graph(host_graph: DenGraph, pad_to: int = 128, device="cuda"):
-    """The denominator representation for `host_graph`.  This port has one:
-    the slot-dense graph of ops/den_resident.py, kept in float32.  The
-    dense, scan and de Bruijn forms of the JAX package are not ported."""
+    """The denominator representation for `host_graph` on the accelerator:
+    the slot-dense graph of ops/den_resident.py in float32, which is the JAX
+    package's first preference on its accelerator too.  The dense Moore form
+    (`DeviceDenseDenGraph`, plain or fused) and the sparse arc list
+    (`DeviceDenGraph`) are built explicitly with their `from_host`; the
+    de Bruijn and padded-table forms of the JAX package are not ported."""
     from torchain_tpu_torch.ops.den_resident import DeviceResidentDenGraph
 
     return DeviceResidentDenGraph.from_host(host_graph, pad_to=pad_to, device=device)
@@ -70,14 +203,7 @@ class DeviceSupervision:
     logw_k: torch.Tensor | None = None
 
     def to(self, device) -> "DeviceSupervision":
-        return dataclasses.replace(
-            self,
-            **{
-                f.name: getattr(self, f.name).to(device)
-                for f in dataclasses.fields(self)
-                if isinstance(getattr(self, f.name), torch.Tensor)
-            },
-        )
+        return _to_device(self, device)
 
     def with_kernel_tables(self) -> "DeviceSupervision":
         """A copy that also carries the steady tables in the kernels' types,

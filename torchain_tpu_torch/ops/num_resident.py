@@ -1,5 +1,6 @@
-"""Numerator steady-frame recursions, each as one kernel: K3 (forward) and
-K4 (backward).
+"""Numerator recursions, each as one kernel: the steady frames of the
+frame-synchronous supervision, K3 (forward) and K4 (backward), and the
+flat-start (e2e) supervision's cyclic graphs, K8f and K8b (further down).
 
 Behavioral reference: kaldi/src/chain/chain-numerator.cc
 (`NumeratorComputation`).  Port of torchain_tpu/ops/num_resident.py
@@ -234,3 +235,177 @@ def steady_backward(
 
 
 steady_backward.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K8f / K8b: the flat-start (e2e) recursions over cyclic per-sequence graphs
+# whose tables are constant over time.  Port of torchain_tpu/ops/
+# num_resident.py (`e2e_forward_resident`, `e2e_backward_resident`):
+#
+#   * K8f: alpha_0 = (0, -inf, ...); next[s] = lse_k(alpha[src[s, k]] +
+#     logw[s, k] + ylocal[t, s, k]) over the arcs with src >= 0; -inf for a
+#     state without arcs.
+#   * K8b, frames in reverse, beta = final_logw: arc_w = (logw + ylocal[t])
+#     + beta[s]; post[t, s, k] = exp(alpha_t[src] + arc_w - log_p);
+#     beta_prev[s'] = lse of arc_w over the arcs with src == s'.  A sequence
+#     whose log_p is not finite gets exactly zero posteriors.
+#
+# Emissions arrive per arc (ops/num_e2e.py `_arc_emissions`), [B, T, S, K]
+# float32.  On a CUDA tensor each is one launch of csrc/num_e2e.cu (one
+# thread block per sequence, all frames); on a CPU tensor the plain version
+# beside it loops over frames.  The kernels read `e2e_kernel_tables(src,
+# logw)`, prepared once when a batch is placed
+# (`DeviceE2eSupervision.with_kernel_tables`) and taken as `pre`.
+# ---------------------------------------------------------------------------
+
+
+def e2e_kernel_tables(src: torch.Tensor, logw: torch.Tensor):
+    """The tables of one batch as K8f/K8b read them, from src [B, S, K] (any
+    integer dtype, -1 = pad) and logw [B, S, K]:
+
+      src int32 [B, S, K], logw float32 [B, S, K];
+      nk int32 [B, S]: one past the last live slot of each state;
+      by_off int32 [B, S + 1], by_arc int32 [B, L]: each sequence's live
+        slots (s * K + k) ordered by source state, slot order within one
+        source, and where each source's run starts (L = the most live slots
+        of any sequence, at least 1; the tail of a shorter list is unused).
+    """
+    B, S, K = src.shape
+    src32 = src.to(torch.int32).contiguous()
+    live = src32 >= 0
+    slots = torch.arange(1, K + 1, device=src.device, dtype=torch.int32)
+    nk = (live * slots).amax(-1).to(torch.int32).contiguous()
+    key = torch.where(live, src32, S).reshape(B, S * K).long()
+    order = torch.argsort(key, dim=1, stable=True)
+    counts = torch.zeros((B, S + 1), device=src.device, dtype=torch.int64)
+    counts.scatter_add_(1, key, torch.ones_like(key))
+    by_off = torch.zeros((B, S + 1), device=src.device, dtype=torch.int32)
+    by_off[:, 1:] = torch.cumsum(counts[:, :S], 1)
+    L = max(1, int(live.reshape(B, -1).sum(1).max())) if B else 1
+    by_arc = order[:, :L].to(torch.int32).contiguous()
+    return src32, logw.to(torch.float32).contiguous(), nk, by_off, by_arc
+
+
+def _e2e_threads(lib, S: int, vectors: int, what: str) -> int:
+    """Threads per block for one sequence per block, whose kernel keeps
+    `vectors` float32 vectors over the S states in shared memory."""
+    if 4 * vectors * S > lib.e2e_shared_limit():
+        raise ValueError(f"{what}: {S} states exceed the shared memory of a block")
+    return min(1024, max(64, 32 * S))
+
+
+def e2e_forward_plain(ylocal, src, logw):
+    """Plain PyTorch K8f: the alpha recursion as a loop over frames."""
+    B, T, S, _ = ylocal.shape
+    src = src.long()
+    live = src >= 0
+    warc = torch.where(live, logw, 0.0)
+    alpha = torch.full((B, S), NEG_INF, device=ylocal.device)
+    alpha[:, 0] = 0.0
+    out = ylocal.new_empty((T, B, S))
+    for t in range(T):
+        vals = select_src(alpha, src) + warc + torch.where(live, ylocal[:, t], 0.0)
+        alpha = out[t] = torch.logsumexp(vals, dim=-1)
+    return out
+
+
+def e2e_forward_resident(
+    ylocal: torch.Tensor,  # [B, T, S, K] f32 per-arc emission log-probs
+    src: torch.Tensor,  # [B, S, K] (any integer dtype)
+    logw: torch.Tensor,  # [B, S, K] f32
+    pre: tuple | None = None,  # e2e_kernel_tables(src, logw)
+) -> torch.Tensor:
+    """K8f.  Returns the alphas of frames 1..T, [T, B, S] (the frame-0
+    alpha is set inside).  Launches csrc/num_e2e.cu:e2e_forward on a CUDA
+    tensor."""
+    if ylocal.device.type == "cpu":
+        return e2e_forward_plain(ylocal, src, logw)
+    B, T, S, K = ylocal.shape
+    kernels.check_tensor("ylocal", ylocal, torch.float32)
+    if pre is None:
+        pre = e2e_kernel_tables(src, logw)
+    src32, logw32, nk, _, _ = pre
+    kernels.check_tensor("src", src32, torch.int32, (B, S, K))
+    kernels.check_tensor("logw", logw32, torch.float32, (B, S, K))
+    kernels.check_tensor("nk", nk, torch.int32, (B, S))
+    out = torch.empty((T, B, S), device=ylocal.device, dtype=torch.float32)
+    if B == 0 or T == 0:
+        return out
+    lib = kernels.library("num_e2e")
+    threads = _e2e_threads(lib, S, 2, "e2e_forward_resident")
+    err = lib.e2e_forward(
+        ylocal.data_ptr(), src32.data_ptr(), logw32.data_ptr(), nk.data_ptr(),
+        out.data_ptr(), B, T, S, K, threads, kernels.stream_of(ylocal.device),
+    )
+    kernels.check(lib, err, "e2e_forward")
+    e2e_forward_resident.launches += 1
+    return out
+
+
+e2e_forward_resident.launches = 0
+
+
+def e2e_backward_plain(ylocal, alphas, src, logw, final_logw, log_p):
+    """Plain PyTorch K8b: the beta recursion as a reverse loop over frames."""
+    B, T, S, K = ylocal.shape
+    src = src.long()
+    live = src >= 0
+    valid = torch.isfinite(log_p)
+    safe_logp = torch.where(valid, log_p, 0.0)[:, None, None]
+    hit = src[..., None] == torch.arange(S, device=ylocal.device)  # [B, S, K, S']
+    beta = final_logw
+    post = ylocal.new_empty((B, T, S, K))
+    for t in range(T - 1, -1, -1):
+        arc_w = torch.where(live, logw + ylocal[:, t], NEG_INF) + beta[:, :, None]
+        post[:, t] = torch.where(
+            valid[:, None, None],
+            torch.exp(select_src(alphas[t], src) + arc_w - safe_logp),
+            0.0,
+        )
+        beta = torch.logsumexp(torch.where(hit, arc_w[..., None], NEG_INF), dim=(1, 2))
+    return post
+
+
+def e2e_backward_resident(
+    ylocal: torch.Tensor,  # [B, T, S, K] f32
+    alphas: torch.Tensor,  # [T, B, S] alphas of frames 0..T-1 (sources)
+    src: torch.Tensor,  # [B, S, K]
+    logw: torch.Tensor,  # [B, S, K]
+    final_logw: torch.Tensor,  # [B, S]
+    log_p: torch.Tensor,  # [B] (may be non-finite)
+    pre: tuple | None = None,  # e2e_kernel_tables(src, logw)
+) -> torch.Tensor:
+    """K8b.  Returns the per-arc posteriors [B, T, S, K] (exact zeros for a
+    sequence whose log_p is not finite).  Launches
+    csrc/num_e2e.cu:e2e_backward on a CUDA tensor."""
+    if ylocal.device.type == "cpu":
+        return e2e_backward_plain(ylocal, alphas, src, logw, final_logw, log_p)
+    B, T, S, K = ylocal.shape
+    kernels.check_tensor("ylocal", ylocal, torch.float32)
+    kernels.check_tensor("alphas", alphas, torch.float32, (T, B, S))
+    kernels.check_tensor("final_logw", final_logw, torch.float32, (B, S))
+    kernels.check_tensor("log_p", log_p, torch.float32, (B,))
+    if pre is None:
+        pre = e2e_kernel_tables(src, logw)
+    src32, logw32, _, by_off, by_arc = pre
+    L = by_arc.shape[-1]
+    kernels.check_tensor("src", src32, torch.int32, (B, S, K))
+    kernels.check_tensor("logw", logw32, torch.float32, (B, S, K))
+    kernels.check_tensor("by_off", by_off, torch.int32, (B, S + 1))
+    kernels.check_tensor("by_arc", by_arc, torch.int32, (B, L))
+    post = torch.empty((B, T, S, K), device=ylocal.device, dtype=torch.float32)
+    if B == 0 or T == 0:
+        return post
+    lib = kernels.library("num_e2e")
+    threads = _e2e_threads(lib, S, 3, "e2e_backward_resident")
+    err = lib.e2e_backward(
+        ylocal.data_ptr(), alphas.data_ptr(), src32.data_ptr(), logw32.data_ptr(),
+        final_logw.data_ptr(), log_p.data_ptr(), by_off.data_ptr(), by_arc.data_ptr(),
+        post.data_ptr(), B, T, S, K, L, threads, kernels.stream_of(ylocal.device),
+    )
+    kernels.check(lib, err, "e2e_backward")
+    e2e_backward_resident.launches += 1
+    return post
+
+
+e2e_backward_resident.launches = 0
