@@ -61,10 +61,15 @@ import time
 
 #: published H100 SXM peaks (NVIDIA data sheet): float32 outside the
 #: tensor cores, dense bfloat16 in the tensor cores (the peak for products
-#: of bfloat16 operands, whatever unit a kernel uses), and HBM3 bandwidth
+#: of bfloat16 operands, whatever unit a kernel uses), dense TF32 in the
+#: tensor cores, and HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
+#: TF32 products per float32 product in K10's 3xTF32 form (hi.hi + hi.lo +
+#: lo.hi): its float32 operations are bounded at PEAK_TF32_FLOPS / 3
+TF32_PRODUCTS = 3
 
 B, T_OUT = 128, 50
 LAYERS = 9
@@ -89,6 +94,37 @@ def _time_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _device_ms(fn, reps: int) -> float:
+    """Mean device ms per call over `reps` calls (CUDA events), with the
+    calls queued behind a ~0.1 s sleep of the card so that the host's
+    launch overhead is not timed (it is, where enqueueing the calls takes
+    the host longer than the sleep)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _alternate(fns: dict, reps: int, rounds: int = 3) -> dict[str, dict]:
+    """Device ms of each of `fns` (name -> callable), timed in turn for
+    `rounds` rounds within one call: every round times every function once.
+    Returns name -> {"median": ..., "rounds": [...]}."""
+    times = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            times[name].append(_device_ms(fn, reps))
+    return {name: dict(median=sorted(t)[len(t) // 2], rounds=t) for name, t in times.items()}
 
 
 def _bound(flops: float, nbytes: float, peak_flops: float = PEAK_F32_FLOPS) -> tuple[float, str]:
@@ -503,10 +539,13 @@ def check_conformer_kernels(seed: int, dtype_name: str) -> dict[str, dict]:
     del ref_out, qkv_r, bias_r
 
     # K10f / K10b.  xn as a LayerNorm leaves it, weights of the scale of
-    # their initialiser (variance 1 / fan-in), cast to the trunk dtype
+    # their initialiser (variance 1 / fan-in), cast to the trunk dtype.  The
+    # products run on the tensor cores: bfloat16 at its peak, float32 as
+    # three TF32 products each (the bound counts the operations it does)
     xn, res, gf = rand(N, D).to(dtype), rand(N, D).to(dtype), rand(N, D).to(dtype)
     w1, w2 = rand(D, Fh, scale=D ** -0.5).to(dtype), rand(Fh, D, scale=Fh ** -0.5).to(dtype)
     b1, b2 = rand(Fh, scale=0.1), rand(D, scale=0.1)
+    ffn_peak, ffn_ops = (PEAK_BF16_FLOPS, 1) if bf16 else (PEAK_TF32_FLOPS, TF32_PRODUCTS)
     o_k = ff.ffn_forward(xn, res, w1, b1, w2, b2, 0.5)
     torch.cuda.synchronize()
     o_p = ff.ffn_forward_plain(xn, res, w1, b1, w2, b2, 0.5)
@@ -517,14 +556,26 @@ def check_conformer_kernels(seed: int, dtype_name: str) -> dict[str, dict]:
         u = x @ a1 + c1.to(dtype)
         return r + 0.5 * ((u * torch.sigmoid(u)) @ a2 + c2.to(dtype))
 
-    _record(
-        measured, "ffn_forward", label,
-        [_check(f"ffn_forward [{label}]", "out", o_k, o_p, *tol)],
-        _time_ms(lambda: ff.ffn_forward(xn, res, w1, b1, w2, b2, 0.5), 20),
-        _time_ms(lambda: ff.ffn_forward_plain(xn, res, w1, b1, w2, b2, 0.5), 20),
-        4.0 * N * D * Fh,
-        esz * (3 * N * D + 2 * D * Fh) + 4.0 * (Fh + D),
-        _time_ms(lambda: dense_chain(xn, res, w1, b1, w2, b2), 20), peak,
+    def record_ffn(name, checks, kernel, plain, library, flops, nbytes):
+        """Kernel, plain version and library call timed in turn (device ms,
+        3 rounds, medians), with the kernel's achieved rate and the share of
+        its bound it reaches."""
+        t = _alternate(dict(kernel=kernel, plain=plain, library=library), 20)
+        ms = t["kernel"]["median"]
+        bound_ms, _ = _bound(ffn_ops * flops, nbytes, ffn_peak)
+        _record(measured, name, label, checks, ms, t["plain"]["median"], ffn_ops * flops,
+                nbytes, t["library"]["median"], ffn_peak,
+                tflops=flops / ms / 1e9, bound_fraction=bound_ms / ms)
+        measured[name].update(ms_rounds=t["kernel"]["rounds"],
+                              library_ms_rounds=t["library"]["rounds"],
+                              plain_ms_rounds=t["plain"]["rounds"], timing="device, alternated")
+
+    record_ffn(
+        "ffn_forward", [_check(f"ffn_forward [{label}]", "out", o_k, o_p, *tol)],
+        lambda: ff.ffn_forward(xn, res, w1, b1, w2, b2, 0.5),
+        lambda: ff.ffn_forward_plain(xn, res, w1, b1, w2, b2, 0.5),
+        lambda: dense_chain(xn, res, w1, b1, w2, b2),
+        4.0 * N * D * Fh, esz * (3 * N * D + 2 * D * Fh) + 4.0 * (Fh + D),
     )
     grads_k = ff.ffn_backward(xn, gf, w1, b1, w2, 0.5)
     torch.cuda.synchronize()
@@ -538,16 +589,18 @@ def check_conformer_kernels(seed: int, dtype_name: str) -> dict[str, dict]:
     tols = dict(dx=tol, dw1=wtol, db1=(1e-3, 1e-4), dw2=wtol, db2=(1e-3, 1e-4))
     checks = [_check(f"ffn_backward [{label}]", what, a, b, *tols[what])
               for what, a, b in zip(tols, grads_k, grads_p)]
+    if not all(torch.equal(a, b) for a, b in zip(ff.ffn_backward(xn, gf, w1, b1, w2, 0.5),
+                                                   grads_k)):
+        raise AssertionError(f"ffn_backward [{label}]: two launches differ")
     leaves = [t.clone().requires_grad_() for t in (xn, w1, b1, w2, b2)]
     chain_out = dense_chain(leaves[0], res, *leaves[1:])
-    _record(
-        measured, "ffn_backward", label, checks,
-        _time_ms(lambda: ff.ffn_backward(xn, gf, w1, b1, w2, 0.5), 20),
-        _time_ms(lambda: ff.ffn_backward_plain(xn, gf, w1, b1, w2, 0.5), 20),
+    record_ffn(
+        "ffn_backward", checks,
+        lambda: ff.ffn_backward(xn, gf, w1, b1, w2, 0.5),
+        lambda: ff.ffn_backward_plain(xn, gf, w1, b1, w2, 0.5),
+        lambda: torch.autograd.grad(chain_out, leaves, gf, retain_graph=True),
         10.0 * N * D * Fh,
         esz * (3 * N * D + 2 * D * Fh) + 4.0 * (Fh + 2 * D * Fh + Fh + D),
-        _time_ms(lambda: torch.autograd.grad(chain_out, leaves, gf, retain_graph=True), 20),
-        peak,
     )
     return measured
 
@@ -1122,9 +1175,12 @@ def main(argv=None) -> int:
     _log(f"build: {build_s:.1f} s for {len(kernels.SIGNATURES)} sources")
     for name in kernels.SIGNATURES:
         log = (kernels.BUILD / f"{name}.log").read_text()
+        entry = ""
         for line in log.splitlines():
-            if "Used" in line or "spill" in line:
-                _log(f"  ptxas {name}: {line.strip()}")
+            if "Compiling entry function" in line:  # K10's kernels by name
+                entry = line.split("'")[1] if name == "fused_ffn" else ""
+            if "Used" in line or "spill" in line or "Performance Loss" in line:
+                _log(f"  ptxas {name}{' ' + entry if entry else ''}: {line.strip()}")
     for name in kernels.SIGNATURES:
         kernels.library(name)
 

@@ -115,3 +115,55 @@ def test_plain_backward_is_the_gradient_of_the_forward_float32():
     got = tf.ffn_backward_plain(*(torch.tensor(a) for a in (args[0], g, args[2], args[3], args[4])), 0.5)
     for t, want in zip(got, (xn, w1, b1, w2, b2)):
         np.testing.assert_allclose(t.numpy(), want.grad.numpy(), rtol=2e-4, atol=2e-5)
+
+
+def _tf32(x):
+    """x with the low 13 of its 23 mantissa bits cleared: the TF32 value the
+    tensor cores read from a float32 register."""
+    return (x.view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _three_tf32(a, b):
+    """a @ b as csrc/fused_ffn.cu multiplies float32 operands on the tensor
+    cores: each operand split as hi = tf32(x), lo = tf32(x - hi), and
+    lo.hi + hi.lo + hi.hi summed in float32 (lo.lo dropped)."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def test_three_tf32_products_stay_within_the_card_tolerance():
+    """Sizes the float32 tolerance of the card checks (chip_smoke.py and
+    tests/test_torch_cuda.py: 1e-4 absolute and relative) for the kernels'
+    3xTF32 products: at the conformer's widths (D=256, F=1024; 1024 rows,
+    weights of their initialiser's scale, as chip_smoke.py draws them) the
+    forward and the weight gradients computed with the split products sit
+    within it of a float64 reference, and so does the plain float32 version
+    (its own error is of the same order)."""
+    rng = np.random.default_rng(4)
+    n, d, f = 1024, 256, 1024
+    r = lambda *s: rng.standard_normal(s)  # noqa: E731
+    xn, res, g = r(n, d), r(n, d), r(n, d)
+    w1, w2 = r(d, f) * d ** -0.5, r(f, d) * f ** -0.5
+    b1, b2 = r(f) * 0.1, r(d) * 0.1
+
+    def run(mm, dt):
+        t = [torch.tensor(a, dtype=dt) for a in (xn, res, g, w1, b1, w2, b2)]
+        x, rs, gg, a1, c1, a2, c2 = t
+        u = mm(x, a1) + c1
+        sig = torch.sigmoid(u)
+        h = u * sig
+        out = rs + 0.5 * (mm(h, a2) + c2)
+        dh = mm(gg, a2.t()) * 0.5 * (sig * (1.0 + u * (1.0 - sig)))
+        dw1 = mm(x.t().contiguous(), dh)
+        dw2 = 0.5 * mm(h.t().contiguous(), gg)
+        return [v.double() for v in (out, dw1, dw2)]
+
+    want = run(torch.matmul, torch.float64)
+    for mm in (_three_tf32, torch.matmul):
+        for got, ref, name in zip(run(mm, torch.float32), want, ("out", "dw1", "dw2")):
+            torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4, msg=lambda m, name=name: f"{name}: {m}")
+    # the split matters: a single TF32 product would miss the tolerance
+    single = lambda a, b: _tf32(a) @ _tf32(b)  # noqa: E731
+    got = run(single, torch.float32)[1]
+    assert not torch.allclose(got, want[1], atol=1e-4, rtol=1e-4)

@@ -16,12 +16,14 @@ dW1, db1 sums the unrounded dh, dW2 = alpha * (h^T g), db2 = alpha * sum(g)
 with g already in the trunk dtype, and d res = g.
 
 On a CUDA tensor `ffn_forward` / `ffn_backward` each launch their kernel of
-csrc/fused_ffn.cu (the backward is three passes in one entry point: rows,
-weight-gradient tiles, the fixed-order sums of the bias gradients); on a
-CPU tensor the plain PyTorch version beside them runs.  The kernels take
-any N, D and F whose row tile fits the card's shared memory
-(`ffn_shared_bytes` in the source) and raise beyond that; there is no
-fallback to the plain version on a CUDA tensor.
+csrc/fused_ffn.cu, whose products run on the tensor cores (wgmma for
+bfloat16 operands, 3xTF32 mma.sync for float32); the backward is two
+device launches in one entry point: the row pass, then the weight-gradient
+tiles with the fixed-order sums of the bias gradients.  On a CPU tensor the
+plain PyTorch version beside them runs.  The kernels take any N and F and
+D up to 384 (bfloat16) or 352 (float32, whose row tiles fill the card's
+shared memory sooner: `ffn_shared_bytes` in the source) and raise beyond
+that; there is no fallback to the plain version on a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -81,13 +83,28 @@ def _check_args(xn, w1, b1, w2):
     return N, D, F
 
 
-def _check_fits(lib, D, is_bf16, backward):
+#: the widest rows the kernels take: three 64-column blocks of the output
+#: per warpgroup, two warpgroups (float32 rows wider than 352 do not fit
+#: the shared memory of one block: `_check_fits` raises for them too)
+MAX_D = 384
+
+
+#: (D, is_bf16, backward, device index) already found to fit
+_FITS: set[tuple[int, int, int, int]] = set()
+
+
+def _check_fits(lib, D, is_bf16, backward, device):
+    key = (D, is_bf16, backward, device.index)
+    if key in _FITS:
+        return
     need = lib.ffn_shared_bytes(D, is_bf16, backward)
     limit = lib.ffn_shared_limit()
-    if need > limit:
+    if D > MAX_D or need > limit:
         raise ValueError(
-            f"ffn: D={D} needs {need} bytes of shared memory per block, the card gives {limit}"
+            f"ffn: D={D} does not fit one block's shared memory and registers"
+            f" (needs {need} bytes, the card gives {limit}; D <= {MAX_D})"
         )
+    _FITS.add(key)
 
 
 def ffn_forward(xn, res, w1, b1, w2, b2, alpha: float) -> torch.Tensor:
@@ -100,7 +117,7 @@ def ffn_forward(xn, res, w1, b1, w2, b2, alpha: float) -> torch.Tensor:
     kernels.check_tensor("b2", b2, torch.float32, (D,))
     lib = kernels.library("fused_ffn")
     is_bf16 = int(xn.dtype == torch.bfloat16)
-    _check_fits(lib, D, is_bf16, 0)
+    _check_fits(lib, D, is_bf16, 0, xn.device)
     out = torch.empty_like(xn)
     if out.numel() == 0:
         return out
@@ -119,15 +136,15 @@ ffn_forward.launches = 0
 
 def ffn_backward(xn, g, w1, b1, w2, alpha: float):
     """K10b.  Launches csrc/fused_ffn.cu:ffn_backward on a CUDA tensor (w1
-    and w2 already in xn.dtype).  The transposed weights and the scratch
-    (h and dhb [N, F] in xn.dtype, per-block bias sums) are made here."""
+    and w2 already in xn.dtype, read in their stored layouts).  The scratch
+    (h and dhb [N, F] in xn.dtype, per-block bias sums) is made here."""
     if xn.device.type == "cpu":
         return ffn_backward_plain(xn, g, w1, b1, w2, alpha)
     N, D, F = _check_args(xn, w1, b1, w2)
     kernels.check_tensor("g", g, xn.dtype, (N, D))
     lib = kernels.library("fused_ffn")
     is_bf16 = int(xn.dtype == torch.bfloat16)
-    _check_fits(lib, D, is_bf16, 1)
+    _check_fits(lib, D, is_bf16, 1, xn.device)
     dev, f32 = xn.device, torch.float32
     dx = torch.empty_like(xn)
     dw1 = torch.empty((D, F), device=dev, dtype=f32)
@@ -141,10 +158,9 @@ def ffn_backward(xn, g, w1, b1, w2, alpha: float):
     dhbuf = torch.empty((N, F), device=dev, dtype=xn.dtype)
     db1_part = torch.empty((blocks, F), device=dev, dtype=f32)
     db2_part = torch.empty((blocks, D), device=dev, dtype=f32)
-    w1t, w2t = w1.t().contiguous(), w2.t().contiguous()
     err = lib.ffn_backward(
-        xn.data_ptr(), g.data_ptr(), w1.data_ptr(), b1.data_ptr(), w1t.data_ptr(),
-        w2t.data_ptr(), dx.data_ptr(), hbuf.data_ptr(), dhbuf.data_ptr(),
+        xn.data_ptr(), g.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+        dx.data_ptr(), hbuf.data_ptr(), dhbuf.data_ptr(),
         db1_part.data_ptr(), db2_part.data_ptr(), dw1.data_ptr(), db1.data_ptr(),
         dw2.data_ptr(), db2.data_ptr(), N, D, F, float(alpha), is_bf16,
         kernels.stream_of(dev),
