@@ -10,11 +10,14 @@ Phases, in order; any failure exits non-zero before the last line:
      one nvcc each, in parallel) and print the build time and each kernel's
      register use;
   3. hold each of the fifteen kernels against its plain PyTorch version on
-     the card and time both (CUDA events), beside the kernel's bound and,
-     where one exists, one PyTorch library call computing the same function:
-     the six chain-loss kernels of the standard supervision at the shapes of
-     both graphs (B=128, T_out=50; the bench's trigram graph, P=80, and its
-     production graph, a 4-gram phone LM over a left-biphone tree, P=1680),
+     the card and time it device-only (CUDA events, the calls queued behind
+     a sleep of the card; 3 rounds, medians), in turns with one PyTorch
+     library call computing the same function where one exists, beside the
+     kernel's bound: the six chain-loss kernels of the standard supervision
+     at the shapes of both graphs (B=128, T_out=50; the bench's trigram
+     graph, P=80, and its production graph, a 4-gram phone LM over a
+     left-biphone tree, P=1680; K5 and K6 also at P=83, and with the host's
+     microseconds per call),
      the flat-start numerator kernels at the e2e batches of both corpora,
      the fused dense-denominator kernels at the trigram graph's Moore form
      (also against the matrix-product recursion of ops/den_dense.py), the
@@ -80,8 +83,10 @@ def _log(*a):
 
 
 def _time_ms(fn, reps: int) -> float:
-    """Mean device ms per call over `reps` calls (CUDA events), after one
-    warm-up call."""
+    """Mean ms per call over `reps` calls (CUDA events), after one warm-up
+    call, with the calls enqueued as they come: where the host takes longer
+    to enqueue a call than the card to run it, this is the host's time.
+    Used for plain versions only, which are no yardstick."""
     import torch
 
     fn()
@@ -98,22 +103,31 @@ def _time_ms(fn, reps: int) -> float:
 
 def _device_ms(fn, reps: int) -> float:
     """Mean device ms per call over `reps` calls (CUDA events), with the
-    calls queued behind a ~0.1 s sleep of the card so that the host's
-    launch overhead is not timed (it is, where enqueueing the calls takes
-    the host longer than the sleep)."""
+    calls queued behind a sleep of the card so that the host's launch
+    overhead is not timed.  If the card woke before the host had queued
+    every call (the start event had completed: the host was slower than
+    the sleep, or the stream's queue of launches filled, as a call of a
+    thousand launches does), the calls are timed again behind a sleep twice
+    as long and half as many of them (at least one)."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(200_000_000)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+    cycles = 200_000_000  # about 0.1 s
+    for _ in range(6):
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        queued = not start.query()
+        end.synchronize()
+        if queued:
+            return start.elapsed_time(end) / reps
+        cycles, reps = 2 * cycles, max(1, reps // 2)
+    raise AssertionError("the host could not queue the timed calls within the card's sleep")
 
 
 def _alternate(fns: dict, reps: int, rounds: int = 3) -> dict[str, dict]:
@@ -125,6 +139,60 @@ def _alternate(fns: dict, reps: int, rounds: int = 3) -> dict[str, dict]:
         for name, fn in fns.items():
             times[name].append(_device_ms(fn, reps))
     return {name: dict(median=sorted(t)[len(t) // 2], rounds=t) for name, t in times.items()}
+
+
+def _times(kernel, reps: int, library=None, plain=None, plain_reps: int = 0) -> dict:
+    """A kernel's device ms, in turn with its library call where one exists
+    (`_alternate`: 3 rounds, medians), and its plain version's: in the same
+    turns where `plain_reps` is 0, else with `_time_ms` over `plain_reps`
+    calls.  Returns the fields of a kernel record."""
+    fns = dict(kernel=kernel)
+    if library is not None:
+        fns["library"] = library
+    if not plain_reps:
+        fns["plain"] = plain
+    t = _alternate(fns, reps)
+    out = dict(ms=t["kernel"]["median"], ms_rounds=t["kernel"]["rounds"],
+               library_ms=None, timing="device, alternated")
+    if library is not None:
+        out.update(library_ms=t["library"]["median"], library_ms_rounds=t["library"]["rounds"])
+    if plain_reps:
+        out["plain_ms"] = _time_ms(plain, plain_reps)
+    else:
+        out.update(plain_ms=t["plain"]["median"], plain_ms_rounds=t["plain"]["rounds"])
+    return out
+
+
+def _captured(fn):
+    """`fn` captured once as a CUDA graph: returns a callable that replays it
+    (one launch, the same kernels).  For a call of more launches than the
+    stream's queue holds behind `_device_ms`'s sleep."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture, as capture asks
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return graph.replay
+
+
+def _host_us(fn, calls: int = 200) -> float:
+    """Host-clock microseconds per call, over `calls` calls enqueued on an
+    idle card (the queue does not fill, so no call waits for the card)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
 
 
 def _bound(flops: float, nbytes: float, peak_flops: float = PEAK_F32_FLOPS) -> tuple[float, str]:
@@ -276,19 +344,77 @@ def make_model(cfg, feat_dim: int, device, seed: int):
     return cls(cfg, feat_dim, device=device, generator=torch.Generator().manual_seed(seed))
 
 
-def _record(measured, name, label, checks, ms, plain_ms, flops, nbytes, lib_ms,
+def _record(measured, name, label, checks, times: dict, flops, nbytes,
             peak_flops=PEAK_F32_FLOPS, **extra):
+    """Log and keep one kernel's record: its checks, its `_times`, its bound
+    and any extra numbers."""
     bound_ms, bound_by = _bound(flops, nbytes, peak_flops)
+    ms, lib_ms = times["ms"], times["library_ms"]
     _log(
-        f"kernel {name} [{label}]: {ms:.4f} ms  plain {plain_ms:.4f} ms"
-        f"  bound {bound_ms:.5f} ms ({bound_by})"
-        + (f"  library {lib_ms:.4f} ms" if lib_ms is not None else "")
-        + "".join(f"  {k} {v:.4f}" for k, v in extra.items())
+        f"kernel {name} [{label}]: {ms:.5f} ms  plain {times['plain_ms']:.5f} ms"
+        f"  bound {bound_ms:.6f} ms ({bound_by})"
+        + (f"  library {lib_ms:.5f} ms" if lib_ms is not None else "")
+        + "".join(f"  {k} {v:.5f}" for k, v in extra.items())
     )
     measured[name] = dict(
         max_abs_err=max(c["max_abs_err"] for c in checks),
-        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-        library_ms=lib_ms, checks=checks, **extra,
+        bound_ms=bound_ms, bound_by=bound_by, checks=checks, **times, **extra,
+    )
+
+
+def occupancies(rng, vocab):
+    """Vocabulary-space occupancies gsm [T, B, W] for `vocab` [B, T, W]:
+    random on its real slots, exactly 0.0 on its pads (the repeats of pdf 0
+    after the sorted prefix), as num_backward leaves them."""
+    import numpy as np
+    import torch
+
+    B, T, W = vocab.shape
+    valid = torch.ones_like(vocab, dtype=torch.bool)
+    valid[..., 1:] = vocab[..., 1:] > vocab[..., :-1]
+    gsm = torch.as_tensor(rng.random(size=(T, B, W)).astype(np.float32), device=vocab.device)
+    return torch.where(valid.transpose(0, 1), gsm, 0.0).contiguous()
+
+
+def vocab_case(rng, B: int, T: int, W: int, P: int, device):
+    """A vocabulary [B, T, W] int32 over P pdfs in the supervision's form
+    (per row a sorted run of distinct pdfs, padded with pdf 0) and its
+    occupancies [T, B, W] (0.0 on the pads).  Row (0, 0) is pads alone;
+    the runs of rows with b % 3 == 1 start at pdf 0, those with b % 3 == 2
+    end at pdf P - 1."""
+    import numpy as np
+    import torch
+
+    n = rng.integers(1, W + 1, size=(B, T))
+    n[0, 0] = 0
+    real = np.arange(W) < n[..., None]
+    pick = np.argsort(rng.random(size=(B, T, P)), axis=-1)[..., :W]
+    v = np.sort(np.where(real, pick, P), axis=-1)
+    v[1::3, :, 0] = 0
+    last = np.maximum(n - 1, 0)[2::3]
+    np.put_along_axis(v[2::3], last[..., None], P - 1, axis=-1)
+    v = np.where(real, v, 0)
+    g = np.where(real, rng.random(size=(B, T, W)), 0.0).astype(np.float32)
+    return (torch.as_tensor(v, dtype=torch.int32, device=device),
+            torch.as_tensor(g.transpose(1, 0, 2).copy(), device=device))
+
+
+def check_vocab(y, vocab, gsm, label: str):
+    """K5 and K6 against their plain versions, bit for bit.  Returns the
+    two kernels' checks; raises on disagreement."""
+    import torch
+
+    from torchain_tpu_torch.ops import num_scan as ns
+
+    P = y.shape[-1]
+    ys_k = ns.vocab_gather(y, vocab)
+    g_k = ns.vocab_scatter(gsm, vocab, P)
+    torch.cuda.synchronize()
+    return (
+        [_check(f"vocab_gather [{label}]", "ysmall", ys_k, ns.vocab_gather_plain(y, vocab),
+                0.0, 0.0)],
+        [_check(f"vocab_scatter [{label}]", "gamma_num", g_k,
+                ns.vocab_scatter_plain(gsm, vocab, P), 0.0, 0.0)],
     )
 
 
@@ -314,8 +440,8 @@ def check_kernels(den, sup, seed: int, path: str) -> dict[str, dict]:
     leaky = 0.1
     measured = {}
 
-    def record(name, checks, ms, plain_ms, flops, nbytes, lib_ms):
-        _record(measured, name, path, checks, ms, plain_ms, flops, nbytes, lib_ms)
+    def record(name, checks, times, flops, nbytes, **extra):
+        _record(measured, name, path, checks, times, flops, nbytes, **extra)
 
     # K1: denominator forward
     yt = y.transpose(0, 1)
@@ -339,11 +465,10 @@ def check_kernels(den, sup, seed: int, path: str) -> dict[str, dict]:
     nnz = int(torch.count_nonzero(den.V))
     record(
         "den_forward", checks1,
-        _time_ms(lambda: dr.den_forward_kernel(*args1), 5),
-        _time_ms(lambda: dr.den_forward_plain(*args1), 5),
+        _times(lambda: dr.den_forward_kernel(*args1), 5,
+               plain=lambda: dr.den_forward_plain(*args1), plain_reps=5),
         2.0 * T * B * nnz,
         4.0 * (T * B * P + S * KS + KS + S + T * B * KS + T * B),
-        None,
     )
 
     # K2: denominator backward, on the plain forward's residuals
@@ -361,50 +486,49 @@ def check_kernels(den, sup, seed: int, path: str) -> dict[str, dict]:
     record(
         "den_backward",
         [_check(f"den_backward [{path}]", "gamma", g_k, g_p, 1e-5, 1e-4)],
-        _time_ms(lambda: dr.den_backward_kernel(*args2), 5),
-        _time_ms(lambda: dr.den_backward_plain(*args2), 5),
+        _times(lambda: dr.den_backward_kernel(*args2), 5,
+               plain=lambda: dr.den_backward_plain(*args2), plain_reps=5),
         2.0 * (T - 1) * B * nnz + 3.0 * T * B * live,
         4.0 * (T * B * P + T * B * KS + 2 * T * B + B + S * KS + KS
                + P + 1 + live + S + B * T * P),
-        None,
     )
 
-    # K5: vocabulary gather (exact: a copy of selected values)
+    # K5 / K6: the batch's own vocabulary, and beside it a vocabulary of an
+    # odd pdf count (P=83: rows not 16-byte aligned) with rows that hold pdf
+    # 0, pdf P-1, or pads alone.  Exact: copies, and sums of the same slots
+    # in the same order
     vocab = sup.frame_vocab
-    ys_k = ns.vocab_gather(y, vocab)
-    torch.cuda.synchronize()
+    gsm = occupancies(rng, vocab)
+    checks5, checks6 = check_vocab(y, vocab, gsm, path)
+    v83, g83 = vocab_case(rng, B, T, W, 83, dev)
+    y83 = torch.as_tensor(rng.normal(size=(B, T, 83)).astype(np.float32), device=dev)
+    c5, c6 = check_vocab(y83, v83, g83, f"{path}, P=83")
     ys_p = ns.vocab_gather_plain(y, vocab)
     vocab64 = vocab.long()
+    gather = lambda: ns.vocab_gather(y, vocab)  # noqa: E731
+    gather_lib = lambda: torch.gather(y, 2, vocab64)  # noqa: E731
+    # bytes: the indices and the output, and of y the 32-byte sectors the
+    # gather touches (at most one per index), not the whole of y
     record(
-        "vocab_gather",
-        [_check(f"vocab_gather [{path}]", "ysmall", ys_k, ys_p, 0.0, 0.0)],
-        _time_ms(lambda: ns.vocab_gather(y, vocab), 50),
-        _time_ms(lambda: ns.vocab_gather_plain(y, vocab), 50),
+        "vocab_gather", checks5 + c5,
+        _times(gather, 50, library=gather_lib,
+               plain=lambda: ns.vocab_gather_plain(y, vocab), plain_reps=50),
         0.0,
-        4.0 * (B * T * P + 2 * B * T * W),
-        _time_ms(lambda: torch.gather(y, 2, vocab64), 50),
+        4.0 * 2 * B * T * W + min(4.0 * B * T * P, 32.0 * B * T * W),
+        host_us=_host_us(gather), library_host_us=_host_us(gather_lib),
     )
-
-    # K6: vocabulary scatter; pad slots (repeats of pdf 0 after the sorted
-    # prefix) carry exactly 0.0, as num_backward leaves them
-    valid = torch.ones_like(vocab, dtype=torch.bool)
-    valid[..., 1:] = vocab[..., 1:] > vocab[..., :-1]
-    gsm = torch.as_tensor(rng.random(size=(T, B, W)).astype(np.float32), device=dev)
-    gsm = torch.where(valid.transpose(0, 1), gsm, 0.0).contiguous()
-    g6_k = ns.vocab_scatter(gsm, vocab, P)
-    torch.cuda.synchronize()
-    g6_p = ns.vocab_scatter_plain(gsm, vocab, P)
-    gsm_bt = gsm.transpose(0, 1).contiguous()
+    # the library call under K6's contract: gsm [T, B, W] in, its transpose
+    # taken inside the call
+    scatter = lambda: ns.vocab_scatter(gsm, vocab, P)  # noqa: E731
+    scatter_lib = lambda: torch.zeros((B, T, P), device=dev).scatter_add_(  # noqa: E731
+        2, vocab64, gsm.transpose(0, 1))
     record(
-        "vocab_scatter",
-        [_check(f"vocab_scatter [{path}]", "gamma_num", g6_k, g6_p, 0.0, 0.0)],
-        _time_ms(lambda: ns.vocab_scatter(gsm, vocab, P), 50),
-        _time_ms(lambda: ns.vocab_scatter_plain(gsm, vocab, P), 50),
+        "vocab_scatter", checks6 + c6,
+        _times(scatter, 50, library=scatter_lib,
+               plain=lambda: ns.vocab_scatter_plain(gsm, vocab, P), plain_reps=50),
         1.0 * B * T * W,
         4.0 * (2 * T * B * W + B * T * P),
-        _time_ms(
-            lambda: torch.zeros((B, T, P), device=dev).scatter_add_(2, vocab64, gsm_bt), 50
-        ),
+        host_us=_host_us(scatter), library_host_us=_host_us(scatter_lib),
     )
 
     # K3 / K4: the steady frames 1..T-1 on the batch's own tables, with the
@@ -430,11 +554,10 @@ def check_kernels(den, sup, seed: int, path: str) -> dict[str, dict]:
     record(
         "num_steady_forward",
         [_check(f"num_steady_forward [{path}]", "alphas", rest_k, rest_p, 1e-5, 1e-5)],
-        _time_ms(lambda: nr.steady_forward(alpha1, *tables, ysm, pre=pre), 50),
-        _time_ms(lambda: nr.steady_forward_plain(alpha1, *tables, ysm), 5),
+        _times(lambda: nr.steady_forward(alpha1, *tables, ysm, pre=pre), 50,
+               plain=lambda: nr.steady_forward_plain(alpha1, *tables, ysm), plain_reps=5),
         4.0 * arcs + 2.0 * B * Tm1 * Sn,
         table_bytes + 4.0 * (B * Tm1 * W + B * Sn + Tm1 * B * Sn),
-        None,
     )
     final = sup.final_logw.clone()
     final[1] = -math.inf
@@ -453,11 +576,10 @@ def check_kernels(den, sup, seed: int, path: str) -> dict[str, dict]:
         "num_steady_backward",
         [_check(f"num_steady_backward [{path}]", "beta1", beta1_k, beta1_p, 1e-5, 1e-5),
          _check(f"num_steady_backward [{path}]", "gsm", gsm_k, gsm_p, 1e-6, 1e-5)],
-        _time_ms(lambda: nr.steady_backward(*args4, pre=pre), 50),
-        _time_ms(lambda: nr.steady_backward_plain(*args4), 5),
+        _times(lambda: nr.steady_backward(*args4, pre=pre), 50,
+               plain=lambda: nr.steady_backward_plain(*args4), plain_reps=5),
         8.0 * arcs + 2.0 * B * Tm1 * (Sn + W),
         table_bytes + 4.0 * (B * Tm1 * W + Tm1 * B * Sn + B * Sn + B + Tm1 * B * W + B * Sn),
-        None,
     )
     return measured
 
@@ -508,12 +630,12 @@ def check_conformer_kernels(seed: int, dtype_name: str) -> dict[str, dict]:
     _record(
         measured, "attention_forward", label,
         [_check(f"attention_forward [{label}]", "out", out_k, out_p, *tol)],
-        _time_ms(lambda: at.attention_forward(qkv, bias, H, scale), 50),
-        _time_ms(lambda: at.attention_forward_plain(qkv, bias, H, scale), 20),
+        _times(lambda: at.attention_forward(qkv, bias, H, scale), 50, library=sdpa,
+               plain=lambda: at.attention_forward_plain(qkv, bias, H, scale), plain_reps=20),
         4.0 * B * H * T * T * dh,
         esz * (B * T * 3 * D + B * T * D) + 4.0 * H * T * T,
-        _time_ms(sdpa, 50), peak,
-        einsum_ms=_time_ms(lambda: at.reference_relpos_attention(qkv, bias, H, scale), 20),
+        peak,
+        einsum_ms=_device_ms(lambda: at.reference_relpos_attention(qkv, bias, H, scale), 20),
     )
     dqkv_k, dbias_k = at.attention_backward(qkv, bias, g, H, scale)
     torch.cuda.synchronize()
@@ -529,11 +651,12 @@ def check_conformer_kernels(seed: int, dtype_name: str) -> dict[str, dict]:
     ref_out = at.reference_relpos_attention(qkv_r, bias_r, H, scale)
     _record(
         measured, "attention_backward", label, checks,
-        _time_ms(lambda: at.attention_backward(qkv, bias, g, H, scale), 50),
-        _time_ms(lambda: at.attention_backward_plain(qkv, bias, g, H, scale), 20),
+        _times(lambda: at.attention_backward(qkv, bias, g, H, scale), 20,
+               library=lambda: torch.autograd.grad(ref_out, (qkv_r, bias_r), g,
+                                                   retain_graph=True),
+               plain=lambda: at.attention_backward_plain(qkv, bias, g, H, scale), plain_reps=20),
         10.0 * B * H * T * T * dh,
         esz * (2 * B * T * 3 * D + B * T * D) + 8.0 * H * T * T,
-        _time_ms(lambda: torch.autograd.grad(ref_out, (qkv_r, bias_r), g, retain_graph=True), 20),
         peak,
     )
     del ref_out, qkv_r, bias_r
@@ -557,18 +680,12 @@ def check_conformer_kernels(seed: int, dtype_name: str) -> dict[str, dict]:
         return r + 0.5 * ((u * torch.sigmoid(u)) @ a2 + c2.to(dtype))
 
     def record_ffn(name, checks, kernel, plain, library, flops, nbytes):
-        """Kernel, plain version and library call timed in turn (device ms,
-        3 rounds, medians), with the kernel's achieved rate and the share of
-        its bound it reaches."""
-        t = _alternate(dict(kernel=kernel, plain=plain, library=library), 20)
-        ms = t["kernel"]["median"]
+        """Kernel, plain version and library call timed in turn, with the
+        kernel's achieved rate and the share of its bound it reaches."""
+        t = _times(kernel, 20, library=library, plain=plain)
         bound_ms, _ = _bound(ffn_ops * flops, nbytes, ffn_peak)
-        _record(measured, name, label, checks, ms, t["plain"]["median"], ffn_ops * flops,
-                nbytes, t["library"]["median"], ffn_peak,
-                tflops=flops / ms / 1e9, bound_fraction=bound_ms / ms)
-        measured[name].update(ms_rounds=t["kernel"]["rounds"],
-                              library_ms_rounds=t["library"]["rounds"],
-                              plain_ms_rounds=t["plain"]["rounds"], timing="device, alternated")
+        _record(measured, name, label, checks, t, ffn_ops * flops, nbytes, ffn_peak,
+                tflops=flops / t["ms"] / 1e9, bound_fraction=bound_ms / t["ms"])
 
     record_ffn(
         "ffn_forward", [_check(f"ffn_forward [{label}]", "out", o_k, o_p, *tol)],
@@ -637,11 +754,10 @@ def check_e2e_kernels(sup, seed: int, label: str) -> dict[str, dict]:
     _record(
         measured, "e2e_forward", label,
         [_check(f"e2e_forward [{label}]", "alphas", rest_k, rest_p, 1e-5, 1e-5)],
-        _time_ms(lambda: nr.e2e_forward_resident(ylocal, src, logw, pre=pre), 20),
-        _time_ms(lambda: nr.e2e_forward_plain(ylocal, src, logw), 3),
+        _times(lambda: nr.e2e_forward_resident(ylocal, src, logw, pre=pre), 20,
+               plain=lambda: nr.e2e_forward_plain(ylocal, src, logw), plain_reps=3),
         4.0 * T * live + 2.0 * Bs * T * S,
         4.0 * T * live + table_bytes + 4.0 * T * Bs * S,
-        None,
     )
     # sequence 1 made impossible (no final state, so log p = -inf) and
     # sequence 2 given a NaN log p: exact zeros for both
@@ -672,12 +788,11 @@ def check_e2e_kernels(sup, seed: int, label: str) -> dict[str, dict]:
     _record(
         measured, "e2e_backward", label,
         [_check(f"e2e_backward [{label}]", "post", post_k, post_p, 1e-5, 1e-4)],
-        _time_ms(lambda: nr.e2e_backward_resident(*args, pre=pre), 20),
-        _time_ms(lambda: nr.e2e_backward_plain(*args), 3),
+        _times(lambda: nr.e2e_backward_resident(*args, pre=pre), 20,
+               plain=lambda: nr.e2e_backward_plain(*args), plain_reps=3),
         8.0 * T * live + 2.0 * Bs * T * S,
         4.0 * T * live + 4.0 * Bs * T * S * K + 8.0 * Bs * S * K + by_bytes
         + 4.0 * (T * Bs * S + Bs * S + Bs),
-        None,
     )
     return measured
 
@@ -732,8 +847,10 @@ def check_dense_kernels(den, y, label: str) -> dict[str, dict]:
     (ops/den_pallas.py) against the matrix-product recursion of
     ops/den_dense.py.  The library form they are timed against is that
     recursion's frame loop under the kernels' own contract (pe in; gout
-    out), which it must match too.  Returns the measurements by kernel name;
-    raises on disagreement."""
+    out), which it must match too; it is timed as one captured CUDA graph
+    (its 50 frames are some 600 launches, more than the stream's queue
+    holds behind the sleep of `_device_ms`).  Returns the measurements by
+    kernel name; raises on disagreement."""
     import torch
 
     from torchain_tpu_torch.ops import den_dense as dd
@@ -764,11 +881,11 @@ def check_dense_kernels(den, y, label: str) -> dict[str, dict]:
     ]
     _record(
         measured, "dense_den_forward", label, checks,
-        _time_ms(lambda: dp.dense_forward_kernel(pe, den, leaky), 5),
-        _time_ms(lambda: dp.dense_forward_plain(pe, den, leaky), 5),
+        _times(lambda: dp.dense_forward_kernel(pe, den, leaky), 5,
+               library=_captured(lambda: dense_forward_library(pe, den, leaky)),
+               plain=lambda: dp.dense_forward_plain(pe, den, leaky), plain_reps=5),
         2.0 * T * B * nnz,
         4.0 * (T * B * E + S * E + 2 * S + 1 + den.real_exp + T * B + T * B * S),
-        _time_ms(lambda: dense_forward_library(pe, den, leaky), 5),
     )
     ymax_t = res["ymax"].T.contiguous()
     F = torch.cumsum(logc_p + ymax_t, 0)
@@ -795,11 +912,11 @@ def check_dense_kernels(den, y, label: str) -> dict[str, dict]:
         raise AssertionError("dense_den_backward: two launches differ")
     _record(
         measured, "dense_den_backward", label, checks,
-        _time_ms(lambda: dp.dense_backward_kernel(*args), 5),
-        _time_ms(lambda: dp.dense_backward_plain(*args), 5),
+        _times(lambda: dp.dense_backward_kernel(*args), 5,
+               library=_captured(lambda: dense_backward_library(*args)),
+               plain=lambda: dp.dense_backward_plain(*args), plain_reps=5),
         2.0 * (2 * T - 1) * B * nnz + 6.0 * T * B * E,
         4.0 * (T * B * E + S * E + S + E + T * B * S + 2 * T * B + T * B * E),
-        _time_ms(lambda: dense_backward_library(*args), 5),
     )
     return measured
 
@@ -828,9 +945,9 @@ def check_probe() -> tuple[dict[str, dict], int]:
     _record(
         measured, "probe_smem", f"{best} KiB",
         [_check("probe_smem", "2x + 3x", ps.try_size(x, best), ps.try_size_plain(x), 0.0, 0.0)],
-        _time_ms(lambda: ps.try_size(x, best), 50),
-        _time_ms(lambda: ps.try_size_plain(x), 50),
-        3.0 * ps.LANES, 8.0 * ps.LANES, None,
+        _times(lambda: ps.try_size(x, best), 50,
+               plain=lambda: ps.try_size_plain(x), plain_reps=50),
+        3.0 * ps.LANES, 8.0 * ps.LANES,
         largest_kib=float(best), limit_bytes=float(limit),
     )
     return measured, launches

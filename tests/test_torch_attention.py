@@ -23,6 +23,7 @@ import torch
 
 from torchain_tpu.ops.attention import fused_relpos_attention as j_fused
 from torchain_tpu.ops.attention import reference_relpos_attention as j_reference
+from torchain_tpu_torch import kernels
 from torchain_tpu_torch.ops import attention as ta
 
 CASES = [  # B, T, H, dh
@@ -123,3 +124,35 @@ def test_bias_gradient_keeps_the_bias_dtype():
     assert tb.grad.dtype == torch.bfloat16
     _, want = ta.attention_backward_plain(tq, tb.detach().float(), torch.tensor(g), 2, 0.3)
     assert torch.equal(tb.grad, want.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("backward", [0, 1], ids=["forward", "backward"])
+def test_each_direction_checks_its_own_shared_memory(monkeypatch, backward):
+    """The forward kernel keeps three [T, dh] slices and the logits in
+    shared memory, the backward four and two [T, T] arrays: at dh 64 the
+    forward fits up to T=162 and the backward only up to T=117.  Each
+    wrapper asks the library for its own direction's need (a stub library
+    that refuses everything, and tensors on the meta device, which pass the
+    CPU test and reach the check without data)."""
+    asked = []
+
+    class Lib:
+        def attention_shared_bytes(self, T, dh, bwd):
+            asked.append((T, dh, bwd))
+            return 1 << 30
+
+        def attention_shared_limit(self):
+            return 232_448
+
+    monkeypatch.setattr(kernels, "library", lambda name: Lib())
+    monkeypatch.setattr(kernels, "check_tensor", lambda *a, **k: None)
+    B, T, H, dh = 2, 150, 4, 64
+    qkv = torch.empty(B, T, 3 * H * dh, device="meta")
+    bias = torch.empty(H, T, T, device="meta")
+    g = torch.empty(B, T, H * dh, device="meta")
+    with pytest.raises(ValueError, match="shared memory"):
+        if backward:
+            ta.attention_backward(qkv, bias, g, H, 0.125)
+        else:
+            ta.attention_forward(qkv, bias, H, 0.125)
+    assert asked == [(T, dh, backward)]

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 import torchain_tpu_torch.data as tdata
 import torchain_tpu_torch.graphs as tgraphs
 from torchain_tpu_torch.ops import DeviceSupervision, auto_den_graph
@@ -101,6 +102,48 @@ def test_vocab_kernels_match_plain(setup):
     assert torch.equal(ns.vocab_scatter(gsm, vocab, P), ns.vocab_scatter_plain(gsm, vocab, P))
     torch.cuda.synchronize()
     assert (ns.vocab_gather.launches, ns.vocab_scatter.launches) == (n5 + 1, n6 + 1)
+
+
+@pytest.mark.parametrize(
+    "B,T,W,P", [(5, 9, 16, 80), (3, 11, 16, 83), (4, 7, 16, 1680), (2, 13, 5, 83)],
+    ids=["trigram_P", "odd_P", "production_P", "odd_W"],
+)
+def test_vocab_kernels_match_plain_at_the_edges(dev, B, T, W, P):
+    """K5 and K6 bit for bit against their plain versions on chip_smoke.py's
+    vocabulary case (rows starting at pdf 0 beside pads, rows ending at pdf
+    P-1, a row of pads alone), at row counts B*T that are not a multiple of
+    K5's 16-row tile and T not a multiple of K6's 8-frame tile, at P whose
+    rows are not 16-byte aligned.  Each call launches once."""
+    rng = np.random.default_rng(P + W)
+    vocab, gsm = chip_smoke.vocab_case(rng, B, T, W, P, dev)
+    y = torch.as_tensor(rng.normal(size=(B, T, P)), dtype=torch.float32, device=dev)
+    n5, n6 = ns.vocab_gather.launches, ns.vocab_scatter.launches
+    ys = ns.vocab_gather(y, vocab)
+    assert ns.vocab_gather.launches == n5 + 1
+    gamma = ns.vocab_scatter(gsm, vocab, P)
+    assert ns.vocab_scatter.launches == n6 + 1
+    torch.cuda.synchronize()
+    assert torch.equal(ys, ns.vocab_gather_plain(y, vocab))
+    assert torch.equal(gamma, ns.vocab_scatter_plain(gsm, vocab, P))
+    assert (gamma[0, 0] == 0).all() and (gamma[2::3, :, P - 1] > 0).all()
+
+
+def test_vocab_kernels_raise_on_wrong_input(setup):
+    den, sup, y = setup
+    vocab, P = sup.frame_vocab, den.num_pdfs
+    gsm = torch.zeros(vocab.shape[1], vocab.shape[0], vocab.shape[2], device=y.device)
+    with pytest.raises(TypeError):
+        ns.vocab_gather(y, vocab.long())
+    with pytest.raises(TypeError):
+        ns.vocab_gather(y, vocab.cpu())
+    with pytest.raises(ValueError):
+        ns.vocab_gather(y, vocab[:, :-1])
+    with pytest.raises(TypeError):
+        ns.vocab_gather(y.double(), vocab)
+    with pytest.raises(ValueError):
+        ns.vocab_scatter(gsm[..., :-1].contiguous(), vocab, P)
+    with pytest.raises(ValueError):
+        ns.vocab_scatter(gsm, vocab.transpose(0, 1), P)
 
 
 def _steady_case(dev, B, T, S, Kr, W, seed):
@@ -298,6 +341,26 @@ def test_attention_kernels_raise_on_wrong_input(dev):
         at.attention_backward(qkv, bias, g.bfloat16(), 2, 0.3)
     with pytest.raises(ValueError):
         at.attention_backward(qkv, bias, g[:, :-1].contiguous(), 2, 0.3)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["float32", "bfloat16"])
+def test_attention_forward_runs_beyond_the_backward_limit(dev, dtype):
+    """At dh 64 the forward's block fits up to T=162, the backward's up to
+    T=117: at T=150 K7f runs (within chip_smoke.py's K7f tolerances) and
+    K7b raises."""
+    B, T, H, dh = 2, 150, 4, 64
+    qkv, bias, g = _attn_case(dev, B, T, H, dh, dtype, seed=3)
+    scale = 1.0 / math.sqrt(dh)
+    n = at.attention_forward.launches
+    out = at.attention_forward(qkv, bias, H, scale)
+    torch.cuda.synchronize()
+    assert at.attention_forward.launches == n + 1
+    tol = dict(atol=5e-5, rtol=1e-5) if dtype == torch.float32 else dict(atol=2e-2, rtol=1e-2)
+    torch.testing.assert_close(out, at.attention_forward_plain(qkv, bias, H, scale), **tol)
+    n = at.attention_backward.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        at.attention_backward(qkv, bias, g, H, scale)
+    assert at.attention_backward.launches == n
 
 
 def test_attention_beyond_the_shared_memory_limit_raises(dev):

@@ -18,6 +18,7 @@ pytest.importorskip("jax")
 import jax.numpy as jnp
 import torch
 
+import chip_smoke
 import torchain_tpu.data as jdata
 import torchain_tpu.graphs as jgraphs
 import torchain_tpu_torch.data as tdata
@@ -75,6 +76,42 @@ def test_vocab_scatter_matches_pallas(setup):
     ref = np.asarray(jns._scatter_vocab(jnp.asarray(gsm.numpy()), jsup, P))
     got = tns.vocab_scatter(gsm, vocab, P)
     np.testing.assert_array_equal(got.numpy(), ref)  # one non-zero per sum: exact
+
+
+EDGE_CASES = pytest.mark.parametrize(
+    "B,T,W,P", [(4, 8, 16, 83), (3, 2, 16, 1680)], ids=["odd_P", "production_P"])
+
+
+def _edge_case(B, T, W, P):
+    """chip_smoke.py's vocabulary case: rows whose run starts at pdf 0 (beside
+    pads of pdf 0), rows that end at pdf P-1, and row (0, 0) of pads alone;
+    with occupancies 0.0 on the pads and y of a seeded normal."""
+    rng = np.random.default_rng(P)
+    vocab, gsm = chip_smoke.vocab_case(rng, B, T, W, P, "cpu")
+    assert (vocab[1::3, :, 0] == 0).all() and (vocab[2::3] == P - 1).any(-1).all()
+    assert (vocab[0, 0] == 0).all() and (gsm[0, 0] == 0).all()
+    y = rng.normal(size=(B, T, P)).astype(np.float32)
+    return vocab, gsm, y, types.SimpleNamespace(frame_vocab=jnp.asarray(vocab.numpy()))
+
+
+@EDGE_CASES
+def test_vocab_gather_matches_pallas_at_the_edges(monkeypatch, B, T, W, P):
+    vocab, _, y, jsup = _edge_case(B, T, W, P)
+    monkeypatch.setenv("TORCHAIN_NUM_PALLAS", "force")
+    ref = np.asarray(jns._gather_vocab(jnp.asarray(y), jsup))
+    got = tns.vocab_gather(torch.as_tensor(y), vocab)
+    np.testing.assert_array_equal(got.numpy(), ref)  # a copy: exact
+    assert (got[:, :, -1] == torch.as_tensor(y)[..., 0]).any()  # pads gather pdf 0
+
+
+@EDGE_CASES
+def test_vocab_scatter_matches_pallas_at_the_edges(B, T, W, P):
+    vocab, gsm, _, jsup = _edge_case(B, T, W, P)
+    ref = np.asarray(jns._scatter_vocab(jnp.asarray(gsm.numpy()), jsup, P))
+    got = tns.vocab_scatter(gsm, vocab, P)
+    np.testing.assert_array_equal(got.numpy(), ref)  # one non-zero per sum: exact
+    assert (got[0, 0] == 0).all() and (got[1::3, :, 0] > 0).all()
+    assert (got[2::3, :, P - 1] > 0).all()
 
 
 def test_vocab_scatter_keeps_real_pdf0_beside_pads():

@@ -105,6 +105,7 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_entries: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 
 
 #: where the CUDA toolkit puts nvcc when it is not on PATH
@@ -178,6 +179,15 @@ def library(name: str) -> ctypes.CDLL:
         return lib
 
 
+def entry(name: str, fn: str):
+    """The C entry point `fn` of `csrc/<name>.cu`, looked up once per
+    process (a wrapper called every step then skips `library`'s lock)."""
+    f = _entries.get((name, fn))
+    if f is None:
+        f = _entries[(name, fn)] = getattr(library(name), fn)
+    return f
+
+
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     """Raise if a kernel entry point reported a CUDA error."""
     if err != 0:
@@ -199,7 +209,10 @@ def check_tensor(name: str, x, dtype, shape=None) -> None:
 
 
 def stream_of(device) -> int:
-    """Raw handle of PyTorch's current CUDA stream on `device`."""
+    """Raw handle of PyTorch's current CUDA stream on `device` (the call
+    inductor's generated code makes: cheaper than `current_stream`, which
+    builds a Stream object)."""
     import torch
 
-    return torch.cuda.current_stream(device).cuda_stream
+    index = torch.cuda.current_device() if device.index is None else device.index
+    return torch._C._cuda_getCurrentRawStream(index)

@@ -21,9 +21,10 @@ pair; K7b is followed by its fixed-order reduction of the bias gradient
 over the batch, in the same entry point); on a CPU tensor the plain PyTorch
 version beside them runs.  The kernels keep q, k, v (and the incoming
 gradient) of one head with the [T, T] logits in shared memory, so T and dh
-are bounded by what fits there: `attention_backward` needs
-4*(4*T*(dh+1) + 2*T*T) bytes of the card's 232,448 per block, and both
-wrappers raise beyond that.
+are bounded by what fits there: `attention_forward` needs
+4*(3*T*(dh+1) + T*T) bytes of the card's 232,448 per block (T <= 162 at
+dh 64), `attention_backward` 4*(4*T*(dh+1) + 2*T*T) (T <= 117), and each
+wrapper raises beyond its own limit.
 """
 
 from __future__ import annotations
@@ -98,12 +99,15 @@ def _check_args(qkv, bias, num_heads):
     return B, T, num_heads, D3 // 3 // num_heads
 
 
-def _check_fits(lib, T, dh):
-    need = lib.attention_shared_bytes(T, dh, 1)
+def _check_fits(lib, T, dh, backward: int):
+    """Raise unless the forward (backward=0) or the backward (1) kernel's
+    block fits the card's shared memory at this T and dh."""
+    need = lib.attention_shared_bytes(T, dh, backward)
     limit = lib.attention_shared_limit()
     if need > limit:
+        what = "attention_backward" if backward else "attention_forward"
         raise ValueError(
-            f"attention: T={T}, dh={dh} needs {need} bytes of shared memory per block,"
+            f"{what}: T={T}, dh={dh} needs {need} bytes of shared memory per block,"
             f" the card gives {limit}"
         )
 
@@ -114,7 +118,7 @@ def attention_forward(qkv, bias, num_heads: int, scale: float) -> torch.Tensor:
         return attention_forward_plain(qkv, bias, num_heads, scale)
     B, T, H, dh = _check_args(qkv, bias, num_heads)
     lib = kernels.library("attention")
-    _check_fits(lib, T, dh)
+    _check_fits(lib, T, dh, 0)
     out = torch.empty((B, T, H * dh), device=qkv.device, dtype=qkv.dtype)
     if out.numel() == 0:
         return out
@@ -140,7 +144,7 @@ def attention_backward(qkv, bias, g, num_heads: int, scale: float):
     B, T, H, dh = _check_args(qkv, bias, num_heads)
     kernels.check_tensor("g", g, qkv.dtype, (B, T, H * dh))
     lib = kernels.library("attention")
-    _check_fits(lib, T, dh)
+    _check_fits(lib, T, dh, 1)
     dqkv = torch.empty_like(qkv)
     dbias = torch.empty((H, T, T), device=qkv.device, dtype=torch.float32)
     if qkv.numel() == 0:

@@ -41,21 +41,34 @@ def vocab_gather_plain(y: torch.Tensor, frame_vocab: torch.Tensor) -> torch.Tens
     return torch.gather(y, 2, frame_vocab.long())
 
 
+def _check_vocab(frame_vocab: torch.Tensor, B: int, T: int) -> int:
+    """The vocabulary K5 and K6 take, checked by shape, type and device (a
+    `DeviceSupervision` fixes it; `check_tensor` guards the tensors that
+    change every call).  Returns W."""
+    if frame_vocab.dim() != 3 or frame_vocab.shape[:2] != (B, T):
+        raise ValueError(f"frame_vocab: expected [{B}, {T}, W], got {tuple(frame_vocab.shape)}")
+    if frame_vocab.dtype != torch.int32 or not frame_vocab.is_cuda:
+        raise TypeError(f"frame_vocab: expected int32 on the card, got {frame_vocab.dtype}"
+                        f" on {frame_vocab.device}")
+    if not frame_vocab.is_contiguous():
+        raise ValueError("frame_vocab: expected a contiguous tensor")
+    return frame_vocab.shape[2]
+
+
 def vocab_gather(y: torch.Tensor, frame_vocab: torch.Tensor) -> torch.Tensor:
     """K5.  Launches csrc/num_vocab.cu:vocab_gather on a CUDA tensor."""
     if y.device.type == "cpu":
         return vocab_gather_plain(y, frame_vocab)
-    B, T, P = y.shape
-    W = frame_vocab.shape[-1]
     kernels.check_tensor("y", y, torch.float32)
-    kernels.check_tensor("frame_vocab", frame_vocab, torch.int32, (B, T, W))
+    B, T, P = y.shape
+    W = _check_vocab(frame_vocab, B, T)
     out = torch.empty((B, T, W), device=y.device, dtype=torch.float32)
-    lib = kernels.library("num_vocab")
-    err = lib.vocab_gather(
+    err = kernels.entry("num_vocab", "vocab_gather")(
         y.data_ptr(), frame_vocab.data_ptr(), out.data_ptr(), B, T, P, W,
         kernels.stream_of(y.device),
     )
-    kernels.check(lib, err, "vocab_gather")
+    if err:
+        kernels.check(kernels.library("num_vocab"), err, "vocab_gather")
     vocab_gather.launches += 1
     return out
 
@@ -85,16 +98,17 @@ def vocab_scatter(
     """K6.  Launches csrc/num_vocab.cu:vocab_scatter on a CUDA tensor."""
     if gsm_t.device.type == "cpu":
         return vocab_scatter_plain(gsm_t, frame_vocab, P)
-    T, B, W = gsm_t.shape
     kernels.check_tensor("gsm_t", gsm_t, torch.float32)
-    kernels.check_tensor("frame_vocab", frame_vocab, torch.int32, (B, T, W))
+    T, B, W = gsm_t.shape
+    if _check_vocab(frame_vocab, B, T) != W:
+        raise ValueError(f"frame_vocab: expected W={W}, got {frame_vocab.shape[2]}")
     gamma = torch.empty((B, T, P), device=gsm_t.device, dtype=torch.float32)
-    lib = kernels.library("num_vocab")
-    err = lib.vocab_scatter(
+    err = kernels.entry("num_vocab", "vocab_scatter")(
         gsm_t.data_ptr(), frame_vocab.data_ptr(), gamma.data_ptr(), B, T, P, W,
         kernels.stream_of(gsm_t.device),
     )
-    kernels.check(lib, err, "vocab_scatter")
+    if err:
+        kernels.check(kernels.library("num_vocab"), err, "vocab_scatter")
     vocab_scatter.launches += 1
     return gamma
 
