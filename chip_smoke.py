@@ -23,8 +23,10 @@ Phases, in order; any failure exits non-zero before the last line:
      (also against the matrix-product recursion of ops/den_dense.py), the
      attention and feed-forward kernels at the conformer's shapes (qkv
      [128, 50, 768], 4 heads; xn [6400, 256], F=1024) with bfloat16 and with
-     float32 operands, and the shared-memory probe against the device's
-     opt-in limit;
+     float32 operands (K7 also at T=150 in bfloat16, with a card-vs-CPU check
+     of `fused_relpos_attention` at B=8, the host's microseconds per wrapper
+     call and the device's per launch), and the shared-memory probe against
+     the device's opt-in limit;
   4. six paths, each a full-width model trained for a few steps with the
      LF-MMI chain loss on one replayed batch through `make_train_step`:
      (a) TDNN-F (9 layers, hidden 768, bottleneck 96, prefinal 256) on the
@@ -584,42 +586,48 @@ def check_kernels(den, sup, seed: int, path: str) -> dict[str, dict]:
     return measured
 
 
-def check_conformer_kernels(seed: int, dtype_name: str) -> dict[str, dict]:
-    """Phase 3, conformer: K7f, K7b, K10f and K10b against their plain
-    versions at the conformer path's shapes (B=128, T=50, 4 heads of 64;
-    N = B*T = 6400 rows, D=256, F=1024) with operands of one dtype, with
-    times.  Returns the measurements by kernel name; raises on
-    disagreement."""
-    import numpy as np
+#: the second attention shape: T_out of chunks of 150 output frames
+T_LONG = 150
+#: batch rows of the attention's card-vs-CPU check
+B_CPU = 8
+
+
+def check_attention(rng, Bn: int, T: int, dtype_name: str) -> dict[str, dict]:
+    """Phase 3, attention: K7f and K7b against their plain versions at qkv
+    [Bn, T, 3 * 256], 4 heads of 64, with operands of one dtype, timed in turn
+    with one library call each: `scaled_dot_product_attention` with the bias
+    as its float mask, and for K7b autograd of that call with the float32 bias
+    requiring a gradient, broadcast over the batch (the einsum form's autograd
+    as `einsum_ms`).  Then `fused_relpos_attention` on the card against the CPU
+    at B_CPU rows: its output and both gradients.  Returns the measurements
+    by kernel name; raises on disagreement."""
     import torch
     import torch.nn.functional as F
 
     from torchain_tpu_torch.ops import attention as at
-    from torchain_tpu_torch.ops import fused_ffn as ff
 
     dev = torch.device("cuda")
     dtype = getattr(torch, dtype_name)
     bf16 = dtype == torch.bfloat16
     esz = 2 if bf16 else 4
     peak = PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS
-    D, H, Fh, T = CONFORMER["dim"], CONFORMER["num_heads"], 4 * CONFORMER["dim"], T_OUT
-    dh, N = D // H, B * T_OUT
-    rng = np.random.default_rng(seed)
+    D, H = CONFORMER["dim"], CONFORMER["num_heads"]
+    dh = D // H
     measured = {}
 
     def rand(*shape, scale=1.0):
-        return torch.as_tensor(rng.standard_normal(shape).astype(np.float32) * scale, device=dev)
+        return torch.as_tensor(rng.standard_normal(shape).astype("float32") * scale, device=dev)
 
-    # K7f / K7b.  qkv of the scale a LayerNorm followed by a fresh Dense
-    # gives, the bias of the scale of a trained table
-    label = f"conformer {dtype_name}"
-    qkv, g = rand(B, T, 3 * D).to(dtype), rand(B, T, D).to(dtype)
+    # qkv of the scale a LayerNorm followed by a fresh Dense gives, the bias
+    # of the scale of a trained table
+    label = f"conformer {dtype_name}, T={T}"
+    qkv, g = rand(Bn, T, 3 * D).to(dtype), rand(Bn, T, D).to(dtype)
     bias = rand(H, T, T, scale=0.3)
     scale = 1.0 / math.sqrt(dh)
     out_k = at.attention_forward(qkv, bias, H, scale)
     torch.cuda.synchronize()
     out_p = at.attention_forward_plain(qkv, bias, H, scale)
-    # float32: sums of 64 and 50 float32 products in another order, outputs
+    # float32: sums of 64 and T float32 products in another order, outputs
     # of order 1.  bfloat16: both sides round the same float32 value up to
     # that reordering, so they sit at most one rounding step (2^-8) apart
     tol = (2e-2, 1e-2) if bf16 else (5e-5, 1e-5)
@@ -632,34 +640,123 @@ def check_conformer_kernels(seed: int, dtype_name: str) -> dict[str, dict]:
         [_check(f"attention_forward [{label}]", "out", out_k, out_p, *tol)],
         _times(lambda: at.attention_forward(qkv, bias, H, scale), 50, library=sdpa,
                plain=lambda: at.attention_forward_plain(qkv, bias, H, scale), plain_reps=20),
-        4.0 * B * H * T * T * dh,
-        esz * (B * T * 3 * D + B * T * D) + 4.0 * H * T * T,
+        4.0 * Bn * H * T * T * dh,
+        esz * (Bn * T * 3 * D + Bn * T * D) + 4.0 * H * T * T,
         peak,
         einsum_ms=_device_ms(lambda: at.reference_relpos_attention(qkv, bias, H, scale), 20),
+        host_us=_host_us(lambda: at.attention_forward(qkv, bias, H, scale)),
     )
     dqkv_k, dbias_k = at.attention_backward(qkv, bias, g, H, scale)
     torch.cuda.synchronize()
     dqkv_p, dbias_p = at.attention_backward_plain(qkv, bias, g, H, scale)
-    # dbias is a float32 sum over the 128 batch rows of terms of order 0.1,
-    # from the same operands on both sides
+    # dbias is a float32 sum over the batch rows of terms of order 0.1, from
+    # the same operands on both sides
     checks = [
         _check(f"attention_backward [{label}]", "dqkv", dqkv_k, dqkv_p, *tol),
         _check(f"attention_backward [{label}]", "dbias", dbias_k, dbias_p, 1e-4, 1e-4),
     ]
-    # the library's way: autograd through the einsum formulation (backward only)
+    again = at.attention_backward(qkv, bias, g, H, scale)
+    if not (torch.equal(again[0], dqkv_k) and torch.equal(again[1], dbias_k)):
+        raise AssertionError(f"attention_backward [{label}]: two launches differ")
+    # the one-call yardstick: SDPA's own backward, the bias gradient included
+    qkv_s, bias_s = qkv.clone().requires_grad_(), bias.clone().requires_grad_()
+    qs, ks, vs = at._heads(qkv_s, H)
+    sdpa_out = at._merge(F.scaled_dot_product_attention(
+        qs, ks, vs, attn_mask=bias_s.to(dtype)[None], scale=scale))
+    # and autograd through the einsum formulation
     qkv_r, bias_r = qkv.clone().requires_grad_(), bias.clone().requires_grad_()
     ref_out = at.reference_relpos_attention(qkv_r, bias_r, H, scale)
     _record(
         measured, "attention_backward", label, checks,
         _times(lambda: at.attention_backward(qkv, bias, g, H, scale), 20,
-               library=lambda: torch.autograd.grad(ref_out, (qkv_r, bias_r), g,
+               library=lambda: torch.autograd.grad(sdpa_out, (qkv_s, bias_s), g,
                                                    retain_graph=True),
                plain=lambda: at.attention_backward_plain(qkv, bias, g, H, scale), plain_reps=20),
-        10.0 * B * H * T * T * dh,
-        esz * (2 * B * T * 3 * D + B * T * D) + 8.0 * H * T * T,
+        10.0 * Bn * H * T * T * dh,
+        esz * (2 * Bn * T * 3 * D + Bn * T * D) + 8.0 * H * T * T,
         peak,
+        einsum_ms=_device_ms(lambda: torch.autograd.grad(ref_out, (qkv_r, bias_r), g,
+                                                         retain_graph=True), 20),
+        host_us=_host_us(lambda: at.attention_backward(qkv, bias, g, H, scale)),
     )
-    del ref_out, qkv_r, bias_r
+    del sdpa_out, ref_out
+    by_launch = attention_launches(qkv, bias, g, H, scale)
+    _log(f"K7 [{label}]: device µs per call by launch {by_launch}")
+    for name, rec in measured.items():
+        rec["device_us_by_launch"] = {
+            k: v for k, v in by_launch.items() if ("fwd" in k) == (name == "attention_forward")}
+
+    # the autograd.Function on the card (kernels) against the CPU (plain
+    # versions) at B_CPU rows: the same arithmetic in another order (bfloat16:
+    # up to one rounding step of the outputs and gradients)
+    grads = {}
+    for d in ("cuda", "cpu"):
+        q = qkv[:B_CPU].detach().to(d).clone().requires_grad_()
+        bb = bias.detach().to(d).clone().requires_grad_()
+        o = at.fused_relpos_attention(q, bb, H, scale)
+        torch.sum(o.float() * g[:B_CPU].float().to(d)).backward()
+        grads[d] = (o.detach().cpu(), q.grad.cpu(), bb.grad.cpu())
+    cpu_tol = dict(out=tol, dqkv=tol, dbias=(1e-4, 1e-4))
+    for what, a, c in zip(cpu_tol, grads["cuda"], grads["cpu"]):
+        measured["attention_backward"]["checks"].append(
+            _check(f"fused_relpos_attention [{label}, B={B_CPU}]", f"{what}, card vs cpu", a, c,
+                   *cpu_tol[what]))
+    return measured
+
+
+def attention_launches(qkv, bias, g, H: int, scale: float, calls: int = 20) -> dict[str, float]:
+    """Device µs per call of each kernel that one K7f and one K7b call
+    launch (torch.profiler over `calls` calls of each)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from torchain_tpu_torch.ops import attention as at
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            at.attention_forward(qkv, bias, H, scale)
+            at.attention_backward(qkv, bias, g, H, scale)
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+        if us > 0:  # "void (anonymous namespace)::attn_fwd_kernel<...>(...)" -> attn_fwd_kernel
+            name = e.key.replace("(anonymous namespace)::", "").removeprefix("void ")
+            out[name.split("<")[0].split("(")[0] or e.key] = us / calls
+    return out
+
+
+def check_conformer_kernels(seed: int, dtype_name: str) -> dict[str, dict]:
+    """Phase 3, conformer: K7f, K7b, K10f and K10b against their plain
+    versions at the conformer path's shapes (B=128, T=50, 4 heads of 64;
+    N = B*T = 6400 rows, D=256, F=1024) with operands of one dtype, with
+    times; with bfloat16 also K7f and K7b at T=150 (`check_attention`).
+    Returns the measurements by kernel name; raises on disagreement."""
+    import numpy as np
+    import torch
+
+    from torchain_tpu_torch.ops import fused_ffn as ff
+
+    dev = torch.device("cuda")
+    dtype = getattr(torch, dtype_name)
+    bf16 = dtype == torch.bfloat16
+    esz = 2 if bf16 else 4
+    D, Fh, N = CONFORMER["dim"], 4 * CONFORMER["dim"], B * T_OUT
+    label = f"conformer {dtype_name}"
+    rng = np.random.default_rng(seed)
+    measured = {}
+
+    def rand(*shape, scale=1.0):
+        return torch.as_tensor(rng.standard_normal(shape).astype(np.float32) * scale, device=dev)
+
+    # K7f / K7b at the path's T, and for bfloat16 also at T=150 (chunks of
+    # 150 output frames; the first design's K7b refused T > 117)
+    measured.update(check_attention(rng, B, T_OUT, dtype_name))
+    if bf16:
+        second = check_attention(rng, B, T_LONG, dtype_name)
+        for name, rec in second.items():
+            measured[name]["second_shape"] = rec
 
     # K10f / K10b.  xn as a LayerNorm leaves it, weights of the scale of
     # their initialiser (variance 1 / fan-in), cast to the trunk dtype.  The
@@ -1069,7 +1166,8 @@ def profile_steps(step, feats, den, sup, n: int, out_path: pathlib.Path | None) 
     ours = ("fwd_gemm", "fwd_norm", "bwd_gamma", "bwd_gemm", "bwd_norm",
             "vocab_gather_kernel", "vocab_scatter_kernel",
             "steady_fwd_kernel", "steady_bwd_kernel",
-            "attn_fwd_kernel", "attn_bwd_kernel", "dbias_reduce_kernel",
+            "attn_fwd_kernel", "attn_bwd_rows_kernel", "attn_bwd_cols_kernel",
+            "dbias_reduce_kernel",
             "ffn_fwd_kernel", "ffn_bwd_rows_kernel", "ffn_bwd_weights_kernel",
             "sum_parts_kernel", "e2e_fwd_kernel", "e2e_bwd_kernel", "dense_fwd_",
             "dense_bwd_")
@@ -1294,8 +1392,8 @@ def main(argv=None) -> int:
         log = (kernels.BUILD / f"{name}.log").read_text()
         entry = ""
         for line in log.splitlines():
-            if "Compiling entry function" in line:  # K10's kernels by name
-                entry = line.split("'")[1] if name == "fused_ffn" else ""
+            if "Compiling entry function" in line:  # K7's and K10's kernels by name
+                entry = line.split("'")[1] if name in ("attention", "fused_ffn") else ""
             if "Used" in line or "spill" in line or "Performance Loss" in line:
                 _log(f"  ptxas {name}{' ' + entry if entry else ''}: {line.strip()}")
     for name in kernels.SIGNATURES:

@@ -288,8 +288,11 @@ def _attn_case(dev, B, T, H, dh, dtype, seed=0):
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["float32", "bfloat16"])
 @pytest.mark.parametrize(
-    "B,T,H,dh", [(3, 17, 4, 16), (2, 23, 2, 32), (5, 50, 4, 64), (1, 1, 1, 8), (2, 33, 3, 24)],
-    ids=["T17", "T23", "main_path_heads", "one_frame", "three_heads"],
+    "B,T,H,dh",
+    [(3, 17, 4, 16), (2, 23, 2, 32), (5, 50, 4, 64), (1, 1, 1, 8), (2, 33, 3, 24),
+     (3, 50, 4, 36), (2, 70, 3, 9)],
+    ids=["T17", "T23", "main_path_heads", "one_frame", "three_heads", "heads_of_36",
+         "odd_heads"],
 )
 def test_attention_kernels_match_plain(dev, B, T, H, dh, dtype):
     qkv, bias, g = _attn_case(dev, B, T, H, dh, dtype)
@@ -344,37 +347,45 @@ def test_attention_kernels_raise_on_wrong_input(dev):
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["float32", "bfloat16"])
-def test_attention_forward_runs_beyond_the_backward_limit(dev, dtype):
-    """At dh 64 the forward's block fits up to T=162, the backward's up to
-    T=117: at T=150 K7f runs (within chip_smoke.py's K7f tolerances) and
-    K7b raises."""
-    B, T, H, dh = 2, 150, 4, 64
+@pytest.mark.parametrize("T", [118, 150, 333, 512])
+def test_attention_forward_runs_beyond_the_backward_limit(dev, T, dtype):
+    """Both kernels are tiled over T, so neither has a limit in T: at dh 64
+    the first design's backward took T <= 117 and its forward T <= 162.
+    Here both run at lengths past those, over two to eight key tiles, and
+    match the plain versions within the tolerances of
+    `test_attention_kernels_match_plain` (the forward's float32 atol as
+    chip_smoke.py's)."""
+    B, H, dh = 2, 4, 64
     qkv, bias, g = _attn_case(dev, B, T, H, dh, dtype, seed=3)
     scale = 1.0 / math.sqrt(dh)
-    n = at.attention_forward.launches
+    n_f, n_b = at.attention_forward.launches, at.attention_backward.launches
     out = at.attention_forward(qkv, bias, H, scale)
+    dqkv, dbias = at.attention_backward(qkv, bias, g, H, scale)
     torch.cuda.synchronize()
-    assert at.attention_forward.launches == n + 1
+    assert (at.attention_forward.launches, at.attention_backward.launches) == (n_f + 1, n_b + 1)
     tol = dict(atol=5e-5, rtol=1e-5) if dtype == torch.float32 else dict(atol=2e-2, rtol=1e-2)
     torch.testing.assert_close(out, at.attention_forward_plain(qkv, bias, H, scale), **tol)
-    n = at.attention_backward.launches
-    with pytest.raises(ValueError, match="shared memory"):
-        at.attention_backward(qkv, bias, g, H, scale)
-    assert at.attention_backward.launches == n
+    dqkv_p, dbias_p = at.attention_backward_plain(qkv, bias, g, H, scale)
+    tol = dict(atol=2e-5, rtol=1e-5) if dtype == torch.float32 else dict(atol=2e-2, rtol=1e-2)
+    torch.testing.assert_close(dqkv, dqkv_p, **tol)
+    torch.testing.assert_close(dbias, dbias_p, atol=5e-5, rtol=1e-4)
+    again = at.attention_backward(qkv, bias, g, H, scale)
+    assert torch.equal(again[0], dqkv) and torch.equal(again[1], dbias)
 
 
 def test_attention_beyond_the_shared_memory_limit_raises(dev):
-    """T * dh and T * T must fit one block's shared memory; beyond that the
-    wrappers raise, they do not fall back."""
-    T, H, dh = 400, 1, 64
+    """The kernels take heads up to 64 wide (a tile of 64 rows by the
+    padded head width per operand): beyond that the wrappers raise, they do
+    not fall back."""
+    T, H, dh = 40, 1, 72
     qkv = torch.zeros(1, T, 3 * H * dh, device=dev)
     bias = torch.zeros(H, T, T, device=dev)
-    n = at.attention_forward.launches
-    with pytest.raises(ValueError, match="shared memory"):
+    n_f, n_b = at.attention_forward.launches, at.attention_backward.launches
+    with pytest.raises(ValueError, match="head width"):
         at.attention_forward(qkv, bias, H, 0.1)
-    with pytest.raises(ValueError, match="shared memory"):
+    with pytest.raises(ValueError, match="head width"):
         at.attention_backward(qkv, bias, torch.zeros(1, T, H * dh, device=dev), H, 0.1)
-    assert at.attention_forward.launches == n
+    assert (at.attention_forward.launches, at.attention_backward.launches) == (n_f, n_b)
 
 
 # ---------------------------------------------------------------------------

@@ -79,9 +79,11 @@ SIGNATURES: dict[str, dict[str, list]] = {
     "attention": {
         # qkv, bias, out, B, T, H, dh, scale, is_bf16, stream
         "attention_forward": [_P] * 3 + [_I] * 4 + [_F, _I, _P],
-        # qkv, bias, g, dqkv, dl scratch, dbias, B, T, H, dh, scale, is_bf16, stream
-        "attention_backward": [_P] * 6 + [_I] * 4 + [_F, _I, _P],
-        # T, dh, backward -> bytes of shared memory per block; the device's limit
+        # qkv, bias, g, dqkv, scratch, its float32 elements, dbias, B, T, H,
+        # dh, scale, is_bf16, stream
+        "attention_backward": [_P] * 5 + [_L, _P] + [_I] * 4 + [_F, _I, _P],
+        # dh, is_bf16, backward -> bytes of shared memory per block (-1: dh
+        # not taken); the device's limit
         "attention_shared_bytes": [_I] * 3,
         "attention_shared_limit": [],
     },

@@ -13,18 +13,18 @@ dtype before the product with v (the kernel's arithmetic; the einsum
 formulation `reference_relpos_attention` does round them).  The backward
 recomputes the softmax instead of saving [B, H, T, T] probabilities and
 returns dqkv in qkv's dtype and the bias gradient, summed over the batch in
-batch order, in float32.
+a fixed order (on the card: batch chunks, each in batch order), in float32.
 
 On a CUDA tensor `attention_forward` / `attention_backward` each launch
-their kernel of csrc/attention.cu (one thread block per (batch row, head)
-pair; K7b is followed by its fixed-order reduction of the bias gradient
-over the batch, in the same entry point); on a CPU tensor the plain PyTorch
-version beside them runs.  The kernels keep q, k, v (and the incoming
-gradient) of one head with the [T, T] logits in shared memory, so T and dh
-are bounded by what fits there: `attention_forward` needs
-4*(3*T*(dh+1) + T*T) bytes of the card's 232,448 per block (T <= 162 at
-dh 64), `attention_backward` 4*(4*T*(dh+1) + 2*T*T) (T <= 117), and each
-wrapper raises beyond its own limit.
+their kernels of csrc/attention.cu; on a CPU tensor the plain PyTorch
+version beside them runs.  The kernels run their products on the tensor
+cores over tiles of 64 rows of T (an online softmax over the key tiles in
+the forward; the backward in three launches: dq, the softmax statistics
+and the bias gradient by query tiles, dk and dv by key tiles, and a
+fixed-order sum of the bias gradient's batch-chunk partials), so any T is
+taken; the shared memory of a block depends on the head width dh only.
+They take dh from 1 to 64, and each wrapper raises on a wider head (or a
+block the card cannot give) instead of falling back.
 """
 
 from __future__ import annotations
@@ -99,17 +99,51 @@ def _check_args(qkv, bias, num_heads):
     return B, T, num_heads, D3 // 3 // num_heads
 
 
-def _check_fits(lib, T, dh, backward: int):
-    """Raise unless the forward (backward=0) or the backward (1) kernel's
-    block fits the card's shared memory at this T and dh."""
-    need = lib.attention_shared_bytes(T, dh, backward)
-    limit = lib.attention_shared_limit()
+#: csrc/attention.cu's tiling: rows of a tile, the most blocks of the
+#: backward's rows launch, and the cap of its dbias partials in floats
+_TILE, _ROWS_BLOCKS, _PART_FLOATS = 64, 396, 1 << 23
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def backward_scratch_floats(B: int, T: int, H: int) -> int:
+    """float32 elements of K7b's scratch, as csrc/attention.cu
+    `scratch_floats` counts them (the kernel refuses less): the softmax
+    statistics ([B, H, T] twice) and, where the batch is cut into more than
+    one chunk, the chunks' [H, T, T] partials of dbias.  The chunks are as
+    many as keep the rows launch within _ROWS_BLOCKS blocks and the partials
+    within _PART_FLOATS, at most B: a function of the shapes only, so the
+    dbias sums always take the same order."""
+    tiles = H * _cdiv(T, _TILE)
+    want = min(B, max(1, _ROWS_BLOCKS // tiles), max(1, _PART_FLOATS // (H * T * T)))
+    chunks = _cdiv(B, _cdiv(B, want))
+    return 2 * B * H * T + (chunks * H * T * T if chunks > 1 else 0)
+
+
+#: (device index, dh, is_bf16, backward) of the blocks the card was found to take
+_FITS: set[tuple] = set()
+
+
+def _check_fits(device, dh: int, bf16: int, backward: int) -> None:
+    """Raise unless the forward (backward=0) or the backward (1) kernels
+    take head width dh and their block fits the card's shared memory (a
+    need that depends on dh and the dtype, not on T); asked of the library
+    once per device, head width, dtype and direction."""
+    key = (device.index, dh, bf16, backward)
+    if key in _FITS:
+        return
+    what = "attention_backward" if backward else "attention_forward"
+    need = kernels.entry("attention", "attention_shared_bytes")(dh, bf16, backward)
+    if need < 0:
+        raise ValueError(f"{what}: head width dh={dh} is not taken by the kernels (1 to 64)")
+    limit = kernels.entry("attention", "attention_shared_limit")()
     if need > limit:
-        what = "attention_backward" if backward else "attention_forward"
         raise ValueError(
-            f"{what}: T={T}, dh={dh} needs {need} bytes of shared memory per block,"
-            f" the card gives {limit}"
+            f"{what}: dh={dh} needs {need} bytes of shared memory per block, the card gives {limit}"
         )
+    _FITS.add(key)
 
 
 def attention_forward(qkv, bias, num_heads: int, scale: float) -> torch.Tensor:
@@ -117,16 +151,17 @@ def attention_forward(qkv, bias, num_heads: int, scale: float) -> torch.Tensor:
     if qkv.device.type == "cpu":
         return attention_forward_plain(qkv, bias, num_heads, scale)
     B, T, H, dh = _check_args(qkv, bias, num_heads)
-    lib = kernels.library("attention")
-    _check_fits(lib, T, dh, 0)
+    bf16 = int(qkv.dtype == torch.bfloat16)
+    _check_fits(qkv.device, dh, bf16, 0)
     out = torch.empty((B, T, H * dh), device=qkv.device, dtype=qkv.dtype)
     if out.numel() == 0:
         return out
-    err = lib.attention_forward(
-        qkv.data_ptr(), bias.data_ptr(), out.data_ptr(), B, T, H, dh, float(scale),
-        int(qkv.dtype == torch.bfloat16), kernels.stream_of(qkv.device),
+    err = kernels.entry("attention", "attention_forward")(
+        qkv.data_ptr(), bias.data_ptr(), out.data_ptr(), B, T, H, dh, float(scale), bf16,
+        kernels.stream_of(qkv.device),
     )
-    kernels.check(lib, err, "attention_forward")
+    if err:
+        kernels.check(kernels.library("attention"), err, "attention_forward")
     attention_forward.launches += 1
     return out
 
@@ -136,26 +171,29 @@ attention_forward.launches = 0
 
 def attention_backward(qkv, bias, g, num_heads: int, scale: float):
     """K7b.  Launches csrc/attention.cu:attention_backward on a CUDA tensor:
-    one block per (batch row, head) writes its dqkv slices and its [T, T]
-    logit gradient into a [B, H, T, T] scratch, then a second pass sums the
-    scratch over the batch in batch order (no atomics)."""
+    dq, the softmax statistics and per batch chunk the bias gradient by
+    query tiles, then dk and dv by key tiles, then the chunks' partials of
+    the bias gradient added in chunk order (no atomics), through one float32
+    scratch of `backward_scratch_floats` elements (at most 32 MiB of
+    partials)."""
     if qkv.device.type == "cpu":
         return attention_backward_plain(qkv, bias, g, num_heads, scale)
     B, T, H, dh = _check_args(qkv, bias, num_heads)
     kernels.check_tensor("g", g, qkv.dtype, (B, T, H * dh))
-    lib = kernels.library("attention")
-    _check_fits(lib, T, dh, 1)
+    bf16 = int(qkv.dtype == torch.bfloat16)
+    _check_fits(qkv.device, dh, bf16, 1)
     dqkv = torch.empty_like(qkv)
     dbias = torch.empty((H, T, T), device=qkv.device, dtype=torch.float32)
     if qkv.numel() == 0:
         return dqkv, dbias.zero_()
-    dl = torch.empty((B, H, T, T), device=qkv.device, dtype=torch.float32)
-    err = lib.attention_backward(
-        qkv.data_ptr(), bias.data_ptr(), g.data_ptr(), dqkv.data_ptr(), dl.data_ptr(),
-        dbias.data_ptr(), B, T, H, dh, float(scale),
-        int(qkv.dtype == torch.bfloat16), kernels.stream_of(qkv.device),
+    n = backward_scratch_floats(B, T, H)
+    scratch = torch.empty(n, device=qkv.device, dtype=torch.float32)
+    err = kernels.entry("attention", "attention_backward")(
+        qkv.data_ptr(), bias.data_ptr(), g.data_ptr(), dqkv.data_ptr(), scratch.data_ptr(), n,
+        dbias.data_ptr(), B, T, H, dh, float(scale), bf16, kernels.stream_of(qkv.device),
     )
-    kernels.check(lib, err, "attention_backward")
+    if err:
+        kernels.check(kernels.library("attention"), err, "attention_backward")
     attention_backward.launches += 1
     return dqkv, dbias
 
