@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (torchain_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--steps N] [--kernels-only] [--profile] [--out DIR]
+    python3 chip_smoke.py [--steps N] [--seed N] [--kernels-only] [--profile] [--out DIR]
 
 Phases, in order; any failure exits non-zero before the last line:
 
@@ -16,8 +16,10 @@ Phases, in order; any failure exits non-zero before the last line:
      kernel's bound: the six chain-loss kernels of the standard supervision
      at the shapes of both graphs (B=128, T_out=50; the bench's trigram
      graph, P=80, and its production graph, a 4-gram phone LM over a
-     left-biphone tree, P=1680; K5 and K6 also at P=83, and with the host's
-     microseconds per call),
+     left-biphone tree, P=1680; K1 and K2 also against a frame loop of
+     cuSPARSE products, captured as one CUDA graph, and launched twice for
+     equal bits; K5 and K6 also at P=83, and with the host's microseconds
+     per call),
      the flat-start numerator kernels at the e2e batches of both corpora,
      the fused dense-denominator kernels at the trigram graph's Moore form
      (also against the matrix-product recursion of ops/den_dense.py), the
@@ -42,7 +44,9 @@ Phases, in order; any failure exits non-zero before the last line:
      and (f)'s with (a)'s;
   5. a reference check on a small input for each path: the first-step loss
      and gradient norm on the card (kernels) against the CPU (plain
-     versions);
+     versions); for the bfloat16 conformer paths also each parameter
+     group's gradient on the card and on the CPU against a float32 CPU copy
+     of the same weights, and that copy run on the card;
   6. one JSON line of kernel records, the nvidia-smi line, and the final
      line `{"ok": true, "device": {...}}`.
 
@@ -56,6 +60,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import dataclasses
 import functools
 import json
 import math
@@ -63,6 +68,7 @@ import pathlib
 import subprocess
 import sys
 import time
+import warnings
 
 #: published H100 SXM peaks (NVIDIA data sheet): float32 outside the
 #: tensor cores, dense bfloat16 in the tensor cores (the peak for products
@@ -420,6 +426,86 @@ def check_vocab(y, vocab, gsm, label: str):
     )
 
 
+def _sparse(offsets, idx, vals, shape):
+    """A torch.sparse CSR matrix from a compressed form of the graph (int16
+    indices hold unsigned values), its invariants checked once here."""
+    import torch
+
+    with warnings.catch_warnings():  # the CSR layout's "beta" notice
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.sparse_csr_tensor(offsets, idx.int() & 0xFFFF, vals, size=shape,
+                                       check_invariants=True)
+
+
+def library_graph(den):
+    """V^T and V as torch.sparse CSR matrices (the graph's CSC and CSR),
+    and the pdf-by-slot one-hot [P, KS] (its pdf CSR), for the cuSPARSE
+    frame loops."""
+    import torch
+
+    S, KS, P = den.num_states, den.num_states * den.num_slots, den.num_pdfs
+    one = torch.ones(den.pdf_slots.numel(), device=den.V.device)
+    return (_sparse(den.csc_offsets, den.csc_rows, den.csc_vals, (KS, S)),
+            _sparse(den.csr_offsets, den.csr_cols, den.csr_vals, (S, KS)),
+            _sparse(den.pdf_offsets, den.pdf_slots, one, (P, KS)))
+
+
+def den_forward_library(p, den, leaky: float, mats):
+    """K1's function (p in; logc and ah out) as a frame loop of cuSPARSE
+    products (torch.sparse.mm of V^T in CSR with the transposed state);
+    `mats` from library_graph."""
+    import torch
+
+    VT, _, _ = mats
+    T, Bs, _ = p.shape
+    S, K = den.num_states, den.num_slots
+    init = den.init[:, None]
+    pdf = den.slot_pdf.clamp(min=0).long()
+    live = (den.slot_pdf >= 0)[:, None]
+    sh = init.expand(S, Bs).contiguous()
+    logc = p.new_empty((T, Bs))
+    ah = p.new_empty((T, Bs, K * S))
+    for t in range(T):
+        sig = sh + leaky * sh.sum(0, keepdim=True) * init if leaky > 0.0 else sh
+        a = torch.sparse.mm(VT, sig) * torch.where(live, p[t].T[pdf], 0.0)  # [KS, B]
+        c = a.sum(0)
+        logc[t] = torch.log(c)
+        a = a / c
+        ah[t] = a.T
+        sh = a.view(K, S, Bs).sum(0)
+    return logc, ah
+
+
+def den_backward_library(p, ah, F, ymax, log_z, den, leaky: float, mats):
+    """K2's function (gamma out) as a frame loop of cuSPARSE products: V in
+    CSR for the pullback, the pdf one-hot in CSR for the occupancies."""
+    import torch
+
+    _, V, onehot = mats
+    T, Bs, P = p.shape
+    S, K = den.num_states, den.num_slots
+    init = den.init[:, None]
+    pdf = den.slot_pdf.clamp(min=0).long()
+    live = (den.slot_pdf >= 0)[:, None]
+    bh = p.new_ones((S, Bs))
+    G = p.new_full((Bs,), math.log1p(leaky) if leaky > 0.0 else 0.0)
+    gamma = p.new_empty((Bs, T, P))
+    for t in range(T - 1, -1, -1):
+        bhe = bh.repeat(K, 1)
+        occ = ah[t].T * bhe * torch.exp(F[t] + G - log_z)
+        gamma[:, t] = torch.sparse.mm(onehot, occ).T
+        if t == 0:
+            break
+        v = torch.sparse.mm(V, torch.where(live, p[t].T[pdf], 0.0) * bhe)  # [S, B]
+        if leaky > 0.0:
+            v = v + leaky * (v * init).sum(0)
+        d = v.max(0).values
+        d = torch.where(d > 0, d, torch.ones_like(d))
+        bh = v / d
+        G = G + ymax[t] + torch.log(d)
+    return gamma
+
+
 def check_kernels(den, sup, seed: int, path: str) -> dict[str, dict]:
     """Phase 3, chain loss: each of K1-K6 against its plain version at one
     graph's shapes, with times.  Returns the measurements by kernel name;
@@ -449,50 +535,68 @@ def check_kernels(den, sup, seed: int, path: str) -> dict[str, dict]:
     yt = y.transpose(0, 1)
     ymax = yt.max(-1).values.contiguous()
     p = torch.exp(yt - ymax[..., None]).contiguous()
-    args1 = (p, den.V, den.slot_pdf, den.init, leaky)
+    args1 = (p, den, leaky)
+    for backward in (0, 1):
+        what = "den_backward" if backward else "den_forward"
+        nbytes, staged = dr.shared_plan(den, backward, dev)
+        _log(f"kernel {what} [{path}]: {nbytes} bytes of shared memory per block,"
+             f" V's compressed form {'staged there' if staged else 'read through L2'}")
     logc_k, ah_k = dr.den_forward_kernel(*args1)
     torch.cuda.synchronize()
     logc_p, ah_p = dr.den_forward_plain(*args1)
+    mats = library_graph(den)
+    logc_l, ah_l = den_forward_library(*args1, mats)
     torch.cuda.synchronize()
-    # f32 sums of S (2176 or 3968) products in another order, carried over
-    # 50 frames through the per-frame renormalisation.  log c is O(1); ah
-    # sums to 1 over the KS = 2 S slots of a frame, so its entries are held
-    # relative to their size (atol only for entries near 0).
+    # f32 sums of a column's few non-zeros (the plain version: of S dense
+    # products) in another order, carried over 50 frames through the
+    # per-frame renormalisation.  log c is O(1); ah sums to 1 over the KS =
+    # 2 S slots of a frame, so its entries are held relative to their size
+    # (atol only for entries near 0).
     checks1 = [
         _check(f"den_forward [{path}]", "logc", logc_k, logc_p, 1e-5, 0.0),
         _check(f"den_forward [{path}]", "ah", ah_k, ah_p, 1e-6, 1e-4),
+        _check(f"den_forward [{path}]", "logc vs library", logc_k, logc_l, 1e-5, 0.0),
+        _check(f"den_forward [{path}]", "ah vs library", ah_k, ah_l, 1e-6, 1e-4),
     ]
-    # the bound counts the products this graph needs: V's nonzeros (the
-    # kernels multiply the dense V, zeros included)
-    nnz = int(torch.count_nonzero(den.V))
+    again = dr.den_forward_kernel(*args1)
+    if not (torch.equal(again[0], logc_k) and torch.equal(again[1], ah_k)):
+        raise AssertionError(f"den_forward [{path}]: two launches differ")
+    # the bound counts what this graph needs: V's non-zeros (values and
+    # 16-bit indices) and offsets, read once
+    nnz, live = den.nnz, int(den.pdf_slots.numel())
     record(
         "den_forward", checks1,
-        _times(lambda: dr.den_forward_kernel(*args1), 5,
+        _times(lambda: dr.den_forward_kernel(*args1), 20,
+               library=_captured(lambda: den_forward_library(*args1, mats)),
                plain=lambda: dr.den_forward_plain(*args1), plain_reps=5),
         2.0 * T * B * nnz,
-        4.0 * (T * B * P + S * KS + KS + S + T * B * KS + T * B),
+        4.0 * T * B * P + 4.0 * (KS + 1) + 6.0 * nnz + 4.0 * (KS + S)
+        + 4.0 * (T * B * KS + T * B),
     )
 
     # K2: denominator backward, on the plain forward's residuals
     log_z = (logc_p.sum(0) + ymax.sum(0) + math.log1p(leaky)).contiguous()
     F = torch.cumsum(logc_p + ymax, 0).contiguous()
-    args2 = (p, ah_p.contiguous(), F, ymax, log_z, den.V, den.slot_pdf,
-             den.pdf_offsets, den.pdf_slots, den.init, leaky)
+    args2 = (p, ah_p.contiguous(), F, ymax, log_z, den, leaky)
     g_k = dr.den_backward_kernel(*args2)
     torch.cuda.synchronize()
     g_p = dr.den_backward_plain(*args2)
+    g_l = den_backward_library(*args2, mats)
     torch.cuda.synchronize()
-    live = int(den.pdf_slots.numel())
+    if not torch.equal(dr.den_backward_kernel(*args2), g_k):
+        raise AssertionError(f"den_backward [{path}]: two launches differ")
     # gamma sums to 1 over the P pdfs of a frame: held relative to its
     # size, as ah is
     record(
         "den_backward",
-        [_check(f"den_backward [{path}]", "gamma", g_k, g_p, 1e-5, 1e-4)],
-        _times(lambda: dr.den_backward_kernel(*args2), 5,
+        [_check(f"den_backward [{path}]", "gamma", g_k, g_p, 1e-5, 1e-4),
+         _check(f"den_backward [{path}]", "gamma vs library", g_k, g_l, 1e-5, 1e-4)],
+        _times(lambda: dr.den_backward_kernel(*args2), 20,
+               library=_captured(lambda: den_backward_library(*args2, mats)),
                plain=lambda: dr.den_backward_plain(*args2), plain_reps=5),
         2.0 * (T - 1) * B * nnz + 3.0 * T * B * live,
-        4.0 * (T * B * P + T * B * KS + 2 * T * B + B + S * KS + KS
-               + P + 1 + live + S + B * T * P),
+        4.0 * (T * B * P + T * B * KS + 2 * T * B + B) + 4.0 * (S + 1) + 6.0 * nnz
+        + 4.0 * (P + 1 + live + S + B * T * P),
     )
 
     # K5 / K6: the batch's own vocabulary, and beside it a vocabulary of an
@@ -1163,7 +1267,7 @@ def profile_steps(step, feats, den, sup, n: int, out_path: pathlib.Path | None) 
     def dev_us(e):
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
-    ours = ("fwd_gemm", "fwd_norm", "bwd_gamma", "bwd_gemm", "bwd_norm",
+    ours = ("den_fwd_kernel", "den_bwd_kernel",
             "vocab_gather_kernel", "vocab_scatter_kernel",
             "steady_fwd_kernel", "steady_bwd_kernel",
             "attn_fwd_kernel", "attn_bwd_rows_kernel", "attn_bwd_cols_kernel",
@@ -1199,12 +1303,48 @@ def profile_steps(step, feats, den, sup, n: int, out_path: pathlib.Path | None) 
 REFERENCE_RTOL = {"float32": 1e-3, "bfloat16": 1e-2}
 
 
-def reference_check(cfg, feat_dim, dataset, corpus, seed: int, path: str) -> dict:
-    """Phase 5: one loss + gradient on a small batch, on the card (kernels)
-    and on the CPU (plain versions), from the same weights."""
+def _grad_groups(model) -> dict:
+    """The model's gradients by parameter group (the first component of a
+    parameter's name: each block, the frontend, each head), each flattened
+    to one float64 vector on the CPU."""
     import torch
 
-    from torchain_tpu_torch.ops import ChainLossOptions, chain_loss
+    groups = {}
+    for name, prm in model.named_parameters():
+        groups.setdefault(name.split(".")[0], []).append(prm.grad.detach().double().flatten().cpu())
+    return {k: torch.cat(v) for k, v in groups.items()}
+
+
+def _loss_and_grads(model, dev, small, corpus, path, opts):
+    """One loss + gradient of `model` on `dev`: (numbers, gradients by group)."""
+    import torch
+
+    from torchain_tpu_torch.ops import chain_loss
+
+    den, sup = place(path, corpus, small, dev)
+    chain, xent = model(torch.as_tensor(small.feats, device=dev), train=True)
+    loss, aux = chain_loss(chain, xent, den, sup, opts)
+    loss.backward()
+    gn = torch.sqrt(sum(torch.sum(p.grad.double() ** 2) for p in model.parameters()))
+    return (dict(loss=float(loss.detach()), objf=float(aux["objf"].detach()), grad_norm=float(gn)),
+            _grad_groups(model))
+
+
+def _rel(a, b) -> float:
+    """|a - b| / |b| of two gradient vectors (Euclidean norms)."""
+    return float((a - b).norm() / max(float(b.norm()), 1e-30))
+
+
+def reference_check(cfg, feat_dim, dataset, corpus, seed: int, path: str) -> dict:
+    """Phase 5: one loss + gradient on a small batch, on the card (kernels)
+    and on the CPU (plain versions), from the same weights.  For a conformer
+    with a bfloat16 trunk it also prints, per parameter group, the card's
+    gradient against the CPU's, and both against a float32 CPU copy of the
+    same weights (what the gate's bfloat16 spread is made of), and that
+    copy run on the card against it (the kernels without bfloat16)."""
+    import torch
+
+    from torchain_tpu_torch.ops import ChainLossOptions
 
     small = next(dataset.batches(8, shuffle=False))
     opts = ChainLossOptions(l2_regularize=5e-4, leaky_hmm_coefficient=0.1,
@@ -1212,14 +1352,41 @@ def reference_check(cfg, feat_dim, dataset, corpus, seed: int, path: str) -> dic
     model = make_model(cfg, feat_dim, "cpu", seed + 1)
     rtol = REFERENCE_RTOL[PATHS[path]["dtype"]]
     out = dict(rtol=rtol)
+    grads = {}
     for dev in ("cuda", "cpu"):
-        m = copy.deepcopy(model).to(dev)
-        den, sup = place(path, corpus, small, dev)
-        chain, xent = m(torch.as_tensor(small.feats, device=dev), train=True)
-        loss, aux = chain_loss(chain, xent, den, sup, opts)
-        loss.backward()
-        gn = torch.sqrt(sum(torch.sum(p.grad.double() ** 2) for p in m.parameters()))
-        out[dev] = dict(loss=float(loss.detach()), objf=float(aux["objf"].detach()), grad_norm=float(gn))
+        out[dev], grads[dev] = _loss_and_grads(copy.deepcopy(model).to(dev), dev, small,
+                                               corpus, path, opts)
+    if PATHS[path]["model"] == "conformer" and PATHS[path]["dtype"] == "bfloat16":
+        m32 = make_model(dataclasses.replace(cfg, dtype=torch.float32), feat_dim, "cpu", seed + 1)
+        m32.load_state_dict(model.state_dict())
+        out["card_float32"], g32c = _loss_and_grads(copy.deepcopy(m32).to("cuda"), "cuda",
+                                                    small, corpus, path, opts)
+        out["cpu_float32"], g32 = _loss_and_grads(m32, "cpu", small, corpus, path, opts)
+        card, cpu = grads["cuda"], grads["cpu"]
+        whole = {k: torch.cat([g[n] for n in g32]) for k, g in
+                 (("cuda", card), ("cpu", cpu), ("f32", g32), ("card_f32", g32c))}
+        out["groups"] = {n: dict(card_vs_cpu=_rel(card[n], cpu[n]),
+                                 card_vs_f32=_rel(card[n], g32[n]),
+                                 cpu_vs_f32=_rel(cpu[n], g32[n]),
+                                 card_f32_vs_f32=_rel(g32c[n], g32[n]),
+                                 f32_norm=float(g32[n].norm())) for n in g32}
+        out["vs_float32"] = dict(
+            grad_norm_f32=out["cpu_float32"]["grad_norm"],
+            card_vs_f32=_rel(whole["cuda"], whole["f32"]),
+            cpu_vs_f32=_rel(whole["cpu"], whole["f32"]),
+            card_f32_vs_f32=_rel(whole["card_f32"], whole["f32"]),
+            card_norm_rel_f32=abs(out["cuda"]["grad_norm"] - out["cpu_float32"]["grad_norm"])
+            / out["cpu_float32"]["grad_norm"],
+            cpu_norm_rel_f32=abs(out["cpu"]["grad_norm"] - out["cpu_float32"]["grad_norm"])
+            / out["cpu_float32"]["grad_norm"],
+        )
+        _log(f"{path} reference groups (seed {seed}; gradient differences relative to the"
+             " second's norm): group, card vs cpu, card vs f32, cpu vs f32,"
+             " card f32 vs f32, f32 norm")
+        for n, g in out["groups"].items():
+            _log(f"  {path} group {n}: {g['card_vs_cpu']:.3e} {g['card_vs_f32']:.3e}"
+                 f" {g['cpu_vs_f32']:.3e} {g['card_f32_vs_f32']:.3e} {g['f32_norm']:.6g}")
+        _log(f"{path} reference vs float32 (seed {seed}): " + json.dumps(out["vs_float32"]))
     for k in ("loss", "objf", "grad_norm"):
         a, b = out["cuda"][k], out["cpu"][k]
         rel = abs(a - b) / max(abs(b), 1e-12)

@@ -10,6 +10,7 @@ lacks.)
 Graphs and batches are small; chip_smoke.py repeats the comparison at the
 main path's shapes."""
 
+import dataclasses
 import math
 
 import numpy as np
@@ -53,40 +54,101 @@ def setup(dev):
     return den, sup, y
 
 
+def _synthetic_den(rng, S, P, per_col, dev, dead=0.05):
+    """A slot-dense graph (K=2) with `per_col` random predecessors per live
+    slot, rows normalised like transition probabilities, a share `dead` of
+    the slots dead; real states S."""
+    KS = 2 * S
+    live = rng.random(KS) >= dead
+    V = np.zeros((S, KS), np.float32)
+    for e in np.flatnonzero(live):
+        V[rng.choice(S, size=per_col, replace=False), e] = rng.random(per_col) + 0.1
+    V /= np.maximum(V.sum(1, keepdims=True), 1e-30)
+    slot_pdf = np.where(live, rng.integers(0, P, size=KS), -1).astype(np.int32)
+    init = rng.random(S).astype(np.float32)
+    return dr.DeviceResidentDenGraph.from_dense(V, slot_pdf, init / init.sum(), P, S, device=dev)
+
+
+@pytest.fixture(scope="module")
+def den_graphs(dev):
+    """The small trigram-biphone graph of `setup`; the same host graph with
+    one slot per state (so states are split into clones); and a synthetic
+    graph whose compressed V (81,920 non-zeros) does not fit shared memory,
+    so the kernels read it through L2."""
+    c = tdata.synthetic_dataset(num_utts=12, num_phones=6, feat_dim=8,
+                                utt_frames_out=(9, 12), seed=1, lm_order=3,
+                                lm_extra_states=50, context_width=2)
+    clones = dr.DeviceResidentDenGraph.from_host(c.den_graph, pad_to=32, max_slots=1, device=dev)
+    assert clones.num_states > clones.real_states
+    return dict(
+        small=auto_den_graph(c.den_graph, pad_to=32, device=dev),
+        clones=clones,
+        l2=_synthetic_den(np.random.default_rng(3), 1024, 50, 40, dev),
+    )
+
+
 @pytest.mark.parametrize("leaky", [0.0, 0.1])
-def test_den_kernels_match_plain(setup, leaky):
-    den, _, y = setup
+@pytest.mark.parametrize("B,T", [(5, 9), (5, 1), (128, 50)], ids=["B5T9", "B5T1", "B128T50"])
+@pytest.mark.parametrize("graph", ["small", "clones", "l2"])
+def test_den_kernels_match_plain(den_graphs, graph, B, T, leaky):
+    """K1 and K2 against their plain versions (the dense V): the same
+    non-finite entries, K1's and K2's tolerances, one launch a call, and two
+    launches on the same inputs give the same bits."""
+    den = den_graphs[graph]
+    dev = den.V.device
+    assert [dr.shared_plan(den, d, dev)[1] for d in (0, 1)] == ([0, 0] if graph == "l2" else [1, 1])
+    y = torch.as_tensor(np.random.default_rng(B + T).normal(size=(B, T, den.num_pdfs)),
+                        dtype=torch.float32, device=dev)
     yt = y.transpose(0, 1)
     ymax = yt.max(-1).values.contiguous()
     p = torch.exp(yt - ymax[..., None]).contiguous()
     n = dr.den_forward_kernel.launches
-    logc_k, ah_k = dr.den_forward_kernel(p, den.V, den.slot_pdf, den.init, leaky)
+    logc_k, ah_k = dr.den_forward_kernel(p, den, leaky)
     torch.cuda.synchronize()
     assert dr.den_forward_kernel.launches == n + 1
-    logc_p, ah_p = dr.den_forward_plain(p, den.V, den.slot_pdf, den.init, leaky)
-    # float32 sums in another order: 1e-5 on values of order 1
-    torch.testing.assert_close(logc_k, logc_p, atol=1e-5, rtol=1e-5)
-    torch.testing.assert_close(ah_k, ah_p, atol=1e-6, rtol=1e-4)
+    logc_p, ah_p = dr.den_forward_plain(p, den, leaky)
+    # float32 sums in another order: 1e-5 on values of order 1; ah sums to
+    # one over a frame's slots
+    _close_where_finite(logc_k, logc_p, atol=1e-5, rtol=0.0)
+    _close_where_finite(ah_k, ah_p, atol=1e-6, rtol=1e-4)
+    again = dr.den_forward_kernel(p, den, leaky)
+    assert torch.equal(again[0], logc_k) and torch.equal(again[1], ah_k)
 
     log_z = (logc_p.sum(0) + ymax.sum(0) + (math.log1p(leaky) if leaky else 0.0)).contiguous()
     F = torch.cumsum(logc_p + ymax, 0).contiguous()
-    args = (p, ah_p, F, ymax, log_z, den.V, den.slot_pdf, den.pdf_offsets,
-            den.pdf_slots, den.init, leaky)
+    args = (p, ah_p, F, ymax, log_z, den, leaky)
+    n = dr.den_backward_kernel.launches
     g_k = dr.den_backward_kernel(*args)
     torch.cuda.synchronize()
+    assert dr.den_backward_kernel.launches == n + 1
     g_p = dr.den_backward_plain(*args)
-    torch.testing.assert_close(g_k, g_p, atol=1e-5, rtol=1e-4)
+    _close_where_finite(g_k, g_p, atol=1e-5, rtol=1e-4)
     # the same kernel twice gives the same bits (no atomics)
     assert torch.equal(dr.den_backward_kernel(*args), g_k)
+
+
+def test_den_kernels_refuse_a_carried_state_beyond_shared_memory(dev):
+    """A graph whose carried state (here p rows of 60,000 pdfs: 240,000
+    bytes each) exceeds a block's shared memory raises before any launch;
+    nothing falls back."""
+    den = _synthetic_den(np.random.default_rng(4), 64, 60000, 3, dev)
+    p = torch.rand(2, 3, 60000, device=dev)
+    n = (dr.den_forward_kernel.launches, dr.den_backward_kernel.launches)
+    with pytest.raises(ValueError, match="carried state"):
+        dr.den_forward_kernel(p, den, 0.1)
+    z = torch.zeros(2, 3, device=dev)
+    with pytest.raises(ValueError, match="carried state"):
+        dr.den_backward_kernel(p, torch.zeros(2, 3, 128, device=dev), z, z, z[0], den, 0.1)
+    assert (dr.den_forward_kernel.launches, dr.den_backward_kernel.launches) == n
 
 
 def test_den_kernels_raise_on_wrong_dtype(setup):
     den, _, y = setup
     p = torch.exp(y.transpose(0, 1)).contiguous()
     with pytest.raises(TypeError):
-        dr.den_forward_kernel(p.double(), den.V, den.slot_pdf, den.init, 0.1)
+        dr.den_forward_kernel(p.double(), den, 0.1)
     with pytest.raises(TypeError):
-        dr.den_forward_kernel(p, den.V.half(), den.slot_pdf, den.init, 0.1)
+        dr.den_forward_kernel(p, dataclasses.replace(den, csc_vals=den.csc_vals.half()), 0.1)
 
 
 def test_vocab_kernels_match_plain(setup):

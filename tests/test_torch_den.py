@@ -8,6 +8,8 @@ Same graph and the same numpy log-probs on both sides.  Tolerance: atol
 Pallas kernels to the XLA references): both sides are float32 with sums in
 another order, carried through T per-frame renormalisations."""
 
+import math
+
 import numpy as np
 import pytest
 
@@ -110,3 +112,250 @@ def test_dead_slots_emit_nothing():
     pe = tdr._emissions(p, tg.slot_pdf)
     assert (pe[:, tg.slot_pdf < 0] == 0).all()
     assert (pe[:, tg.slot_pdf >= 0] > 0).all()
+
+
+# ---------------------------------------------------------------------------
+# V's compressed forms, and the kernels' order of summation
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def bench_trigram():
+    """The host graph of chip_smoke.py's trigram path (bench.py's trigram
+    configuration: 40 phones, 1000 extra LM states)."""
+    import chip_smoke
+
+    corpus = chip_smoke._corpus(0, tuple(sorted(chip_smoke.PATHS["trigram"]["corpus"].items())))
+    return corpus.den_graph
+
+
+def _u16(x: torch.Tensor) -> torch.Tensor:
+    """The unsigned values of an int16 index tensor, as int64."""
+    return x.long() & 0xFFFF if x.dtype == torch.int16 else x.long()
+
+
+def _expand(offsets, idx, vals, shape, by_col: bool) -> np.ndarray:
+    """A compressed form back to its dense matrix; asserts that each
+    column's (row's) entries are in strictly increasing index order."""
+    off, idx, vals = offsets.long().numpy(), _u16(idx).numpy(), vals.numpy()
+    major = np.repeat(np.arange(off.size - 1), np.diff(off))
+    for a, b in zip(off[:-1], off[1:]):
+        assert np.all(np.diff(idx[a:b]) > 0)
+    out = np.zeros(shape, np.float32)
+    if by_col:
+        out[idx, major] = vals
+    else:
+        out[major, idx] = vals
+    return out
+
+
+@pytest.mark.parametrize("max_slots", [2, 1], ids=["slots2", "clones"])
+def test_compressed_forms_rebuild_V_exactly(bench_trigram, max_slots):
+    """The CSC (K1's) and the CSR (K2's) expand to exactly V, clones and
+    padding included; a clone's row in the CSR equals its original's."""
+    g = tdr.DeviceResidentDenGraph.from_host(bench_trigram, max_slots=max_slots, device="cpu")
+    V = g.V.numpy()
+    S, KS = V.shape
+    assert g.csc_rows.dtype == torch.int16 and g.csr_cols.dtype == torch.int16
+    assert g.nnz == int(np.count_nonzero(V)) == g.csr_vals.shape[0]
+    np.testing.assert_array_equal(
+        _expand(g.csc_offsets, g.csc_rows, g.csc_vals, V.shape, by_col=True), V)
+    np.testing.assert_array_equal(
+        _expand(g.csr_offsets, g.csr_cols, g.csr_vals, V.shape, by_col=False), V)
+    # padding: no entry in a padded state's row or in a dead slot's column
+    off_r, off_c = g.csr_offsets.numpy(), g.csc_offsets.numpy()
+    used = int(np.flatnonzero(np.diff(off_r)).max()) + 1
+    assert used <= S and (np.diff(off_r)[used:] == 0).all()
+    assert (np.diff(off_c)[g.slot_pdf.numpy() < 0] == 0).all()
+    if max_slots == 1:
+        assert g.num_slots == 1 and used > g.real_states  # clones appended
+        rows = {}
+        cols, vals = _u16(g.csr_cols).numpy(), g.csr_vals.numpy()
+        for s in range(used):
+            rows.setdefault(s, (tuple(cols[off_r[s]:off_r[s + 1]]),
+                                tuple(vals[off_r[s]:off_r[s + 1]])))
+        originals = {rows[s] for s in range(g.real_states)}
+        assert all(rows[s] in originals for s in range(g.real_states, used))
+
+
+def _fma(a, b, c):
+    """float32 fma(a, b, c): the exact product (float64 holds it) plus c,
+    rounded once to float32."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _shares(x, N, y=None):
+    """Thread j's share of a block sum over x [..., n] (times y [n] where
+    given, by fma), summed over x[j], x[j + N], ... in that order: [..., N]."""
+    n = x.shape[-1]
+    R = -(-n // N)
+    pad = lambda a: torch.nn.functional.pad(a, (0, R * N - n)).unflatten(-1, (R, N))  # noqa: E731
+    xs = pad(x)
+    ys = pad(y) if y is not None else None
+    acc = x.new_zeros(x.shape[:-1] + (N,))
+    for r in range(R):
+        acc = _fma(xs[..., r, :], ys[r], acc) if y is not None else acc + xs[..., r, :]
+    return acc
+
+
+def _tree(shares):
+    """The kernels' block sum of per-thread shares [..., N]: a butterfly over
+    the 32 lanes of each warp, then over the warps' sums padded to 32."""
+    x = shares.unflatten(-1, (-1, 32))
+    for off in (16, 8, 4, 2, 1):
+        x = x[..., :off] + x[..., off:2 * off]
+    w = x[..., 0]
+    w = torch.nn.functional.pad(w, (0, 32 - w.shape[-1]))
+    for off in (16, 8, 4, 2, 1):
+        w = w[..., :off] + w[..., off:2 * off]
+    return w[..., 0]
+
+
+def _walk(offsets, idx, vals, x):
+    """out[..., m] = the fma chain over entry j of major index m in index
+    order: acc = fma(vals[j], x[..., idx[j]], acc)."""
+    off, idx = offsets.long(), _u16(idx)
+    cnt = off[1:] - off[:-1]
+    out = x.new_zeros(x.shape[:-1] + (cnt.shape[0],))
+    for r in range(int(cnt.max()) if cnt.numel() else 0):
+        has = cnt > r
+        j = (off[:-1] + r).clamp(max=max(idx.shape[0] - 1, 0))
+        out = torch.where(has, _fma(vals[j], x[..., idx[j]], out), out)
+    return out
+
+
+def emulate_forward(p, g, leaky, N=tdr.THREADS):
+    """K1 as csrc/den_resident.cu computes it, walking the CSC."""
+    T, B, _ = p.shape
+    S, K = g.num_states, g.num_slots
+    init, pdf = g.init, g.slot_pdf.long()
+
+    def leak(sh):
+        if leaky <= 0.0:
+            return sh
+        lt = leaky * _tree(_shares(sh, N))
+        return _fma(lt[:, None], init, sh)
+
+    sig = leak(init.expand(B, S).clone())
+    logc, ah = p.new_empty((T, B)), p.new_empty((T, B, K * S))
+    for t in range(T):
+        h = _walk(g.csc_offsets, g.csc_rows, g.csc_vals, sig)
+        a = torch.where(pdf >= 0, h * p[t][:, pdf.clamp(min=0)], torch.zeros(()))
+        c = _tree(_shares(a, N))
+        logc[t] = torch.log(c)
+        ah[t] = a / c[:, None]
+        sh = ah[t][:, :S]
+        for k in range(1, K):
+            sh = sh + ah[t][:, k * S:(k + 1) * S]
+        sig = leak(sh)
+    return logc, ah
+
+
+def emulate_backward(p, ah, F, ymax, log_z, g, leaky, N=tdr.THREADS):
+    """K2 as csrc/den_resident.cu computes it: the occupancies by the pdf
+    CSR in slot order, v by the CSR of V in slot order."""
+    T, B, P = p.shape
+    S = g.num_states
+    qoff, qslot = g.pdf_offsets.long(), g.pdf_slots.long()
+    qcnt = qoff[1:] - qoff[:-1]
+    pdf = g.slot_pdf.long()
+    live = pdf >= 0
+    bh = p.new_ones((B, S))
+    G = p.new_full((B,), math.log1p(leaky) if leaky > 0.0 else 0.0)
+    gamma = p.new_zeros((B, T, P))
+    for t in range(T - 1, -1, -1):
+        scale = torch.exp((F[t] + G) - log_z)[:, None]
+        acc = p.new_zeros((B, P))
+        for r in range(int(qcnt.max())):
+            e = qslot[(qoff[:-1] + r).clamp(max=qslot.shape[0] - 1)]
+            term = _fma(ah[t][:, e] * bh[:, e % S], scale, acc)
+            acc = torch.where(qcnt > r, term, acc)
+        gamma[:, t] = acc
+        if t == 0:
+            break
+        w = torch.zeros_like(ah[t])
+        e = torch.arange(w.shape[-1])[live]
+        w[:, live] = p[t][:, pdf[live]] * bh[:, e % S]
+        v = _walk(g.csr_offsets, g.csr_cols, g.csr_vals, w)
+        mx = v.max(-1).values
+        if leaky > 0.0:
+            add = leaky * _tree(_shares(v, N, g.init))
+            d = mx + add
+            v = v + add[:, None]
+        else:
+            d = mx
+        d = torch.where(d > 0, d, torch.ones_like(d))
+        bh = v / d[:, None]
+        G = (G + ymax[t]) + torch.log(d)
+    return gamma
+
+
+#: K1's and K2's tolerances against their plain versions (as chip_smoke.py
+#: holds the kernels on the card): (atol, rtol)
+TOL = dict(logc=(1e-5, 0.0), ah=(1e-6, 1e-4), gamma=(1e-5, 1e-4))
+
+
+def _close(what, got, want):
+    atol, rtol = TOL[what]
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), atol=atol, rtol=rtol,
+                               err_msg=what)
+
+
+def _residuals(y, leaky):
+    """p, ymax [T, B] of y [B, T, P], as den_forward makes them."""
+    yt = torch.as_tensor(y).transpose(0, 1)
+    ymax = yt.max(-1).values.contiguous()
+    return torch.exp(yt - ymax[..., None]).contiguous(), ymax
+
+
+def _emulate_and_plain(tg, y, leaky):
+    """The emulated kernels and the plain versions on y: the forwards on
+    p, the backwards on the plain forward's residuals; plus the emulation
+    end to end (its own forward's residuals)."""
+    p, ymax = _residuals(y, leaky)
+    logc_e, ah_e = emulate_forward(p, tg, leaky)
+    logc_p, ah_p = tdr.den_forward_plain(p, tg, leaky)
+    extra = math.log1p(leaky) if leaky > 0.0 else 0.0
+
+    def back(logc, ah, fn):
+        log_z = logc.sum(0) + ymax.sum(0) + extra
+        return fn(p, ah, torch.cumsum(logc + ymax, 0), ymax, log_z, tg, leaky)
+
+    return dict(
+        logc=(logc_e, logc_p), ah=(ah_e, ah_p),
+        gamma=(back(logc_p, ah_p, emulate_backward), back(logc_p, ah_p, tdr.den_backward_plain)),
+        end_to_end=(logc_e, ah_e, back(logc_e, ah_e, emulate_backward)),
+    )
+
+
+@pytest.mark.parametrize("leaky", [0.0, 0.1])
+@pytest.mark.parametrize("name", sorted(GRAPHS))
+def test_kernel_order_matches_plain_and_jax(name, leaky):
+    """The kernels' sums, emulated in their order over the compressed
+    forms, against the plain versions and the JAX package's Pallas kernels
+    (interpret mode), within K1's and K2's tolerances."""
+    kw = GRAPHS[name]
+    tg = tdr.DeviceResidentDenGraph.from_host(_graph(tgraphs, **kw), pad_to=8, device="cpu")
+    jg = jdr.DeviceResidentDenGraph.from_host(_graph(jgraphs, **kw), pad_to=8, dtype=jnp.float32)
+    y = np.random.default_rng(4).normal(size=(3, 7, tg.num_pdfs)).astype(np.float32)
+    out = _emulate_and_plain(tg, y, leaky)
+    for what in ("logc", "ah", "gamma"):
+        _close(what, *out[what])
+    _, res_j = jdr.den_forward(jnp.asarray(y), jg, leaky)
+    gamma_j = jdr.den_backward(jg, res_j, leaky)
+    logc_e, ah_e, gamma_e = out["end_to_end"]
+    _close("logc", logc_e, res_j["logc"])
+    _close("ah", ah_e, res_j["ah"])
+    _close("gamma", gamma_e, gamma_j)
+
+
+@pytest.mark.parametrize("leaky", [0.0, 0.1])
+def test_kernel_order_matches_plain_at_the_bench_graph(bench_trigram, leaky):
+    """The same at the bench's trigram graph (K*S = 4352 slots: four or five
+    columns per thread, so the per-thread shares and both butterflies of the
+    block sums carry real terms), against the plain versions."""
+    tg = tdr.DeviceResidentDenGraph.from_host(bench_trigram, device="cpu")
+    y = np.random.default_rng(5).normal(size=(2, 4, tg.num_pdfs)).astype(np.float32)
+    out = _emulate_and_plain(tg, y, leaky)
+    for what in ("logc", "ah", "gamma"):
+        _close(what, *out[what])

@@ -64,9 +64,17 @@ def test_wrappers_raise_for_a_non_cpu_non_cuda_tensor():
     from torchain_tpu_torch.ops import num_scan as ns
 
     m = dict(device="meta")
+    # S_pad=4, K=2, P=3: slot e emits pdf e % 3 and is entered from state e % 4
+    V = np.zeros((4, 8), np.float32)
+    V[np.arange(8) % 4, np.arange(8)] = 0.5
+    g = dr.DeviceResidentDenGraph.from_dense(
+        V, np.arange(8, dtype=np.int32) % 3, np.full(4, 0.25, np.float32), 3, 4, device="meta")
+    p = torch.empty(2, 1, 3, **m)
     with pytest.raises(ValueError, match="CUDA"):
-        dr.den_forward_kernel(torch.empty(2, 1, 3, **m), torch.empty(4, 8, **m),
-                              torch.empty(8, dtype=torch.int32, **m), torch.empty(4, **m), 0.1)
+        dr.den_forward_kernel(p, g, 0.1)
+    with pytest.raises(ValueError, match="CUDA"):
+        dr.den_backward_kernel(p, torch.empty(2, 1, 8, **m), torch.empty(2, 1, **m),
+                               torch.empty(2, 1, **m), torch.empty(1, **m), g, 0.1)
     with pytest.raises(ValueError, match="CUDA"):
         ns.vocab_gather(torch.empty(1, 2, 3, **m), torch.empty(1, 2, 2, dtype=torch.int32, **m))
     with pytest.raises(ValueError, match="CUDA"):
@@ -80,7 +88,8 @@ def test_wrappers_raise_for_a_non_cpu_non_cuda_tensor():
     with pytest.raises(ValueError, match="CUDA"):
         nr.steady_backward(*tables, ysm, torch.empty(2, 1, 3, **m), torch.empty(1, 3, **m),
                            torch.empty(1, **m))
-    assert dr.den_forward_kernel.launches == 0 and ns.vocab_gather.launches == 0
+    assert dr.den_forward_kernel.launches == 0 and dr.den_backward_kernel.launches == 0
+    assert ns.vocab_gather.launches == 0
     assert nr.steady_forward.launches == 0 and nr.steady_backward.launches == 0
 
 

@@ -1,5 +1,5 @@
-// Denominator forward-backward of LF-MMI on the slot-dense graph:
-// kernels K1 (forward) and K2 (backward), CUDA C++ for sm_90a.
+// Denominator forward-backward of LF-MMI on the slot-dense graph, as sparse
+// kernels: K1 (forward) and K2 (backward), CUDA C++ for sm_90a.
 //
 // Replaces the Pallas kernels of torchain_tpu/ops/den_resident.py:
 //   K1  den_forward  -> _fwd_kernel_inkernel / _fwd_body (pallas_call :565)
@@ -17,223 +17,442 @@
 //                       d = max(v) (1 if <= 0); bh = v / d in every slice
 //                       G += ymax_t + log d
 //
-// What bounds it on the H100: the two [B, S] x [S, K*S] products per frame
-// (2*B*S*KS FLOP each, f32 on the SIMT cores, 67 TFLOP/s peak).  V is read
-// once per frame, but at the trigram graph (38 MB) it sits in the 50 MB L2,
-// so device-memory bytes are not the limit.  Nothing carries between blocks
-// on the GPU, so the frame recursion is a host loop (inside this library,
-// one call per pass) of a tiled SIMT GEMM with the emission product and the
-// row sums fused into its epilogue (forward) or the pe*bh operand formed
-// while loading its tile (backward), plus one small per-row kernel for the
-// normalisation/carry.  The backward product has only S output columns, so
-// it is split over K into `splits` partial sums that the per-row kernel adds
-// in a fixed order: no atomics, the result is deterministic.  The pdf
-// occupancies read a host-built CSR of live slots per pdf, also without
-// atomics.  Dead slots (slot_pdf < 0) get pe = 0 exactly.
+// What bounds it on the H100: V [S, K*S] is more than 99.8% zeros (12,376
+// non-zeros of 9.47 M at the trigram graph, 13,672 of 31.5 M at the
+// production one), so the products are a few FMAs per slot and the data
+// bound is the ah stream ([T, B, K*S] f32, written by K1 and read by K2).
+// What limits it in practice is the T frames of a sequence, which depend on
+// each other, and within a frame the SM's shared-memory pipe (the gathers of
+// sigma, w and alpha by index are random across a warp's lanes).  So one
+// block owns one sequence and runs all T frames in one launch, with its
+// carried state in shared memory and nothing carried between blocks (the TPU
+// kernel's sequential grid over T becomes the loop inside the block):
+//   K1 keeps sigma [S], alpha [K*S] and a ring of two p rows [P]; the p row
+//      of frame t+1 arrives by cp.async while frame t computes.  h = sigma @ V
+//      walks V by column (CSC), one column per thread, in row order.
+//   K2 keeps bh [S], a ring of two ah rows [K*S] and one p row [P], each
+//      next row arriving by cp.async while the frame computes.  One thread
+//      per pdf sums the occupancies of its live slots in slot order (the pdf
+//      CSR, no atomics); one thread per slot then leaves w = p_t[pdf] * bh in
+//      the ah row; v = V @ w walks V by row (CSR), one row per thread, in
+//      column order.
+// V's compressed arrays (offsets int32, indices 16-bit, values f32) and the
+// slot/pdf tables are copied into shared memory once per launch where they
+// fit beside the carried state under the opt-in limit (both shipped graphs:
+// see ops/den_resident.py), else read through L2: the choice follows from the
+// sizes alone (den_shared_bytes).  A graph whose carried state alone exceeds
+// the limit is refused by the wrapper before any launch.
+//
+// Every sum has one order: a column's or a row's entries in index order, a
+// pdf's slots in slot order, a thread's share of a block sum in index order
+// (thread i takes i, i + threads, ...), then a butterfly over the lanes of
+// each warp and the same butterfly over the warps' sums (all lanes end with
+// the same bits).  Two launches on the same inputs give the same bits.  Dead
+// slots (slot_pdf < 0) get alpha = 0 exactly and appear in no CSR row (their
+// V columns are zero).
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
-
-#include "den_tiles.cuh"
+#include <stdint.h>
 
 namespace {
 
-using namespace den_tiles;
+// threads of a block: K1 and K2 always launch this many (ops/den_resident.py
+// mirrors it in its emulation of the block sums)
+constexpr int THREADS = 1024;
+constexpr int MAX_WARPS = THREADS / 32;
 
-__device__ __forceinline__ float emission(const float* p_row, const int* slot_pdf, int e) {
-  const int q = slot_pdf[e];
-  return q >= 0 ? p_row[q] : 0.0f;
+__host__ __device__ inline long long up16(long long bytes) { return (bytes + 15) & ~15LL; }
+
+// Byte offsets into one block's dynamic shared memory.  The carried state
+// comes first; the graph's tables follow only where they are staged.
+struct Layout {
+  long long state, ring, ring_stride, pring, pring_stride, red;
+  long long off, off2, val, idx, idx2, idx3, bytes;
+};
+
+// K1: sigma [S], alpha [K*S], two p rows, two reduction arrays; staged:
+// csc offsets [K*S + 1], values [nnz], rows u16 [nnz], slot_pdf u16 [K*S].
+// K2: bh [S], two ah rows [K*S], one p row, sum and max reduction arrays;
+// staged: csr offsets [S + 1], pdf offsets [P + 1], values [nnz], columns
+// u16 [nnz], pdf slots u16 [live], slot_pdf u16 [K*S].
+// (slot_pdf u16: 0xFFFF for a dead slot; a carried p row bounds P below it.)
+__host__ __device__ inline Layout layout(bool backward, int S, int K, int P, int nnz, int live,
+                                         bool staged) {
+  Layout L{};
+  const long long KS = (long long)K * S;
+  long long o = 0;
+  L.state = o;
+  o += up16(4 * (long long)S);
+  L.ring = o;
+  L.ring_stride = up16(4 * KS);
+  o += backward ? 2 * L.ring_stride : L.ring_stride;
+  L.pring = o;
+  L.pring_stride = up16(4 * (long long)P);
+  o += backward ? L.pring_stride : 2 * L.pring_stride;
+  L.red = o;
+  o += 2 * 4 * MAX_WARPS;
+  if (staged) {
+    L.off = o;
+    o += up16(4 * ((backward ? S : KS) + 1));
+    L.off2 = o;  // K2: pdf offsets
+    if (backward) o += up16(4 * ((long long)P + 1));
+    L.val = o;
+    o += up16(4 * (long long)nnz);
+    L.idx = o;
+    o += up16(2 * (long long)nnz);
+    L.idx2 = o;  // K1: slot_pdf; K2: pdf slots
+    o += up16(2 * (backward ? (long long)live : KS));
+    L.idx3 = o;  // K2: slot_pdf
+    if (backward) o += up16(2 * KS);
+  }
+  L.bytes = o;
+  return L;
 }
 
-// K1 (a): alpha = (sigma @ V) * pe_t for one frame; per-tile row sums of
-// alpha into cpart[b, blockIdx.x].
-// sigma [B, S], V [S, KS], p_t [B, P], alpha out [B, KS], cpart [B, gridDim.x]
-__global__ void __launch_bounds__(NTHREADS)
-fwd_gemm(const float* __restrict__ sigma, const float* __restrict__ V,
-         const float* __restrict__ p_t, const int* __restrict__ slot_pdf,
-         float* __restrict__ alpha, float* __restrict__ cpart,
-         int B, int S, int KS, int P) {
-  __shared__ float As[BK][LDA];
-  __shared__ float Bs[BK][LDB];
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  float acc[TM][TN] = {};
-  for (int k0 = 0; k0 < S; k0 += BK) {
-#pragma unroll
-    for (int r = 0; r < (BM * BK) / NTHREADS; ++r) {
-      const int idx = tid + r * NTHREADS;
-      const int m = idx / BK, k = idx % BK;
-      const int gm = m0 + m, gk = k0 + k;
-      As[k][m] = (gm < B && gk < S) ? sigma[(size_t)gm * S + gk] : 0.0f;
-    }
-#pragma unroll
-    for (int r = 0; r < (BK * BN) / NTHREADS; ++r) {
-      const int idx = tid + r * NTHREADS;
-      const int k = idx / BN, n = idx % BN;
-      const int gk = k0 + k, gn = n0 + n;
-      Bs[k][n] = (gk < S && gn < KS) ? V[(size_t)gk * KS + gn] : 0.0f;
-    }
-    __syncthreads();
-    tile_fma(As, Bs, ty, tx, acc);
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int gm = m0 + ty + 16 * i;
-    float rs = 0.0f;
-    if (gm < B) {
-      const float* prow = p_t + (size_t)gm * P;
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int gn = n0 + tx + 16 * j;
-        if (gn < KS) {
-          const float a = acc[i][j] * emission(prow, slot_pdf, gn);
-          alpha[(size_t)gm * KS + gn] = a;
-          rs += a;
-        }
-      }
-    }
-    // the 16 threads of one ty are 16 aligned lanes of a warp
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1) rs += __shfl_xor_sync(0xffffffffu, rs, off, 16);
-    if (tx == 0 && gm < B) cpart[(size_t)gm * gridDim.x + blockIdx.x] = rs;
-  }
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-// K1 (b): one block per sequence b.  c = sum of the tile row sums,
-// logc_t[b] = log c, ah_t = alpha / c (in place), next sigma (leaky).
-__global__ void __launch_bounds__(ROW_THREADS)
-fwd_norm(float* __restrict__ ah_t, const float* __restrict__ cpart, int ncpart,
-         const float* __restrict__ init, float* __restrict__ sigma,
-         float* __restrict__ logc_t, int S, int K, float leaky) {
-  __shared__ float red[ROW_THREADS];
-  const int b = blockIdx.x, tid = threadIdx.x;
-  __shared__ float c_sh;
-  if (tid == 0) {
-    float c = 0.0f;
-    for (int j = 0; j < ncpart; ++j) c += cpart[(size_t)b * ncpart + j];
-    c_sh = c;
-    logc_t[b] = logf(c);
+// Queue the copy of n floats into shared memory: 16-byte pieces where
+// gran == 16 (n a multiple of 4, both rows 16-byte aligned), else 4-byte.
+__device__ __forceinline__ void copy_async(float* dst, const float* src, int n, int gran) {
+  if (gran == 16) {
+    for (int i = 4 * threadIdx.x; i < n; i += 4 * blockDim.x)
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst + i)),
+                   "l"(src + i));
+  } else {
+    for (int i = threadIdx.x; i < n; i += blockDim.x)
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst + i)),
+                   "l"(src + i));
+  }
+}
+__device__ __forceinline__ void commit_async() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void wait_async() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+
+// the larger of a and b, NaN if either is (as torch.max)
+__device__ __forceinline__ float max_nan(float a, float b) { return (a != a || a > b) ? a : b; }
+
+// Butterflies over the 32 lanes: lane i adds lane i^off for off = 16 .. 1,
+// so every lane ends with the same bits (a + b == b + a).
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = max_nan(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+// Block sum with one barrier: each warp's butterfly, its lane 0 writes the
+// warp's sum to red[warp], then every warp runs the butterfly over red
+// (zeros past the last warp).  Every thread gets the same bits.  `red` must
+// not be written again before every thread has returned from this call.
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  v = warp_sum(v);
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  return warp_sum(lane < nw ? red[lane] : 0.0f);
+}
+
+// The same for a sum and a maximum at once (red holds 2 * MAX_WARPS).
+__device__ __forceinline__ void block_sum_max(float& sum, float& mx, float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  sum = warp_sum(sum);
+  mx = warp_max(mx);
+  if (lane == 0) {
+    red[warp] = sum;
+    red[MAX_WARPS + warp] = mx;
   }
   __syncthreads();
-  const float c = c_sh;
-  float* row = ah_t + (size_t)b * K * S;
-  float* sig = sigma + (size_t)b * S;
-  float part = 0.0f;
-  for (int s = tid; s < S; s += ROW_THREADS) {
-    float sh = 0.0f;
-    for (int k = 0; k < K; ++k) {
-      const float a = row[k * S + s] / c;
-      row[k * S + s] = a;
-      sh += a;
-    }
-    sig[s] = sh;
-    part += sh;
+  sum = warp_sum(lane < nw ? red[lane] : 0.0f);
+  mx = warp_max(lane < nw ? red[MAX_WARPS + lane] : -INFINITY);
+}
+
+template <typename T>
+__device__ __forceinline__ void copy_plain(T* dst, const T* src, long long n) {
+  for (long long i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
+}
+
+// slot_pdf as 16 bits, 0xFFFF for a dead slot
+__device__ __forceinline__ void stage_pdf(unsigned short* dst, const int* src, int n) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = (unsigned short)src[i];
+}
+constexpr unsigned DEAD16 = 0xFFFF;
+
+// e mod S without a division: e - S * floor(e * m / 2^32) with
+// m = floor((2^32 - 1) / S) + 1, exact for e, S < 2^16 (every index here;
+// m wraps to 0 for S = 1, where the answer is 0)
+__device__ __forceinline__ int mod_by(int e, int S, unsigned m) {
+  return S == 1 ? 0 : e - S * (int)__umulhi((unsigned)e, m);
+}
+
+// K1.  One block per sequence b, all T frames.
+//   p [T, B, P]; init [S]; CSC of V: coff [K*S + 1], crow u16 [nnz], cval
+//   [nnz]; slot_pdf [K*S] (-1 = dead).  Out: ah [T, B, K*S], logc [T, B].
+template <bool STAGED>
+__global__ void __launch_bounds__(THREADS, 1)
+den_fwd_kernel(const float* __restrict__ p, const float* __restrict__ init,
+               const int* __restrict__ coff_g, const unsigned short* __restrict__ crow_g,
+               const float* __restrict__ cval_g, const int* __restrict__ spdf_g,
+               float* __restrict__ ah, float* __restrict__ logc, int T, int B, int P, int S,
+               int K, int nnz, float leaky, int pgran) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Layout L = layout(false, S, K, P, nnz, 0, STAGED);
+  const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x, KS = K * S;
+  float* sig = (float*)(smem + L.state);
+  float* alpha = (float*)(smem + L.ring);
+  float* red_c = (float*)(smem + L.red);
+  float* red_s = red_c + MAX_WARPS;
+  auto prow = [&](int t) { return (float*)(smem + L.pring + (t & 1) * L.pring_stride); };
+
+  copy_async(prow(0), p + (size_t)b * P, P, pgran);
+  commit_async();
+
+  const int* coff = coff_g;
+  const unsigned short* crow = crow_g;
+  const float* cval = cval_g;
+  const unsigned short* spdf_s = nullptr;
+  if constexpr (STAGED) {
+    int* o = (int*)(smem + L.off);
+    float* v = (float*)(smem + L.val);
+    unsigned short* r = (unsigned short*)(smem + L.idx);
+    unsigned short* q = (unsigned short*)(smem + L.idx2);
+    copy_plain(o, coff_g, KS + 1);
+    copy_plain(v, cval_g, nnz);
+    copy_plain(r, crow_g, nnz);
+    stage_pdf(q, spdf_g, KS);
+    coff = o;
+    cval = v;
+    crow = r;
+    spdf_s = q;
   }
-  if (leaky > 0.0f) {
-    const float tot = block_sum(part, red);  // also orders the sig writes
-    for (int s = tid; s < S; s += ROW_THREADS) sig[s] += leaky * tot * init[s];
+  auto pdf_of = [&](int e) -> int {  // -1 for a dead slot
+    if constexpr (STAGED) {
+      const unsigned q = spdf_s[e];
+      return q == DEAD16 ? -1 : (int)q;
+    } else {
+      return __ldg(spdf_g + e);
+    }
+  };
+  // sigma from s_hat (in sig): the leaky term needs the block's sum of s_hat
+  // (each thread reads and writes only its own states here)
+  auto leak = [&](float part) {
+    if (leaky > 0.0f) {
+      const float lt = leaky * block_sum(part, red_s);
+      for (int s = tid; s < S; s += nt) sig[s] = fmaf(lt, __ldg(init + s), sig[s]);
+    }
+  };
+
+  float part = 0.0f;  // s_hat of frame 0 is init
+  for (int s = tid; s < S; s += nt) {
+    const float x = __ldg(init + s);
+    sig[s] = x;
+    part += x;
+  }
+  leak(part);
+
+  for (int t = 0; t < T; ++t) {
+    const float* pt = prow(t);
+    wait_async();
+    __syncthreads();  // p_t, sigma (and the staged tables) in place
+    if (t + 1 < T) copy_async(prow(t + 1), p + ((size_t)(t + 1) * B + b) * P, P, pgran);
+    commit_async();
+    float csum = 0.0f;
+    for (int e = tid; e < KS; e += nt) {
+      float h = 0.0f;
+      const int j1 = coff[e + 1];
+#pragma unroll 4
+      for (int j = coff[e]; j < j1; ++j) h = fmaf(sig[crow[j]], cval[j], h);
+      const int q = pdf_of(e);
+      const float a = q >= 0 ? h * pt[q] : 0.0f;
+      alpha[e] = a;
+      csum += a;
+    }
+    const float c = block_sum(csum, red_c);  // also: every read of sigma done
+    float* arow = ah + ((size_t)t * B + b) * KS;
+    for (int e = tid; e < KS; e += nt) {
+      const float x = alpha[e] / c;
+      alpha[e] = x;
+      __stcs(arow + e, x);
+    }
+    if (tid == 0) logc[(size_t)t * B + b] = logf(c);
+    __syncthreads();  // alpha_hat in place
+    part = 0.0f;
+    for (int s = tid; s < S; s += nt) {
+      float x = alpha[s];
+      for (int k = 1; k < K; ++k) x += alpha[k * S + s];
+      sig[s] = x;
+      part += x;
+    }
+    leak(part);
   }
 }
 
-// K2 (a): pdf occupancies of frame t, straight into gamma [B, T, P].
-__global__ void __launch_bounds__(128)
-bwd_gamma(const float* __restrict__ ah_t, const float* __restrict__ bh,
-          const float* __restrict__ F_t, const float* __restrict__ G,
-          const float* __restrict__ logz, const int* __restrict__ pdf_off,
-          const int* __restrict__ pdf_slot, float* __restrict__ gamma,
-          int t, int T, int P, int S, int K) {
-  const int b = blockIdx.x;
-  const float scale = expf(F_t[b] + G[b] - logz[b]);
-  const float* arow = ah_t + (size_t)b * K * S;
-  const float* brow = bh + (size_t)b * S;
-  float* grow = gamma + ((size_t)b * T + t) * P;
-  for (int q = threadIdx.x; q < P; q += blockDim.x) {
-    float acc = 0.0f;
-    for (int j = pdf_off[q]; j < pdf_off[q + 1]; ++j) {
-      const int e = pdf_slot[j];
-      acc += arow[e] * brow[e % S] * scale;
+// K2.  One block per sequence b, frames T-1 .. 0.
+//   p [T, B, P]; ah [T, B, K*S]; F, ymax [T, B]; logz [B]; init [S]; CSR
+//   of V: roff [S + 1], rcol u16 [nnz], rval [nnz]; live slots per pdf:
+//   qoff [P + 1], qslot [live]; slot_pdf [K*S].  Out: gamma [B, T, P].
+template <bool STAGED>
+__global__ void __launch_bounds__(THREADS, 1)
+den_bwd_kernel(const float* __restrict__ p, const float* __restrict__ ah,
+               const float* __restrict__ F, const float* __restrict__ ymax,
+               const float* __restrict__ logz, const float* __restrict__ init,
+               const int* __restrict__ roff_g, const unsigned short* __restrict__ rcol_g,
+               const float* __restrict__ rval_g, const int* __restrict__ qoff_g,
+               const int* __restrict__ qslot_g, const int* __restrict__ spdf_g,
+               float* __restrict__ gamma, int T, int B, int P, int S, int K, int nnz, int live,
+               float leaky, float g0, int pgran, int agran) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Layout L = layout(true, S, K, P, nnz, live, STAGED);
+  const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x, KS = K * S;
+  const unsigned mS = 0xFFFFFFFFu / (unsigned)S + 1u;
+  float* bh = (float*)(smem + L.state);
+  float* pt = (float*)(smem + L.pring);
+  float* red = (float*)(smem + L.red);
+  auto arow_of = [&](int t) { return (float*)(smem + L.ring + (t & 1) * L.ring_stride); };
+  auto fetch_ah = [&](int t) {  // frame t's ah row into its ring slot
+    copy_async(arow_of(t), ah + ((size_t)t * B + b) * KS, KS, agran);
+    commit_async();
+  };
+  auto fetch_p = [&](int t) {
+    copy_async(pt, p + ((size_t)t * B + b) * P, P, pgran);
+    commit_async();
+  };
+  fetch_ah(T - 1);
+  fetch_p(T - 1);
+
+  const int* roff = roff_g;
+  const unsigned short* rcol = rcol_g;
+  const float* rval = rval_g;
+  const int* qoff = qoff_g;
+  const unsigned short* qslot_s = nullptr;
+  const unsigned short* spdf_s = nullptr;
+  if constexpr (STAGED) {
+    int* o = (int*)(smem + L.off);
+    int* qo = (int*)(smem + L.off2);
+    float* v = (float*)(smem + L.val);
+    unsigned short* c = (unsigned short*)(smem + L.idx);
+    unsigned short* qs = (unsigned short*)(smem + L.idx2);
+    unsigned short* sp = (unsigned short*)(smem + L.idx3);
+    copy_plain(o, roff_g, S + 1);
+    copy_plain(qo, qoff_g, P + 1);
+    copy_plain(v, rval_g, nnz);
+    copy_plain(c, rcol_g, nnz);
+    for (int j = tid; j < live; j += nt) qs[j] = (unsigned short)qslot_g[j];
+    stage_pdf(sp, spdf_g, KS);
+    roff = o;
+    qoff = qo;
+    rval = v;
+    rcol = c;
+    qslot_s = qs;
+    spdf_s = sp;
+  }
+  auto slot_of = [&](int j) -> int {
+    if constexpr (STAGED) return qslot_s[j];
+    else return __ldg(qslot_g + j);
+  };
+  auto pdf_of = [&](int e) -> int {  // -1 for a dead slot
+    if constexpr (STAGED) {
+      const unsigned q = spdf_s[e];
+      return q == DEAD16 ? -1 : (int)q;
+    } else {
+      return __ldg(spdf_g + e);
     }
-    grow[q] = acc;
+  };
+
+  for (int s = tid; s < S; s += nt) bh[s] = 1.0f;
+  float G = g0;
+  const float lz = logz[b];
+  // this frame's F and ymax; the next frame's are loaded a frame ahead
+  float Ft = F[(size_t)(T - 1) * B + b], yt = ymax[(size_t)(T - 1) * B + b];
+  for (int t = T - 1; t >= 0; --t) {
+    float* arow = arow_of(t);
+    wait_async();
+    __syncthreads();  // frame t's rows, bh (and the staged tables) in place
+    float Fn = 0.0f, yn = 0.0f;
+    if (t > 0) {
+      fetch_ah(t - 1);
+      Fn = F[(size_t)(t - 1) * B + b];
+      yn = ymax[(size_t)(t - 1) * B + b];
+    }
+    const float scale = expf((Ft + G) - lz);
+    float* grow = gamma + ((size_t)b * T + t) * P;
+    // occupancies by pdf, each over its live slots in slot order
+    for (int q = tid; q < P; q += nt) {
+      float acc = 0.0f;
+      const int j1 = qoff[q + 1];
+#pragma unroll 4
+      for (int j = qoff[q]; j < j1; ++j) {
+        const int e = slot_of(j);
+        acc += arow[e] * bh[mod_by(e, S, mS)] * scale;
+      }
+      __stcs(grow + q, acc);
+    }
+    if (t == 0) break;  // the pullback past frame 0 feeds nothing
+    __syncthreads();    // every read of ah_t done
+    // w = p_t[pdf] * bh in the ah row, on the live slots (the only ones V's
+    // rows name)
+    for (int e = tid; e < KS; e += nt) {
+      const int q = pdf_of(e);
+      if (q >= 0) arow[e] = pt[q] * bh[mod_by(e, S, mS)];
+    }
+    __syncthreads();  // w in place; every read of bh and of p_t done
+    fetch_p(t - 1);
+    float dot = 0.0f, mx = -INFINITY;
+    for (int s = tid; s < S; s += nt) {
+      const float in = __ldg(init + s);
+      float v = 0.0f;
+      const int j1 = roff[s + 1];
+#pragma unroll 4
+      for (int j = roff[s]; j < j1; ++j) v = fmaf(rval[j], arow[rcol[j]], v);
+      bh[s] = v;
+      dot = fmaf(v, in, dot);
+      mx = max_nan(mx, v);
+    }
+    block_sum_max(dot, mx, red);  // also: every v in place
+    // max(v + add) == max(v) + add: rounding is monotonic
+    const float add = leaky > 0.0f ? leaky * dot : 0.0f;
+    float d = leaky > 0.0f ? mx + add : mx;
+    d = d > 0.0f ? d : 1.0f;
+    for (int s = tid; s < S; s += nt) bh[s] = (leaky > 0.0f ? bh[s] + add : bh[s]) / d;
+    G = (G + yt) + logf(d);
+    Ft = Fn;
+    yt = yn;
   }
 }
 
-// K2 (b): partial v = (pe_t * bh) @ V^T over the depth range of blockIdx.z.
-// pe_t*bh is formed while loading the tile.  vpart [splits, B, S].
-__global__ void __launch_bounds__(NTHREADS)
-bwd_gemm(const float* __restrict__ p_t, const int* __restrict__ slot_pdf,
-         const float* __restrict__ bh, const float* __restrict__ V,
-         float* __restrict__ vpart, int B, int S, int KS, int P, int kchunk) {
-  __shared__ float As[BK][LDA];
-  __shared__ float Bs[BK][LDB];
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int kbeg = blockIdx.z * kchunk;
-  const int kend = min(KS, kbeg + kchunk);
-  float acc[TM][TN] = {};
-  for (int k0 = kbeg; k0 < kend; k0 += BK) {
-#pragma unroll
-    for (int r = 0; r < (BM * BK) / NTHREADS; ++r) {
-      const int idx = tid + r * NTHREADS;
-      const int m = idx / BK, k = idx % BK;
-      const int gm = m0 + m, gk = k0 + k;
-      float w = 0.0f;
-      if (gm < B && gk < kend)
-        w = emission(p_t + (size_t)gm * P, slot_pdf, gk) * bh[(size_t)gm * S + gk % S];
-      As[k][m] = w;
-    }
-#pragma unroll
-    for (int r = 0; r < (BK * BN) / NTHREADS; ++r) {
-      const int idx = tid + r * NTHREADS;
-      const int n = idx / BK, k = idx % BK;
-      const int gk = k0 + k, gn = n0 + n;
-      Bs[k][n] = (gk < kend && gn < S) ? V[(size_t)gn * KS + gk] : 0.0f;
-    }
-    __syncthreads();
-    tile_fma(As, Bs, ty, tx, acc);
-    __syncthreads();
-  }
-  float* out = vpart + (size_t)blockIdx.z * B * S;
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int gm = m0 + ty + 16 * i;
-    if (gm >= B) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int gn = n0 + tx + 16 * j;
-      if (gn < S) out[(size_t)gm * S + gn] = acc[i][j];
-    }
-  }
+int shared_limit() {
+  int dev = 0, limit = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess)
+    return 0;
+  return limit;
 }
 
-// K2 (c): one block per sequence.  v = sum of the partials (fixed order),
-// leaky transpose, d = rowmax (1 if <= 0), bh = v / d, G += ymax_t + log d.
-__global__ void __launch_bounds__(ROW_THREADS)
-bwd_norm(const float* __restrict__ vpart, int splits, const float* __restrict__ init,
-         const float* __restrict__ ymax_t, float* __restrict__ bh,
-         float* __restrict__ G, int B, int S, float leaky) {
-  __shared__ float red[ROW_THREADS];
-  const int b = blockIdx.x, tid = threadIdx.x;
-  float* row = bh + (size_t)b * S;
-  float dot = 0.0f;
-  for (int s = tid; s < S; s += ROW_THREADS) {
-    float v = 0.0f;
-    for (int z = 0; z < splits; ++z) v += vpart[((size_t)z * B + b) * S + s];
-    row[s] = v;
-    dot += v * init[s];
-  }
-  float add = 0.0f;
-  if (leaky > 0.0f) add = leaky * block_sum(dot, red);
-  float mx = -INFINITY;
-  for (int s = tid; s < S; s += ROW_THREADS) {
-    const float v = row[s] + add;
-    row[s] = v;
-    mx = fmaxf(mx, v);
-  }
-  float d = block_max(mx, red);
-  d = d > 0.0f ? d : 1.0f;
-  for (int s = tid; s < S; s += ROW_THREADS) row[s] = row[s] / d;
-  if (tid == 0) G[b] += ymax_t[b] + logf(d);
+// Raise `kernel`'s dynamic shared-memory allowance to the device's limit
+// once; `granted` (one per kernel) remembers it, so that later launches make
+// no runtime call.
+template <typename Kern>
+int allow_shared(Kern kernel, long long bytes, int& granted) {
+  if (bytes <= granted) return 0;
+  const int limit = shared_limit();
+  if (bytes > limit) return (int)cudaErrorInvalidValue;
+  const int err =
+      (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, limit);
+  if (!err) granted = limit;
+  return err;
+}
+
+// 16 where rows of n floats from `ptr` are all 16-byte aligned, else 4
+int granule(const void* ptr, long long n) {
+  return (n % 4 == 0 && (uintptr_t)ptr % 16 == 0) ? 16 : 4;
 }
 
 }  // namespace
@@ -242,59 +461,65 @@ extern "C" {
 
 const char* cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-// K1: the whole forward pass, T frames, on `stream`.
-//   p [T, B, P] = exp(y - ymax), V [S, K*S], slot_pdf [K*S] (-1 = dead),
-//   init [S]; sigma [B, S] holds sigma of frame 0 on entry (scratch after);
-//   cpart [B, ceil(K*S / 64)] scratch.  Out: ah [T, B, K*S], logc [T, B].
-int den_forward(const float* p, const float* V, const int* slot_pdf, const float* init,
-                float* sigma, float* ah, float* cpart, float* logc,
-                int T, int B, int P, int S, int K, float leaky, cudaStream_t stream) {
-  const int KS = K * S;
-  const dim3 ggrid((KS + BN - 1) / BN, (B + BM - 1) / BM);
-  for (int t = 0; t < T; ++t) {
-    float* ah_t = ah + (size_t)t * B * KS;
-    fwd_gemm<<<ggrid, NTHREADS, 0, stream>>>(sigma, V, p + (size_t)t * B * P, slot_pdf,
-                                             ah_t, cpart, B, S, KS, P);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    fwd_norm<<<B, ROW_THREADS, 0, stream>>>(ah_t, cpart, (int)ggrid.x, init, sigma,
-                                            logc + (size_t)t * B, S, K, leaky);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return 0;
+// The most dynamic shared memory a block may ask for, in bytes.
+int den_shared_limit() { return shared_limit(); }
+
+// Bytes of dynamic shared memory K1 (backward = 0) or K2 (backward = 1) asks
+// for: the carried state alone (staged = 0) or with the graph's tables.
+int den_shared_bytes(int backward, int S, int K, int P, int nnz, int live, int staged) {
+  const long long bytes = layout(backward != 0, S, K, P, nnz, live, staged != 0).bytes;
+  return bytes > INT_MAX ? INT_MAX : (int)bytes;
 }
 
-// K2: the whole backward pass, frames T-1 .. 0, on `stream`.
-//   F, ymax [T, B]; logz [B]; pdf_off [P+1] / pdf_slot: live slots per pdf;
-//   bh [B, S] = 1 and G [B] = log1p(leaky) on entry (scratch after);
-//   vpart [splits, B, S] scratch.  Out: gamma [B, T, P].
-int den_backward(const float* p, const float* ah, const float* F, const float* ymax,
-                 const float* logz, const float* V, const int* slot_pdf,
-                 const int* pdf_off, const int* pdf_slot, const float* init,
-                 float* bh, float* G, float* vpart, float* gamma,
-                 int T, int B, int P, int S, int K, int splits, float leaky,
-                 cudaStream_t stream) {
-  const int KS = K * S;
-  int kchunk = (KS + splits - 1) / splits;
-  kchunk = (kchunk + BK - 1) / BK * BK;
-  const dim3 ggrid((S + BN - 1) / BN, (B + BM - 1) / BM, splits);
-  for (int t = T - 1; t >= 0; --t) {
-    bwd_gamma<<<B, 128, 0, stream>>>(ah + (size_t)t * B * KS, bh, F + (size_t)t * B, G, logz,
-                                     pdf_off, pdf_slot, gamma, t, T, P, S, K);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    if (t == 0) break;  // the pullback past frame 0 feeds nothing
-    bwd_gemm<<<ggrid, NTHREADS, 0, stream>>>(p + (size_t)t * B * P, slot_pdf, bh, V, vpart,
-                                             B, S, KS, P, kchunk);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    bwd_norm<<<B, ROW_THREADS, 0, stream>>>(vpart, splits, init, ymax + (size_t)t * B, bh, G,
-                                            B, S, leaky);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+// K1: the whole forward pass, one launch on `stream`.
+int den_forward(const float* p, const float* init, const int* csc_off,
+                const unsigned short* csc_rows, const float* csc_vals, const int* slot_pdf,
+                float* ah, float* logc, int T, int B, int P, int S, int K, int nnz, int staged,
+                float leaky, cudaStream_t stream) {
+  if (T == 0 || B == 0) return 0;
+  static int granted[2] = {0, 0};
+  const long long bytes = layout(false, S, K, P, nnz, 0, staged != 0).bytes;
+  const int gran = granule(p, P);
+  int err;
+  if (staged) {
+    if ((err = allow_shared(den_fwd_kernel<true>, bytes, granted[1]))) return err;
+    den_fwd_kernel<true><<<B, THREADS, bytes, stream>>>(p, init, csc_off, csc_rows, csc_vals,
+                                                        slot_pdf, ah, logc, T, B, P, S, K, nnz,
+                                                        leaky, gran);
+  } else {
+    if ((err = allow_shared(den_fwd_kernel<false>, bytes, granted[0]))) return err;
+    den_fwd_kernel<false><<<B, THREADS, bytes, stream>>>(p, init, csc_off, csc_rows, csc_vals,
+                                                         slot_pdf, ah, logc, T, B, P, S, K, nnz,
+                                                         leaky, gran);
   }
-  return 0;
+  return (int)cudaGetLastError();
+}
+
+// K2: the whole backward pass, frames T-1 .. 0, one launch on `stream`.
+// g0 is G's start (log1p(leaky), or 0).
+int den_backward(const float* p, const float* ah, const float* F, const float* ymax,
+                 const float* logz, const float* init, const int* csr_off,
+                 const unsigned short* csr_cols, const float* csr_vals, const int* pdf_off,
+                 const int* pdf_slot, const int* slot_pdf, float* gamma, int T, int B, int P,
+                 int S, int K, int nnz, int live, int staged, float leaky, float g0,
+                 cudaStream_t stream) {
+  if (T == 0 || B == 0) return 0;
+  static int granted[2] = {0, 0};
+  const long long bytes = layout(true, S, K, P, nnz, live, staged != 0).bytes;
+  const int pgran = granule(p, P), agran = granule(ah, (long long)K * S);
+  int err;
+  if (staged) {
+    if ((err = allow_shared(den_bwd_kernel<true>, bytes, granted[1]))) return err;
+    den_bwd_kernel<true><<<B, THREADS, bytes, stream>>>(
+        p, ah, F, ymax, logz, init, csr_off, csr_cols, csr_vals, pdf_off, pdf_slot, slot_pdf,
+        gamma, T, B, P, S, K, nnz, live, leaky, g0, pgran, agran);
+  } else {
+    if ((err = allow_shared(den_bwd_kernel<false>, bytes, granted[0]))) return err;
+    den_bwd_kernel<false><<<B, THREADS, bytes, stream>>>(
+        p, ah, F, ymax, logz, init, csr_off, csr_cols, csr_vals, pdf_off, pdf_slot, slot_pdf,
+        gamma, T, B, P, S, K, nnz, live, leaky, g0, pgran, agran);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

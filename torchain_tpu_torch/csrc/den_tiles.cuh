@@ -1,7 +1,6 @@
-// Shared by the two denominator sources (den_resident.cu: K1/K2 on the
-// slot-dense graph; den_dense.cu: K9f/K9b on the dense Moore graph): the
-// float32 shared-memory product tile and the deterministic block reductions.
-// Each source keeps its own tile loaders and epilogues.
+// The dense Moore denominator's tiles (den_dense.cu: K9f/K9b): the float32
+// shared-memory product tile and the deterministic block reductions.  The
+// source keeps its own tile loaders and epilogues.
 
 #pragma once
 

@@ -33,11 +33,17 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlon
 #: `*_shared_*`, `*_limit` and `*_per_block` queries a size)
 SIGNATURES: dict[str, dict[str, list]] = {
     "den_resident": {
-        # p, V, slot_pdf, init, sigma, ah, cpart, logc, T, B, P, S, K, leaky, stream
-        "den_forward": [_P] * 8 + [_I] * 5 + [_F, _P],
-        # p, ah, F, ymax, logz, V, slot_pdf, pdf_off, pdf_slot, init, bh, G,
-        # vpart, gamma, T, B, P, S, K, splits, leaky, stream
-        "den_backward": [_P] * 14 + [_I] * 6 + [_F, _P],
+        # p, init, csc_off, csc_rows, csc_vals, slot_pdf, ah, logc,
+        # T, B, P, S, K, nnz, staged, leaky, stream
+        "den_forward": [_P] * 8 + [_I] * 7 + [_F, _P],
+        # p, ah, F, ymax, logz, init, csr_off, csr_cols, csr_vals, pdf_off,
+        # pdf_slot, slot_pdf, gamma, T, B, P, S, K, nnz, live, staged,
+        # leaky, g0, stream
+        "den_backward": [_P] * 13 + [_I] * 8 + [_F, _F, _P],
+        # backward, S, K, P, nnz, live, staged -> bytes of shared memory per
+        # block; the device's limit
+        "den_shared_bytes": [_I] * 7,
+        "den_shared_limit": [],
     },
     "num_vocab": {
         # y, vocab, out, B, T, P, W, stream

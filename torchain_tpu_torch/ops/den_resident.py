@@ -11,11 +11,13 @@ arcs into state s whose emission pdf is the k-th distinct in-pdf of s
 (K = 2 for the chain topology; states entered through more distinct pdfs
 are split into clones sharing the original's out-arc row).  Per frame the
 recursion is one [B, S] x [S, K*S] product forward and one
-[B, K*S] x [K*S, S] product backward.
+[B, K*S] x [K*S, S] product backward, with a V that is more than 99.8%
+zeros at the shipped graphs.
 
-On a CUDA tensor each pass is one call into csrc/den_resident.cu (the
-hand-written kernels); on a CPU tensor the plain PyTorch version beside it
-runs the same arithmetic.  There is no other fallback.
+On a CUDA tensor each pass is one launch of csrc/den_resident.cu, which
+walks V's compressed forms (one block per sequence, all frames inside the
+block); on a CPU tensor the plain PyTorch version beside it runs the same
+recursion with the dense V.  There is no other fallback.
 """
 
 from __future__ import annotations
@@ -29,28 +31,78 @@ import torch
 from torchain_tpu_torch import kernels
 from torchain_tpu_torch.graphs.den_graph import DenGraph
 
+#: threads of a K1/K2 block, a constant of csrc/den_resident.cu (`THREADS`)
+#: mirrored here for the emulation of the kernels' block sums, which run over
+#: the per-thread shares in this grouping
+THREADS = 1024
+
+#: indices of the compressed forms are 16-bit (stored as int16, read as
+#: unsigned) below this many states and slots
+INDEX16_LIMIT = 65536
+
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
+def compress(V: np.ndarray, index_dtype) -> tuple[np.ndarray, ...]:
+    """V's non-zeros by slot (CSC: column offsets, row indices, values;
+    each column's entries in row order) and by state (CSR: row offsets,
+    column indices, values; each row's entries in column order).  Offsets
+    int32, indices `index_dtype` (int16 holds them as unsigned bits),
+    values float32."""
+    rows, cols = np.nonzero(V)  # row-major: sorted by row, then column
+    by_col = np.lexsort((rows, cols))
+    S, KS = V.shape
+    csr_off = np.concatenate([[0], np.cumsum(np.bincount(rows, minlength=S))]).astype(np.int32)
+    csc_off = np.concatenate([[0], np.cumsum(np.bincount(cols, minlength=KS))]).astype(np.int32)
+
+    def idx(a):
+        return a.astype(np.uint16).view(np.int16) if index_dtype == np.int16 else a.astype(np.int32)
+
+    return (
+        csc_off, idx(rows[by_col]), V[rows[by_col], cols[by_col]].astype(np.float32),
+        csr_off, idx(cols), V[rows, cols].astype(np.float32),
+    )
+
+
 @dataclasses.dataclass
 class DeviceResidentDenGraph:
     """Slot-dense denominator graph (float32).  Padding slots/states have
-    zero V columns; dead slots have slot_pdf -1."""
+    zero V columns; dead slots have slot_pdf -1.
+
+    Beside the dense V (which the plain versions multiply) the graph holds
+    V's non-zeros twice, built once on the host: by slot (CSC, what K1's
+    h = sigma @ V walks) and by state (CSR, what K2's v = V @ w walks).
+    Entries are sorted by index within each column and each row, so the
+    kernels' sum order follows from the graph alone.  Indices are 16-bit
+    (int16 tensors holding unsigned values) where S_pad and K*S_pad are below
+    65,536, which every graph the kernels can hold meets (K1 keeps K*S_pad
+    floats in shared memory) and both shipped graphs do (4352 and 7936
+    slots); int32 otherwise, for the plain versions alone."""
 
     V: torch.Tensor  # f32 [S_pad, K*S_pad] transition probs
     slot_pdf: torch.Tensor  # int32 [K*S_pad] pdf per live slot, -1 if dead
     init: torch.Tensor  # f32 [S_pad] initial probs (stationary + boost)
     #: CSR of the live slots of each pdf: pdf_slots[pdf_offsets[q] :
-    #: pdf_offsets[q+1]] are the slots emitting pdf q (the backward kernel
-    #: sums occupancies over them without atomics)
+    #: pdf_offsets[q+1]] are the slots emitting pdf q, in slot order (the
+    #: backward kernel sums occupancies over them without atomics)
     pdf_offsets: torch.Tensor  # int32 [P + 1]
     pdf_slots: torch.Tensor  # int32 [live slots]
+    csc_offsets: torch.Tensor  # int32 [K*S_pad + 1]
+    csc_rows: torch.Tensor  # int16 (unsigned) [nnz] state of each entry
+    csc_vals: torch.Tensor  # f32 [nnz]
+    csr_offsets: torch.Tensor  # int32 [S_pad + 1]
+    csr_cols: torch.Tensor  # int16 (unsigned) [nnz] slot of each entry
+    csr_vals: torch.Tensor  # f32 [nnz]
     num_states: int  # S_pad
     real_states: int
     num_slots: int  # K
     num_pdfs: int
+
+    @property
+    def nnz(self) -> int:
+        return int(self.csc_vals.shape[0])
 
     def to(self, device) -> "DeviceResidentDenGraph":
         return dataclasses.replace(
@@ -60,6 +112,44 @@ class DeviceResidentDenGraph:
                 for f in dataclasses.fields(self)
                 if isinstance(getattr(self, f.name), torch.Tensor)
             },
+        )
+
+    @staticmethod
+    def from_dense(
+        V: np.ndarray, slot_pdf: np.ndarray, init: np.ndarray, num_pdfs: int,
+        real_states: int, device="cuda",
+    ) -> "DeviceResidentDenGraph":
+        """The graph of a slot-dense V [S_pad, K*S_pad] (f32), its slot_pdf
+        [K*S_pad] (-1 = dead) and init [S_pad]: builds the pdf CSR and V's
+        compressed forms.  A dead slot's V column must be zero."""
+        S, KS = V.shape
+        if KS % S:
+            raise ValueError(f"V {V.shape}: the slots are not a multiple of the states")
+        if V[:, slot_pdf < 0].any():
+            raise ValueError("V has transitions into a dead slot (slot_pdf -1)")
+        live = np.flatnonzero(slot_pdf >= 0)
+        order = live[np.argsort(slot_pdf[live], kind="stable")]
+        counts = np.bincount(slot_pdf[live], minlength=num_pdfs)
+        offsets = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+        index = np.int16 if KS < INDEX16_LIMIT else np.int32
+        csc_off, csc_rows, csc_vals, csr_off, csr_cols, csr_vals = compress(V, index)
+        t = lambda a: torch.as_tensor(a).to(device)  # noqa: E731
+        return DeviceResidentDenGraph(
+            V=t(V),
+            slot_pdf=t(slot_pdf.astype(np.int32)),
+            init=t(init.astype(np.float32)),
+            pdf_offsets=t(offsets),
+            pdf_slots=t(order.astype(np.int32)),
+            csc_offsets=t(csc_off),
+            csc_rows=t(csc_rows),
+            csc_vals=t(csc_vals),
+            csr_offsets=t(csr_off),
+            csr_cols=t(csr_cols),
+            csr_vals=t(csr_vals),
+            num_states=S,
+            real_states=real_states,
+            num_slots=KS // S,
+            num_pdfs=int(num_pdfs),
         )
 
     @staticmethod
@@ -108,25 +198,70 @@ class DeviceResidentDenGraph:
             for c in range(int(extra[s])):
                 V[clone_base[s] + c] = V[s]
 
-        live = np.flatnonzero(slot_pdf >= 0)
-        order = live[np.argsort(slot_pdf[live], kind="stable")]
-        counts = np.bincount(slot_pdf[live], minlength=g.num_pdfs)
-        offsets = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
-
         init = np.zeros(S_pad, dtype=np.float32)
         init[:S] = g.initial_probs
-        t = lambda a: torch.as_tensor(a).to(device)  # noqa: E731
-        return DeviceResidentDenGraph(
-            V=t(V),
-            slot_pdf=t(slot_pdf),
-            init=t(init),
-            pdf_offsets=t(offsets),
-            pdf_slots=t(order.astype(np.int32)),
-            num_states=S_pad,
-            real_states=S,
-            num_slots=K,
-            num_pdfs=int(g.num_pdfs),
+        return DeviceResidentDenGraph.from_dense(
+            V, slot_pdf, init, int(g.num_pdfs), S, device=device
         )
+
+
+# ---------------------------------------------------------------------------
+# The kernels' shared memory
+# ---------------------------------------------------------------------------
+
+#: (device, direction, sizes) -> (bytes, staged), asked of the library once
+_PLANS: dict[tuple, tuple[int, int]] = {}
+
+
+def shared_plan(g: DeviceResidentDenGraph, backward: int, device) -> tuple[int, int]:
+    """Bytes of shared memory a K1 (backward=0) or K2 (1) block asks for,
+    and whether V's compressed form and the slot tables are staged there
+    (1) or read through L2 (0): staged wherever they fit beside the carried
+    state under the device's opt-in limit.  At the shipped graphs (H100
+    limit 232,448 bytes) both are staged:
+
+        graph       K1 carried + tables = bytes     K2 carried + tables = bytes
+        trigram     27,008 + 100,384 = 127,392      44,096 + 100,336 = 144,432
+        production  61,312 + 129,664 = 190,976      86,336 + 135,952 = 222,288
+
+    (K1 carries sigma [S], alpha [K*S] and two p rows [P]; K2 bh [S], two ah
+    rows [K*S] and one p row.  The tables: V's compressed form for the
+    kernel's direction and slot_pdf as 16 bits; K2 also the pdf CSR.)  Raises ValueError where the
+    carried state alone exceeds the limit."""
+    S, K, P = g.num_states, g.num_slots, g.num_pdfs
+    live = int(g.pdf_slots.shape[0])
+    key = (device.index, backward, S, K, P, g.nnz, live)
+    plan = _PLANS.get(key)
+    if plan is None:
+        need = kernels.entry("den_resident", "den_shared_bytes")
+        limit = kernels.entry("den_resident", "den_shared_limit")()
+        carried = need(backward, S, K, P, g.nnz, live, 0)
+        if carried > limit:
+            what = "den_backward" if backward else "den_forward"
+            raise ValueError(
+                f"{what}: the carried state of a sequence (S_pad={S}, K={K}, P={P}) needs"
+                f" {carried} bytes of shared memory, more than the {limit} a block may have"
+            )
+        staged = need(backward, S, K, P, g.nnz, live, 1)
+        plan = _PLANS[key] = (staged, 1) if staged <= limit else (carried, 0)
+    return plan
+
+
+def _check_graph(g: DeviceResidentDenGraph, backward: bool) -> None:
+    S, KS, P = g.num_states, g.num_states * g.num_slots, g.num_pdfs
+    nnz = g.nnz
+    kernels.check_tensor("init", g.init, torch.float32, (S,))
+    kernels.check_tensor("slot_pdf", g.slot_pdf, torch.int32, (KS,))
+    if backward:
+        kernels.check_tensor("csr_offsets", g.csr_offsets, torch.int32, (S + 1,))
+        kernels.check_tensor("csr_cols", g.csr_cols, torch.int16, (nnz,))
+        kernels.check_tensor("csr_vals", g.csr_vals, torch.float32, (nnz,))
+        kernels.check_tensor("pdf_offsets", g.pdf_offsets, torch.int32, (P + 1,))
+        kernels.check_tensor("pdf_slots", g.pdf_slots, torch.int32)
+    else:
+        kernels.check_tensor("csc_offsets", g.csc_offsets, torch.int32, (KS + 1,))
+        kernels.check_tensor("csc_rows", g.csc_rows, torch.int16, (nnz,))
+        kernels.check_tensor("csc_vals", g.csc_vals, torch.float32, (nnz,))
 
 
 # ---------------------------------------------------------------------------
@@ -140,10 +275,11 @@ def _emissions(p_t: torch.Tensor, slot_pdf: torch.Tensor) -> torch.Tensor:
     return torch.where(slot_pdf >= 0, pe, torch.zeros((), dtype=pe.dtype))
 
 
-def den_forward_plain(p, V, slot_pdf, init, leaky: float):
+def den_forward_plain(p, g: DeviceResidentDenGraph, leaky: float):
     """Plain PyTorch K1.  p [T, B, P] = exp(y - ymax) -> (logc [T, B],
-    ah [T, B, KS] normalized per-slot alphas)."""
+    ah [T, B, KS] normalized per-slot alphas).  Multiplies the dense V."""
     T, B, _ = p.shape
+    V, init = g.V, g.init
     S, KS = V.shape
     K = KS // S
     sh = init.expand(B, S)
@@ -151,7 +287,7 @@ def den_forward_plain(p, V, slot_pdf, init, leaky: float):
     ah = p.new_empty((T, B, KS))
     for t in range(T):
         sig = sh + leaky * sh.sum(-1, keepdim=True) * init if leaky > 0.0 else sh
-        alpha = (sig @ V) * _emissions(p[t], slot_pdf)
+        alpha = (sig @ V) * _emissions(p[t], g.slot_pdf)
         c = alpha.sum(-1, keepdim=True)
         logc[t] = torch.log(c[:, 0])
         ah[t] = alpha / c
@@ -159,30 +295,25 @@ def den_forward_plain(p, V, slot_pdf, init, leaky: float):
     return logc, ah
 
 
-def den_forward_kernel(p, V, slot_pdf, init, leaky: float):
-    """K1.  Same contract as den_forward_plain; launches
+def den_forward_kernel(p, g: DeviceResidentDenGraph, leaky: float):
+    """K1.  Same contract as den_forward_plain; one launch of
     csrc/den_resident.cu:den_forward on a CUDA tensor."""
     if p.device.type == "cpu":
-        return den_forward_plain(p, V, slot_pdf, init, leaky)
+        return den_forward_plain(p, g, leaky)
     T, B, P = p.shape
-    S, KS = V.shape
-    K = KS // S
-    kernels.check_tensor("p", p, torch.float32)
-    kernels.check_tensor("V", V, torch.float32)
-    kernels.check_tensor("slot_pdf", slot_pdf, torch.int32, (KS,))
-    kernels.check_tensor("init", init, torch.float32, (S,))
-    sigma0 = init * (1.0 + leaky * init.sum()) if leaky > 0.0 else init
-    sigma = sigma0.expand(B, S).contiguous()
-    ah = torch.empty((T, B, KS), device=p.device, dtype=torch.float32)
+    S, K = g.num_states, g.num_slots
+    kernels.check_tensor("p", p, torch.float32, (T, B, g.num_pdfs))
+    _, staged = shared_plan(g, 0, p.device)  # first: a graph too large raises here
+    _check_graph(g, backward=False)
+    ah = torch.empty((T, B, K * S), device=p.device, dtype=torch.float32)
     logc = torch.empty((T, B), device=p.device, dtype=torch.float32)
-    cpart = torch.empty((B, (KS + 63) // 64), device=p.device, dtype=torch.float32)
-    lib = kernels.library("den_resident")
-    err = lib.den_forward(
-        p.data_ptr(), V.data_ptr(), slot_pdf.data_ptr(), init.data_ptr(),
-        sigma.data_ptr(), ah.data_ptr(), cpart.data_ptr(), logc.data_ptr(),
-        T, B, P, S, K, float(leaky), kernels.stream_of(p.device),
+    err = kernels.entry("den_resident", "den_forward")(
+        p.data_ptr(), g.init.data_ptr(), g.csc_offsets.data_ptr(), g.csc_rows.data_ptr(),
+        g.csc_vals.data_ptr(), g.slot_pdf.data_ptr(), ah.data_ptr(), logc.data_ptr(),
+        T, B, P, S, K, g.nnz, staged, float(leaky), kernels.stream_of(p.device),
     )
-    kernels.check(lib, err, "den_forward")
+    if err:
+        kernels.check(kernels.library("den_resident"), err, "den_forward")
     den_forward_kernel.launches += 1
     return logc, ah
 
@@ -195,13 +326,12 @@ den_forward_kernel.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def den_backward_plain(
-    p, ah, F, ymax, log_z, V, slot_pdf, pdf_offsets, pdf_slots, init, leaky: float
-):
+def den_backward_plain(p, ah, F, ymax, log_z, g: DeviceResidentDenGraph, leaky: float):
     """Plain PyTorch K2.  p [T, B, P], ah [T, B, KS], F and ymax [T, B],
-    log_z [B] -> gamma [B, T, P] pdf occupancies.  (pdf_offsets/pdf_slots
-    are the kernel's CSR; the plain version sums with index_add_.)"""
+    log_z [B] -> gamma [B, T, P] pdf occupancies.  Multiplies the dense V^T
+    and sums the occupancies by pdf with index_add_."""
     T, B, P = p.shape
+    V, init, slot_pdf = g.V, g.init, g.slot_pdf
     S, KS = V.shape
     K = KS // S
     live = slot_pdf >= 0
@@ -226,47 +356,33 @@ def den_backward_plain(
     return gamma
 
 
-#: split of the backward product's depth (K*S) into independent partial
-#: sums, so its [B, S] output spreads over enough blocks to fill the card
-BWD_SPLITS = 4
-
-
-def den_backward_kernel(
-    p, ah, F, ymax, log_z, V, slot_pdf, pdf_offsets, pdf_slots, init, leaky: float
-):
-    """K2.  Same contract as den_backward_plain; launches
+def den_backward_kernel(p, ah, F, ymax, log_z, g: DeviceResidentDenGraph, leaky: float):
+    """K2.  Same contract as den_backward_plain; one launch of
     csrc/den_resident.cu:den_backward on a CUDA tensor."""
     if p.device.type == "cpu":
-        return den_backward_plain(
-            p, ah, F, ymax, log_z, V, slot_pdf, pdf_offsets, pdf_slots, init, leaky
-        )
+        return den_backward_plain(p, ah, F, ymax, log_z, g, leaky)
     T, B, P = p.shape
-    S, KS = V.shape
-    K = KS // S
-    kernels.check_tensor("p", p, torch.float32)
-    kernels.check_tensor("ah", ah, torch.float32, (T, B, KS))
+    S, K = g.num_states, g.num_slots
+    kernels.check_tensor("p", p, torch.float32, (T, B, g.num_pdfs))
+    kernels.check_tensor("ah", ah, torch.float32, (T, B, K * S))
     kernels.check_tensor("F", F, torch.float32, (T, B))
     kernels.check_tensor("ymax", ymax, torch.float32, (T, B))
     kernels.check_tensor("log_z", log_z, torch.float32, (B,))
-    kernels.check_tensor("V", V, torch.float32)
-    kernels.check_tensor("slot_pdf", slot_pdf, torch.int32, (KS,))
-    kernels.check_tensor("pdf_offsets", pdf_offsets, torch.int32, (P + 1,))
-    kernels.check_tensor("pdf_slots", pdf_slots, torch.int32)
-    kernels.check_tensor("init", init, torch.float32, (S,))
-    dev = p.device
-    bh = torch.ones((B, S), device=dev, dtype=torch.float32)
-    G = torch.full((B,), math.log1p(leaky) if leaky > 0.0 else 0.0, device=dev)
-    vpart = torch.empty((BWD_SPLITS, B, S), device=dev, dtype=torch.float32)
-    gamma = torch.empty((B, T, P), device=dev, dtype=torch.float32)
-    lib = kernels.library("den_resident")
-    err = lib.den_backward(
-        p.data_ptr(), ah.data_ptr(), F.data_ptr(), ymax.data_ptr(),
-        log_z.data_ptr(), V.data_ptr(), slot_pdf.data_ptr(),
-        pdf_offsets.data_ptr(), pdf_slots.data_ptr(), init.data_ptr(),
-        bh.data_ptr(), G.data_ptr(), vpart.data_ptr(), gamma.data_ptr(),
-        T, B, P, S, K, BWD_SPLITS, float(leaky), kernels.stream_of(dev),
+    _, staged = shared_plan(g, 1, p.device)
+    _check_graph(g, backward=True)
+    gamma = torch.empty((B, T, P), device=p.device, dtype=torch.float32)
+    # G's start rounded to float32 as the plain version's new_full rounds it
+    g0 = math.log1p(leaky) if leaky > 0.0 else 0.0
+    err = kernels.entry("den_resident", "den_backward")(
+        p.data_ptr(), ah.data_ptr(), F.data_ptr(), ymax.data_ptr(), log_z.data_ptr(),
+        g.init.data_ptr(), g.csr_offsets.data_ptr(), g.csr_cols.data_ptr(),
+        g.csr_vals.data_ptr(), g.pdf_offsets.data_ptr(), g.pdf_slots.data_ptr(),
+        g.slot_pdf.data_ptr(), gamma.data_ptr(),
+        T, B, P, S, K, g.nnz, int(g.pdf_slots.shape[0]), staged,
+        float(leaky), g0, kernels.stream_of(p.device),
     )
-    kernels.check(lib, err, "den_backward")
+    if err:
+        kernels.check(kernels.library("den_resident"), err, "den_backward")
     den_backward_kernel.launches += 1
     return gamma
 
@@ -284,7 +400,7 @@ def den_forward(y: torch.Tensor, g: DeviceResidentDenGraph, leaky: float = 0.0):
     yt = y.detach().transpose(0, 1).float()  # [T, B, P]
     ymax_t = yt.max(-1).values  # [T, B]
     p = torch.exp(yt - ymax_t[..., None]).contiguous()
-    logc, ah = den_forward_kernel(p, g.V, g.slot_pdf, g.init, leaky)
+    logc, ah = den_forward_kernel(p, g, leaky)
     log_z = logc.sum(0) + ymax_t.sum(0)
     if leaky > 0.0:
         log_z = log_z + math.log1p(leaky)
@@ -296,6 +412,5 @@ def den_backward(g: DeviceResidentDenGraph, res: dict, leaky: float = 0.0):
     """Returns gamma [B, T, P]; scale bookkeeping identical to den_forward."""
     F = torch.cumsum(res["logc"] + res["ymax"], 0).contiguous()  # [T, B]
     return den_backward_kernel(
-        res["p"], res["ah"], F, res["ymax"], res["log_z"].contiguous(),
-        g.V, g.slot_pdf, g.pdf_offsets, g.pdf_slots, g.init, leaky,
+        res["p"], res["ah"], F, res["ymax"], res["log_z"].contiguous(), g, leaky
     )
