@@ -22,7 +22,9 @@ Phases, in order; any failure exits non-zero before the last line:
      per call),
      the flat-start numerator kernels at the e2e batches of both corpora,
      the fused dense-denominator kernels at the trigram graph's Moore form
-     (also against the matrix-product recursion of ops/den_dense.py), the
+     (also against the matrix-product recursion of ops/den_dense.py and its
+     cuBLAS frame loop, captured as one CUDA graph; launched twice for
+     equal bits), the
      attention and feed-forward kernels at the conformer's shapes (qkv
      [128, 50, 768], 4 heads; xn [6400, 256], F=1024) with bfloat16 and with
      float32 operands (K7 also at T=150 in bfloat16, with a card-vs-CPU check
@@ -1050,8 +1052,9 @@ def check_dense_kernels(den, y, label: str) -> dict[str, dict]:
     recursion's frame loop under the kernels' own contract (pe in; gout
     out), which it must match too; it is timed as one captured CUDA graph
     (its 50 frames are some 600 launches, more than the stream's queue
-    holds behind the sleep of `_device_ms`).  Returns the measurements by
-    kernel name; raises on disagreement."""
+    holds behind the sleep of `_device_ms`).  Each kernel is launched twice
+    for equal bits.  Returns the measurements by kernel name; raises on
+    disagreement."""
     import torch
 
     from torchain_tpu_torch.ops import den_dense as dd
@@ -1060,6 +1063,12 @@ def check_dense_kernels(den, y, label: str) -> dict[str, dict]:
     S, E, T = den.num_orig, den.num_exp, y.shape[1]
     leaky = 0.1
     measured = {}
+    for backward in (0, 1):
+        what = "dense_den_backward" if backward else "dense_den_forward"
+        nbytes, staged = dp.shared_plan(den, backward, y.device)
+        forms = " and ".join(f for f, bit in (("CSR", dp.CSR), ("CSC", dp.CSC)) if staged & bit)
+        _log(f"kernel {what} [{label}]: {nbytes} bytes of shared memory per block,"
+             f" V's compressed forms {forms + ' staged there' if forms else 'read through L2'}")
     log_z, res = dp.den_forward(y, den, leaky)  # K9f
     gamma = dp.den_backward(den, res, leaky)  # K9b
     torch.cuda.synchronize()
@@ -1068,11 +1077,11 @@ def check_dense_kernels(den, y, label: str) -> dict[str, dict]:
     logc_l, sig_l = dense_forward_library(pe, den, leaky)
     log_z_d, res_d = dd.den_forward(y, den, leaky)
     gamma_d = dd.den_backward(den, res_d, leaky)
-    nnz = int(torch.count_nonzero(den.V))
-    # f32 sums of S = 2176 products in another order, carried over 50 frames
-    # through the per-frame renormalisation: log c is O(1), sigma_hats sums
-    # to 1 over a frame's states (held relative to its size).  log Z, the
-    # sum of 50 log c and 50 ymax, is of order 100
+    # f32 sums of a column's few non-zeros (the plain version and the library:
+    # of S = 2176 products) in another order, carried over 50 frames through
+    # the per-frame renormalisation: log c is O(1), sigma_hats sums to 1 over
+    # a frame's states (held relative to its size).  log Z, the sum of 50
+    # log c and 50 ymax, is of order 100
     checks = [
         _check(f"dense_den_forward [{label}]", "logc", logc_k, logc_p, 1e-5, 0.0),
         _check(f"dense_den_forward [{label}]", "sigma_hats", sig_k, sig_p, 1e-6, 1e-4),
@@ -1080,13 +1089,19 @@ def check_dense_kernels(den, y, label: str) -> dict[str, dict]:
         _check(f"dense_den_forward [{label}]", "logc vs library", logc_k, logc_l, 1e-5, 0.0),
         _check(f"dense_den_forward [{label}]", "sigma_hats vs library", sig_k, sig_l, 1e-6, 1e-4),
     ]
+    again = dp.dense_forward_kernel(pe, den, leaky)
+    if not (torch.equal(again[0], logc_k) and torch.equal(again[1], sig_k)):
+        raise AssertionError("dense_den_forward: two launches differ")
+    # V's compressed forms: int32 offsets, f32 values and 16-bit indices
+    csc = 4.0 * (E + 1) + 6.0 * den.nnz
+    csr = 4.0 * (S + 1) + 6.0 * den.nnz
     _record(
         measured, "dense_den_forward", label, checks,
         _times(lambda: dp.dense_forward_kernel(pe, den, leaky), 5,
                library=_captured(lambda: dense_forward_library(pe, den, leaky)),
                plain=lambda: dp.dense_forward_plain(pe, den, leaky), plain_reps=5),
-        2.0 * T * B * nnz,
-        4.0 * (T * B * E + S * E + 2 * S + 1 + den.real_exp + T * B + T * B * S),
+        2.0 * T * B * den.nnz,
+        csc + 4.0 * (T * B * E + S + (S + 1) + den.real_exp + T * B + T * B * S),
     )
     ymax_t = res["ymax"].T.contiguous()
     F = torch.cumsum(logc_p + ymax_t, 0)
@@ -1116,8 +1131,9 @@ def check_dense_kernels(den, y, label: str) -> dict[str, dict]:
         _times(lambda: dp.dense_backward_kernel(*args), 5,
                library=_captured(lambda: dense_backward_library(*args)),
                plain=lambda: dp.dense_backward_plain(*args), plain_reps=5),
-        2.0 * (2 * T - 1) * B * nnz + 6.0 * T * B * E,
-        4.0 * (T * B * E + S * E + S + E + T * B * S + 2 * T * B + T * B * E),
+        2.0 * (2 * T - 1) * B * den.nnz + 6.0 * T * B * E,
+        csc + csr + 2.0 * E + 4.0 * (S + 1)
+        + 4.0 * (T * B * E + S + T * B * S + 2 * T * B + T * B * E),
     )
     return measured
 
@@ -1273,8 +1289,8 @@ def profile_steps(step, feats, den, sup, n: int, out_path: pathlib.Path | None) 
             "attn_fwd_kernel", "attn_bwd_rows_kernel", "attn_bwd_cols_kernel",
             "dbias_reduce_kernel",
             "ffn_fwd_kernel", "ffn_bwd_rows_kernel", "ffn_bwd_weights_kernel",
-            "sum_parts_kernel", "e2e_fwd_kernel", "e2e_bwd_kernel", "dense_fwd_",
-            "dense_bwd_")
+            "sum_parts_kernel", "e2e_fwd_kernel", "e2e_bwd_kernel",
+            "dense_fwd_kernel", "dense_bwd_kernel")
     is_ours = [any(k in e.key for k in ours) for e in kern]
     # cuBLAS names its Hopper bf16 kernels "nvjet_..."
     is_gemm = [not o and any(k in e.key.lower() for k in ("gemm", "sm90", "nvjet"))

@@ -678,28 +678,85 @@ def test_e2e_path_on_the_card_matches_the_cpu(dev):
 # ---------------------------------------------------------------------------
 
 
+def _synthetic_moore(rng, S, E, per_col, dev, pad=8, unentered=2, P=40):
+    """A fused dense Moore graph with `per_col` random predecessors per real
+    expanded state (out-mass of each state normalised to 1), the last `pad`
+    expanded states padding and the first `unentered` original states
+    entered by none."""
+    from torchain_tpu_torch.graphs import DenseDenGraph
+    from torchain_tpu_torch.ops import DeviceDenseDenGraph
+
+    real = E - pad
+    orig = np.zeros(E, np.int32)
+    orig[:real] = np.sort(rng.integers(unentered, S, size=real))
+    V = np.zeros((S, E), np.float32)
+    for e in range(real):
+        V[rng.choice(S, size=per_col, replace=False), e] = rng.random(per_col) + 0.1
+    V /= np.maximum(V.sum(1, keepdims=True), 1e-30)
+    init = rng.random(S).astype(np.float32)
+    host = DenseDenGraph(num_pdfs=P, num_orig=S, num_exp=E, real_orig=S, real_exp=real, V=V,
+                         orig_of_exp=orig, pdf_of_exp=rng.integers(0, P, E).astype(np.int32),
+                         init_exp=np.zeros(E, np.float32), initial_probs=init / init.sum())
+    return DeviceDenseDenGraph.from_host(host, device=dev, fused=True)
+
+
 @pytest.fixture(scope="module")
-def dense_graph(dev):
+def dense_graphs(dev):
+    """The small trigram-biphone graph's Moore form (pad_to 24: padded
+    expanded states), where K9f and K9b stage all of V's compressed forms;
+    a synthetic graph (24,576 non-zeros) where K9b stages only the CSR and
+    reads the CSC through L2; and one (40,960) where neither kernel stages
+    any."""
     from torchain_tpu_torch.ops import DeviceDenseDenGraph
 
     c = tdata.synthetic_dataset(num_utts=12, num_phones=6, feat_dim=8,
                                 utt_frames_out=(9, 12), seed=1, lm_order=3,
                                 lm_extra_states=50, context_width=2)
-    # pad_to 24: odd tile edges, and padded expanded states
     dense = tgraphs.make_dense_den_graph(c.den_graph, pad_to=24)
-    g = DeviceDenseDenGraph.from_host(dense, device=dev, fused=True)
-    assert g.real_exp < g.num_exp
-    return g
+    small = DeviceDenseDenGraph.from_host(dense, device=dev, fused=True)
+    assert small.real_exp < small.num_exp
+    rng = np.random.default_rng(5)
+    return dict(small=small, l2_csc=_synthetic_moore(rng, 1024, 2048, 12, dev),
+                l2=_synthetic_moore(rng, 1024, 2048, 20, dev))
+
+
+def _device_launches(fn) -> dict[str, int]:
+    """Device launches by kernel name (without namespace, template
+    arguments or parameters) in one call of `fn`, by torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = e.name.replace("(anonymous namespace)::", "").removeprefix("void ")
+            name = name.split("<")[0].split("(")[0]
+            out[name] = out.get(name, 0) + 1
+    return out
+
+
+#: K9f's and K9b's plans (staged forms, chip_smoke.py's CSC = 1, CSR = 2) by graph
+DENSE_PLANS = dict(small=(1, 3), l2_csc=(1, 2), l2=(0, 0))
 
 
 @pytest.mark.parametrize("leaky", [0.0, 0.1])
 @pytest.mark.parametrize("B,T", [(5, 9), (3, 1), (70, 4)],
                          ids=["odd_sizes", "one_frame", "more_rows_than_a_tile"])
-def test_dense_den_kernels_match_plain_and_den_dense(dev, dense_graph, leaky, B, T):
+@pytest.mark.parametrize("graph", sorted(DENSE_PLANS))
+def test_dense_den_kernels_match_plain_and_den_dense(dev, dense_graphs, graph, leaky, B, T):
+    """K9f and K9b against their plain versions (the dense V) and the
+    fused recursion against ops/den_dense.py, on each of the kernels'
+    shared-memory plans: one device launch a call, two launches on the same
+    inputs give the same bits, exactly 0 on the padded expanded states."""
     from torchain_tpu_torch.ops import den_dense as dd
     from torchain_tpu_torch.ops import den_pallas as dp
 
-    g = dense_graph
+    g = dense_graphs[graph]
+    assert tuple(dp.shared_plan(g, d, dev)[1] for d in (0, 1)) == DENSE_PLANS[graph]
     y = torch.as_tensor(np.random.default_rng(B).normal(size=(B, T, g.num_pdfs)),
                         dtype=torch.float32, device=dev)
     n = (dp.dense_forward_kernel.launches, dp.dense_backward_kernel.launches)
@@ -708,31 +765,57 @@ def test_dense_den_kernels_match_plain_and_den_dense(dev, dense_graph, leaky, B,
     torch.cuda.synchronize()
     assert (dp.dense_forward_kernel.launches, dp.dense_backward_kernel.launches) == (
         n[0] + 1, n[1] + 1)
-    logc_p, sig_p = dp.dense_forward_plain(res["pe"], g, leaky)
+    pe = res["pe"]
+    logc_p, sig_p = dp.dense_forward_plain(pe, g, leaky)
     # float32 sums in another order: 1e-5 on values of order 1
     torch.testing.assert_close(res["logc"], logc_p, atol=1e-5, rtol=1e-5)
     torch.testing.assert_close(res["sigma_hats"], sig_p, atol=1e-6, rtol=1e-4)
+    assert _device_launches(lambda: dp.dense_forward_kernel(pe, g, leaky)) == {
+        "dense_fwd_kernel": 1}
+    again = dp.dense_forward_kernel(pe, g, leaky)
+    assert torch.equal(again[0], res["logc"]) and torch.equal(again[1], res["sigma_hats"])
     ymax_t = res["ymax"].T.contiguous()
     F = torch.cumsum(logc_p + ymax_t, 0)
     fscale = torch.cat([F.new_zeros((1, B)), F[:-1]]) + ymax_t - res["log_z"]
-    args = (res["pe"], g, sig_p, fscale, ymax_t, leaky)
+    args = (pe, g, sig_p, fscale, ymax_t, leaky)
     gout_k = dp.dense_backward_kernel(*args)
     torch.cuda.synchronize()
     torch.testing.assert_close(gout_k, dp.dense_backward_plain(*args), atol=1e-6, rtol=1e-4)
     assert (gout_k[..., g.real_exp:] == 0).all()
     torch.testing.assert_close(gout_k.sum(-1), torch.ones(T, B, device=dev), atol=1e-4, rtol=0)
-    # the same kernel twice gives the same bits (no atomics)
+    # the same kernel twice gives the same bits (no atomics), in one launch
     assert torch.equal(dp.dense_backward_kernel(*args), gout_k)
+    assert _device_launches(lambda: dp.dense_backward_kernel(*args)) == {
+        "dense_bwd_kernel": 1}
     # and the fused recursion agrees with the matrix-product one
     log_z_d, res_d = dd.den_forward(y, g, leaky)
     torch.testing.assert_close(log_z, log_z_d, atol=1e-4, rtol=1e-5)
     torch.testing.assert_close(gamma, dd.den_backward(g, res_d, leaky), atol=1e-5, rtol=1e-4)
 
 
-def test_dense_den_kernels_raise_on_wrong_dtype_and_shape(dev, dense_graph):
+def test_dense_den_kernels_refuse_what_they_cannot_hold(dev):
+    """A Moore graph whose carried state (two pe rows of 30,000 expanded
+    states: 240,000 bytes) exceeds a block's shared memory, and one with
+    E = 65,536 (beyond 16-bit indices), raise before any launch; nothing
+    falls back."""
     from torchain_tpu_torch.ops import den_pallas as dp
 
-    g = dense_graph
+    n = (dp.dense_forward_kernel.launches, dp.dense_backward_kernel.launches)
+    for E, match in ((30000, "carried state"), (65536, "16 bits")):
+        g = _synthetic_moore(np.random.default_rng(4), 64, E, 1, dev)
+        pe = torch.rand(2, 3, E, device=dev)
+        with pytest.raises(ValueError, match=match):
+            dp.dense_forward_kernel(pe, g, 0.1)
+        z = torch.zeros(2, 3, device=dev)
+        with pytest.raises(ValueError, match=match):
+            dp.dense_backward_kernel(pe, g, torch.rand(2, 3, 64, device=dev), z, z, 0.1)
+    assert (dp.dense_forward_kernel.launches, dp.dense_backward_kernel.launches) == n
+
+
+def test_dense_den_kernels_raise_on_wrong_dtype_and_shape(dev, dense_graphs):
+    from torchain_tpu_torch.ops import den_pallas as dp
+
+    g = dense_graphs["small"]
     pe = torch.rand(3, 2, g.num_exp, device=dev)
     with pytest.raises(TypeError):
         dp.dense_forward_kernel(pe.double(), g, 0.1)

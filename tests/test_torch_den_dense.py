@@ -14,6 +14,7 @@ sides, sums in another order, carried through T per-frame
 renormalisations), also against the float64 NumPy oracle."""
 
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -28,6 +29,7 @@ import torchain_tpu.graphs as jgraphs
 import torchain_tpu.ops as jops
 import torchain_tpu_torch.graphs as tgraphs
 import torchain_tpu_torch.ops as tops
+from test_torch_den import _expand, _fma, _shares, _tree, _u16, _walk
 from torchain_tpu.ops import den_dense as jdd
 from torchain_tpu.ops import den_pallas as jdp
 from torchain_tpu.ops import den_scan as jds
@@ -317,3 +319,254 @@ def test_chain_loss_refuses_an_unknown_graph(graphs):
     y = torch.zeros(1, 2, graphs["tg"].num_pdfs)
     with pytest.raises(TypeError, match="no denominator recursion"):
         _den_forward(y, object(), 0.1)
+
+
+# ---------------------------------------------------------------------------
+# K9f/K9b: V's compressed forms, and the kernels' order of summation
+# ---------------------------------------------------------------------------
+
+
+def test_moore_compressed_forms_rebuild_V_exactly(graphs):
+    """The CSC (by expanded state) and the CSR (by original state) of the
+    Moore V expand to exactly V, their indices and orig16 are 16-bit and
+    unsigned, and no entry lies in a padded expanded state's column."""
+    tg = graphs["tg"]
+    V = tg.V.numpy()
+    assert tg.csc_rows.dtype == tg.csr_cols.dtype == tg.orig16.dtype == torch.int16
+    assert tg.nnz == int(np.count_nonzero(V)) == tg.csr_vals.shape[0]
+    np.testing.assert_array_equal(
+        _expand(tg.csc_offsets, tg.csc_rows, tg.csc_vals, V.shape, by_col=True), V)
+    np.testing.assert_array_equal(
+        _expand(tg.csr_offsets, tg.csr_cols, tg.csr_vals, V.shape, by_col=False), V)
+    np.testing.assert_array_equal(_u16(tg.orig16).numpy(), tg.orig_of_exp.numpy())
+    assert (np.diff(tg.csc_offsets.numpy())[tg.real_exp:] == 0).all()
+
+
+def test_k9_refuses_indices_beyond_16_bits():
+    """A Moore graph with E = 65,536 keeps int32 indices for the plain
+    versions, and the kernels' plan refuses it before asking the library."""
+    from torchain_tpu_torch.graphs import DenseDenGraph
+
+    S, E = 8, 65536
+    V = np.zeros((S, E), np.float32)
+    V[np.arange(E) % S, np.arange(E)] = 0.5
+    orig = (np.arange(E) % S).astype(np.int32)
+    host = DenseDenGraph(num_pdfs=3, num_orig=S, num_exp=E, real_orig=S, real_exp=E, V=V,
+                         orig_of_exp=orig, pdf_of_exp=orig % 3,
+                         init_exp=np.zeros(E, np.float32),
+                         initial_probs=np.full(S, 1.0 / S, np.float32))
+    g = TDense.from_host(host, device="cpu", fused=True)
+    assert g.csc_rows.dtype == g.csr_cols.dtype == g.orig16.dtype == torch.int32
+    for backward in (0, 1):
+        with pytest.raises(ValueError, match="16 bits"):
+            tdp.shared_plan(g, backward, torch.device("cpu"))
+
+
+def emulate_dense_forward(pe, g, leaky, N=tdr.THREADS):
+    """K9f as csrc/den_dense.cu computes it: h by the CSC, the block sums
+    by per-thread shares and butterflies, each state's carry over its list
+    of real expanded states in list order."""
+    T, B, E = pe.shape
+    S, init = g.num_orig, g.init_orig
+    off, exps = g.orig_offsets.long(), g.orig_exps.long()
+    cnt = off[1:] - off[:-1]
+
+    def leak(sh):
+        if leaky <= 0.0:
+            return sh
+        return _fma((leaky * _tree(_shares(sh, N)))[:, None], init, sh)
+
+    sh = init.expand(B, S).clone()
+    logc, sig = pe.new_empty((T, B)), pe.new_empty((T, B, S))
+    for t in range(T):
+        sig[t] = sh
+        a = _walk(g.csc_offsets, g.csc_rows, g.csc_vals, leak(sh)) * pe[t]
+        c = _tree(_shares(a, N))
+        logc[t] = torch.log(c)
+        sh = pe.new_zeros((B, S))
+        for r in range(int(cnt.max())):
+            e = exps[(off[:-1] + r).clamp(max=exps.shape[0] - 1)]
+            sh = torch.where(cnt > r, sh + a[:, e] / c[:, None], sh)
+    return logc, sig
+
+
+def emulate_dense_backward(pe, g, sig, fscale, ymax_t, leaky, N=tdr.THREADS, ds=None):
+    """K9b as csrc/den_dense.cu computes it: bh carried over the original
+    states, h by the CSC, v by the CSR, d the maximum over the states that
+    a real expanded state enters (and 0 where padded ones exist).  Each
+    frame's d is appended to `ds`, where given."""
+    T, B, E = pe.shape
+    init = g.init_orig
+    orig = _u16(g.orig16)
+    real = torch.arange(E) < g.real_exp
+    entered = g.orig_offsets[1:] > g.orig_offsets[:-1]
+    bh = None  # the first frame's is 1 on every expanded state
+    G = pe.new_full((B,), math.log1p(leaky) if leaky > 0.0 else 0.0)
+    gout = pe.new_empty((T, B, E))
+    for t in range(T - 1, -1, -1):
+        sigma = sig[t]
+        if leaky > 0.0:
+            sigma = _fma((leaky * _tree(_shares(sigma, N)))[:, None], init, sigma)
+        h = _walk(g.csc_offsets, g.csc_rows, g.csc_vals, sigma)
+        be = torch.ones_like(h) if bh is None else torch.where(real, bh[:, orig], 0.0)
+        gout[t] = pe[t] * h * be * torch.exp(fscale[t] + G)[:, None]
+        if t == 0:
+            break
+        v = _walk(g.csr_offsets, g.csr_cols, g.csr_vals, pe[t] * be)
+        d = torch.where(entered, v, -np.inf).max(-1).values
+        if leaky > 0.0:
+            add = leaky * _tree(_shares(v, N, init))
+            d, v = d + add, v + add[:, None]
+        if g.real_exp < E:
+            d = torch.maximum(d, torch.zeros(()))
+        d = torch.where(d > 0, d, torch.ones_like(d))
+        if ds is not None:
+            ds.append(d)
+        bh = v / d[:, None]
+        G = (G + ymax_t[t]) + torch.log(d)
+    return gout
+
+
+#: K9f's and K9b's tolerances against their plain versions, as chip_smoke.py
+#: holds the kernels on the card: (atol, rtol)
+K9_TOL = dict(logc=(1e-5, 0.0), sigma_hats=(1e-6, 1e-4), gout=(1e-6, 1e-4),
+              gamma=(1e-5, 1e-4))
+
+
+def _k9_close(what, got, want):
+    atol, rtol = K9_TOL[what]
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), atol=atol, rtol=rtol,
+                               err_msg=what)
+
+
+def _k9_emulated_and_plain(tg, y, leaky):
+    """K9f and K9b emulated and plain on the pe of y [B, T, P]: the
+    backwards on the plain forward's residuals, and the emulation end to
+    end (its own residuals) to gamma [B, T, P]."""
+    y = torch.as_tensor(y)
+    ymax = y.max(-1).values  # [B, T]
+    pe = (torch.exp(y - ymax[..., None]).transpose(0, 1) @ tg.P_mat).contiguous()
+    ymax_t = ymax.T.contiguous()
+    extra = math.log1p(leaky) if leaky > 0.0 else 0.0
+
+    def fscale(logc):
+        F = torch.cumsum(logc + ymax_t, 0)
+        log_z = logc.sum(0) + ymax_t.sum(0) + extra
+        return torch.cat([F.new_zeros((1, F.shape[1])), F[:-1]]) + ymax_t - log_z
+
+    logc_e, sig_e = emulate_dense_forward(pe, tg, leaky)
+    logc_p, sig_p = tdp.dense_forward_plain(pe, tg, leaky)
+    args = (pe, tg, sig_p, fscale(logc_p), ymax_t, leaky)
+    gout_e = emulate_dense_backward(pe, tg, sig_e, fscale(logc_e), ymax_t, leaky)
+    return dict(
+        logc=(logc_e, logc_p), sigma_hats=(sig_e, sig_p),
+        gout=(emulate_dense_backward(*args), tdp.dense_backward_plain(*args)),
+        end_to_end=(logc_e, sig_e, torch.einsum("tbe,pe->btp", gout_e, tg.P_mat)),
+    )
+
+
+@pytest.mark.parametrize("leaky", [0.0, 0.1])
+def test_k9_kernel_order_matches_plain_and_jax(graphs, leaky):
+    """K9f's and K9b's sums, emulated in the kernels' order over the
+    compressed forms, against the plain versions and the JAX package's
+    Pallas kernels (interpret mode), within K9's tolerances."""
+    out = _k9_emulated_and_plain(graphs["tg"], graphs["y"], leaky)
+    for what in ("logc", "sigma_hats", "gout"):
+        _k9_close(what, *out[what])
+    _, res_j = jdp.den_forward(jnp.asarray(graphs["y"]), graphs["jg"], leaky, interpret=True)
+    gamma_j = jdp.den_backward(graphs["jg"], res_j, leaky, interpret=True)
+    logc_e, sig_e, gamma_e = out["end_to_end"]
+    _k9_close("logc", logc_e, res_j["logc"])
+    _k9_close("sigma_hats", sig_e, res_j["sigma_hats"])
+    _k9_close("gamma", gamma_e, gamma_j)
+
+
+@pytest.fixture(scope="module")
+def bench_moore():
+    """The dense Moore form of chip_smoke.py's trigram graph (S 2176, E 4224,
+    12,376 non-zeros), as the `dense` path places it."""
+    import chip_smoke
+
+    corpus = chip_smoke._corpus(0, tuple(sorted(chip_smoke.PATHS["dense"]["corpus"].items())))
+    return TDense.from_host(corpus.dense_den, device="cpu", fused=True)
+
+
+@pytest.mark.parametrize("leaky", [0.0, 0.1])
+def test_k9_kernel_order_matches_plain_at_the_bench_graph(bench_moore, leaky):
+    """The same at the `dense` path's graph (E = 4224 expanded states: four or
+    five columns per thread, so the per-thread shares and both butterflies
+    of the block sums carry real terms), against the plain versions."""
+    tg = bench_moore
+    assert (tg.num_orig, tg.num_exp, tg.real_exp, tg.nnz) == (2176, 4224, 4156, 12376)
+    y = np.random.default_rng(5).normal(size=(2, 4, tg.num_pdfs)).astype(np.float32)
+    out = _k9_emulated_and_plain(tg, y, leaky)
+    for what in ("logc", "sigma_hats", "gout"):
+        _k9_close(what, *out[what])
+
+
+def _moore_with_unentered_states(seed=3, S=24, real_orig=20, real_exp=37, E=40, P=6):
+    """A Moore graph (torch package's DenseDenGraph) in which original states
+    0 and 5 are entered by no expanded state but have out-arcs, state 0's
+    50 times heavier than any other, and E - real_exp expanded states are
+    padding (orig_of_exp 0, empty V columns)."""
+    from torchain_tpu_torch.graphs import DenseDenGraph
+
+    rng = np.random.default_rng(seed)
+    entered = np.setdiff1d(np.arange(real_orig), [0, 5])
+    orig = np.zeros(E, np.int32)
+    orig[:real_exp] = np.sort(np.concatenate(
+        [entered, rng.choice(entered, real_exp - entered.size)]))
+    V = np.zeros((S, E), np.float32)
+    for e in range(real_exp):
+        src = rng.choice(real_orig, size=3, replace=False)
+        V[src, e] = rng.random(3) + 0.1
+    V[0] *= 50.0
+    V[[0, 5], rng.choice(real_exp, 2, replace=False)] = 5.0  # out-arcs for both
+    init = np.zeros(S, np.float32)
+    init[:real_orig] = rng.random(real_orig) + 0.1
+    return DenseDenGraph(num_pdfs=P, num_orig=S, num_exp=E, real_orig=real_orig,
+                         real_exp=real_exp, V=V, orig_of_exp=orig,
+                         pdf_of_exp=(np.arange(E) % P).astype(np.int32),
+                         init_exp=np.zeros(E, np.float32), initial_probs=init / init.sum())
+
+
+@pytest.mark.parametrize("leaky", [0.0, 0.1])
+def test_k9_d_and_bh_leave_out_unentered_and_padded_states(leaky):
+    """The traps of carrying bh over the original states.  d must be the
+    maximum of nb = v @ E_mat^T, as the TPU kernel takes it: over the
+    states some real expanded state enters, and 0 where padded expanded
+    states exist; here v of state 0, entered by none, is larger in every
+    frame.  (gout does not show a wrong d: G takes its log back.)  The
+    padded expanded states get gout = 0 exactly, here with pe non-zero on
+    them.  The emulated kernels agree with the plain versions, and end to
+    end with ops/den_dense.py, which multiplies E_mat."""
+    tg = TDense.from_host(_moore_with_unentered_states(), device="cpu", fused=True)
+    T_, B_ = 6, 2
+    rng = np.random.default_rng(8)
+    pe = torch.as_tensor(rng.random((T_, B_, tg.num_exp)).astype(np.float32) + 0.05)
+    logc, sig = tdp.dense_forward_plain(pe, tg, leaky)
+    ymax_t = torch.zeros(T_, B_)
+    F = torch.cumsum(logc, 0)
+    fscale = torch.cat([F.new_zeros((1, B_)), F[:-1]]) - (F[-1] + (
+        math.log1p(leaky) if leaky > 0.0 else 0.0))
+    ds = []
+    args = (pe, tg, sig, fscale, ymax_t, leaky)
+    gout_e, gout_p = emulate_dense_backward(*args, ds=ds), tdp.dense_backward_plain(*args)
+    _k9_close("gout", gout_e, gout_p)
+    assert (gout_e[..., tg.real_exp:] == 0).all() and (gout_p[..., tg.real_exp:] == 0).all()
+    _k9_close("logc", emulate_dense_forward(pe, tg, leaky)[0], logc)
+    # d as the TPU kernel takes it (_bwd_kernel: nb = v @ E_mat^T)
+    bh = torch.ones(B_, tg.num_exp)
+    for t, d_e in zip(range(T_ - 1, 0, -1), ds):
+        v = tdd.leak_t((pe[t] * bh) @ tg.V.T, tg.init_orig, leaky)
+        nb = v @ tg.E_mat.T
+        d = nb.max(-1).values
+        assert (v.max(-1).values > 2 * d).all()  # the trap is armed: v[0] is larger
+        np.testing.assert_allclose(d_e.numpy(), d.numpy(), rtol=1e-5)
+        bh = nb / d[:, None]
+    # end to end from the same y: the emulation against den_dense's gamma
+    y = torch.as_tensor(rng.normal(size=(B_, T_, tg.num_pdfs)).astype(np.float32))
+    _, res = tdd.den_forward(y, tg, leaky)
+    out = _k9_emulated_and_plain(tg, y.numpy(), leaky)
+    _k9_close("logc", out["end_to_end"][0], res["logc"])
+    _k9_close("gamma", out["end_to_end"][2], tdd.den_backward(tg, res, leaky))

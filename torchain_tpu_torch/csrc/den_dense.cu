@@ -1,5 +1,5 @@
-// Denominator forward-backward of LF-MMI on the dense Moore graph: kernels
-// K9f (forward) and K9b (backward), CUDA C++ for sm_90a.
+// Denominator forward-backward of LF-MMI on the dense Moore graph, as sparse
+// kernels: K9f (forward) and K9b (backward), CUDA C++ for sm_90a.
 //
 // Replaces the fused Pallas kernels of torchain_tpu/ops/den_pallas.py:
 //   K9f  dense_den_forward  -> _fwd_kernel (den_forward,  pallas_call :118)
@@ -20,257 +20,332 @@
 //       nb[e] = v[orig(e)] for the real e, 0 for the padded ones
 //       d = max(nb) (1 if <= 0);  bh = nb / d;  G += ymax_t + log d
 //
-// Where the TPU kernel multiplies the one-hot E_mat [E, S] (and its
-// transpose), these kernels index: the forward sums over the list of each
-// original state's expanded states, the backward reads orig_of_exp.  E_mat
-// has all-zero rows for the padded expanded states while orig_of_exp points
-// them at state 0, so the backward takes nb = 0 there explicitly: otherwise
-// d = max(nb), and with it G, would see v[0] once per padded state.
+// What bounds it on the H100: V [S, E] is more than 99.8% zeros (12,376
+// non-zeros of 9.19 M at the trigram graph), so a frame's products are a
+// few FMAs per expanded state, and the data bound is the pe stream ([T, B,
+// E] f32, read by both kernels), the sig stream ([T, B, S], written by K9f
+// and read by K9b) and gout ([T, B, E], written by K9b).  What limits it in
+// practice is the T frames of a sequence, which depend on each other, and
+// within a frame the SM's shared-memory pipe (the gathers of sigma and w by
+// index are random across a warp's lanes).  So, as K1/K2 (den_resident.cu),
+// one block owns one sequence and runs all T frames in one launch, with its
+// carried state in shared memory and nothing carried between blocks (the TPU
+// kernel's loop over T stays inside the block):
+//   K9f keeps sigma [S] and a ring of two pe rows [E]; alpha replaces pe_t
+//       in its slot, and the pe row of frame t+1 arrives by cp.async while
+//       frame t computes.  h = sigma @ V walks V by column (CSC), one column
+//       per thread, in row order; s_hat' walks each original state's list of
+//       real expanded states in list order.  Frame 0's carry (init) and its
+//       leak are the kernel's.
+//   K9b keeps bh over the original states [S] (bh[e] = bh_S[orig(e)] for a
+//       real e, 0 for a padded one; 1 everywhere in the first frame), one
+//       sig row [S] and a ring of two pe rows [E]; w = pe_t * bh replaces
+//       pe_t in its slot.  h walks the CSC as in K9f; v = V @ w walks V by
+//       row (CSR), one row per thread, in column order.  The pe row of frame
+//       t-1 arrives by cp.async while frame t computes, the sig row once the
+//       walk of the CSC has let go of sigma.  d is the maximum of v over the
+//       states that some real expanded state enters (a bit mask per thread),
+//       and 0 where padded expanded states exist: v of a state no expanded
+//       state enters is in no nb.  Padded expanded states (E_mat's all-zero
+//       rows, orig_of_exp pointing at state 0) get gout = 0 exactly: their V
+//       columns are empty.
+// V's compressed arrays (offsets int32, indices 16-bit, values f32) are copied
+// into shared memory once per launch where they fit beside the carried state
+// under the opt-in limit, else read through L2: the choice follows from the
+// sizes alone (dense_shared_bytes; K9b stages the CSR first, then the CSC).
+// At the trigram graph all of K9f's and K9b's tables fit (see
+// ops/den_pallas.py).  A graph whose carried state alone exceeds the limit,
+// or whose S or E needs more than 16 bits, is refused by the wrapper before
+// any launch.
 //
-// What bounds it on the H100: the [B, S] x [S, E] products, two per frame
-// backward and one forward (2*B*S*E FLOP each, f32 on the SIMT cores, 67
-// TFLOP/s peak).  V is read once per product, but at the trigram graph
-// (37 MB) it sits in the 50 MB L2, so device-memory bytes are not the limit;
-// pe, sig and gout stream through device memory once.  The TPU kernel keeps
-// the whole T loop in one program with everything in VMEM.  Nothing carries
-// between blocks on the GPU, so the frame recursion is a host loop (inside
-// this library, one call per pass) of the tiled SIMT product of
-// den_tiles.cuh, with the emission product and the row sums fused into its
-// epilogue, plus one small per-row kernel for the normalisation and the
-// carry.  c, d and the leak's row sums are reductions over a whole row that
-// several blocks produce: per-tile partial sums (`cpart`, `vpart`) are added
-// by the per-row kernel in a fixed order.  No atomics: results repeat bit for
-// bit.
+// Every sum has one order: a column's or a row's entries in index order, a
+// state's expanded states in list order, the block sums as den_common.cuh
+// takes them.  Two launches on the same inputs give the same bits; there are
+// no atomics.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include <limits.h>
 
-#include "den_tiles.cuh"
+#include "den_common.cuh"
 
 namespace {
 
-using namespace den_tiles;
+// which of V's compressed forms a block stages in shared memory
+constexpr int CSC = 1, CSR = 2;
 
-// acc = A[m0.., :] @ V[:, n0..] for row-major A [B, S] and V [S, E]
-__device__ __forceinline__ void product_tile(const float* __restrict__ A,
-                                             const float* __restrict__ V, int B, int S, int E,
-                                             int m0, int n0, float (*As)[LDA], float (*Bs)[LDB],
-                                             float acc[TM][TN]) {
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  for (int k0 = 0; k0 < S; k0 += BK) {
-#pragma unroll
-    for (int r = 0; r < (BM * BK) / NTHREADS; ++r) {
-      const int idx = tid + r * NTHREADS;
-      const int m = idx / BK, k = idx % BK;
-      const int gm = m0 + m, gk = k0 + k;
-      As[k][m] = (gm < B && gk < S) ? A[(size_t)gm * S + gk] : 0.0f;
+// Byte offsets into one block's dynamic shared memory.  The carried state
+// comes first; the graph's tables follow only where they are staged.
+struct Layout {
+  long long state, sig, ring, ring_stride, red;
+  long long roff, rval, rcol, coff, cval, crow, ooff, oexp, bytes;
+};
+
+// K9f: sigma [S], two pe rows [E], two reduction arrays; staged (CSC): csc
+// offsets [E + 1], values [nnz], rows u16 [nnz], orig_offsets [S + 1],
+// orig_exps u16 [real_exp].
+// K9b: bh [S], one sig row [S], two pe rows [E], a sum and a sum-and-max
+// reduction array; staged (CSR): csr offsets [S + 1], values, columns u16;
+// (CSC): csc offsets, values, rows u16.
+__host__ __device__ inline Layout layout(bool backward, int S, int E, int nnz, int real_exp,
+                                         int staged) {
+  Layout L{};
+  long long o = 0;
+  L.state = o;
+  o += up16(4LL * S);
+  L.sig = o;
+  if (backward) o += up16(4LL * S);
+  L.ring = o;
+  L.ring_stride = up16(4LL * E);
+  o += 2 * L.ring_stride;
+  L.red = o;
+  o += (backward ? 3 : 2) * 4 * MAX_WARPS;
+  if (backward && (staged & CSR)) {
+    L.roff = o;
+    o += up16(4LL * (S + 1));
+    L.rval = o;
+    o += up16(4LL * nnz);
+    L.rcol = o;
+    o += up16(2LL * nnz);
+  }
+  if (staged & CSC) {
+    L.coff = o;
+    o += up16(4LL * (E + 1));
+    L.cval = o;
+    o += up16(4LL * nnz);
+    L.crow = o;
+    o += up16(2LL * nnz);
+    if (!backward) {
+      L.ooff = o;
+      o += up16(4LL * (S + 1));
+      L.oexp = o;
+      o += up16(2LL * real_exp);
     }
-#pragma unroll
-    for (int r = 0; r < (BK * BN) / NTHREADS; ++r) {
-      const int idx = tid + r * NTHREADS;
-      const int k = idx / BN, n = idx % BN;
-      const int gk = k0 + k, gn = n0 + n;
-      Bs[k][n] = (gk < S && gn < E) ? V[(size_t)gk * E + gn] : 0.0f;
+  }
+  L.bytes = o;
+  return L;
+}
+
+// K9f.  One block per sequence b, all T frames.
+//   pe [T, B, E]; init [S]; CSC of V: coff [E + 1], crow u16 [nnz], cval
+//   [nnz]; orig_offsets [S + 1] / orig_exps [real_exp]: the real expanded
+//   states of each original state.  Out: logc [T, B], sig [T, B, S].
+template <bool STAGED>
+__global__ void __launch_bounds__(THREADS, 1)
+dense_fwd_kernel(const float* __restrict__ pe, const float* __restrict__ init,
+                 const int* __restrict__ coff_g, const unsigned short* __restrict__ crow_g,
+                 const float* __restrict__ cval_g, const int* __restrict__ ooff_g,
+                 const int* __restrict__ oexp_g, float* __restrict__ logc,
+                 float* __restrict__ sig_out, int T, int B, int S, int E, int nnz,
+                 int real_exp, float leaky, int gran) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Layout L = layout(false, S, E, nnz, real_exp, STAGED ? CSC : 0);
+  const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
+  float* sig = (float*)(smem + L.state);
+  float* red_c = (float*)(smem + L.red);
+  float* red_s = red_c + MAX_WARPS;
+  auto row = [&](int t) { return (float*)(smem + L.ring + (t & 1) * L.ring_stride); };
+
+  copy_async(row(0), pe + (size_t)b * E, E, gran);
+  commit_async();
+
+  const int* coff = coff_g;
+  const unsigned short* crow = crow_g;
+  const float* cval = cval_g;
+  const int* ooff = ooff_g;
+  const unsigned short* oexp_s = nullptr;
+  if constexpr (STAGED) {
+    int* o = (int*)(smem + L.coff);
+    float* v = (float*)(smem + L.cval);
+    unsigned short* r = (unsigned short*)(smem + L.crow);
+    int* oo = (int*)(smem + L.ooff);
+    unsigned short* oe = (unsigned short*)(smem + L.oexp);
+    copy_plain(o, coff_g, E + 1);
+    copy_plain(v, cval_g, nnz);
+    copy_plain(r, crow_g, nnz);
+    copy_plain(oo, ooff_g, S + 1);
+    copy_u16(oe, oexp_g, real_exp);
+    coff = o;
+    cval = v;
+    crow = r;
+    ooff = oo;
+    oexp_s = oe;
+  }
+  auto exp_of = [&](int j) -> int {
+    if constexpr (STAGED) return oexp_s[j];
+    else return __ldg(oexp_g + j);
+  };
+  // sigma from s_hat (in sig): the leaky term needs the block's sum of s_hat
+  // (each thread reads and writes only its own states here)
+  auto leak = [&](float part) {
+    if (leaky > 0.0f) {
+      const float lt = leaky * block_sum(part, red_s);
+      for (int s = tid; s < S; s += nt) sig[s] = fmaf(lt, __ldg(init + s), sig[s]);
     }
-    __syncthreads();
-    tile_fma(As, Bs, ty, tx, acc);
-    __syncthreads();
+  };
+
+  float part = 0.0f;  // the carry of frame 0 is init
+  for (int s = tid; s < S; s += nt) {
+    const float x = __ldg(init + s);
+    sig[s] = x;
+    __stcs(sig_out + (size_t)b * S + s, x);
+    part += x;
+  }
+  leak(part);
+
+  for (int t = 0; t < T; ++t) {
+    float* a = row(t);  // pe_t, then alpha
+    wait_async();
+    __syncthreads();  // pe_t, sigma (and the staged tables) in place
+    if (t + 1 < T) copy_async(row(t + 1), pe + ((size_t)(t + 1) * B + b) * E, E, gran);
+    commit_async();
+    float csum = 0.0f;
+    for (int e = tid; e < E; e += nt) {
+      float h = 0.0f;
+      const int j1 = coff[e + 1];
+#pragma unroll 4
+      for (int j = coff[e]; j < j1; ++j) h = fmaf(sig[crow[j]], cval[j], h);
+      const float x = h * a[e];
+      a[e] = x;
+      csum += x;
+    }
+    const float c = block_sum(csum, red_c);  // also: alpha in place, sigma read
+    if (tid == 0) logc[(size_t)t * B + b] = logf(c);
+    if (t + 1 == T) break;
+    float* out = sig_out + ((size_t)(t + 1) * B + b) * S;
+    part = 0.0f;
+    for (int s = tid; s < S; s += nt) {
+      float x = 0.0f;
+      const int j1 = ooff[s + 1];
+      for (int j = ooff[s]; j < j1; ++j) x += a[exp_of(j)] / c;
+      sig[s] = x;
+      __stcs(out + s, x);
+      part += x;
+    }
+    leak(part);
   }
 }
 
-// K9f (a): alpha = (sigma @ V) * pe_t for one frame; per-tile row sums of
-// alpha into cpart[b, blockIdx.x].
-// sigma [B, S] (leaked), V [S, E], pe_t [B, E], alpha out [B, E]
-__global__ void __launch_bounds__(NTHREADS)
-dense_fwd_gemm(const float* __restrict__ sigma, const float* __restrict__ V,
-               const float* __restrict__ pe_t, float* __restrict__ alpha,
-               float* __restrict__ cpart, int B, int S, int E) {
-  __shared__ float As[BK][LDA];
-  __shared__ float Bs[BK][LDB];
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  float acc[TM][TN] = {};
-  product_tile(sigma, V, B, S, E, m0, n0, As, Bs, acc);
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int gm = m0 + ty + 16 * i;
-    float rs = 0.0f;
-    if (gm < B) {
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int gn = n0 + tx + 16 * j;
-        if (gn < E) {
-          const float a = acc[i][j] * pe_t[(size_t)gm * E + gn];
-          alpha[(size_t)gm * E + gn] = a;
-          rs += a;
-        }
-      }
-    }
-    // the 16 threads of one ty are 16 aligned lanes of a warp
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1) rs += __shfl_xor_sync(0xffffffffu, rs, off, 16);
-    if (tx == 0 && gm < B) cpart[(size_t)gm * gridDim.x + blockIdx.x] = rs;
-  }
-}
+// K9b.  One block per sequence b, frames T-1 .. 0.
+//   pe [T, B, E]; sig [T, B, S]; fscale, ymax [T, B]; init [S]; CSC and CSR
+//   of V; orig16 [E] (orig_of_exp as u16); orig_offsets [S + 1].
+//   Out: gout [T, B, E].
+template <bool CSC_STAGED, bool CSR_STAGED>
+__global__ void __launch_bounds__(THREADS, 1)
+dense_bwd_kernel(const float* __restrict__ pe, const float* __restrict__ sig_in,
+                 const float* __restrict__ fscale, const float* __restrict__ ymax,
+                 const float* __restrict__ init, const int* __restrict__ coff_g,
+                 const unsigned short* __restrict__ crow_g, const float* __restrict__ cval_g,
+                 const int* __restrict__ roff_g, const unsigned short* __restrict__ rcol_g,
+                 const float* __restrict__ rval_g, const unsigned short* __restrict__ orig16,
+                 const int* __restrict__ ooff_g, float* __restrict__ gout, int T, int B, int S,
+                 int E, int nnz, int real_exp, float leaky, float g0, int pgran, int sgran) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Layout L = layout(true, S, E, nnz, real_exp,
+                          (CSC_STAGED ? CSC : 0) | (CSR_STAGED ? CSR : 0));
+  const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
+  float* bh = (float*)(smem + L.state);  // over the original states
+  float* sg = (float*)(smem + L.sig);    // sig_t, then sigma
+  float* red_l = (float*)(smem + L.red);
+  float* red = red_l + MAX_WARPS;
+  auto row = [&](int t) { return (float*)(smem + L.ring + (t & 1) * L.ring_stride); };
+  auto fetch_sig = [&](int t) {
+    copy_async(sg, sig_in + ((size_t)t * B + b) * S, S, sgran);
+    commit_async();
+  };
+  copy_async(row(T - 1), pe + ((size_t)(T - 1) * B + b) * E, E, pgran);
+  fetch_sig(T - 1);
 
-// K9f (b): one block per sequence b.  c = sum of the tile row sums,
-// logc_t[b] = log c, s_hat'[s] = sum of alpha[e] / c over the expanded
-// states of s; s_hat' goes to sig_next (the next frame's residual, where
-// there is one) and, leaked, to sigma (the next product's operand).
-__global__ void __launch_bounds__(ROW_THREADS)
-dense_fwd_norm(const float* __restrict__ alpha, const float* __restrict__ cpart, int ncpart,
-               const int* __restrict__ orig_off, const int* __restrict__ orig_exps,
-               const float* __restrict__ init, float* __restrict__ sigma,
-               float* __restrict__ sig_next, float* __restrict__ logc_t, int S, int E,
-               float leaky) {
-  __shared__ float red[ROW_THREADS];
-  __shared__ float c_sh;
-  const int b = blockIdx.x, tid = threadIdx.x;
-  if (tid == 0) {
-    float c = 0.0f;
-    for (int j = 0; j < ncpart; ++j) c += cpart[(size_t)b * ncpart + j];
-    c_sh = c;
-    logc_t[b] = logf(c);
+  const int* coff = coff_g;
+  const unsigned short* crow = crow_g;
+  const float* cval = cval_g;
+  const int* roff = roff_g;
+  const unsigned short* rcol = rcol_g;
+  const float* rval = rval_g;
+  if constexpr (CSR_STAGED) {
+    int* o = (int*)(smem + L.roff);
+    float* v = (float*)(smem + L.rval);
+    unsigned short* c = (unsigned short*)(smem + L.rcol);
+    copy_plain(o, roff_g, S + 1);
+    copy_plain(v, rval_g, nnz);
+    copy_plain(c, rcol_g, nnz);
+    roff = o;
+    rval = v;
+    rcol = c;
   }
-  __syncthreads();
-  const float c = c_sh;
-  const float* row = alpha + (size_t)b * E;
-  float* sig = sigma + (size_t)b * S;
-  float part = 0.0f;
-  for (int s = tid; s < S; s += ROW_THREADS) {
-    float sh = 0.0f;
-    for (int j = orig_off[s]; j < orig_off[s + 1]; ++j) sh += row[orig_exps[j]] / c;
-    sig[s] = sh;
-    if (sig_next != nullptr) sig_next[(size_t)b * S + s] = sh;
-    part += sh;
+  if constexpr (CSC_STAGED) {
+    int* o = (int*)(smem + L.coff);
+    float* v = (float*)(smem + L.cval);
+    unsigned short* r = (unsigned short*)(smem + L.crow);
+    copy_plain(o, coff_g, E + 1);
+    copy_plain(v, cval_g, nnz);
+    copy_plain(r, crow_g, nnz);
+    coff = o;
+    cval = v;
+    crow = r;
   }
-  if (leaky > 0.0f) {
-    const float tot = block_sum(part, red);  // also orders the sig writes
-    for (int s = tid; s < S; s += ROW_THREADS) sig[s] += leaky * tot * init[s];
-  }
-}
+  // bit k: state tid + k * THREADS is entered by a real expanded state
+  // (S < 2^16 = 64 * THREADS, so 64 bits hold a thread's states)
+  unsigned long long entered = 0;
+  for (int s = tid, k = 0; s < S; s += nt, ++k)
+    if (__ldg(ooff_g + s + 1) > __ldg(ooff_g + s)) entered |= 1ull << k;
 
-// K9b (a): one block per sequence.  sigma = sig_t + leaky * sum(sig_t) * init
-__global__ void __launch_bounds__(ROW_THREADS)
-dense_bwd_leak(const float* __restrict__ sig_t, const float* __restrict__ init,
-               float* __restrict__ sigma, int S, float leaky) {
-  __shared__ float red[ROW_THREADS];
-  const int b = blockIdx.x, tid = threadIdx.x;
-  const float* in = sig_t + (size_t)b * S;
-  float* out = sigma + (size_t)b * S;
-  float part = 0.0f;
-  for (int s = tid; s < S; s += ROW_THREADS) part += in[s];
-  const float tot = leaky > 0.0f ? block_sum(part, red) : 0.0f;
-  for (int s = tid; s < S; s += ROW_THREADS) out[s] = in[s] + leaky * tot * init[s];
-}
-
-// K9b (b): gout_t = pe_t * (sigma @ V) * bh * exp(fscale_t + G)
-__global__ void __launch_bounds__(NTHREADS)
-dense_bwd_gout(const float* __restrict__ sigma, const float* __restrict__ V,
-               const float* __restrict__ pe_t, const float* __restrict__ bh,
-               const float* __restrict__ fscale_t, const float* __restrict__ G,
-               float* __restrict__ gout_t, int B, int S, int E) {
-  __shared__ float As[BK][LDA];
-  __shared__ float Bs[BK][LDB];
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  float acc[TM][TN] = {};
-  product_tile(sigma, V, B, S, E, m0, n0, As, Bs, acc);
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int gm = m0 + ty + 16 * i;
-    if (gm >= B) continue;
-    const float scale = expf(fscale_t[gm] + G[gm]);
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int gn = n0 + tx + 16 * j;
-      if (gn < E) {
-        const size_t at = (size_t)gm * E + gn;
-        gout_t[at] = pe_t[at] * acc[i][j] * bh[at] * scale;
-      }
+  float G = g0;
+  // this frame's fscale and ymax; the next frame's are loaded a frame ahead
+  float Ft = fscale[(size_t)(T - 1) * B + b], yt = ymax[(size_t)(T - 1) * B + b];
+  for (int t = T - 1; t >= 0; --t) {
+    float* w = row(t);  // pe_t, then w = pe_t * bh
+    wait_async();
+    __syncthreads();  // frame t's rows, bh (and the staged tables) in place
+    float Fn = 0.0f, yn = 0.0f;
+    if (t > 0) {
+      copy_async(row(t - 1), pe + ((size_t)(t - 1) * B + b) * E, E, pgran);
+      commit_async();
+      Fn = fscale[(size_t)(t - 1) * B + b];
+      yn = ymax[(size_t)(t - 1) * B + b];
     }
-  }
-}
-
-// K9b (c): partial v = (pe_t * bh) @ V^T over the depth range of blockIdx.z.
-// pe_t * bh is formed while loading the tile.  vpart [splits, B, S].
-__global__ void __launch_bounds__(NTHREADS)
-dense_bwd_gemm(const float* __restrict__ pe_t, const float* __restrict__ bh,
-               const float* __restrict__ V, float* __restrict__ vpart, int B, int S, int E,
-               int kchunk) {
-  __shared__ float As[BK][LDA];
-  __shared__ float Bs[BK][LDB];
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int kbeg = blockIdx.z * kchunk;
-  const int kend = min(E, kbeg + kchunk);
-  float acc[TM][TN] = {};
-  for (int k0 = kbeg; k0 < kend; k0 += BK) {
-#pragma unroll
-    for (int r = 0; r < (BM * BK) / NTHREADS; ++r) {
-      const int idx = tid + r * NTHREADS;
-      const int m = idx / BK, k = idx % BK;
-      const int gm = m0 + m, gk = k0 + k;
-      float w = 0.0f;
-      if (gm < B && gk < kend) w = pe_t[(size_t)gm * E + gk] * bh[(size_t)gm * E + gk];
-      As[k][m] = w;
+    if (leaky > 0.0f) {
+      float part = 0.0f;
+      for (int s = tid; s < S; s += nt) part += sg[s];
+      const float lt = leaky * block_sum(part, red_l);
+      for (int s = tid; s < S; s += nt) sg[s] = fmaf(lt, __ldg(init + s), sg[s]);
+      __syncthreads();  // sigma in place
     }
-#pragma unroll
-    for (int r = 0; r < (BK * BN) / NTHREADS; ++r) {
-      const int idx = tid + r * NTHREADS;
-      const int n = idx / BK, k = idx % BK;
-      const int gk = k0 + k, gn = n0 + n;
-      Bs[k][n] = (gk < kend && gn < S) ? V[(size_t)gn * E + gk] : 0.0f;
+    const float scale = expf(Ft + G);
+    const bool first = t == T - 1;
+    float* grow = gout + ((size_t)t * B + b) * E;
+    for (int e = tid; e < E; e += nt) {
+      float h = 0.0f;
+      const int j1 = coff[e + 1];
+#pragma unroll 4
+      for (int j = coff[e]; j < j1; ++j) h = fmaf(sg[crow[j]], cval[j], h);
+      const float be = first ? 1.0f : (e < real_exp ? bh[__ldg(orig16 + e)] : 0.0f);
+      const float p = w[e];
+      __stcs(grow + e, p * h * be * scale);
+      w[e] = p * be;
     }
-    __syncthreads();
-    tile_fma(As, Bs, ty, tx, acc);
-    __syncthreads();
-  }
-  float* out = vpart + (size_t)blockIdx.z * B * S;
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int gm = m0 + ty + 16 * i;
-    if (gm >= B) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int gn = n0 + tx + 16 * j;
-      if (gn < S) out[(size_t)gm * S + gn] = acc[i][j];
+    if (t == 0) break;  // the pullback past frame 0 feeds nothing
+    __syncthreads();    // w in place; every read of sigma and of bh done
+    fetch_sig(t - 1);
+    float dot = 0.0f, mx = -INFINITY;
+    for (int s = tid, k = 0; s < S; s += nt, ++k) {
+      float v = 0.0f;
+      const int j1 = roff[s + 1];
+#pragma unroll 4
+      for (int j = roff[s]; j < j1; ++j) v = fmaf(rval[j], w[rcol[j]], v);
+      bh[s] = v;
+      dot = fmaf(v, __ldg(init + s), dot);
+      if ((entered >> k) & 1ull) mx = max_nan(mx, v);
     }
+    block_sum_max(dot, mx, red);  // also: every v in place
+    // max(v + add) == max(v) + add: rounding is monotonic
+    const float add = leaky > 0.0f ? leaky * dot : 0.0f;
+    float d = leaky > 0.0f ? mx + add : mx;
+    if (real_exp < E) d = max_nan(d, 0.0f);  // the padded expanded states' nb
+    d = d > 0.0f ? d : 1.0f;
+    for (int s = tid; s < S; s += nt) bh[s] = (leaky > 0.0f ? bh[s] + add : bh[s]) / d;
+    G = (G + yt) + logf(d);
+    Ft = Fn;
+    yt = yn;
   }
-}
-
-// K9b (d): one block per sequence.  v = sum of the partials (fixed order),
-// leaky transpose, nb[e] = v[orig(e)] (0 for e >= real_exp), d = max(nb) (1
-// if <= 0), bh = nb / d, G += ymax_t + log d.  The row of v is kept in the
-// first partial's slot, which only this block touches.
-__global__ void __launch_bounds__(ROW_THREADS)
-dense_bwd_norm(float* __restrict__ vpart, int splits, const float* __restrict__ init,
-               const int* __restrict__ orig_of_exp, const float* __restrict__ ymax_t,
-               float* __restrict__ bh, float* __restrict__ G, int B, int S, int E,
-               int real_exp, float leaky) {
-  __shared__ float red[ROW_THREADS];
-  const int b = blockIdx.x, tid = threadIdx.x;
-  float* v = vpart + (size_t)b * S;
-  float dot = 0.0f;
-  for (int s = tid; s < S; s += ROW_THREADS) {
-    float acc = 0.0f;
-    for (int z = 0; z < splits; ++z) acc += vpart[((size_t)z * B + b) * S + s];
-    v[s] = acc;
-    dot += acc * init[s];
-  }
-  // block_sum's barriers also make the row of v visible to every thread
-  const float add = leaky * block_sum(dot, red);
-  float* row = bh + (size_t)b * E;
-  float mx = -INFINITY;
-  for (int e = tid; e < E; e += ROW_THREADS) {
-    const float nb = e < real_exp ? v[orig_of_exp[e]] + add : 0.0f;
-    row[e] = nb;
-    mx = fmaxf(mx, nb);
-  }
-  float d = block_max(mx, red);
-  d = d > 0.0f ? d : 1.0f;
-  for (int e = tid; e < E; e += ROW_THREADS) row[e] = row[e] / d;
-  if (tid == 0) G[b] += ymax_t[b] + logf(d);
 }
 
 }  // namespace
@@ -279,66 +354,57 @@ extern "C" {
 
 const char* cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-// K9f: the whole forward pass, T frames, on `stream`.
-//   pe [T, B, E]; V [S, E]; orig_off [S + 1] / orig_exps: the real expanded
-//   states of each original state; init [S]; sigma [B, S] holds the leaked
-//   carry of frame 0 on entry (scratch after); alpha [B, E] and cpart
-//   [B, ceil(E / 64)] scratch.  Out: logc [T, B] and sig [T, B, S], whose
-//   frame 0 (= init) the caller has filled.
-int dense_den_forward(const float* pe, const float* V, const int* orig_off,
-                      const int* orig_exps, const float* init, float* sigma, float* alpha,
-                      float* cpart, float* logc, float* sig, int T, int B, int S, int E,
-                      float leaky, cudaStream_t stream) {
-  const dim3 ggrid((E + BN - 1) / BN, (B + BM - 1) / BM);
-  for (int t = 0; t < T; ++t) {
-    dense_fwd_gemm<<<ggrid, NTHREADS, 0, stream>>>(sigma, V, pe + (size_t)t * B * E, alpha,
-                                                   cpart, B, S, E);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    float* sig_next = t + 1 < T ? sig + (size_t)(t + 1) * B * S : nullptr;
-    dense_fwd_norm<<<B, ROW_THREADS, 0, stream>>>(alpha, cpart, (int)ggrid.x, orig_off,
-                                                  orig_exps, init, sigma, sig_next,
-                                                  logc + (size_t)t * B, S, E, leaky);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return 0;
+// The most dynamic shared memory a block may ask for, in bytes.
+int dense_shared_limit() { return shared_limit(); }
+
+// Bytes of dynamic shared memory K9f (backward = 0) or K9b (backward = 1)
+// asks for with the compressed forms `staged` names (CSC = 1, CSR = 2;
+// 0: the carried state alone).
+int dense_shared_bytes(int backward, int S, int E, int nnz, int real_exp, int staged) {
+  const long long bytes = layout(backward != 0, S, E, nnz, real_exp, staged).bytes;
+  return bytes > INT_MAX ? INT_MAX : (int)bytes;
 }
 
-// K9b: the whole backward pass, frames T-1 .. 0, on `stream`.
-//   sig [T, B, S], fscale and ymax [T, B]; bh [B, E] = 1 and G [B] =
-//   log1p(leaky) on entry (scratch after); sigma [B, S] and vpart
-//   [splits, B, S] scratch.  Out: gout [T, B, E].
-int dense_den_backward(const float* pe, const float* V, const int* orig_of_exp,
-                       const float* init, const float* sig, const float* fscale,
-                       const float* ymax, float* bh, float* G, float* sigma, float* vpart,
-                       float* gout, int T, int B, int S, int E, int real_exp, int splits,
-                       float leaky, cudaStream_t stream) {
-  int kchunk = (E + splits - 1) / splits;
-  kchunk = (kchunk + BK - 1) / BK * BK;
-  const dim3 fgrid((E + BN - 1) / BN, (B + BM - 1) / BM);
-  const dim3 bgrid((S + BN - 1) / BN, (B + BM - 1) / BM, splits);
-  for (int t = T - 1; t >= 0; --t) {
-    const float* pe_t = pe + (size_t)t * B * E;
-    dense_bwd_leak<<<B, ROW_THREADS, 0, stream>>>(sig + (size_t)t * B * S, init, sigma, S,
-                                                  leaky);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    dense_bwd_gout<<<fgrid, NTHREADS, 0, stream>>>(sigma, V, pe_t, bh, fscale + (size_t)t * B,
-                                                   G, gout + (size_t)t * B * E, B, S, E);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    if (t == 0) break;  // the pullback past frame 0 feeds nothing
-    dense_bwd_gemm<<<bgrid, NTHREADS, 0, stream>>>(pe_t, bh, V, vpart, B, S, E, kchunk);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    dense_bwd_norm<<<B, ROW_THREADS, 0, stream>>>(vpart, splits, init, orig_of_exp,
-                                                  ymax + (size_t)t * B, bh, G, B, S, E,
-                                                  real_exp, leaky);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return 0;
+// K9f: the whole forward pass, one launch on `stream`.  staged: 1 (CSC and
+// the orig lists in shared memory) or 0.
+int dense_den_forward(const float* pe, const float* init, const int* csc_off,
+                      const unsigned short* csc_rows, const float* csc_vals,
+                      const int* orig_off, const int* orig_exps, float* logc, float* sig,
+                      int T, int B, int S, int E, int nnz, int real_exp, int staged,
+                      float leaky, cudaStream_t stream) {
+  if (T == 0 || B == 0) return 0;
+  static int granted[2] = {0, 0};
+  const long long bytes = layout(false, S, E, nnz, real_exp, staged ? CSC : 0).bytes;
+  const auto kernel = staged ? dense_fwd_kernel<true> : dense_fwd_kernel<false>;
+  if (const int err = allow_shared(kernel, bytes, granted[staged ? 1 : 0])) return err;
+  kernel<<<B, THREADS, bytes, stream>>>(pe, init, csc_off, csc_rows, csc_vals, orig_off,
+                                        orig_exps, logc, sig, T, B, S, E, nnz, real_exp, leaky,
+                                        granule(pe, E));
+  return (int)cudaGetLastError();
+}
+
+// K9b: the whole backward pass, frames T-1 .. 0, one launch on `stream`.
+// staged: CSC | CSR (3), CSR (2) or 0; g0 is G's start (log1p(leaky), or 0).
+int dense_den_backward(const float* pe, const float* sig, const float* fscale,
+                       const float* ymax, const float* init, const int* csc_off,
+                       const unsigned short* csc_rows, const float* csc_vals,
+                       const int* csr_off, const unsigned short* csr_cols,
+                       const float* csr_vals, const unsigned short* orig16,
+                       const int* orig_off, float* gout, int T, int B, int S, int E, int nnz,
+                       int real_exp, int staged, float leaky, float g0, cudaStream_t stream) {
+  if (T == 0 || B == 0) return 0;
+  if (staged != (CSC | CSR) && staged != CSR && staged != 0) return (int)cudaErrorInvalidValue;
+  static int granted[4] = {0, 0, 0, 0};
+  const long long bytes = layout(true, S, E, nnz, real_exp, staged).bytes;
+  const auto kernel = staged == (CSC | CSR) ? dense_bwd_kernel<true, true>
+                      : staged == CSR       ? dense_bwd_kernel<false, true>
+                                            : dense_bwd_kernel<false, false>;
+  if (const int err = allow_shared(kernel, bytes, granted[staged])) return err;
+  kernel<<<B, THREADS, bytes, stream>>>(pe, sig, fscale, ymax, init, csc_off, csc_rows,
+                                        csc_vals, csr_off, csr_cols, csr_vals, orig16, orig_off,
+                                        gout, T, B, S, E, nnz, real_exp, leaky, g0,
+                                        granule(pe, E), granule(sig, S));
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -44,26 +44,16 @@
 // the limit is refused by the wrapper before any launch.
 //
 // Every sum has one order: a column's or a row's entries in index order, a
-// pdf's slots in slot order, a thread's share of a block sum in index order
-// (thread i takes i, i + threads, ...), then a butterfly over the lanes of
-// each warp and the same butterfly over the warps' sums (all lanes end with
-// the same bits).  Two launches on the same inputs give the same bits.  Dead
+// pdf's slots in slot order, the block sums as den_common.cuh takes them.
+// Two launches on the same inputs give the same bits.  Dead
 // slots (slot_pdf < 0) get alpha = 0 exactly and appear in no CSR row (their
 // V columns are zero).
 
-#include <cuda_runtime.h>
 #include <limits.h>
-#include <math.h>
-#include <stdint.h>
+
+#include "den_common.cuh"
 
 namespace {
-
-// threads of a block: K1 and K2 always launch this many (ops/den_resident.py
-// mirrors it in its emulation of the block sums)
-constexpr int THREADS = 1024;
-constexpr int MAX_WARPS = THREADS / 32;
-
-__host__ __device__ inline long long up16(long long bytes) { return (bytes + 15) & ~15LL; }
 
 // Byte offsets into one block's dynamic shared memory.  The carried state
 // comes first; the graph's tables follow only where they are staged.
@@ -111,79 +101,7 @@ __host__ __device__ inline Layout layout(bool backward, int S, int K, int P, int
   return L;
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// Queue the copy of n floats into shared memory: 16-byte pieces where
-// gran == 16 (n a multiple of 4, both rows 16-byte aligned), else 4-byte.
-__device__ __forceinline__ void copy_async(float* dst, const float* src, int n, int gran) {
-  if (gran == 16) {
-    for (int i = 4 * threadIdx.x; i < n; i += 4 * blockDim.x)
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst + i)),
-                   "l"(src + i));
-  } else {
-    for (int i = threadIdx.x; i < n; i += blockDim.x)
-      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst + i)),
-                   "l"(src + i));
-  }
-}
-__device__ __forceinline__ void commit_async() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void wait_async() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
-
-// the larger of a and b, NaN if either is (as torch.max)
-__device__ __forceinline__ float max_nan(float a, float b) { return (a != a || a > b) ? a : b; }
-
-// Butterflies over the 32 lanes: lane i adds lane i^off for off = 16 .. 1,
-// so every lane ends with the same bits (a + b == b + a).
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v = max_nan(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-// Block sum with one barrier: each warp's butterfly, its lane 0 writes the
-// warp's sum to red[warp], then every warp runs the butterfly over red
-// (zeros past the last warp).  Every thread gets the same bits.  `red` must
-// not be written again before every thread has returned from this call.
-__device__ __forceinline__ float block_sum(float v, float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
-  v = warp_sum(v);
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  return warp_sum(lane < nw ? red[lane] : 0.0f);
-}
-
-// The same for a sum and a maximum at once (red holds 2 * MAX_WARPS).
-__device__ __forceinline__ void block_sum_max(float& sum, float& mx, float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
-  sum = warp_sum(sum);
-  mx = warp_max(mx);
-  if (lane == 0) {
-    red[warp] = sum;
-    red[MAX_WARPS + warp] = mx;
-  }
-  __syncthreads();
-  sum = warp_sum(lane < nw ? red[lane] : 0.0f);
-  mx = warp_max(lane < nw ? red[MAX_WARPS + lane] : -INFINITY);
-}
-
-template <typename T>
-__device__ __forceinline__ void copy_plain(T* dst, const T* src, long long n) {
-  for (long long i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
-}
-
-// slot_pdf as 16 bits, 0xFFFF for a dead slot
-__device__ __forceinline__ void stage_pdf(unsigned short* dst, const int* src, int n) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = (unsigned short)src[i];
-}
+// slot_pdf staged as 16 bits (copy_u16) marks a dead slot 0xFFFF
 constexpr unsigned DEAD16 = 0xFFFF;
 
 // e mod S without a division: e - S * floor(e * m / 2^32) with
@@ -227,7 +145,7 @@ den_fwd_kernel(const float* __restrict__ p, const float* __restrict__ init,
     copy_plain(o, coff_g, KS + 1);
     copy_plain(v, cval_g, nnz);
     copy_plain(r, crow_g, nnz);
-    stage_pdf(q, spdf_g, KS);
+    copy_u16(q, spdf_g, KS);
     coff = o;
     cval = v;
     crow = r;
@@ -345,8 +263,8 @@ den_bwd_kernel(const float* __restrict__ p, const float* __restrict__ ah,
     copy_plain(qo, qoff_g, P + 1);
     copy_plain(v, rval_g, nnz);
     copy_plain(c, rcol_g, nnz);
-    for (int j = tid; j < live; j += nt) qs[j] = (unsigned short)qslot_g[j];
-    stage_pdf(sp, spdf_g, KS);
+    copy_u16(qs, qslot_g, live);
+    copy_u16(sp, spdf_g, KS);
     roff = o;
     qoff = qo;
     rval = v;
@@ -426,33 +344,6 @@ den_bwd_kernel(const float* __restrict__ p, const float* __restrict__ ah,
     Ft = Fn;
     yt = yn;
   }
-}
-
-int shared_limit() {
-  int dev = 0, limit = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
-  if (cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess)
-    return 0;
-  return limit;
-}
-
-// Raise `kernel`'s dynamic shared-memory allowance to the device's limit
-// once; `granted` (one per kernel) remembers it, so that later launches make
-// no runtime call.
-template <typename Kern>
-int allow_shared(Kern kernel, long long bytes, int& granted) {
-  if (bytes <= granted) return 0;
-  const int limit = shared_limit();
-  if (bytes > limit) return (int)cudaErrorInvalidValue;
-  const int err =
-      (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, limit);
-  if (!err) granted = limit;
-  return err;
-}
-
-// 16 where rows of n floats from `ptr` are all 16-byte aligned, else 4
-int granule(const void* ptr, long long n) {
-  return (n % 4 == 0 && (uintptr_t)ptr % 16 == 0) ? 16 : 4;
 }
 
 }  // namespace

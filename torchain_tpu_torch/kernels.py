@@ -69,12 +69,17 @@ SIGNATURES: dict[str, dict[str, list]] = {
         "e2e_shared_limit": [],
     },
     "den_dense": {
-        # pe, V, orig_off, orig_exps, init, sigma, alpha, cpart, logc, sig,
-        # T, B, S, E, leaky, stream
-        "dense_den_forward": [_P] * 10 + [_I] * 4 + [_F, _P],
-        # pe, V, orig_of_exp, init, sig, fscale, ymax, bh, G, sigma, vpart,
-        # gout, T, B, S, E, real_exp, splits, leaky, stream
-        "dense_den_backward": [_P] * 12 + [_I] * 6 + [_F, _P],
+        # pe, init, csc_off, csc_rows, csc_vals, orig_off, orig_exps, logc,
+        # sig, T, B, S, E, nnz, real_exp, staged, leaky, stream
+        "dense_den_forward": [_P] * 9 + [_I] * 7 + [_F, _P],
+        # pe, sig, fscale, ymax, init, csc_off, csc_rows, csc_vals, csr_off,
+        # csr_cols, csr_vals, orig16, orig_off, gout, T, B, S, E, nnz,
+        # real_exp, staged, leaky, g0, stream
+        "dense_den_backward": [_P] * 14 + [_I] * 7 + [_F, _F, _P],
+        # backward, S, E, nnz, real_exp, staged -> bytes of shared memory per
+        # block; the device's limit
+        "dense_shared_bytes": [_I] * 6,
+        "dense_shared_limit": [],
     },
     "probe_smem": {
         # x, out, KiB of dynamic shared memory, stream

@@ -15,14 +15,15 @@ pass in one call:
 
 The emission product pe = p @ P_mat and the reduction of gout to pdfs stay
 outside, as `torch.matmul` over all frames at once (in the JAX package
-they are XLA's).  On a CUDA tensor each pass is one call into
-csrc/den_dense.cu; on a CPU tensor the plain PyTorch version beside it
-runs the same arithmetic.  Both index with `orig_of_exp` where
-ops/den_dense.py multiplies the one-hot E_mat, and both leave the padded
-expanded states (e >= real_exp, which `orig_of_exp` points at state 0 but
-E_mat leaves empty) out of it.  There is no other fallback, and no
-working-set test: the kernels stream pe, sigma_hats and gout through
-device memory, so no shape is too large for them.
+they are XLA's).  On a CUDA tensor each pass is one launch of
+csrc/den_dense.cu, which walks V's compressed forms (one block per
+sequence, all frames inside the block); on a CPU tensor the plain PyTorch
+version beside it runs the same recursion with the dense V.  Both index
+with `orig_of_exp` where ops/den_dense.py multiplies the one-hot E_mat, and
+both leave the padded expanded states (e >= real_exp, which `orig_of_exp`
+points at state 0 but E_mat leaves empty) out of it.  There is no other
+fallback: a graph whose carried state does not fit a block's shared memory,
+or whose S or E needs more than 16 bits, is refused (`shared_plan`).
 """
 
 from __future__ import annotations
@@ -33,7 +34,81 @@ import torch
 
 from torchain_tpu_torch import kernels
 from torchain_tpu_torch.ops.den_dense import leak, leak_t
+from torchain_tpu_torch.ops.den_resident import INDEX16_LIMIT
 from torchain_tpu_torch.ops.device_graphs import DeviceDenseDenGraph
+
+# ---------------------------------------------------------------------------
+# The kernels' shared memory
+# ---------------------------------------------------------------------------
+
+#: V's compressed forms a K9 block can stage in shared memory, as bits of the
+#: library's `staged`: by expanded state (CSC) and by original state (CSR)
+CSC, CSR = 1, 2
+
+#: (device, direction, sizes) -> (bytes, staged), asked of the library once
+_PLANS: dict[tuple, tuple[int, int]] = {}
+
+
+def shared_plan(g: DeviceDenseDenGraph, backward: int, device) -> tuple[int, int]:
+    """Bytes of shared memory a K9f (backward=0) or K9b (1) block asks for,
+    and which of V's compressed forms are staged there (`CSC`, `CSR` bits;
+    what is not staged is read through L2): as many as fit beside the
+    carried state under the device's opt-in limit, K9b's CSR before its CSC.
+    At the trigram graph's Moore form (S 2176, E 4224 of which 4156 real,
+    12,376 non-zeros; H100 limit 232,448 bytes) all of it is staged:
+
+        K9f  carried 42,752 + CSC 91,168 + orig lists 17,040 = 150,960
+        K9b  carried 51,584 + CSR 82,976 + CSC 91,168 = 225,728
+
+    (K9f carries sigma [S] and two pe rows [E]; K9b bh [S], one sig row
+    [S] and two pe rows; each also its reduction arrays.  A compressed form
+    is its int32 offsets, f32 values and 16-bit indices; K9f's orig lists
+    are orig_offsets and orig_exps as 16 bits.)  Raises ValueError where S
+    or E needs more than 16 bits or the carried state alone exceeds the
+    limit, before the library is asked anything in the first case."""
+    S, E, real, nnz = g.num_orig, g.num_exp, g.real_exp, g.nnz
+    what = "dense_den_backward" if backward else "dense_den_forward"
+    if max(S, E) >= INDEX16_LIMIT:
+        raise ValueError(
+            f"{what}: S={S} and E={E} must both be below {INDEX16_LIMIT}: the kernels"
+            " index states with 16 bits"
+        )
+    key = (device.index, backward, S, E, nnz, real)
+    plan = _PLANS.get(key)
+    if plan is None:
+        need = kernels.entry("den_dense", "dense_shared_bytes")
+        limit = kernels.entry("den_dense", "dense_shared_limit")()
+        carried = need(backward, S, E, nnz, real, 0)
+        if carried > limit:
+            raise ValueError(
+                f"{what}: the carried state of a sequence (S={S}, E={E}) needs {carried}"
+                f" bytes of shared memory, more than the {limit} a block may have"
+            )
+        plan = (carried, 0)
+        for staged in ((CSC | CSR, CSR) if backward else (CSC,)):
+            nbytes = need(backward, S, E, nnz, real, staged)
+            if nbytes <= limit:
+                plan = (nbytes, staged)
+                break
+        _PLANS[key] = plan
+    return plan
+
+
+def _check_graph(g: DeviceDenseDenGraph, backward: bool) -> None:
+    S, E, nnz = g.num_orig, g.num_exp, g.nnz
+    kernels.check_tensor("init_orig", g.init_orig, torch.float32, (S,))
+    kernels.check_tensor("orig_offsets", g.orig_offsets, torch.int32, (S + 1,))
+    kernels.check_tensor("csc_offsets", g.csc_offsets, torch.int32, (E + 1,))
+    kernels.check_tensor("csc_rows", g.csc_rows, torch.int16, (nnz,))
+    kernels.check_tensor("csc_vals", g.csc_vals, torch.float32, (nnz,))
+    if backward:
+        kernels.check_tensor("csr_offsets", g.csr_offsets, torch.int32, (S + 1,))
+        kernels.check_tensor("csr_cols", g.csr_cols, torch.int16, (nnz,))
+        kernels.check_tensor("csr_vals", g.csr_vals, torch.float32, (nnz,))
+        kernels.check_tensor("orig16", g.orig16, torch.int16, (E,))
+    else:
+        kernels.check_tensor("orig_exps", g.orig_exps, torch.int32, (g.real_exp,))
+
 
 # ---------------------------------------------------------------------------
 # K9f: forward.  Kernel wrapper and its plain version (same signature).
@@ -65,40 +140,28 @@ def dense_forward_plain(pe: torch.Tensor, g: DeviceDenseDenGraph, leaky: float):
     return logc, sig
 
 
-def _check_graph(g: DeviceDenseDenGraph) -> None:
-    S, E = g.num_orig, g.num_exp
-    kernels.check_tensor("V", g.V, torch.float32, (S, E))
-    kernels.check_tensor("init_orig", g.init_orig, torch.float32, (S,))
-    kernels.check_tensor("orig_of_exp", g.orig_of_exp, torch.int32, (E,))
-    kernels.check_tensor("orig_offsets", g.orig_offsets, torch.int32, (S + 1,))
-    kernels.check_tensor("orig_exps", g.orig_exps, torch.int32, (g.real_exp,))
-
-
 def dense_forward_kernel(pe: torch.Tensor, g: DeviceDenseDenGraph, leaky: float):
-    """K9f.  Same contract as dense_forward_plain; launches
+    """K9f.  Same contract as dense_forward_plain; one launch of
     csrc/den_dense.cu:dense_den_forward on a CUDA tensor."""
     if pe.device.type == "cpu":
         return dense_forward_plain(pe, g, leaky)
     T, B, E = pe.shape
     S = g.num_orig
     kernels.check_tensor("pe", pe, torch.float32, (T, B, g.num_exp))
-    _check_graph(g)
-    dev = pe.device
-    logc = torch.empty((T, B), device=dev, dtype=torch.float32)
-    sig = torch.empty((T, B, S), device=dev, dtype=torch.float32)
-    if T == 0:
+    _, staged = shared_plan(g, 0, pe.device)  # first: a graph too large raises here
+    _check_graph(g, backward=False)
+    logc = torch.empty((T, B), device=pe.device, dtype=torch.float32)
+    sig = torch.empty((T, B, S), device=pe.device, dtype=torch.float32)
+    if T == 0 or B == 0:
         return logc, sig
-    sig[0] = g.init_orig
-    sigma = leak(g.init_orig.expand(B, S), g.init_orig, leaky).contiguous()
-    alpha = torch.empty((B, E), device=dev, dtype=torch.float32)
-    cpart = torch.empty((B, (E + 63) // 64), device=dev, dtype=torch.float32)
-    lib = kernels.library("den_dense")
-    err = lib.dense_den_forward(
-        pe.data_ptr(), g.V.data_ptr(), g.orig_offsets.data_ptr(), g.orig_exps.data_ptr(),
-        g.init_orig.data_ptr(), sigma.data_ptr(), alpha.data_ptr(), cpart.data_ptr(),
-        logc.data_ptr(), sig.data_ptr(), T, B, S, E, float(leaky), kernels.stream_of(dev),
+    err = kernels.entry("den_dense", "dense_den_forward")(
+        pe.data_ptr(), g.init_orig.data_ptr(), g.csc_offsets.data_ptr(), g.csc_rows.data_ptr(),
+        g.csc_vals.data_ptr(), g.orig_offsets.data_ptr(), g.orig_exps.data_ptr(),
+        logc.data_ptr(), sig.data_ptr(), T, B, S, E, g.nnz, g.real_exp, staged, float(leaky),
+        kernels.stream_of(pe.device),
     )
-    kernels.check(lib, err, "dense_den_forward")
+    if err:
+        kernels.check(kernels.library("den_dense"), err, "dense_den_forward")
     dense_forward_kernel.launches += 1
     return logc, sig
 
@@ -133,13 +196,8 @@ def dense_backward_plain(pe, g: DeviceDenseDenGraph, sig, fscale, ymax_t, leaky:
     return gout
 
 
-#: split of the backward product's depth (E) into independent partial sums,
-#: so its [B, S] output spreads over enough blocks to fill the card
-BWD_SPLITS = 4
-
-
 def dense_backward_kernel(pe, g: DeviceDenseDenGraph, sig, fscale, ymax_t, leaky: float):
-    """K9b.  Same contract as dense_backward_plain; launches
+    """K9b.  Same contract as dense_backward_plain; one launch of
     csrc/den_dense.cu:dense_den_backward on a CUDA tensor."""
     if pe.device.type == "cpu":
         return dense_backward_plain(pe, g, sig, fscale, ymax_t, leaky)
@@ -149,23 +207,22 @@ def dense_backward_kernel(pe, g: DeviceDenseDenGraph, sig, fscale, ymax_t, leaky
     kernels.check_tensor("sigma_hats", sig, torch.float32, (T, B, S))
     kernels.check_tensor("fscale", fscale, torch.float32, (T, B))
     kernels.check_tensor("ymax", ymax_t, torch.float32, (T, B))
-    _check_graph(g)
-    dev = pe.device
-    gout = torch.empty((T, B, E), device=dev, dtype=torch.float32)
-    if T == 0:
+    _, staged = shared_plan(g, 1, pe.device)
+    _check_graph(g, backward=True)
+    gout = torch.empty((T, B, E), device=pe.device, dtype=torch.float32)
+    if T == 0 or B == 0:
         return gout
-    bh = torch.ones((B, E), device=dev, dtype=torch.float32)
-    G = torch.full((B,), math.log1p(leaky) if leaky > 0.0 else 0.0, device=dev)
-    sigma = torch.empty((B, S), device=dev, dtype=torch.float32)
-    vpart = torch.empty((BWD_SPLITS, B, S), device=dev, dtype=torch.float32)
-    lib = kernels.library("den_dense")
-    err = lib.dense_den_backward(
-        pe.data_ptr(), g.V.data_ptr(), g.orig_of_exp.data_ptr(), g.init_orig.data_ptr(),
-        sig.data_ptr(), fscale.data_ptr(), ymax_t.data_ptr(), bh.data_ptr(), G.data_ptr(),
-        sigma.data_ptr(), vpart.data_ptr(), gout.data_ptr(),
-        T, B, S, E, g.real_exp, BWD_SPLITS, float(leaky), kernels.stream_of(dev),
+    # G's start rounded to float32 as the plain version's new_full rounds it
+    g0 = math.log1p(leaky) if leaky > 0.0 else 0.0
+    err = kernels.entry("den_dense", "dense_den_backward")(
+        pe.data_ptr(), sig.data_ptr(), fscale.data_ptr(), ymax_t.data_ptr(),
+        g.init_orig.data_ptr(), g.csc_offsets.data_ptr(), g.csc_rows.data_ptr(),
+        g.csc_vals.data_ptr(), g.csr_offsets.data_ptr(), g.csr_cols.data_ptr(),
+        g.csr_vals.data_ptr(), g.orig16.data_ptr(), g.orig_offsets.data_ptr(), gout.data_ptr(),
+        T, B, S, E, g.nnz, g.real_exp, staged, float(leaky), g0, kernels.stream_of(pe.device),
     )
-    kernels.check(lib, err, "dense_den_backward")
+    if err:
+        kernels.check(kernels.library("den_dense"), err, "dense_den_backward")
     dense_backward_kernel.launches += 1
     return gout
 

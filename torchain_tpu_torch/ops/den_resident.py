@@ -31,9 +31,9 @@ import torch
 from torchain_tpu_torch import kernels
 from torchain_tpu_torch.graphs.den_graph import DenGraph
 
-#: threads of a K1/K2 block, a constant of csrc/den_resident.cu (`THREADS`)
-#: mirrored here for the emulation of the kernels' block sums, which run over
-#: the per-thread shares in this grouping
+#: threads of a K1/K2 (and K9f/K9b) block, a constant of csrc/den_common.cuh
+#: (`THREADS`) mirrored here for the emulation of the kernels' block sums,
+#: which run over the per-thread shares in this grouping
 THREADS = 1024
 
 #: indices of the compressed forms are 16-bit (stored as int16, read as

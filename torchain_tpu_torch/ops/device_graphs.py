@@ -23,6 +23,11 @@ from torchain_tpu_torch.graphs.supervision import (  # noqa: F401 (re-exported)
     _frame_vocab_tables,
     frame_vocab_width,
 )
+from torchain_tpu_torch.ops.den_resident import (
+    INDEX16_LIMIT,
+    DeviceResidentDenGraph,
+    compress,
+)
 from torchain_tpu_torch.ops.num_resident import kernel_tables
 
 
@@ -99,6 +104,17 @@ class DeviceDenseDenGraph:
     padded ones have all-zero rows in E_mat although `orig_of_exp` points
     them at state 0).
 
+    Beside the dense V (which ops/den_dense.py and the plain versions
+    multiply) the graph holds V's non-zeros twice, built once on the host by
+    ops/den_resident.py's `compress`: by expanded state (CSC, what K9f's and
+    K9b's h = sigma @ V walk) and by original state (CSR, what K9b's
+    v = V @ w walks), entries sorted by index within each column and row, so
+    that the kernels' sum order follows from the graph alone.  Indices are
+    16-bit (int16 tensors holding unsigned values; `orig16` is orig_of_exp
+    so) where S and E are below 65,536, else int32 for the plain versions
+    alone: the kernels refuse such a graph.  A copy of the graph with
+    another V must be built anew, not `dataclasses.replace`d.
+
     `fused` chooses the recursion for this graph in ops/chain_loss.py:
     False, ops/den_dense.py (the JAX package's default); True, the fused
     kernels K9f/K9b of ops/den_pallas.py (the JAX package's
@@ -113,11 +129,22 @@ class DeviceDenseDenGraph:
     pdf_of_exp: torch.Tensor  # int32 [E]
     orig_offsets: torch.Tensor  # int32 [S + 1]
     orig_exps: torch.Tensor  # int32 [real_exp]
+    orig16: torch.Tensor  # int16 (unsigned) [E] orig_of_exp
+    csc_offsets: torch.Tensor  # int32 [E + 1]
+    csc_rows: torch.Tensor  # int16 (unsigned) [nnz] original state of each entry
+    csc_vals: torch.Tensor  # f32 [nnz]
+    csr_offsets: torch.Tensor  # int32 [S + 1]
+    csr_cols: torch.Tensor  # int16 (unsigned) [nnz] expanded state of each entry
+    csr_vals: torch.Tensor  # f32 [nnz]
     num_orig: int
     num_exp: int
     num_pdfs: int
     real_exp: int
     fused: bool = False
+
+    @property
+    def nnz(self) -> int:
+        return int(self.csc_vals.shape[0])
 
     def to(self, device) -> "DeviceDenseDenGraph":
         return _to_device(self, device)
@@ -134,9 +161,13 @@ class DeviceDenseDenGraph:
         orig = d.orig_of_exp[: d.real_exp].astype(np.int64)
         counts = np.bincount(orig, minlength=d.num_orig)
         offsets = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+        V = d.V.astype(np.float32)
+        index = np.int16 if max(d.num_orig, d.num_exp) < INDEX16_LIMIT else np.int32
+        csc_off, csc_rows, csc_vals, csr_off, csr_cols, csr_vals = compress(V, index)
+        orig16 = d.orig_of_exp.astype(np.uint16 if index == np.int16 else np.int32)
         t = lambda a: torch.as_tensor(np.ascontiguousarray(a)).to(device)  # noqa: E731
         return DeviceDenseDenGraph(
-            V=t(d.V.astype(np.float32)),
+            V=t(V),
             E_mat=t(E_mat),
             P_mat=t(P_mat),
             init_orig=t(d.initial_probs.astype(np.float32)),
@@ -144,6 +175,13 @@ class DeviceDenseDenGraph:
             pdf_of_exp=t(d.pdf_of_exp.astype(np.int32)),
             orig_offsets=t(offsets),
             orig_exps=t(np.argsort(orig, kind="stable").astype(np.int32)),
+            orig16=t(orig16.view(index)),
+            csc_offsets=t(csc_off),
+            csc_rows=t(csc_rows),
+            csc_vals=t(csc_vals),
+            csr_offsets=t(csr_off),
+            csr_cols=t(csr_cols),
+            csr_vals=t(csr_vals),
             num_orig=int(d.num_orig),
             num_exp=int(d.num_exp),
             num_pdfs=int(d.num_pdfs),
@@ -159,8 +197,6 @@ def auto_den_graph(host_graph: DenGraph, pad_to: int = 128, device="cuda"):
     (`DeviceDenseDenGraph`, plain or fused) and the sparse arc list
     (`DeviceDenGraph`) are built explicitly with their `from_host`; the
     de Bruijn and padded-table forms of the JAX package are not ported."""
-    from torchain_tpu_torch.ops.den_resident import DeviceResidentDenGraph
-
     return DeviceResidentDenGraph.from_host(host_graph, pad_to=pad_to, device=device)
 
 
