@@ -151,14 +151,18 @@ def _alternate(fns: dict, reps: int, rounds: int = 3) -> dict[str, dict]:
     return {name: dict(median=sorted(t)[len(t) // 2], rounds=t) for name, t in times.items()}
 
 
-def _times(kernel, reps: int, library=None, plain=None, plain_reps: int = 0) -> dict:
+def _times(kernel, reps: int, library=None, plain=None, plain_reps: int = 0,
+           other=None) -> dict:
     """A kernel's device ms, in turn with its library call where one exists
-    (`_alternate`: 3 rounds, medians), and its plain version's: in the same
+    (`_alternate`: 3 rounds, medians), with `other` (the kernel on its other
+    shared-memory plan) where given, and its plain version's: in the same
     turns where `plain_reps` is 0, else with `_time_ms` over `plain_reps`
     calls.  Returns the fields of a kernel record."""
     fns = dict(kernel=kernel)
     if library is not None:
         fns["library"] = library
+    if other is not None:
+        fns["other"] = other
     if not plain_reps:
         fns["plain"] = plain
     t = _alternate(fns, reps)
@@ -166,6 +170,8 @@ def _times(kernel, reps: int, library=None, plain=None, plain_reps: int = 0) -> 
                library_ms=None, timing="device, alternated")
     if library is not None:
         out.update(library_ms=t["library"]["median"], library_ms_rounds=t["library"]["rounds"])
+    if other is not None:
+        out.update(other_plan_ms=t["other"]["median"], other_plan_ms_rounds=t["other"]["rounds"])
     if plain_reps:
         out["plain_ms"] = _time_ms(plain, plain_reps)
     else:
@@ -209,6 +215,16 @@ def _bound(flops: float, nbytes: float, peak_flops: float = PEAK_F32_FLOPS) -> t
     t_ops = flops / peak_flops * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _other_plan(plan, chosen: int) -> int | None:
+    """The shared-memory plan (0 or 1) that `plan(staged)` did not choose,
+    where it fits the device, else None."""
+    try:
+        plan(1 - chosen)
+    except ValueError:
+        return None
+    return 1 - chosen
 
 
 def _check(name: str, what: str, got, want, atol: float, rtol: float) -> dict:
@@ -355,16 +371,24 @@ def make_model(cfg, feat_dim: int, device, seed: int):
 
 
 def _record(measured, name, label, checks, times: dict, flops, nbytes,
-            peak_flops=PEAK_F32_FLOPS, **extra):
+            peak_flops=PEAK_F32_FLOPS, frames: int | None = None,
+            log_only: dict | None = None, **extra):
     """Log and keep one kernel's record: its checks, its `_times`, its bound
-    and any extra numbers."""
+    and any extra numbers measured in this run; for a kernel that loops over
+    `frames` dependent frames, also its device microseconds a frame.
+    `log_only` numbers (a second bound, a sizing) are logged, not kept."""
     bound_ms, bound_by = _bound(flops, nbytes, peak_flops)
     ms, lib_ms = times["ms"], times["library_ms"]
+    if frames:
+        extra["us_per_frame"] = ms * 1e3 / frames
     _log(
         f"kernel {name} [{label}]: {ms:.5f} ms  plain {times['plain_ms']:.5f} ms"
         f"  bound {bound_ms:.6f} ms ({bound_by})"
         + (f"  library {lib_ms:.5f} ms" if lib_ms is not None else "")
-        + "".join(f"  {k} {v:.5f}" for k, v in extra.items())
+        + (f"  other plan {times['other_plan_ms']:.5f} ms {times['other_plan_ms_rounds']}"
+           if "other_plan_ms" in times else "")
+        + "".join(f"  {k} {v:.5f}" if isinstance(v, float) else f"  {k} {v}"
+                  for k, v in {**extra, **(log_only or {})}.items())
     )
     measured[name] = dict(
         max_abs_err=max(c["max_abs_err"] for c in checks),
@@ -574,6 +598,7 @@ def check_kernels(den, sup, seed: int, path: str) -> dict[str, dict]:
         2.0 * T * B * nnz,
         4.0 * T * B * P + 4.0 * (KS + 1) + 6.0 * nnz + 4.0 * (KS + S)
         + 4.0 * (T * B * KS + T * B),
+        frames=T,
     )
 
     # K2: denominator backward, on the plain forward's residuals
@@ -599,6 +624,7 @@ def check_kernels(den, sup, seed: int, path: str) -> dict[str, dict]:
         2.0 * (T - 1) * B * nnz + 3.0 * T * B * live,
         4.0 * (T * B * P + T * B * KS + 2 * T * B + B) + 4.0 * (S + 1) + 6.0 * nnz
         + 4.0 * (P + 1 + live + S + B * T * P),
+        frames=T,
     )
 
     # K5 / K6: the batch's own vocabulary, and beside it a vocabulary of an
@@ -655,6 +681,8 @@ def check_kernels(den, sup, seed: int, path: str) -> dict[str, dict]:
     aT_p, rest_p = nr.steady_forward_plain(alpha1, *tables, ysm)
     arcs = int((sup.in_src_r >= 0).sum())
     table_bytes = 12.0 * B * Tm1 * Sn * Kr  # int32 src, int32 lpdf, f32 logw
+    # K4 reads the live arcs alone: a 16-byte record each and the offsets
+    list_bytes = 16.0 * arcs + 4.0 * B * T
     # f32 log-sum-exps of a few terms per state in another order, carried
     # over 49 frames; -inf (unreachable states) in the same places.  The
     # bound is bytes, each once; the 49 dependent frames set a latency floor
@@ -666,6 +694,7 @@ def check_kernels(den, sup, seed: int, path: str) -> dict[str, dict]:
                plain=lambda: nr.steady_forward_plain(alpha1, *tables, ysm), plain_reps=5),
         4.0 * arcs + 2.0 * B * Tm1 * Sn,
         table_bytes + 4.0 * (B * Tm1 * W + B * Sn + Tm1 * B * Sn),
+        frames=Tm1,
     )
     final = sup.final_logw.clone()
     final[1] = -math.inf
@@ -674,20 +703,48 @@ def check_kernels(den, sup, seed: int, path: str) -> dict[str, dict]:
         raise AssertionError(f"num_steady_backward [{path}]: expected one impossible sequence")
     alphas = torch.cat([alpha1[None], rest_p[:-1]])
     args4 = (*tables, ysm, alphas, final, log_p)
+    L = pre[4].shape[1]
+    k4_bytes, k4_staged = nr.steady_plan(L, Tm1, Sn, Sn * Kr, W, dev)
+    # what placing a batch costs for K4's list (and K3's tables): CUDA events
+    # around whole calls, the host's read of the list's length included
+    placement_ms = _time_ms(lambda: nr.kernel_tables(*tables), 5)
+    _log(f"kernel num_steady_backward [{path}]: {arcs} live arcs, at most {L} a sequence;"
+         f" {k4_bytes} bytes of shared memory per block, the list"
+         f" {'staged there' if k4_staged else 'streamed frame by frame'}")
     beta1_k, gsm_k = nr.steady_backward(*args4, pre=pre)
     torch.cuda.synchronize()
     beta1_p, gsm_p = nr.steady_backward_plain(*args4)
     if not bool((gsm_k[:, 1] == 0).all()):
         raise AssertionError(f"num_steady_backward [{path}]: the impossible sequence has occupancies")
-    # occupancies are probabilities (each frame's sum to 1): atol 1e-6
+    again = nr.steady_backward(*args4, pre=pre)
+    if not (torch.equal(again[0], beta1_k) and torch.equal(again[1], gsm_k)):
+        raise AssertionError(f"num_steady_backward [{path}]: two launches differ")
+    # the plan not chosen, where it fits: the same bits, and timed in turns
+    other4 = _other_plan(lambda p: nr.steady_plan(L, Tm1, Sn, Sn * Kr, W, dev, p), k4_staged)
+    if other4 is not None:
+        again = nr.steady_backward(*args4, pre=pre, staged=other4)
+        if not (torch.equal(again[0], beta1_k) and torch.equal(again[1], gsm_k)):
+            raise AssertionError(f"num_steady_backward [{path}]: the two plans differ")
+    # occupancies are probabilities (each frame's sum to 1): atol 1e-6.  The
+    # bound counts the live list K4 reads (and, kept beside it, the dense
+    # tables the TPU kernel and the dense design before it read)
+    rest_bytes = 4.0 * (B * Tm1 * W + Tm1 * B * Sn + B * Sn + B + Tm1 * B * W + B * Sn)
     record(
         "num_steady_backward",
         [_check(f"num_steady_backward [{path}]", "beta1", beta1_k, beta1_p, 1e-5, 1e-5),
          _check(f"num_steady_backward [{path}]", "gsm", gsm_k, gsm_p, 1e-6, 1e-5)],
         _times(lambda: nr.steady_backward(*args4, pre=pre), 50,
-               plain=lambda: nr.steady_backward_plain(*args4), plain_reps=5),
+               plain=lambda: nr.steady_backward_plain(*args4), plain_reps=5,
+               other=None if other4 is None
+               else lambda: nr.steady_backward(*args4, pre=pre, staged=other4)),
         8.0 * arcs + 2.0 * B * Tm1 * (Sn + W),
-        table_bytes + 4.0 * (B * Tm1 * W + Tm1 * B * Sn + B * Sn + B + Tm1 * B * W + B * Sn),
+        list_bytes + rest_bytes,
+        frames=Tm1,
+        placement_ms=placement_ms,
+        log_only=dict(
+            dense_tables_bound_ms=_bound(8.0 * arcs + 2.0 * B * Tm1 * (Sn + W),
+                                         table_bytes + rest_bytes)[0],
+            shared_bytes=k4_bytes, staged=k4_staged),
     )
     return measured
 
@@ -961,6 +1018,7 @@ def check_e2e_kernels(sup, seed: int, label: str) -> dict[str, dict]:
                plain=lambda: nr.e2e_forward_plain(ylocal, src, logw), plain_reps=3),
         4.0 * T * live + 2.0 * Bs * T * S,
         4.0 * T * live + table_bytes + 4.0 * T * Bs * S,
+        frames=T,
     )
     # sequence 1 made impossible (no final state, so log p = -inf) and
     # sequence 2 given a NaN log p: exact zeros for both
@@ -974,6 +1032,10 @@ def check_e2e_kernels(sup, seed: int, label: str) -> dict[str, dict]:
     a0[:, :, 0] = 0.0
     alphas = torch.cat([a0, rest_p[:-1]])
     args = (ylocal, alphas, src, logw, final, log_p)
+    k8_bytes, k8_staged = nr.e2e_backward_plan(pre[4].shape[1], S, dev)
+    _log(f"kernel e2e_backward [{label}]: {live} live arcs, at most {pre[4].shape[1]} a"
+         f" sequence; {k8_bytes} bytes of shared memory per block, the list"
+         f" {'staged there' if k8_staged else 'read from device memory'}")
     post_k = nr.e2e_backward_resident(*args, pre=pre)
     torch.cuda.synchronize()
     post_p = nr.e2e_backward_plain(*args)
@@ -982,20 +1044,30 @@ def check_e2e_kernels(sup, seed: int, label: str) -> dict[str, dict]:
                              " has posteriors")
     if not bool(torch.equal(post_k, nr.e2e_backward_resident(*args, pre=pre))):
         raise AssertionError(f"e2e_backward [{label}]: two launches differ")
+    # the plan not chosen, where it fits: the same bits, and timed in turns
+    L8 = pre[4].shape[1]
+    other8 = _other_plan(lambda p: nr.e2e_backward_plan(L8, S, dev, p), k8_staged)
+    if other8 is not None and not bool(
+            torch.equal(post_k, nr.e2e_backward_resident(*args, pre=pre, staged=other8))):
+        raise AssertionError(f"e2e_backward [{label}]: the two plans differ")
     # posteriors are probabilities: exp of a float32 sum of magnitude ~100,
     # whose last bit (8e-6) becomes that relative error; the betas inside
     # differ by the order of their log-sum-exps.  Bytes: ylocal's live
     # slots read, post written in full (its pad slots are zeros the contract
-    # asks for)
-    by_bytes = 4.0 * (Bs * (S + 1) + pre[4].numel())
+    # asks for), and of the tables src, logw and by_arc the live entries,
+    # with the offsets
+    list_bytes = 12.0 * live + 4.0 * Bs * (S + 1)
     _record(
         measured, "e2e_backward", label,
         [_check(f"e2e_backward [{label}]", "post", post_k, post_p, 1e-5, 1e-4)],
         _times(lambda: nr.e2e_backward_resident(*args, pre=pre), 20,
-               plain=lambda: nr.e2e_backward_plain(*args), plain_reps=3),
+               plain=lambda: nr.e2e_backward_plain(*args), plain_reps=3,
+               other=None if other8 is None
+               else lambda: nr.e2e_backward_resident(*args, pre=pre, staged=other8)),
         8.0 * T * live + 2.0 * Bs * T * S,
-        4.0 * T * live + 4.0 * Bs * T * S * K + 8.0 * Bs * S * K + by_bytes
+        4.0 * T * live + 4.0 * Bs * T * S * K + list_bytes
         + 4.0 * (T * Bs * S + Bs * S + Bs),
+        frames=T, log_only=dict(shared_bytes=k8_bytes, staged=k8_staged),
     )
     return measured
 
@@ -1102,6 +1174,7 @@ def check_dense_kernels(den, y, label: str) -> dict[str, dict]:
                plain=lambda: dp.dense_forward_plain(pe, den, leaky), plain_reps=5),
         2.0 * T * B * den.nnz,
         csc + 4.0 * (T * B * E + S + (S + 1) + den.real_exp + T * B + T * B * S),
+        frames=T,
     )
     ymax_t = res["ymax"].T.contiguous()
     F = torch.cumsum(logc_p + ymax_t, 0)
@@ -1134,6 +1207,7 @@ def check_dense_kernels(den, y, label: str) -> dict[str, dict]:
         2.0 * (2 * T - 1) * B * den.nnz + 6.0 * T * B * E,
         csc + csr + 2.0 * E + 4.0 * (S + 1)
         + 4.0 * (T * B * E + S + T * B * S + 2 * T * B + T * B * E),
+        frames=T,
     )
     return measured
 

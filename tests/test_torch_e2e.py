@@ -197,6 +197,71 @@ def test_k8_plain_versions_match_pallas_interpret(sides):
     assert (tnr.e2e_forward_resident.launches, tnr.e2e_backward_resident.launches) == (n_f, n_b)
 
 
+def emulate_e2e_backward(pre, ylocal, alphas, final_logw, log_p):
+    """K8b as csrc/num_e2e.cu computes it, on the staged list of `pre`
+    (each sequence's live slots in source order, slot order within one
+    source): per frame, in reverse, each arc's posterior at its slot (every
+    other slot 0); a source state's run of up to E2E_HEAVY_RUN arcs reduced
+    in list order, one float32 addition at a time, a longer one by 32 lanes
+    (lane g takes arcs g, g + 32, ... in order, then lane l adds lane
+    l ^ off for off = 16 .. 1); the maximum first.  Elementwise values by
+    torch's float32 operations."""
+    src32, logw32, _, by_off, by_arc = pre
+    B, T, S, K = ylocal.shape
+    logp = torch.where(torch.isfinite(log_p), log_p, torch.inf)
+    post = torch.zeros((B, T, S * K))
+    for b in range(B):
+        slot = by_arc[b, :by_off[b, S]].long()
+        sp, dst, lw = src32[b].reshape(-1)[slot].long(), slot // K, logw32[b].reshape(-1)[slot]
+        beta = final_logw[b]
+        for t in range(T - 1, -1, -1):
+            aw = (lw + ylocal[b, t].reshape(-1)[slot]) + beta[dst]
+            post[b, t, slot] = torch.exp(alphas[t, b, sp] + aw - logp[b])
+            nxt = torch.full((S,), -torch.inf)
+            for s in range(S):
+                run = aw[by_off[b, s]:by_off[b, s + 1]]
+                m = run.max() if len(run) else torch.tensor(-torch.inf)
+                if m > -torch.inf:
+                    G = 1 if len(run) <= tnr.E2E_HEAVY_RUN else 32
+                    lanes = []
+                    for g in range(G):
+                        acc = torch.tensor(0.0)
+                        for v in torch.exp(run[g::G] - m):
+                            acc = acc + v
+                        lanes.append(acc)
+                    off = G // 2
+                    while off:
+                        lanes = [lanes[i] + lanes[i ^ off] for i in range(G)]
+                        off //= 2
+                    nxt[s] = m + torch.log(lanes[0])
+            beta = nxt
+    return post.view(B, T, S, K)
+
+
+def test_k8b_order_over_the_staged_list_matches_plain_and_pallas(sides):
+    """The kernel's order over its staged list against e2e_backward_plain
+    and the Pallas kernel in interpret mode (TOL); sequence 1 impossible,
+    sequence 2 with a NaN log_p: exact zeros, as on every pad slot."""
+    ylocal, src, logw, final = _kernel_inputs(sides)
+    src, logw = torch.as_tensor(src), torch.as_tensor(logw)
+    rest = tnr.e2e_forward_plain(ylocal, src, logw)
+    final = torch.as_tensor(final).clone()
+    final[1] = -np.inf
+    a0 = torch.full((1, B, src.shape[1]), -np.inf)
+    a0[:, :, 0] = 0.0
+    alphas = torch.cat([a0, rest[:-1]])
+    log_p = torch.logsumexp(rest[-1] + final, dim=-1)
+    assert torch.isneginf(log_p[1])
+    log_p[2] = np.nan
+    args = (ylocal, alphas, src, logw, final, log_p)
+    post_e = emulate_e2e_backward(tnr.e2e_kernel_tables(src, logw), ylocal, alphas, final, log_p)
+    post_p = tnr.e2e_backward_plain(*args)
+    np.testing.assert_allclose(post_e.numpy(), post_p.numpy(), **TOL)
+    assert (post_e[1:3] == 0).all() and (post_e[(src < 0)[:, None].expand_as(post_e)] == 0).all()
+    post_j = jnr.e2e_backward_resident(*(jnp.asarray(x.numpy()) for x in args), interpret=True)
+    np.testing.assert_allclose(post_e.numpy(), np.asarray(post_j), **TOL)
+
+
 def test_invalid_sequence_zeroes_gamma(sides):
     """tests/test_e2e_supervision.py's case on the port: a sequence whose
     log_p is -inf gets exactly zero occupancies, the others stay finite."""

@@ -143,7 +143,7 @@ def test_kernel_tables_hold_the_same_values_in_the_kernels_types(setup):
     _, tsup, _, _ = setup
     bare = dataclasses.replace(tsup, src_k=None, pdf_local_k=None, logw_k=None)
     assert bare.kernel_pre is None
-    src_k, lpdf_k, logw_k = tsup.kernel_pre
+    src_k, lpdf_k, logw_k = tsup.kernel_pre[:3]
     for k, ref, dtype in ((src_k, tsup.in_src_r, torch.int32),
                           (lpdf_k, tsup.pdf_local_r, torch.int32),
                           (logw_k, tsup.in_logw_r, torch.float32)):
@@ -151,6 +151,204 @@ def test_kernel_tables_hold_the_same_values_in_the_kernels_types(setup):
         assert torch.equal(k.to(ref.dtype), ref)
     # the int64 tables of the plain path stay
     assert tsup.in_src_r.dtype == torch.int64 and tsup.pdf_local_r.dtype == torch.int64
+
+
+def _expected_list(src, lpdf, logw):
+    """The live slots of dense [B, T-1, S, Kr] tables (numpy), per sequence
+    frame by frame in slot order, as (src, dst, lpdf, logw) rows, and the
+    per-frame offsets."""
+    B, Tm1, S, Kr = src.shape
+    lists, offs = [], []
+    for b in range(B):
+        rows, off = [], [0]
+        for t in range(Tm1):
+            slots = np.flatnonzero(src[b, t].reshape(-1) >= 0)
+            for i in slots:
+                s, k = divmod(int(i), Kr)
+                rows.append((src[b, t, s, k], s, lpdf[b, t, s, k], logw[b, t, s, k]))
+            off.append(off[-1] + len(slots))
+        lists.append(rows)
+        offs.append(off)
+    return lists, np.asarray(offs)
+
+
+def _assert_list(pre, src, lpdf, logw):
+    """K4's list in `pre` holds every live slot of the dense tables, in slot
+    order, with the right per-frame offsets, and zeros after a short list."""
+    _, _, _, arc_off, arcs = pre
+    src, lpdf, logw = (np.asarray(x) for x in (src, lpdf, logw))
+    lists, offs = _expected_list(src, lpdf, logw)
+    assert arc_off.dtype == arcs.dtype == torch.int32
+    assert arc_off.is_contiguous() and arcs.is_contiguous()
+    np.testing.assert_array_equal(arc_off.numpy(), offs)
+    L = max(1, max(len(x) for x in lists))
+    assert arcs.shape == (src.shape[0], L, 4)
+    for b, rows in enumerate(lists):
+        got = arcs[b].numpy()
+        n = len(rows)
+        if n:
+            want = np.asarray(rows)
+            np.testing.assert_array_equal(got[:n, :3], want[:, :3].astype(np.int32))
+            np.testing.assert_array_equal(got[:n, 3].view(np.float32),
+                                          want[:, 3].astype(np.float32))
+        assert (got[n:] == 0).all()
+
+
+def _list_records(pre, b, t):
+    """Frame t of sequence b in K4's list: src, dst, lpdf and logw."""
+    _, _, _, arc_off, arcs = pre
+    rec = arcs[b, arc_off[b, t]:arc_off[b, t + 1]]
+    return (*(rec[:, i].long() for i in range(3)), rec[:, 3].view(torch.float32))
+
+
+def _dense_records(tables, b, t):
+    """Frame t of sequence b as the dense design walked it: every slot,
+    pads (src -1) included."""
+    src, lpdf, logw = tables
+    Kr = src.shape[-1]
+    dst = torch.arange(src.shape[2]).repeat_interleave(Kr)
+    return src[b, t].reshape(-1).long(), dst, lpdf[b, t].reshape(-1).long(), logw[b, t].reshape(-1)
+
+
+def emulate_steady_backward(records, ysm, alphas, final_logw, log_p):
+    """K4 as csrc/num_resident.cu computes it, over each frame's records
+    (`records(b, t)`, K4's list or the dense slots): per frame, in reverse,
+    arc_w and post for each record (-inf and 0 on a pad); then each source
+    state scans the frame's records in order (maximum, then sum of exp, one
+    float32 addition at a time) and each vocabulary slot sums the posteriors
+    of its records the same way.  Elementwise values by torch's float32
+    operations, as the plain version computes them."""
+    B, Tm1, W = ysm.shape
+    S = final_logw.shape[1]
+    logp = torch.where(torch.isfinite(log_p), log_p, torch.inf)
+    beta = final_logw.clone()
+    gsm = torch.empty((Tm1, B, W))
+    for b in range(B):
+        for t in range(Tm1 - 1, -1, -1):
+            src, dst, lpdf, lw = records(b, t)
+            pad = src < 0
+            aw = torch.where(pad, -torch.inf, (lw + ysm[b, t, lpdf]) + beta[b, dst])
+            po = torch.where(pad, 0.0, torch.exp(alphas[t, b, src.clamp(min=0)] + aw - logp[b]))
+            nxt = torch.full((S,), -torch.inf)
+            for sp in range(S):
+                mine = aw[src == sp]
+                m = mine.max() if len(mine) else torch.tensor(-torch.inf)
+                if m > -torch.inf:
+                    acc = torch.tensor(0.0)
+                    for v in torch.exp(mine - m):
+                        acc = acc + v
+                    nxt[sp] = m + torch.log(acc)
+            for w in range(W):
+                acc = torch.tensor(0.0)
+                for v in po[lpdf == w]:
+                    acc = acc + v
+                gsm[t, b, w] = acc
+            beta[b] = nxt
+    return beta, gsm
+
+
+def _backward_inputs(tsup, ysmall, alpha1):
+    ysm = torch.as_tensor(ysmall)[:, 1:]
+    aT, rest = tnr.steady_forward_plain(
+        torch.as_tensor(alpha1), tsup.in_src_r, tsup.pdf_local_r, tsup.in_logw_r, ysm
+    )
+    alphas = torch.cat([torch.as_tensor(alpha1)[None], rest[:-1]])
+    log_p = torch.logsumexp(aT + tsup.final_logw, dim=-1)
+    return ysm, alphas, log_p
+
+
+def test_live_arc_list_holds_every_live_slot_in_slot_order(setup):
+    _, tsup, _, _ = setup
+    _assert_list(tsup.kernel_pre, tsup.in_src_r, tsup.pdf_local_r, tsup.in_logw_r)
+    # the tables K3 reads are the first three of the same tuple
+    rebuilt = tnr.kernel_tables(tsup.in_src_r, tsup.pdf_local_r, tsup.in_logw_r)
+    for a, b in zip(rebuilt, tsup.kernel_pre):
+        assert torch.equal(a, b)
+
+
+def test_k4_order_over_the_list_matches_plain_and_pallas(setup):
+    """The kernel's order over the list gives the plain version's bits: the
+    list keeps slot order, and the dense design's pads only added +0.0.
+    Against the JAX kernel in interpret mode within 1e-5."""
+    jsup, tsup, ysmall, alpha1 = setup
+    ysm, alphas, log_p = _backward_inputs(tsup, ysmall, alpha1)
+    log_p[0] = float("nan")
+    args = (ysm, alphas, tsup.final_logw, log_p)
+    beta1_e, gsm_e = emulate_steady_backward(
+        lambda b, t: _list_records(tsup.kernel_pre, b, t), *args)
+    beta1_p, gsm_p = tnr.steady_backward_plain(
+        tsup.in_src_r, tsup.pdf_local_r, tsup.in_logw_r, *args)
+    assert torch.equal(beta1_e, beta1_p) and torch.equal(gsm_e, gsm_p)
+    assert (gsm_e[:, 0] == 0).all() and (gsm_e[:, BAD] == 0).all()
+    beta1_j, gsm_j = jnr.steady_backward(
+        jsup.in_src_r, jsup.pdf_local_r, jsup.in_logw_r, jnp.asarray(ysmall[:, 1:]),
+        jnp.asarray(alphas.numpy()), jsup.final_logw, jnp.asarray(log_p.numpy()),
+        interpret=True,
+    )
+    _same_where_finite(beta1_e, beta1_j)
+    np.testing.assert_allclose(gsm_e.numpy(), np.asarray(gsm_j), atol=1e-5)
+
+
+def _edge_tables(Kr):
+    """Dense steady tables (B=3, 5 frames, 6 states) with random live slots
+    anywhere in a row, and at the edges: sequence 0's frame 1 without a
+    live arc, sequence 1's frame 2 with all S * Kr slots live, sequence 2
+    without a live arc at all."""
+    rng = np.random.default_rng(Kr)
+    B, Tm1, S, W = 3, 5, 6, 8
+    live = rng.random(size=(B, Tm1, S, Kr)) < 0.4
+    live[0, 1] = False
+    live[1, 2] = True
+    live[2] = False
+    src = np.where(live, rng.integers(0, S, size=live.shape), -1)
+    lpdf = np.where(live, rng.integers(0, W, size=live.shape), 0)
+    logw = np.where(live, rng.normal(size=live.shape), 0.0).astype(np.float32)
+    ysm = rng.normal(size=(B, Tm1, W)).astype(np.float32)
+    alphas = np.where(rng.random(size=(Tm1, B, S)) < 0.2, -np.inf,
+                      rng.normal(size=(Tm1, B, S))).astype(np.float32)
+    final = np.where(rng.random(size=(B, S)) < 0.5, -np.inf, 0.0).astype(np.float32)
+    final[:, 0] = 0.0
+    log_p = rng.normal(size=B).astype(np.float32)
+    log_p[2] = -np.inf
+    t = torch.as_tensor
+    return (t(src), t(lpdf), t(logw)), tuple(t(x) for x in (ysm, alphas, final, log_p))
+
+
+@pytest.mark.parametrize("Kr", [4, 12], ids=["production_Kr4", "trigram_Kr12"])
+def test_live_arc_list_at_the_edges(Kr):
+    """A frame without a live arc, a frame with every slot live and a
+    sequence with an empty list.  The kernel's order over the list gives
+    the bits of the dense design's order over every slot (its pads only
+    ever added +0.0 or were skipped).  Against the plain version: where a
+    source state has many arcs in one frame, torch sums them in another
+    grouping, so within the card's tolerances (beta 1e-5, gsm atol 1e-6 and
+    rtol 1e-5; log_p here is not the sequences' own, so gsm is not bounded
+    by 1)."""
+    tables, args = _edge_tables(Kr)
+    pre = tnr.kernel_tables(*tables)
+    _assert_list(pre, *tables)
+    _, _, _, arc_off, arcs = pre
+    assert arc_off[0, 2] == arc_off[0, 1]  # the empty frame
+    assert arc_off[1, 3] - arc_off[1, 2] == 6 * Kr  # the full frame
+    assert arc_off[2, -1] == 0 and (arcs[2] == 0).all()  # the empty list
+    beta1_e, gsm_e = emulate_steady_backward(lambda b, t: _list_records(pre, b, t), *args)
+    beta1_d, gsm_d = emulate_steady_backward(lambda b, t: _dense_records(tables, b, t), *args)
+    assert torch.equal(beta1_e, beta1_d) and torch.equal(gsm_e, gsm_d)
+    beta1_p, gsm_p = tnr.steady_backward_plain(*tables, *args)
+    _same_where_finite(beta1_e, beta1_p)
+    torch.testing.assert_close(gsm_e, gsm_p, atol=1e-6, rtol=1e-5)
+    assert (gsm_e[:, 2] == 0).all()
+
+
+def test_device_supervision_moves_with_its_live_arc_list(setup):
+    _, tsup, _, _ = setup
+    moved = tsup.to("meta")
+    assert moved.arc_off_k.device.type == moved.arcs_k.device.type == "meta"
+    assert all(x.device.type == "meta" for x in moved.kernel_pre)
+    assert len(moved.kernel_pre) == 5
+    bare = dataclasses.replace(tsup, src_k=None, pdf_local_k=None, logw_k=None,
+                               arc_off_k=None, arcs_k=None)
+    assert bare.to("meta").kernel_pre is None
 
 
 def test_no_steady_frames_is_the_identity(setup):

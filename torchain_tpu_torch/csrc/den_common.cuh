@@ -1,6 +1,8 @@
 // What the sparse denominator kernels share (den_resident.cu: K1/K2,
 // den_dense.cu: K9f/K9b): the block size, cp.async row copies, the
-// fixed-order block reductions and the opt-in shared-memory allowance.
+// fixed-order block reductions and the opt-in shared-memory allowance.  The
+// numerator kernels (num_resident.cu: K4, num_e2e.cu: K8) take the
+// cp.async, sizing and allowance helpers from here too.
 //
 // Every block sum has one order: a thread's share in index order (thread i
 // takes i, i + THREADS, ...), then a butterfly over the lanes of each warp
@@ -43,6 +45,20 @@ __device__ __forceinline__ void commit_async() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 __device__ __forceinline__ void wait_async() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+// wait until at most N of this thread's committed groups are pending
+template <int N>
+__device__ __forceinline__ void wait_async_groups() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Queue one copy into shared memory: 4 bytes (any 4-byte aligned source),
+// or 16 (both addresses 16-byte aligned).
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst)), "l"(src));
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src));
+}
 
 // the larger of a and b, NaN if either is (as torch.max)
 __device__ __forceinline__ float max_nan(float a, float b) { return (a != a || a > b) ? a : b; }

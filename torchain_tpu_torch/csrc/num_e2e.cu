@@ -22,48 +22,68 @@
 //   fast-math: the recursion relies on expf(-inf) == 0 and on exact -inf
 //   arithmetic.
 //
-// What bounds it on the H100: bytes.  Of ylocal only the live slots are
-// needed (6% of 66 MB at B=128, T=50, S=55, K=47), and backward, post is
-// written in full (66 MB, its pad slots zeros: 20 microseconds of device
-// memory time), against a few exp/log per live arc; but the T frames depend
-// on each other, which sets a latency floor the bound does not see.  The TPU kernel keeps the batch on the lanes
-// ([K, S, B] tiles) and selects alpha[src] with an S-long loop of comparison
-// masks, because it cannot gather.  Here sequences are independent, so one
-// thread block owns one sequence and loops over all frames inside one launch:
-// alpha (or beta) is double-buffered in shared memory, because the graphs are
-// cyclic and a frame's result must not land in the buffer the frame still
-// reads; arcs index it directly; the tables are taken in their natural
-// [B, S, K] layout, so the large ylocal is never transposed.  One warp takes
-// one state at a time, its lanes the state's arc slots, and reduces with
-// shuffles in a fixed order.  The sequence's own tables (src, logw, the
-// by-source list) are read from device memory every frame: they are at most
-// tens of KB per block and stay in L1/L2, so a copy in shared memory gains
-// nothing (measured level on an H100 at both shapes the port serves) and
-// would bound S * K.
+// K8f.  What bounds it on the H100: the latency of 50 dependent frames, not
+// bytes (of ylocal only the live slots are needed: 6% of 66 MB at B=128,
+// T=50, S=55, K=47).  The TPU kernel keeps the batch on the lanes ([K, S, B]
+// tiles) and selects alpha[src] with an S-long loop of comparison masks,
+// because it cannot gather.  Here sequences are independent, so one thread
+// block owns one sequence and loops over all frames inside one launch:
+// alpha is double-buffered in shared memory, because the graphs are cyclic
+// and a frame's result must not land in the buffer the frame still reads;
+// arcs index it directly; the tables are taken in their natural [B, S, K]
+// layout, so the large ylocal is never transposed.  One warp takes one
+// state at a time, its lanes the state's arc slots, and reduces with
+// shuffles in a fixed order; the wrapper passes nk[s], one past the last
+// live slot of state s, and the forward reads neither tables nor ylocal
+// beyond it.
 //
-// Pad slots: the wrapper passes nk[s], one past the last live slot of state
-// s (6% of the slots are live at the trigram shape), and the forward reads
-// neither tables nor ylocal beyond it.  K8b's reduction by SOURCE state uses
-// no atomics and repeats bit for bit: the wrapper prepares, once per batch,
-// each sequence's live slots in source order (by_off [S + 1], by_arc), and
-// one warp per source state adds them up in that order.
+// K8b walks only the live arcs, and no global load is on a frame's
+// dependency chain.  The wrapper prepares, once per batch, each sequence's
+// live slots in source order (by_off [S + 1], by_arc; about 159 of 2,585
+// slots a sequence at the trigram shape).  One block per sequence turns
+// them, once per launch, into 16-byte records in shared memory (slot,
+// source, destination = slot / K, logw), with the offsets.  The frames'
+// inputs run through a ring of STAGES buffers filled by cp.async STAGES - 1
+// frames ahead: each frame's live ylocal values (a gather of L floats from
+// the frame's 10 KB row) and its alpha row, so the latency of device memory
+// stays off the chain (one frame ahead would leave it there: a frame takes
+// less time than a load from device memory).  Per frame, after one barrier,
+// each source state's run of the list is walked: arc_w of each arc, its
+// posterior stored at its slot, and the run reduced (maximum, then sum of
+// exp) into the next beta, double-buffered as in K8f.  A run of up to
+// HEAVY_RUN arcs (most states of the e2e graphs have 2) goes to one thread,
+// in list order; a longer one (one state of each graph has 36-128
+// out-arcs, and its run is the frame's critical path) to a whole warp: lane
+// g takes arcs g, g + 32, ..., then a butterfly.  Threads are few (192 at
+// S = 55): a group of 16 lanes for every state ran slower on an H100 at
+// the trigram e2e batch, the SM's issue slots spent on the butterflies of
+// two-arc runs.  Two more warps
+// keep the ring filled and write post in full: the next frame's row as
+// zeros with 16-byte streaming stores (66 MB at the
+// trigram shape, 20 microseconds at 3.35 TB/s, spread over the frames),
+// and the barrier orders them before that frame's live stores.  Shared
+// memory per block (staged plan): 16 L + 4 STAGES (L + S) + 8 (S + 1) + 8 S
+// bytes, each array rounded to 16 (L the longest list of the batch): 9,264
+// bytes at the trigram e2e batch (L 234, S 55), 4,464 at the production
+// one (L 92, S 47).  What bounds it is the latency of 50 dependent frames; the
+// post write is the byte bound.  Where the list does not fit (the plan is
+// chosen from sizes alone, e2e_backward_shared_bytes), the block keeps only
+// beta in shared memory and reads the list, the tables, ylocal and alpha
+// from device memory each frame.  Either way the sums have one order: two
+// launches give the same bits.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include <limits.h>
+
+#include "den_common.cuh"
 
 namespace {
 
 constexpr unsigned FULL = 0xffffffffu;
 
-__device__ __forceinline__ float warp_max(float v) {
+// the warp's maximum by fmaxf (a NaN lane is passed over)
+__device__ __forceinline__ float warp_fmax(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, off));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(FULL, v, off);
   return v;
 }
 
@@ -101,7 +121,7 @@ __global__ void e2e_fwd_kernel(const float* __restrict__ ylocal, const int* __re
         const int sp = src_b[row + k];
         if (sp >= 0) m = fmaxf(m, (cur[sp] + logw_b[row + k]) + yl[row + k]);
       }
-      m = warp_max(m);
+      m = warp_fmax(m);
       float sum = 0.0f;
       if (m > -INFINITY)
         for (int k = lane; k < n; k += 32) {
@@ -118,71 +138,214 @@ __global__ void e2e_fwd_kernel(const float* __restrict__ ylocal, const int* __re
   }
 }
 
-// K8b.  One block per sequence b.  Dynamic shared memory: 3 S floats (beta
-// twice, alpha_t).
+// frames whose inputs K8b's ring holds: filled STAGES - 1 frames ahead
+constexpr int STAGES = 4;
+
+// a source state whose run of the list is longer than this is reduced by a
+// whole warp (a heavy state), a shorter run by one thread
+constexpr int HEAVY_RUN = 4;
+// K8b's warps besides one thread per source state: for the heavy states,
+// and for the copies (the ring, the zeros of post)
+constexpr int HEAVY_WARPS = 2;
+constexpr int COPY_WARPS = 2;
+
+// K8b's shared memory.  Staged: the records [L] (int4), the ring of ylocal
+// values [STAGES][L] and alpha rows [STAGES][S], the offsets [S + 1]; then
+// (both plans) the heavy states [S + 1] (their count first) and beta [2][S].
+struct K8Layout {
+  long long rec, yv, alpha, off, heavy, beta, bytes;
+};
+
+__host__ __device__ inline K8Layout k8_layout(bool staged, int L, int S) {
+  K8Layout l{};
+  long long o = 0;
+  if (staged) {
+    l.rec = o;
+    o = up16(o + 16LL * L);
+    l.yv = o;
+    o = up16(o + 4LL * STAGES * L);
+    l.alpha = o;
+    o = up16(o + 4LL * STAGES * S);
+    l.off = o;
+    o = up16(o + 4LL * (S + 1));
+  }
+  l.heavy = o;
+  o = up16(o + 4LL * (S + 1));
+  l.beta = o;
+  l.bytes = up16(o + 8LL * S);
+  return l;
+}
+
+// n floats from p as zeros, by threads tid of nt: 16-byte streaming stores,
+// scalar ones for a head up to 16-byte alignment and for the tail
+__device__ __forceinline__ void zero_span(float* p, int n, int tid, int nt) {
+  const int head = min(n, (int)((16 - ((uintptr_t)p & 15)) & 15) / 4);
+  for (int i = tid; i < head; i += nt) __stcs(p + i, 0.0f);
+  float4* body = reinterpret_cast<float4*>(p + head);
+  const int nv = (n - head) / 4;
+  for (int i = tid; i < nv; i += nt) __stcs(body + i, make_float4(0.0f, 0.0f, 0.0f, 0.0f));
+  for (int i = head + 4 * nv + tid; i < n; i += nt) __stcs(p + i, 0.0f);
+}
+
+// K8b.  One block per sequence b: threads [0, NL) one per source state
+// (NL = blockDim.x - 32 * (HEAVY_WARPS + COPY_WARPS), a multiple of 32),
+// then the heavy warps, then the copy warps.
 // alphas [T, B, S] (frames 0 .. T-1); final_logw [B, S]; logp [B];
 // by_off [B, S + 1]; by_arc [B, L]; post out [B, T, S, K].
+template <bool STAGED>
 __global__ void e2e_bwd_kernel(const float* __restrict__ ylocal, const float* __restrict__ alphas,
                                const int* __restrict__ src, const float* __restrict__ logw,
                                const float* __restrict__ final_logw,
                                const float* __restrict__ logp_in, const int* __restrict__ by_off,
                                const int* __restrict__ by_arc, float* __restrict__ post, int B,
                                int T, int S, int K, int L) {
-  extern __shared__ float sh[];
-  const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
-  const int lane = tid & 31, warp = tid >> 5, nwarps = nt >> 5;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const K8Layout lay = k8_layout(STAGED, L, S);
+  int4* rec_sh = reinterpret_cast<int4*>(smem + lay.rec);  // (slot, src, dst, logw bits)
+  float* yv_sh = reinterpret_cast<float*>(smem + lay.yv);
+  float* alpha_sh = reinterpret_cast<float*>(smem + lay.alpha);
+  int* off_sh = reinterpret_cast<int*>(smem + lay.off);
+  int* heavy_sh = reinterpret_cast<int*>(smem + lay.heavy);  // [0]: count
+  float* beta_sh = reinterpret_cast<float*>(smem + lay.beta);  // [2][S]
+  const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x, lane = tid & 31;
+  const int NL = nt - 32 * (HEAVY_WARPS + COPY_WARPS), NC = 32 * COPY_WARPS;
+  const int hw = (tid - NL) >> 5, ct = tid - (nt - NC);  // heavy warp; copy thread
   const int A = S * K;
-  float* beta_sh = sh;           // [2][S]
-  float* alpha_sh = sh + 2 * S;  // [S]
   const int* src_b = src + (size_t)b * A;
   const float* logw_b = logw + (size_t)b * A;
-  const int* off_b = by_off + (size_t)b * (S + 1);
+  const int* off_b = STAGED ? off_sh : by_off + (size_t)b * (S + 1);
   const int* arc_b = by_arc + (size_t)b * L;
+  const float* yl_b = ylocal + (size_t)b * T * A;
+  float* po_b = post + (size_t)b * T * A;
   const float lp = logp_in[b];
   const float logp = isfinite(lp) ? lp : INFINITY;
+  const int n = by_off[(size_t)b * (S + 1) + S];  // the sequence's live arcs
+
+  // frame i (t = T-1-i) of the ring, by the copy warps: its live ylocal
+  // values and alpha row
+  auto stage = [&](int i) {
+    if (ct >= 0 && i < T) {
+      const int t = T - 1 - i, buf = i % STAGES;
+      const float* yl = yl_b + (size_t)t * A;
+      for (int j = ct; j < n; j += NC) cp_async4(yv_sh + buf * L + j, yl + rec_sh[j].x);
+      const float* arow = alphas + ((size_t)t * B + b) * S;
+      for (int s = ct; s < S; s += NC) cp_async4(alpha_sh + buf * S + s, arow + s);
+    }
+    commit_async();  // an empty group past the last frame keeps the count
+  };
+
   for (int s = tid; s < S; s += nt) beta_sh[s] = final_logw[(size_t)b * S + s];
+  if (STAGED) {
+    for (int s = tid; s <= S; s += nt) off_sh[s] = by_off[(size_t)b * (S + 1) + s];
+    for (int j = tid; j < n; j += nt) {
+      const int a = arc_b[j];
+      rec_sh[j] = make_int4(a, src_b[a], a / K, __float_as_int(logw_b[a]));
+    }
+    __syncthreads();  // the records and offsets are in place
+  }
+  if (tid == 0) {
+    int nh = 0;
+    for (int s = 0; s < S; ++s)
+      if (off_b[s + 1] - off_b[s] > HEAVY_RUN) heavy_sh[1 + nh++] = s;
+    heavy_sh[0] = nh;
+  }
+  if (STAGED)
+    for (int i = 0; i < STAGES - 1; ++i) stage(i);
+  if (ct >= 0) zero_span(po_b + (size_t)(T - 1) * A, A, ct, NC);
   for (int i = 0; i < T; ++i) {
-    const int t = T - 1 - i;
+    const int t = T - 1 - i, buf = i % STAGES;
     const float* cur = beta_sh + (i & 1) * S;
     float* nxt = beta_sh + ((i + 1) & 1) * S;
-    const float* yl = ylocal + ((size_t)b * T + t) * A;
-    float* po = post + ((size_t)b * T + t) * A;
-    const float* arow = alphas + ((size_t)t * B + b) * S;
-    for (int s = tid; s < S; s += nt) alpha_sh[s] = arow[s];
-    __syncthreads();  // cur (written last frame) and alpha_sh are in place
-    // per-arc posteriors, every slot of the frame written (0 on pads)
-    for (int a = tid; a < A; a += nt) {
-      const int sp = src_b[a];
-      float p = 0.0f;
-      if (sp >= 0) {
-        const float aw = (logw_b[a] + yl[a]) + cur[a / K];
-        // alpha or aw may be -inf and logp +inf: the sum is then -inf (never
-        // inf - inf), and expf(-inf) is exactly 0
-        p = expf(alpha_sh[sp] + aw - logp);
+    if (STAGED) wait_async_groups<STAGES - 2>();
+    // frame t's ring entry (each thread's own copies, then everyone's), the
+    // beta written last frame, the heavy states and the zeros of row t are
+    // all in place
+    __syncthreads();
+    const float* yl = yl_b + (size_t)t * A;
+    const float* al = STAGED ? alpha_sh + buf * S : alphas + ((size_t)t * B + b) * S;
+    float* po = po_b + (size_t)t * A;
+    // arc j of the list: its slot, and its arc_w into aw
+    auto arc = [&](int j, float& aw) {
+      if (STAGED) {
+        const int4 r = rec_sh[j];
+        aw = (__int_as_float(r.w) + yv_sh[buf * L + j]) + cur[r.z];
+        return r.x;
       }
-      po[a] = p;
-    }
-    // beta of the source states: one warp per source state, its live slots
-    // in the prepared order
-    for (int sp = warp; sp < S; sp += nwarps) {
-      const int j0 = off_b[sp], j1 = off_b[sp + 1];
-      float m = -INFINITY;
-      for (int j = j0 + lane; j < j1; j += 32) {
-        const int a = arc_b[j];
-        m = fmaxf(m, (logw_b[a] + yl[a]) + cur[a / K]);
-      }
-      m = warp_max(m);
-      float sum = 0.0f;
-      if (m > -INFINITY)
-        for (int j = j0 + lane; j < j1; j += 32) {
-          const int a = arc_b[j];
-          sum += expf((logw_b[a] + yl[a]) + cur[a / K] - m);
+      const int a = arc_b[j];
+      aw = (logw_b[a] + yl[a]) + cur[a / K];
+      return a;
+    };
+    // alpha or aw may be -inf and logp +inf: each posterior's sum is then
+    // -inf (never inf - inf), and expf(-inf) is exactly 0
+    if (tid < NL) {
+      // a light state: its run in list order, by one thread
+      for (int sp = tid; sp < S; sp += NL) {
+        const int j0 = off_b[sp], j1 = off_b[sp + 1];
+        if (j1 - j0 > HEAVY_RUN) continue;
+        const float asp = al[sp];
+        float m = -INFINITY, aw;
+        for (int j = j0; j < j1; ++j) {
+          const int a = arc(j, aw);
+          po[a] = expf(asp + aw - logp);
+          m = fmaxf(m, aw);
         }
-      const float r = warp_lse(m, sum);
-      if (lane == 0) nxt[sp] = r;
+        float r = -INFINITY;
+        if (m > -INFINITY) {
+          float sum = 0.0f;
+          for (int j = j0; j < j1; ++j) {
+            arc(j, aw);
+            sum += expf(aw - m);
+          }
+          r = m + logf(sum);
+        }
+        nxt[sp] = r;
+      }
+    } else if (ct < 0) {
+      // a heavy state: lane g takes arcs g, g + 32, ... of its run (the
+      // first four arc_w kept in registers), then a butterfly
+      for (int h = hw; h < heavy_sh[0]; h += HEAVY_WARPS) {
+        const int sp = heavy_sh[1 + h], j0 = off_b[sp], j1 = off_b[sp + 1];
+        const float asp = al[sp];
+        float m = -INFINITY, aw, kept[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int j = j0 + lane + 32 * k;
+          kept[k] = -INFINITY;
+          if (j < j1) {
+            const int a = arc(j, aw);
+            po[a] = expf(asp + aw - logp);
+            kept[k] = aw;
+            m = fmaxf(m, aw);
+          }
+        }
+        for (int j = j0 + lane + 128; j < j1; j += 32) {
+          const int a = arc(j, aw);
+          po[a] = expf(asp + aw - logp);
+          m = fmaxf(m, aw);
+        }
+        m = warp_fmax(m);
+        float sum = 0.0f;
+        if (m > -INFINITY) {
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            if (j0 + lane + 32 * k < j1) sum += expf(kept[k] - m);
+          for (int j = j0 + lane + 128; j < j1; j += 32) {
+            arc(j, aw);
+            sum += expf(aw - m);
+          }
+        }
+        sum = warp_sum(sum);
+        if (lane == 0) nxt[sp] = m > -INFINITY ? m + logf(sum) : -INFINITY;
+      }
+    } else {
+      // the copy warps: frame t - STAGES + 1's inputs into the ring entry
+      // frame t + 1 has left, and the next row's zeros (ordered before its
+      // live stores by the next barrier)
+      if (STAGED) stage(i + STAGES - 1);
+      if (t > 0) zero_span(po_b + (size_t)(t - 1) * A, A, ct, NC);
     }
-    __syncthreads();  // every thread has left cur and alpha_sh; nxt is complete
   }
+  if (STAGED) wait_async_groups<0>();  // the ring's empty groups, before the block exits
 }
 
 }  // namespace
@@ -193,12 +356,13 @@ const char* cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)
 
 // The most dynamic shared memory a block of these kernels may ask for on the
 // current device (opt-in limit), in bytes.
-int e2e_shared_limit() {
-  int dev = 0, limit = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
-  if (cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess)
-    return 0;
-  return limit;
+int e2e_shared_limit() { return shared_limit(); }
+
+// Bytes of dynamic shared memory a K8b block asks for: with the list staged
+// (staged = 1) or beta alone (0).
+int e2e_backward_shared_bytes(int staged, int L, int S) {
+  const long long bytes = k8_layout(staged != 0, L, S).bytes;
+  return bytes > INT_MAX ? INT_MAX : (int)bytes;
 }
 
 // K8f: alphas of frames 1 .. T, on `stream`.  The wrapper has held the
@@ -206,27 +370,38 @@ int e2e_shared_limit() {
 int e2e_forward(const float* ylocal, const int* src, const float* logw, const int* nk,
                 float* out, int B, int T, int S, int K, int threads, cudaStream_t stream) {
   if (B == 0 || T == 0) return 0;
+  static int granted = 0;
   const int smem = 2 * S * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(e2e_fwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
+  const int err = allow_shared(e2e_fwd_kernel, smem, granted);
+  if (err) return err;
   e2e_fwd_kernel<<<B, threads, smem, stream>>>(ylocal, src, logw, nk, out, B, T, S, K);
   return (int)cudaGetLastError();
 }
 
-// K8b: per-arc posteriors of frames 0 .. T-1, on `stream` (3 S floats of
-// shared memory).
+// K8b: per-arc posteriors of frames 0 .. T-1, on `stream`; `staged` as
+// e2e_backward_shared_bytes; one thread per source state (at most 896) and
+// the heavy and copy warps.
 int e2e_backward(const float* ylocal, const float* alphas, const int* src, const float* logw,
                  const float* final_logw, const float* logp, const int* by_off,
-                 const int* by_arc, float* post, int B, int T, int S, int K, int L, int threads,
+                 const int* by_arc, float* post, int B, int T, int S, int K, int L, int staged,
                  cudaStream_t stream) {
   if (B == 0 || T == 0) return 0;
-  const int smem = 3 * S * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(e2e_bwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  e2e_bwd_kernel<<<B, threads, smem, stream>>>(ylocal, alphas, src, logw, final_logw, logp,
-                                               by_off, by_arc, post, B, T, S, K, L);
+  static int granted[2] = {0, 0};
+  const long long bytes = k8_layout(staged != 0, L, S).bytes;
+  const int threads =
+      32 * (min((S + 31) / 32, 32 - HEAVY_WARPS - COPY_WARPS) + HEAVY_WARPS + COPY_WARPS);
+  int err;
+  if (staged) {
+    if ((err = allow_shared(e2e_bwd_kernel<true>, bytes, granted[1]))) return err;
+    e2e_bwd_kernel<true><<<B, threads, bytes, stream>>>(ylocal, alphas, src, logw, final_logw,
+                                                        logp, by_off, by_arc, post, B, T, S, K,
+                                                        L);
+  } else {
+    if ((err = allow_shared(e2e_bwd_kernel<false>, bytes, granted[0]))) return err;
+    e2e_bwd_kernel<false><<<B, threads, bytes, stream>>>(ylocal, alphas, src, logw, final_logw,
+                                                         logp, by_off, by_arc, post, B, T, S, K,
+                                                         L);
+  }
   return (int)cudaGetLastError();
 }
 

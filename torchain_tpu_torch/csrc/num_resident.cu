@@ -22,27 +22,52 @@
 //   anything is subtracted from it.  No fast-math: the recursion relies on
 //   expf(-inf) == 0 and on exact -inf arithmetic.
 //
-// What bounds it on the H100: neither bytes nor operations but latency.  The
+// What bounds K3 on the H100: neither bytes nor operations but latency.  The
 // tables are read once (about 18 MB at B=128, T=50, S=20, Kr=12: microseconds
 // of device memory time) and the arithmetic is a few hundred exp/log per
 // frame, but the T-1 frames depend on each other.  The TPU kernel keeps the
 // batch on the lanes ([Kr, S, B] tiles) and selects alpha[src] and ysm[lpdf]
 // with S- and W-long loops of comparison masks, because it cannot gather.
 // Here sequences are independent, so one thread block owns one sequence and
-// loops over all frames inside one launch: alpha (or beta) lives in shared
-// memory, arcs index it directly, and a frame costs two __syncthreads().
-// Nothing carries between blocks.  The next frame's table rows are
-// prefetched into L2 while the current frame computes.
+// loops over all frames inside one launch: alpha lives in shared memory,
+// arcs index it directly, and a frame costs two __syncthreads().  Nothing
+// carries between blocks.  The next frame's table rows are prefetched into
+// L2 while the current frame computes.
 //
-// K4's two reductions use no atomics and repeat bit for bit: one thread per
-// source state scans the frame's arc slots in shared memory in slot order
-// (maximum, then sum of exp), and one thread per vocabulary slot sums the
-// posteriors likewise.  Pad slots are read like any other (97% of the slots
-// are pads at the trigram shapes); a compact list of live arcs per frame is
-// the later optimisation.
+// K4 walks only the live arcs.  97% of the dense slots are pads at the
+// trigram shapes (40,875 live of 1,505,280: about 6.5 a frame of a
+// sequence), so the wrapper lists each sequence's live arcs once, when a
+// batch is placed (ops/num_resident.py kernel_tables): frame by frame, in
+// slot order, one 16-byte record each (src, dst = slot / Kr, lpdf, logw),
+// with per-frame offsets.  One block per sequence (a warp or more for the
+// source states, then one or more for the vocabulary slots) copies, by
+// cp.async before the first frame, everything the frame loop reads into
+// shared memory: the offsets, its whole list, its ysm rows and its alpha
+// rows (the staged plan).  Where the list does not fit, each frame's
+// records, ysm row and alpha row are copied instead one frame ahead into
+// one of two buffers (the streamed plan, sized by S * Kr, the most live
+// arcs a frame can have).  The plan is chosen from sizes alone
+// (steady_shared_bytes).  Per frame, in reverse: one thread per live arc
+// computes arc_w and post into shared memory; a barrier; one thread per
+// source state scans the frame's records for its arcs (the maximum, noting
+// which arcs are its own, then the sum of exp over those) while one thread
+// per vocabulary slot, in other warps, sums the posteriors of its arcs; a
+// barrier.  No global load is on the frame's dependency chain.  Shared
+// memory per block (staged, L the longest list of the batch): 16 L + 4 (T
+// + (T - 1) (W + S) + S + 2 S Kr) bytes, each array rounded to 16: 16,368
+// at trigram (L 444, S 20, Kr 12, W 16) and 12,128 at production (L 375, S
+// 12, Kr 4).  What bounds K4 is the latency of 49 dependent frames (two
+// barriers and scans of the frame's records, about 1 microsecond a frame on
+// an H100), not bytes.
+//
+// Both reductions use no atomics and repeat bit for bit.  The records keep
+// slot order, the scans keep it, and the dense design's pads only ever
+// added +0.0 or were skipped, so the sums run in the order of the dense
+// design: the same bits.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include <limits.h>
+
+#include "den_common.cuh"
 
 namespace {
 
@@ -99,79 +124,140 @@ __global__ void steady_fwd_kernel(const int* __restrict__ src, const int* __rest
   }
 }
 
-// K4.  One block per sequence b; dynamic shared memory (2 S + W + 2 S*Kr)
-// floats and 2 S*Kr ints.  alphas [Tm1, B, S] are the alphas of each frame's
-// SOURCE states; final [B, S]; logp [B]; gsm out [Tm1, B, W]; beta1 out
-// [B, S]: the beta after the earliest frame's step.
-__global__ void steady_bwd_kernel(const int* __restrict__ src, const int* __restrict__ lpdf,
-                                  const float* __restrict__ logw, const float* __restrict__ ysm,
-                                  long long ys_b, long long ys_t,
-                                  const float* __restrict__ alphas,
+// K4's shared memory: the offsets [T], the records (staged: the whole list
+// [L]; streamed: two frames' [2][A]), the ysm rows ([T-1][W] or [2][W]), the
+// alpha rows ([T-1][S] or [2][S]), beta [S], arc_w and post [A] each.
+struct K4Layout {
+  long long off, rec, ysm, alpha, beta, aw, po, bytes;
+};
+
+__host__ __device__ inline K4Layout k4_layout(bool staged, int L, int Tm1, int S, int A, int W) {
+  K4Layout l;
+  const long long rows = staged ? Tm1 : 2;
+  long long o = 0;
+  l.rec = o;
+  o = up16(o + 16LL * (staged ? L : 2LL * A));
+  l.off = o;
+  o = up16(o + 4LL * (Tm1 + 1));
+  l.ysm = o;
+  o = up16(o + 4LL * rows * W);
+  l.alpha = o;
+  o = up16(o + 4LL * rows * S);
+  l.beta = o;
+  o = up16(o + 4LL * S);
+  l.aw = o;
+  o = up16(o + 4LL * A);
+  l.po = o;
+  l.bytes = up16(o + 4LL * A);
+  return l;
+}
+
+// K4.  One block per sequence b.  arcs [B, L] records (src, dst, lpdf, logw
+// bits) of the live arcs, frame by frame in slot order; arc_off [B, T]:
+// where frame t's records start in the sequence's list, and one past the
+// last.  ysm rows at b * ys_b + t * ys_t, W wide; alphas [Tm1, B, S] are the
+// alphas of each frame's SOURCE states; final [B, S]; logp [B]; gsm out
+// [Tm1, B, W]; beta1 out [B, S]: the beta after the earliest frame's step.
+template <bool STAGED>
+__global__ void steady_bwd_kernel(const int4* __restrict__ arcs, const int* __restrict__ arc_off,
+                                  int L, const float* __restrict__ ysm, long long ys_b,
+                                  long long ys_t, const float* __restrict__ alphas,
                                   const float* __restrict__ final_logw,
                                   const float* __restrict__ logp_in, float* __restrict__ gsm,
-                                  float* __restrict__ beta1, int B, int Tm1, int S, int Kr,
+                                  float* __restrict__ beta1, int B, int Tm1, int S, int A,
                                   int W) {
-  extern __shared__ float sh[];
-  const int A = S * Kr;
-  float* beta_sh = sh;            // [S]
-  float* alpha_sh = beta_sh + S;  // [S]
-  float* ysm_sh = alpha_sh + S;   // [W]
-  float* arcw_sh = ysm_sh + W;    // [A]
-  float* post_sh = arcw_sh + A;   // [A]
-  int* src_sh = reinterpret_cast<int*>(post_sh + A);  // [A]
-  int* lpdf_sh = src_sh + A;                          // [A]
+  extern __shared__ __align__(16) unsigned char smem[];
+  const K4Layout lay = k4_layout(STAGED, L, Tm1, S, A, W);
+  int4* rec_sh = reinterpret_cast<int4*>(smem + lay.rec);
+  int* off_sh = reinterpret_cast<int*>(smem + lay.off);
+  float* ysm_sh = reinterpret_cast<float*>(smem + lay.ysm);
+  float* alpha_sh = reinterpret_cast<float*>(smem + lay.alpha);
+  float* beta_sh = reinterpret_cast<float*>(smem + lay.beta);
+  float* aw_sh = reinterpret_cast<float*>(smem + lay.aw);
+  float* po_sh = reinterpret_cast<float*>(smem + lay.po);
   const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
+  const int4* arcs_b = arcs + (size_t)b * L;
+  const int* off_b = arc_off + (size_t)b * (Tm1 + 1);
+  const float* ys_seq = ysm + (size_t)b * ys_b;
   const float lp = logp_in[b];
   const float logp = isfinite(lp) ? lp : INFINITY;
-  for (int s = tid; s < S; s += nt) beta_sh[s] = final_logw[(size_t)b * S + s];
-  for (int t = Tm1 - 1; t >= 0; --t) {
-    const size_t base = ((size_t)b * Tm1 + t) * A;
-    const float* yrow = ysm + (size_t)b * ys_b + (size_t)t * ys_t;
+
+  // frame t's records, ysm row and alpha row into buffer t & 1 (streamed)
+  auto stage_frame = [&](int t) {
+    const int j0 = off_sh[t], n = off_sh[t + 1] - j0;
+    int4* rd = rec_sh + (t & 1) * A;
+    for (int j = tid; j < n; j += nt) cp_async16(rd + j, arcs_b + j0 + j);
+    const float* yrow = ys_seq + (size_t)t * ys_t;
+    for (int w = tid; w < W; w += nt) cp_async4(ysm_sh + (t & 1) * W + w, yrow + w);
     const float* arow = alphas + ((size_t)t * B + b) * S;
-    for (int w = tid; w < W; w += nt) ysm_sh[w] = yrow[w];
-    for (int s = tid; s < S; s += nt) alpha_sh[s] = arow[s];
-    if (t > 0)
-      for (int i = tid; i < A; i += nt) {
-        prefetch_l2(src + base - A + i);
-        prefetch_l2(lpdf + base - A + i);
-        prefetch_l2(logw + base - A + i);
-      }
-    __syncthreads();  // beta_sh, alpha_sh and ysm_sh of this frame are in place
-    for (int i = tid; i < A; i += nt) {
-      const int sp = src[base + i];
-      const int l = lpdf[base + i];
-      float aw = -INFINITY, po = 0.0f;
-      if (sp >= 0) {
-        aw = (logw[base + i] + ysm_sh[l]) + beta_sh[i / Kr];
-        // alpha or aw may be -inf and logp +inf: the sum is then -inf (never
-        // inf - inf), and expf(-inf) is exactly 0
-        po = expf(alpha_sh[sp] + aw - logp);
-      }
-      src_sh[i] = sp;
-      lpdf_sh[i] = l;
-      arcw_sh[i] = aw;
-      post_sh[i] = po;
+    for (int s = tid; s < S; s += nt) cp_async4(alpha_sh + (t & 1) * S + s, arow + s);
+    commit_async();
+  };
+
+  for (int t = tid; t <= Tm1; t += nt) cp_async4(off_sh + t, off_b + t);
+  if (STAGED) {
+    for (int j = tid; j < L; j += nt) cp_async16(rec_sh + j, arcs_b + j);
+    for (int i = tid; i < Tm1 * W; i += nt) {
+      const int t = i / W;
+      cp_async4(ysm_sh + i, ys_seq + (size_t)t * ys_t + (i - t * W));
     }
-    __syncthreads();  // every arc has read beta_sh; the arc arrays are complete
+    for (int i = tid; i < Tm1 * S; i += nt) {
+      const int t = i / S;
+      cp_async4(alpha_sh + i, alphas + ((size_t)t * B + b) * S + (i - t * S));
+    }
+  }
+  commit_async();
+  for (int s = tid; s < S; s += nt) beta_sh[s] = final_logw[(size_t)b * S + s];
+  if (!STAGED) {
+    wait_async();
+    __syncthreads();  // the offsets are in place
+    stage_frame(Tm1 - 1);
+  }
+  for (int t = Tm1 - 1; t >= 0; --t) {
+    wait_async();
+    __syncthreads();  // frame t's records, ysm and alpha rows and beta are in place
+    if (!STAGED && t > 0) stage_frame(t - 1);  // into the buffer frame t + 1 has left
+    const int j0 = off_sh[t], n = off_sh[t + 1] - j0;
+    const int4* rf = STAGED ? rec_sh + j0 : rec_sh + (t & 1) * A;
+    const float* ys = STAGED ? ysm_sh + (size_t)t * W : ysm_sh + (t & 1) * W;
+    const float* al = STAGED ? alpha_sh + (size_t)t * S : alpha_sh + (t & 1) * S;
+    for (int j = tid; j < n; j += nt) {
+      const int4 r = rf[j];
+      const float aw = (__int_as_float(r.w) + ys[r.z]) + beta_sh[r.y];
+      aw_sh[j] = aw;
+      // alpha or aw may be -inf and logp +inf: the sum is then -inf (never
+      // inf - inf), and expf(-inf) is exactly 0
+      po_sh[j] = expf(al[r.x] + aw - logp);
+    }
+    __syncthreads();  // every arc has read beta_sh; arc_w and post are complete
     // the lowest threads take the source states, the highest the vocabulary
     // slots, so that the two scans run in different warps
     for (int sp = tid; sp < S; sp += nt) {
+      // the first pass notes its arcs among the frame's first 64, and the
+      // second walks those bits in ascending order: the same order
       float m = -INFINITY;
-      for (int a = 0; a < A; ++a)
-        if (src_sh[a] == sp) m = fmaxf(m, arcw_sh[a]);
+      unsigned long long hit = 0;
+#pragma unroll 4
+      for (int j = 0; j < n; ++j)
+        if (rf[j].x == sp) {
+          m = fmaxf(m, aw_sh[j]);
+          hit |= j < 64 ? 1ull << j : 0ull;
+        }
       float r = -INFINITY;
       if (m > -INFINITY) {
         float sum = 0.0f;
-        for (int a = 0; a < A; ++a)
-          if (src_sh[a] == sp) sum += expf(arcw_sh[a] - m);
+        for (; hit; hit &= hit - 1) sum += expf(aw_sh[__ffsll(hit) - 1] - m);
+        for (int j = 64; j < n; ++j)
+          if (rf[j].x == sp) sum += expf(aw_sh[j] - m);
         r = m + logf(sum);
       }
       beta_sh[sp] = r;
     }
     for (int w = nt - 1 - tid; w < W; w += nt) {
       float acc = 0.0f;
-      for (int a = 0; a < A; ++a)
-        if (lpdf_sh[a] == w) acc += post_sh[a];
+#pragma unroll 4
+      for (int j = 0; j < n; ++j)
+        if (rf[j].z == w) acc += po_sh[j];
       gsm[((size_t)t * B + b) * W + w] = acc;
     }
   }
@@ -196,17 +282,39 @@ int num_steady_forward(const int* src, const int* lpdf, const float* logw, const
   return (int)cudaGetLastError();
 }
 
-// K4: vocabulary-space occupancies of frames 1 .. T-1 and beta1, on `stream`.
-int num_steady_backward(const int* src, const int* lpdf, const float* logw, const float* ysm,
+// The most dynamic shared memory a block may ask for on the current
+// device (opt-in limit), in bytes.
+int num_shared_limit() { return shared_limit(); }
+
+// Bytes of dynamic shared memory a K4 block asks for: with the sequence's
+// whole list staged (staged = 1) or two frames' records streamed (0).
+int steady_shared_bytes(int staged, int L, int Tm1, int S, int A, int W) {
+  const long long bytes = k4_layout(staged != 0, L, Tm1, S, A, W).bytes;
+  return bytes > INT_MAX ? INT_MAX : (int)bytes;
+}
+
+// K4: vocabulary-space occupancies of frames 1 .. T-1 and beta1, on
+// `stream`; `staged` as steady_shared_bytes.
+int num_steady_backward(const int4* arcs, const int* arc_off, int L, const float* ysm,
                         long long ys_b, long long ys_t, const float* alphas,
                         const float* final_logw, const float* logp, float* gsm, float* beta1,
-                        int B, int Tm1, int S, int Kr, int W, int threads,
+                        int B, int Tm1, int S, int A, int W, int staged, int threads,
                         cudaStream_t stream) {
   if (B == 0 || Tm1 == 0) return 0;
-  const size_t smem = sizeof(float) * (2 * (size_t)S + W + 4 * (size_t)S * Kr);
-  steady_bwd_kernel<<<B, threads, smem, stream>>>(src, lpdf, logw, ysm, ys_b, ys_t, alphas,
-                                                  final_logw, logp, gsm, beta1, B, Tm1, S, Kr,
-                                                  W);
+  static int granted[2] = {0, 0};
+  const long long bytes = k4_layout(staged != 0, L, Tm1, S, A, W).bytes;
+  int err;
+  if (staged) {
+    if ((err = allow_shared(steady_bwd_kernel<true>, bytes, granted[1]))) return err;
+    steady_bwd_kernel<true><<<B, threads, bytes, stream>>>(arcs, arc_off, L, ysm, ys_b, ys_t,
+                                                           alphas, final_logw, logp, gsm,
+                                                           beta1, B, Tm1, S, A, W);
+  } else {
+    if ((err = allow_shared(steady_bwd_kernel<false>, bytes, granted[0]))) return err;
+    steady_bwd_kernel<false><<<B, threads, bytes, stream>>>(arcs, arc_off, L, ysm, ys_b, ys_t,
+                                                            alphas, final_logw, logp, gsm,
+                                                            beta1, B, Tm1, S, A, W);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -55,16 +55,22 @@ SIGNATURES: dict[str, dict[str, list]] = {
         # src, lpdf, logw, ysm, ysm strides (b, t), alpha1, out,
         # B, T-1, S, Kr, W, threads, stream
         "num_steady_forward": [_P] * 4 + [_L] * 2 + [_P] * 2 + [_I] * 6 + [_P],
-        # src, lpdf, logw, ysm, ysm strides (b, t), alphas, final_logw, log_p,
-        # gsm, beta1, B, T-1, S, Kr, W, threads, stream
-        "num_steady_backward": [_P] * 4 + [_L] * 2 + [_P] * 5 + [_I] * 6 + [_P],
+        # arcs, arc_off, L, ysm, ysm strides (b, t), alphas, final_logw,
+        # log_p, gsm, beta1, B, T-1, S, S*Kr, W, staged, threads, stream
+        "num_steady_backward": [_P] * 2 + [_I, _P] + [_L] * 2 + [_P] * 5 + [_I] * 7 + [_P],
+        # staged, L, T-1, S, S*Kr, W -> bytes of shared memory per K4 block;
+        # the device's limit
+        "steady_shared_bytes": [_I] * 6,
+        "num_shared_limit": [],
     },
     "num_e2e": {
         # ylocal, src, logw, nk, out, B, T, S, K, threads, stream
         "e2e_forward": [_P] * 5 + [_I] * 5 + [_P],
         # ylocal, alphas, src, logw, final_logw, log_p, by_off, by_arc, post,
-        # B, T, S, K, L, threads, stream
+        # B, T, S, K, L, staged, stream
         "e2e_backward": [_P] * 9 + [_I] * 6 + [_P],
+        # staged, L, S -> bytes of shared memory per K8b block
+        "e2e_backward_shared_bytes": [_I] * 3,
         # the most dynamic shared memory a block may ask for, in bytes
         "e2e_shared_limit": [],
     },

@@ -231,36 +231,43 @@ class DeviceSupervision:
     #: semantics, [K] nnet-chain-training.cc ApplyDerivWeights): scale the
     #: output-derivative rows and the xent term, not the objf
     frame_weights: torch.Tensor | None = None
-    #: optional steady tables as the resident numerator kernels (K3/K4)
-    #: read them: int32 / int32 / float32 [B, T-1, S, Kst] contiguous;
-    #: filled by `with_kernel_tables()`
+    #: optional steady tables as the resident numerator kernels read them
+    #: (ops/num_resident.py `kernel_tables`), filled by
+    #: `with_kernel_tables()`: K3's int32 / int32 / float32 [B, T-1, S, Kst]
+    #: contiguous, and K4's live-arc list, per-frame offsets int32 [B, T]
+    #: and 16-byte records int32 [B, L, 4]
     src_k: torch.Tensor | None = None
     pdf_local_k: torch.Tensor | None = None
     logw_k: torch.Tensor | None = None
+    arc_off_k: torch.Tensor | None = None
+    arcs_k: torch.Tensor | None = None
 
     def to(self, device) -> "DeviceSupervision":
         return _to_device(self, device)
 
     def with_kernel_tables(self) -> "DeviceSupervision":
-        """A copy that also carries the steady tables in the kernels' types,
-        prepared once when the batch is placed so that a replayed batch
-        pays no conversion per step.  The int64 tables stay for the plain
-        path."""
+        """A copy that also carries the steady tables in the kernels' types
+        and K4's list of live arcs, prepared once when the batch is placed
+        so that a replayed batch pays nothing per step (sizing the list
+        syncs with the device once, here).  The int64 tables stay for the
+        plain path."""
         if self.in_src_r.shape[1] == 0:
             return self
-        src_k, pdf_local_k, logw_k = kernel_tables(
+        src_k, pdf_local_k, logw_k, arc_off_k, arcs_k = kernel_tables(
             self.in_src_r, self.pdf_local_r, self.in_logw_r
         )
         return dataclasses.replace(
-            self, src_k=src_k, pdf_local_k=pdf_local_k, logw_k=logw_k
+            self, src_k=src_k, pdf_local_k=pdf_local_k, logw_k=logw_k,
+            arc_off_k=arc_off_k, arcs_k=arcs_k,
         )
 
     @property
     def kernel_pre(self) -> tuple | None:
-        """(src_k, pdf_local_k, logw_k) where placed, else None."""
+        """(src_k, pdf_local_k, logw_k, arc_off_k, arcs_k) where placed,
+        else None."""
         if self.src_k is None:
             return None
-        return self.src_k, self.pdf_local_k, self.logw_k
+        return self.src_k, self.pdf_local_k, self.logw_k, self.arc_off_k, self.arcs_k
 
     @staticmethod
     def from_host(s: Supervision, device="cuda") -> "DeviceSupervision":

@@ -23,9 +23,10 @@ block per sequence); on a CPU tensor the plain PyTorch version beside it
 runs the same recursion as a loop over frames.  There is no other
 fallback.
 
-The kernels read the arc tables as int32 `src` and `lpdf` and float32
-`logw`, each [B, T-1, S, Kr] contiguous: `kernel_tables` converts the int64
-tables the plain path indexes with, once, when a batch is placed
+K3 reads the arc tables as int32 `src` and `lpdf` and float32 `logw`, each
+[B, T-1, S, Kr] contiguous; K4 reads only the live arcs, listed per
+sequence frame by frame.  `kernel_tables` makes both from the int64 tables
+the plain path indexes with, once, when a batch is placed
 (`DeviceSupervision.with_kernel_tables`), and the wrappers take the result
 as `pre`.
 """
@@ -38,7 +39,7 @@ from torchain_tpu_torch import kernels
 
 NEG_INF = float("-inf")
 
-#: shared memory a block may use without opting in to more
+#: shared memory a K3 block may use without opting in to more
 _SMEM_LIMIT = 48 * 1024
 
 
@@ -86,13 +87,39 @@ def backward_step(beta, ysm, src, lpdf, logw, alpha_t, log_p):
 
 
 def kernel_tables(src, lpdf, logw):
-    """The (src, lpdf, logw) tables as K3/K4 read them: int32, int32 and
-    float32, [B, T-1, S, Kr] contiguous."""
-    return (
-        src.to(torch.int32).contiguous(),
-        lpdf.to(torch.int32).contiguous(),
-        logw.to(torch.float32).contiguous(),
-    )
+    """The steady tables as K3 and K4 read them, from src, lpdf (any integer
+    dtype, src -1 = pad) and logw, each [B, T-1, S, Kr]:
+
+      src, lpdf int32 and logw float32, [B, T-1, S, Kr] contiguous (K3);
+      arc_off int32 [B, T]: where each frame's live arcs start in its
+        sequence's list, and (last column) one past the list's end;
+      arcs int32 [B, L, 4]: each sequence's live slots (src >= 0), frame by
+        frame in slot order, as (src, dst = slot // Kr, lpdf, logw's float32
+        bits); L is the longest list of the batch, at least 1, and a shorter
+        list ends in zeros.
+
+    Sizing the list reads one number back to the host (a sync): call it
+    where a batch is placed, not inside a step."""
+    src32 = src.to(torch.int32).contiguous()
+    lpdf32 = lpdf.to(torch.int32).contiguous()
+    logw32 = logw.to(torch.float32).contiguous()
+    B, Tm1, S, Kr = src32.shape
+    A = S * Kr
+    live = (src32 >= 0).reshape(B, Tm1 * A)
+    arc_off = torch.zeros((B, Tm1 + 1), device=src.device, dtype=torch.int32)
+    arc_off[:, 1:] = torch.cumsum(live.view(B, Tm1, A).sum(-1), 1)
+    L = max(1, int(arc_off[:, -1].max())) if B else 1
+    dst = torch.arange(S, device=src.device, dtype=torch.int32).repeat_interleave(Kr)
+    rec = torch.stack(
+        [src32.reshape(B, Tm1, A), dst.expand(B, Tm1, A), lpdf32.reshape(B, Tm1, A),
+         logw32.view(torch.int32).reshape(B, Tm1, A)], -1,
+    ).reshape(B, Tm1 * A, 4)
+    # each live slot's place in its sequence's list; pads go to column L,
+    # which is dropped
+    pos = torch.where(live, torch.cumsum(live, 1) - 1, L)
+    arcs = torch.zeros((B, L + 1, 4), device=src.device, dtype=torch.int32)
+    arcs.scatter_(1, pos[..., None].expand(B, Tm1 * A, 4), rec)
+    return src32, lpdf32, logw32, arc_off, arcs[:, :L].contiguous()
 
 
 def _rows(ysm: torch.Tensor, like: torch.Tensor, B: int, Tm1: int) -> torch.Tensor:
@@ -108,9 +135,16 @@ def _block_threads(n: int) -> int:
     return min(1024, max(64, -(-n // 32) * 32))
 
 
+def _steady_bwd_threads(S: int, W: int) -> int:
+    """K4's block: warps for the S source states, then warps for the W
+    vocabulary slots (taken from the top), so that the two scans of a frame
+    run in different warps."""
+    return min(1024, 32 * (-(-S // 32) + -(-W // 32)))
+
+
 def _check_tables(pre, B, Tm1, S, Kr):
     for name, x, dtype in zip(
-        ("src", "lpdf", "logw"), pre, (torch.int32, torch.int32, torch.float32)
+        ("src", "lpdf", "logw"), pre[:3], (torch.int32, torch.int32, torch.float32)
     ):
         kernels.check_tensor(name, x, dtype, (B, Tm1, S, Kr))
 
@@ -149,7 +183,9 @@ def steady_forward(
     W = ysm.shape[-1]
     kernels.check_tensor("alpha1", alpha1, torch.float32, (B, S))
     if pre is None:
-        pre = kernel_tables(src, lpdf, logw)
+        pre = tuple(
+            x.contiguous() for x in (src.to(torch.int32), lpdf.to(torch.int32), logw.float())
+        )
     _check_tables(pre, B, Tm1, S, Kr)
     ysm = _rows(ysm, alpha1, B, Tm1)
     if Tm1 == 0:
@@ -191,6 +227,37 @@ def steady_backward_plain(src, lpdf, logw, ysm, alphas, final_logw, log_p):
     return beta, torch.stack(gsm)
 
 
+#: (device index, L, T-1, S, S*Kr, W, plan asked for) -> K4's (bytes, staged)
+_PLANS: dict[tuple, tuple[int, int]] = {}
+
+
+def steady_plan(L: int, Tm1: int, S: int, A: int, W: int, device,
+                staged: int | None = None) -> tuple[int, int]:
+    """Bytes of shared memory a K4 block asks for, and whether it stages
+    its sequence's whole live list there (1) or streams each frame's records
+    through two buffers of A = S * Kr records (0): staged wherever that fits
+    under the device's opt-in limit, unless `staged` asks for one plan.  At
+    the shipped shapes (H100, limit 232,448 bytes) the list is staged.  The
+    streamed plan takes about 40 bytes an arc slot, so it holds up to about
+    5,800 slots on the H100; raises ValueError where the plan does not fit."""
+    key = (device.index, L, Tm1, S, A, W, staged)
+    plan = _PLANS.get(key)
+    if plan is None:
+        need = kernels.entry("num_resident", "steady_shared_bytes")
+        limit = kernels.entry("num_resident", "num_shared_limit")()
+        sizes = {p: need(p, L, Tm1, S, A, W) for p in (0, 1)}
+        if staged is None:
+            staged = int(sizes[1] <= limit)
+        if sizes[staged] > limit:
+            raise ValueError(
+                f"steady_backward: S*Kr = {A} arc slots need {sizes[staged]} bytes of shared"
+                f" memory, more than the {limit} a block may have (the streamed plan holds"
+                f" about {limit // 40} slots)"
+            )
+        plan = _PLANS[key] = (sizes[staged], staged)
+    return plan
+
+
 def steady_backward(
     src: torch.Tensor,  # [B, T-1, S, Kr] steady slice (frames 1..T-1)
     lpdf: torch.Tensor,
@@ -200,9 +267,12 @@ def steady_backward(
     final_logw: torch.Tensor,  # [B, S]
     log_p: torch.Tensor,  # [B] (may be non-finite)
     pre: tuple | None = None,  # kernel_tables(src, lpdf, logw)
+    staged: int | None = None,  # K4's plan; None: chosen by size (steady_plan)
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """K4.  Returns (beta1 [B, S], gsm_rest [T-1, B, W]).  Launches
-    csrc/num_resident.cu:num_steady_backward on a CUDA tensor."""
+    csrc/num_resident.cu:num_steady_backward on a CUDA tensor, which walks
+    the live-arc list of `pre`; without `pre` the list is built here (one
+    host sync, see `kernel_tables`).  Both plans give the same bits."""
     if final_logw.device.type == "cpu":
         return steady_backward_plain(src, lpdf, logw, ysm, alphas, final_logw, log_p)
     B, Tm1, S, Kr = src.shape
@@ -210,24 +280,25 @@ def steady_backward(
     kernels.check_tensor("final_logw", final_logw, torch.float32, (B, S))
     kernels.check_tensor("alphas", alphas, torch.float32, (Tm1, B, S))
     kernels.check_tensor("log_p", log_p, torch.float32, (B,))
-    if pre is None:
-        pre = kernel_tables(src, lpdf, logw)
-    _check_tables(pre, B, Tm1, S, Kr)
     ysm = _rows(ysm, final_logw, B, Tm1)
     if Tm1 == 0:
         return final_logw, final_logw.new_empty((0, B, W))
-    smem = 4 * (4 * S * Kr + 2 * S + W)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"steady_backward: S*Kr = {S * Kr} arc slots exceed shared memory")
+    if pre is None:
+        pre = kernel_tables(src, lpdf, logw)
+    arc_off, arcs = pre[3], pre[4]
+    L = arcs.shape[1]
+    kernels.check_tensor("arc_off", arc_off, torch.int32, (B, Tm1 + 1))
+    kernels.check_tensor("arcs", arcs, torch.int32, (B, L, 4))
     dev = final_logw.device
+    _, staged = steady_plan(L, Tm1, S, S * Kr, W, dev, staged)
     gsm = torch.empty((Tm1, B, W), device=dev, dtype=torch.float32)
     beta1 = torch.empty((B, S), device=dev, dtype=torch.float32)
     lib = kernels.library("num_resident")
     err = lib.num_steady_backward(
-        pre[0].data_ptr(), pre[1].data_ptr(), pre[2].data_ptr(), ysm.data_ptr(),
-        ysm.stride(0), ysm.stride(1), alphas.data_ptr(), final_logw.data_ptr(),
-        log_p.data_ptr(), gsm.data_ptr(), beta1.data_ptr(),
-        B, Tm1, S, Kr, W, _block_threads(max(S * Kr, S + W)), kernels.stream_of(dev),
+        arcs.data_ptr(), arc_off.data_ptr(), L, ysm.data_ptr(), ysm.stride(0), ysm.stride(1),
+        alphas.data_ptr(), final_logw.data_ptr(), log_p.data_ptr(), gsm.data_ptr(),
+        beta1.data_ptr(), B, Tm1, S, S * Kr, W, staged, _steady_bwd_threads(S, W),
+        kernels.stream_of(dev),
     )
     kernels.check(lib, err, "num_steady_backward")
     steady_backward.launches += 1
@@ -345,6 +416,39 @@ def e2e_forward_resident(
 e2e_forward_resident.launches = 0
 
 
+#: K8b reduces a source state's run of more arcs than this with a whole
+#: warp, a shorter one with one thread (csrc/num_e2e.cu HEAVY_RUN)
+E2E_HEAVY_RUN = 4
+
+
+#: (device index, L, S, plan asked for) -> K8b's (bytes, staged)
+_E2E_PLANS: dict[tuple, tuple[int, int]] = {}
+
+
+def e2e_backward_plan(L: int, S: int, device, staged: int | None = None) -> tuple[int, int]:
+    """Bytes of shared memory a K8b block asks for, and whether it stages
+    its sequence's live list (records and a ring of per-frame inputs) there
+    (1) or keeps only beta there and reads the rest from device memory (0):
+    staged wherever that fits under the device's opt-in limit (on the H100
+    up to about 7,200 live arcs a sequence at S = 55), unless `staged` asks
+    for one plan.  Raises ValueError where the plan does not fit."""
+    key = (device.index, L, S, staged)
+    plan = _E2E_PLANS.get(key)
+    if plan is None:
+        need = kernels.entry("num_e2e", "e2e_backward_shared_bytes")
+        limit = kernels.entry("num_e2e", "e2e_shared_limit")()
+        sizes = {p: need(p, L, S) for p in (0, 1)}
+        if staged is None:
+            staged = int(sizes[1] <= limit)
+        if sizes[staged] > limit:
+            raise ValueError(
+                f"e2e_backward_resident: {S} states and {L} live arcs need {sizes[staged]}"
+                f" bytes of shared memory, more than the {limit} a block may have"
+            )
+        plan = _E2E_PLANS[key] = (sizes[staged], staged)
+    return plan
+
+
 def e2e_backward_plain(ylocal, alphas, src, logw, final_logw, log_p):
     """Plain PyTorch K8b: the beta recursion as a reverse loop over frames."""
     B, T, S, K = ylocal.shape
@@ -374,10 +478,12 @@ def e2e_backward_resident(
     final_logw: torch.Tensor,  # [B, S]
     log_p: torch.Tensor,  # [B] (may be non-finite)
     pre: tuple | None = None,  # e2e_kernel_tables(src, logw)
+    staged: int | None = None,  # K8b's plan; None: chosen by size (e2e_backward_plan)
 ) -> torch.Tensor:
     """K8b.  Returns the per-arc posteriors [B, T, S, K] (exact zeros for a
     sequence whose log_p is not finite).  Launches
-    csrc/num_e2e.cu:e2e_backward on a CUDA tensor."""
+    csrc/num_e2e.cu:e2e_backward on a CUDA tensor.  Both plans give the
+    same bits."""
     if ylocal.device.type == "cpu":
         return e2e_backward_plain(ylocal, alphas, src, logw, final_logw, log_p)
     B, T, S, K = ylocal.shape
@@ -393,15 +499,16 @@ def e2e_backward_resident(
     kernels.check_tensor("logw", logw32, torch.float32, (B, S, K))
     kernels.check_tensor("by_off", by_off, torch.int32, (B, S + 1))
     kernels.check_tensor("by_arc", by_arc, torch.int32, (B, L))
+    # written in full by the kernel, its pad slots as zeros
     post = torch.empty((B, T, S, K), device=ylocal.device, dtype=torch.float32)
     if B == 0 or T == 0:
         return post
     lib = kernels.library("num_e2e")
-    threads = _e2e_threads(lib, S, 3, "e2e_backward_resident")
+    _, staged = e2e_backward_plan(L, S, ylocal.device, staged)
     err = lib.e2e_backward(
         ylocal.data_ptr(), alphas.data_ptr(), src32.data_ptr(), logw32.data_ptr(),
         final_logw.data_ptr(), log_p.data_ptr(), by_off.data_ptr(), by_arc.data_ptr(),
-        post.data_ptr(), B, T, S, K, L, threads, kernels.stream_of(ylocal.device),
+        post.data_ptr(), B, T, S, K, L, staged, kernels.stream_of(ylocal.device),
     )
     kernels.check(lib, err, "e2e_backward")
     e2e_backward_resident.launches += 1
