@@ -27,10 +27,13 @@ Phases, in order; any failure exits non-zero before the last line:
      equal bits), the
      attention and feed-forward kernels at the conformer's shapes (qkv
      [128, 50, 768], 4 heads; xn [6400, 256], F=1024) with bfloat16 and with
-     float32 operands (K7 also at T=150 in bfloat16, with a card-vs-CPU check
-     of `fused_relpos_attention` at B=8, the host's microseconds per wrapper
-     call and the device's per launch), and the shared-memory probe against
-     the device's opt-in limit;
+     float32 operands (K7 also at T=150 in bfloat16, and with heads 96 and
+     128 wide, dim 384 and 512, at T 50 and 150 in both dtypes, each with a
+     card-vs-CPU check of `fused_relpos_attention` at B=8, the host's
+     microseconds per wrapper call and the device's per launch), and the
+     shared-memory probe against the device's opt-in limit; K3, K4, K8f and
+     K8b also on the shared-memory plan their sizes did not choose, for
+     equal bits and a time in the same turns;
   4. six paths, each a full-width model trained for a few steps with the
      LF-MMI chain loss on one replayed batch through `make_train_step`:
      (a) TDNN-F (9 layers, hidden 768, bottleneck 96, prefinal 256) on the
@@ -43,7 +46,12 @@ Phases, in order; any failure exits non-zero before the last line:
      fused form.  Every kernel launch counter is zeroed just before a path
      and read just after, each kernel of that path must have moved and no
      other, and the loss must fall; (d)'s first loss must agree with (c)'s
-     and (f)'s with (a)'s;
+     and (f)'s with (a)'s.  Then (a)'s model and batch on the forms
+     `auto_den_graph` falls through to where the slot-dense one does not
+     fit (its fit test made to refuse it: the fused dense Moore form; the
+     card's limit taken as below K2's carried state: the sparse scan of
+     ops/den_scan.py), as many steps each, their first loss against (a)'s
+     and their median step against (a)'s (with --profile, traced too);
   5. a reference check on a small input for each path: the first-step loss
      and gradient norm on the card (kernels) against the CPU (plain
      versions); for the bfloat16 conformer paths also each parameter
@@ -61,12 +69,14 @@ profile table to DIR/profile_<path>.txt).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import dataclasses
 import functools
 import json
 import math
 import pathlib
+import statistics
 import subprocess
 import sys
 import time
@@ -225,6 +235,41 @@ def _other_plan(plan, chosen: int) -> int | None:
     except ValueError:
         return None
     return 1 - chosen
+
+
+@contextlib.contextmanager
+def _limit(entry: tuple, nbytes: int):
+    """The numerator kernels' shared-memory limit read through the library
+    `entry` taken as `nbytes` (ops/num_resident.py `shared_limit`), so that
+    their plans choose as on a card with that little."""
+    from torchain_tpu_torch.ops import num_resident as nr
+
+    real = nr.shared_limit
+    nr.shared_limit = lambda e, device: nbytes if e == entry else real(e, device)
+    try:
+        yield
+    finally:
+        nr.shared_limit = real
+
+
+def _unstaging_limit(entry: tuple, plan, nbytes: int, staged: int) -> int | None:
+    """Where `plan()` chose the staged plan of `nbytes`, a limit one byte
+    below it, under which `plan()` chooses the unstaged plan; None where the
+    sizes chose the unstaged plan already."""
+    if not staged:
+        return None
+    with _limit(entry, nbytes - 1):
+        if plan()[1] != 0:
+            raise AssertionError(f"a limit of {nbytes - 1} bytes still stages the list")
+    return nbytes - 1
+
+
+def _under(entry: tuple, nbytes: int, fn):
+    """`fn` as a callable that runs under `_limit(entry, nbytes)`."""
+    def call():
+        with _limit(entry, nbytes):
+            return fn()
+    return call
 
 
 def _check(name: str, what: str, got, want, atol: float, rtol: float) -> dict:
@@ -676,25 +721,53 @@ def check_kernels(den, sup, seed: int, path: str) -> dict[str, dict]:
     a0[:, 0] = 0.0
     alpha1 = nr.forward_step(a0, ys_p[:, 0], sup.in_src0, sup.pdf_local0, sup.in_logw0)
     ysm = ys_p[:, 1:]
+    L = pre[1].shape[1]
+    k3_bytes, k3_staged = nr.steady_forward_plan(L, Tm1, Sn, W, dev)
+    _log(f"kernel num_steady_forward [{path}]: {k3_bytes} bytes of shared memory per block,"
+         f" the list {'staged there' if k3_staged else 'read from device memory'}")
     aT_k, rest_k = nr.steady_forward(alpha1, *tables, ysm, pre=pre)
     torch.cuda.synchronize()
     aT_p, rest_p = nr.steady_forward_plain(alpha1, *tables, ysm)
+    if not torch.equal(nr.steady_forward(alpha1, *tables, ysm, pre=pre)[1], rest_k):
+        raise AssertionError(f"num_steady_forward [{path}]: two launches differ")
+    # the unstaged plan, where the sizes chose the staged one (the limit
+    # lowered below it): the same bits, and timed in turns
+    lim3 = _unstaging_limit(nr.NUM_LIMIT, lambda: nr.steady_forward_plan(L, Tm1, Sn, W, dev),
+                            k3_bytes, k3_staged)
+    other3 = None if lim3 is None else _under(
+        nr.NUM_LIMIT, lim3, lambda: nr.steady_forward(alpha1, *tables, ysm, pre=pre))
+    if other3 is not None and not torch.equal(other3()[1], rest_k):
+        raise AssertionError(f"num_steady_forward [{path}]: the two plans differ")
     arcs = int((sup.in_src_r >= 0).sum())
     table_bytes = 12.0 * B * Tm1 * Sn * Kr  # int32 src, int32 lpdf, f32 logw
-    # K4 reads the live arcs alone: a 16-byte record each and the offsets
+    # K3 and K4 need the live arcs alone: a 16-byte record each (src, dst,
+    # lpdf, logw) with per-frame offsets.  K3 reads per-destination offsets
+    # beside them; a 12-byte record without dst holds the same with those,
+    # so K3's bound takes the smaller of the two counts
     list_bytes = 16.0 * arcs + 4.0 * B * T
+    dst_off_bytes = 16.0 * arcs + 4.0 * B * Tm1 * (Sn + 1)  # what K3 reads
+    k3_list_bytes = min(list_bytes, 12.0 * arcs + 4.0 * B * Tm1 * (Sn + 1))
     # f32 log-sum-exps of a few terms per state in another order, carried
     # over 49 frames; -inf (unreachable states) in the same places.  The
-    # bound is bytes, each once; the 49 dependent frames set a latency floor
-    # that it does not see.
+    # bound is bytes, each once: the list, the ysm rows, alpha1 and the
+    # alphas out (and, kept beside it, the count of what K3 reads and of
+    # the dense tables the TPU kernel and the dense design before it read);
+    # the 49 dependent frames set a latency floor that it does not see.
+    k3_rest_bytes = 4.0 * (B * Tm1 * W + B * Sn + Tm1 * B * Sn)
     record(
         "num_steady_forward",
         [_check(f"num_steady_forward [{path}]", "alphas", rest_k, rest_p, 1e-5, 1e-5)],
         _times(lambda: nr.steady_forward(alpha1, *tables, ysm, pre=pre), 50,
-               plain=lambda: nr.steady_forward_plain(alpha1, *tables, ysm), plain_reps=5),
+               plain=lambda: nr.steady_forward_plain(alpha1, *tables, ysm), plain_reps=5,
+               other=other3),
         4.0 * arcs + 2.0 * B * Tm1 * Sn,
-        table_bytes + 4.0 * (B * Tm1 * W + B * Sn + Tm1 * B * Sn),
+        k3_list_bytes + k3_rest_bytes,
         frames=Tm1,
+        log_only=dict(dense_tables_bound_ms=_bound(4.0 * arcs + 2.0 * B * Tm1 * Sn,
+                                                   table_bytes + k3_rest_bytes)[0],
+                      read_list_bound_ms=_bound(4.0 * arcs + 2.0 * B * Tm1 * Sn,
+                                                dst_off_bytes + k3_rest_bytes)[0],
+                      shared_bytes=k3_bytes, staged=k3_staged),
     )
     final = sup.final_logw.clone()
     final[1] = -math.inf
@@ -703,10 +776,9 @@ def check_kernels(den, sup, seed: int, path: str) -> dict[str, dict]:
         raise AssertionError(f"num_steady_backward [{path}]: expected one impossible sequence")
     alphas = torch.cat([alpha1[None], rest_p[:-1]])
     args4 = (*tables, ysm, alphas, final, log_p)
-    L = pre[4].shape[1]
     k4_bytes, k4_staged = nr.steady_plan(L, Tm1, Sn, Sn * Kr, W, dev)
-    # what placing a batch costs for K4's list (and K3's tables): CUDA events
-    # around whole calls, the host's read of the list's length included
+    # what placing a batch costs for K3's and K4's list: CUDA events around
+    # whole calls, the host's read of the list's length included
     placement_ms = _time_ms(lambda: nr.kernel_tables(*tables), 5)
     _log(f"kernel num_steady_backward [{path}]: {arcs} live arcs, at most {L} a sequence;"
          f" {k4_bytes} bytes of shared memory per block, the list"
@@ -755,9 +827,11 @@ T_LONG = 150
 B_CPU = 8
 
 
-def check_attention(rng, Bn: int, T: int, dtype_name: str) -> dict[str, dict]:
+def check_attention(rng, Bn: int, T: int, dtype_name: str,
+                    D: int = CONFORMER["dim"]) -> dict[str, dict]:
     """Phase 3, attention: K7f and K7b against their plain versions at qkv
-    [Bn, T, 3 * 256], 4 heads of 64, with operands of one dtype, timed in turn
+    [Bn, T, 3 * D], 4 heads of D / 4 (64 on the conformer paths; 96 and 128
+    at D 384 and 512, the kernels' wide tiles), with operands of one dtype, timed in turn
     with one library call each: `scaled_dot_product_attention` with the bias
     as its float mask, and for K7b autograd of that call with the float32 bias
     requiring a gradient, broadcast over the batch (the einsum form's autograd
@@ -774,7 +848,7 @@ def check_attention(rng, Bn: int, T: int, dtype_name: str) -> dict[str, dict]:
     bf16 = dtype == torch.bfloat16
     esz = 2 if bf16 else 4
     peak = PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS
-    D, H = CONFORMER["dim"], CONFORMER["num_heads"]
+    H = CONFORMER["num_heads"]
     dh = D // H
     measured = {}
 
@@ -783,7 +857,7 @@ def check_attention(rng, Bn: int, T: int, dtype_name: str) -> dict[str, dict]:
 
     # qkv of the scale a LayerNorm followed by a fresh Dense gives, the bias
     # of the scale of a trained table
-    label = f"conformer {dtype_name}, T={T}"
+    label = f"conformer {dtype_name}, T={T}" + (f", dh {dh}" if D != CONFORMER["dim"] else "")
     qkv, g = rand(Bn, T, 3 * D).to(dtype), rand(Bn, T, D).to(dtype)
     bias = rand(H, T, T, scale=0.3)
     scale = 1.0 / math.sqrt(dh)
@@ -920,6 +994,12 @@ def check_conformer_kernels(seed: int, dtype_name: str) -> dict[str, dict]:
         second = check_attention(rng, B, T_LONG, dtype_name)
         for name, rec in second.items():
             measured[name]["second_shape"] = rec
+    # and at heads 96 and 128 wide (a conformer of dim 384 or 512 with 4
+    # heads), at both lengths
+    for wide in (384, 512):
+        for T in (T_OUT, T_LONG):
+            for name, rec in check_attention(rng, B, T, dtype_name, D=wide).items():
+                measured[name].setdefault("wide_heads", {})[f"dh {wide // 4}, T={T}"] = rec
 
     # K10f / K10b.  xn as a LayerNorm leaves it, weights of the scale of
     # their initialiser (variance 1 / fan-in), cast to the trunk dtype.  The
@@ -1002,23 +1082,52 @@ def check_e2e_kernels(sup, seed: int, label: str) -> dict[str, dict]:
     src, logw, pre = sup.in_src, sup.in_logw, sup.kernel_pre
     live = int((src >= 0).sum())
     measured = {}
+    L8 = pre[3].shape[1]
+    k8f_bytes, k8f_staged = nr.e2e_forward_plan(L8, S, dev)
+    _log(f"kernel e2e_forward [{label}]: {live} live arcs, at most {L8} a sequence;"
+         f" {k8f_bytes} bytes of shared memory per block, the list"
+         f" {'staged there' if k8f_staged else 'read from device memory'}")
     rest_k = nr.e2e_forward_resident(ylocal, src, logw, pre=pre)
     torch.cuda.synchronize()
     rest_p = nr.e2e_forward_plain(ylocal, src, logw)
+    if not torch.equal(nr.e2e_forward_resident(ylocal, src, logw, pre=pre), rest_k):
+        raise AssertionError(f"e2e_forward [{label}]: two launches differ")
+    # the unstaged plan, where the sizes chose the staged one (the limit
+    # lowered below it): the same bits, and timed in turns
+    lim8f = _unstaging_limit(nr.E2E_LIMIT, lambda: nr.e2e_forward_plan(L8, S, dev),
+                             k8f_bytes, k8f_staged)
+    other8f = None if lim8f is None else _under(
+        nr.E2E_LIMIT, lim8f, lambda: nr.e2e_forward_resident(ylocal, src, logw, pre=pre))
+    if other8f is not None and not torch.equal(other8f(), rest_k):
+        raise AssertionError(f"e2e_forward [{label}]: the two plans differ")
     # f32 log-sum-exps of a few terms per state in another order, carried
     # over 50 frames; -inf (unreachable states) in the same places.  The
-    # bound is bytes, each once, and of ylocal the live slots only (pad slots
-    # hold nothing the function needs); operations count live arcs.  The 50
-    # dependent frames set a latency floor it does not see
+    # bound is bytes, each once: of ylocal the live slots only (pad slots
+    # hold nothing the function needs), the graph as the smaller of the
+    # live list (src, logw and the slot of each live entry, with the
+    # offsets) and the full tables (src, logw, the count of each state's
+    # arcs: smaller where nearly every slot is live, as at K = 2), and the
+    # alphas out (kept beside it: both counts); operations count live
+    # arcs.  The 50 dependent frames set a latency floor it does not see
+    live_bytes = 12.0 * live + 4.0 * Bs * (S + 1)
     table_bytes = 8.0 * Bs * S * K + 4.0 * Bs * S  # int32 src, f32 logw, int32 nk
+    graph_bytes = min(live_bytes, table_bytes)
     _record(
         measured, "e2e_forward", label,
         [_check(f"e2e_forward [{label}]", "alphas", rest_k, rest_p, 1e-5, 1e-5)],
         _times(lambda: nr.e2e_forward_resident(ylocal, src, logw, pre=pre), 20,
-               plain=lambda: nr.e2e_forward_plain(ylocal, src, logw), plain_reps=3),
+               plain=lambda: nr.e2e_forward_plain(ylocal, src, logw), plain_reps=3,
+               other=other8f),
         4.0 * T * live + 2.0 * Bs * T * S,
-        4.0 * T * live + table_bytes + 4.0 * T * Bs * S,
+        4.0 * T * live + graph_bytes + 4.0 * T * Bs * S,
         frames=T,
+        log_only=dict(full_tables_bound_ms=_bound(4.0 * T * live + 2.0 * Bs * T * S,
+                                                  4.0 * T * live + table_bytes
+                                                  + 4.0 * T * Bs * S)[0],
+                      live_list_bound_ms=_bound(4.0 * T * live + 2.0 * Bs * T * S,
+                                                4.0 * T * live + live_bytes
+                                                + 4.0 * T * Bs * S)[0],
+                      shared_bytes=k8f_bytes, staged=k8f_staged),
     )
     # sequence 1 made impossible (no final state, so log p = -inf) and
     # sequence 2 given a NaN log p: exact zeros for both
@@ -1032,8 +1141,8 @@ def check_e2e_kernels(sup, seed: int, label: str) -> dict[str, dict]:
     a0[:, :, 0] = 0.0
     alphas = torch.cat([a0, rest_p[:-1]])
     args = (ylocal, alphas, src, logw, final, log_p)
-    k8_bytes, k8_staged = nr.e2e_backward_plan(pre[4].shape[1], S, dev)
-    _log(f"kernel e2e_backward [{label}]: {live} live arcs, at most {pre[4].shape[1]} a"
+    k8_bytes, k8_staged = nr.e2e_backward_plan(L8, S, dev)
+    _log(f"kernel e2e_backward [{label}]: {live} live arcs, at most {L8} a"
          f" sequence; {k8_bytes} bytes of shared memory per block, the list"
          f" {'staged there' if k8_staged else 'read from device memory'}")
     post_k = nr.e2e_backward_resident(*args, pre=pre)
@@ -1045,7 +1154,6 @@ def check_e2e_kernels(sup, seed: int, label: str) -> dict[str, dict]:
     if not bool(torch.equal(post_k, nr.e2e_backward_resident(*args, pre=pre))):
         raise AssertionError(f"e2e_backward [{label}]: two launches differ")
     # the plan not chosen, where it fits: the same bits, and timed in turns
-    L8 = pre[4].shape[1]
     other8 = _other_plan(lambda p: nr.e2e_backward_plan(L8, S, dev, p), k8_staged)
     if other8 is not None and not bool(
             torch.equal(post_k, nr.e2e_backward_resident(*args, pre=pre, staged=other8))):
@@ -1054,9 +1162,8 @@ def check_e2e_kernels(sup, seed: int, label: str) -> dict[str, dict]:
     # whose last bit (8e-6) becomes that relative error; the betas inside
     # differ by the order of their log-sum-exps.  Bytes: ylocal's live
     # slots read, post written in full (its pad slots are zeros the contract
-    # asks for), and of the tables src, logw and by_arc the live entries,
-    # with the offsets
-    list_bytes = 12.0 * live + 4.0 * Bs * (S + 1)
+    # asks for), and the graph as K8f counts it (the smaller of the live
+    # list and the full tables)
     _record(
         measured, "e2e_backward", label,
         [_check(f"e2e_backward [{label}]", "post", post_k, post_p, 1e-5, 1e-4)],
@@ -1065,9 +1172,13 @@ def check_e2e_kernels(sup, seed: int, label: str) -> dict[str, dict]:
                other=None if other8 is None
                else lambda: nr.e2e_backward_resident(*args, pre=pre, staged=other8)),
         8.0 * T * live + 2.0 * Bs * T * S,
-        4.0 * T * live + 4.0 * Bs * T * S * K + list_bytes
+        4.0 * T * live + 4.0 * Bs * T * S * K + graph_bytes
         + 4.0 * (T * Bs * S + Bs * S + Bs),
-        frames=T, log_only=dict(shared_bytes=k8_bytes, staged=k8_staged),
+        frames=T,
+        log_only=dict(live_list_bound_ms=_bound(
+            8.0 * T * live + 2.0 * Bs * T * S,
+            4.0 * T * live + 4.0 * Bs * T * S * K + live_bytes
+            + 4.0 * (T * Bs * S + Bs * S + Bs))[0], shared_bytes=k8_bytes, staged=k8_staged),
     )
     return measured
 
@@ -1383,6 +1494,93 @@ def profile_steps(step, feats, den, sup, n: int, out_path: pathlib.Path | None) 
                 kernel_launches=launches, top=lines[:12])
 
 
+def check_den_forms(args, result: dict) -> dict:
+    """Phase 4 again, on the trigram path's corpus, model and batch:
+    `auto_den_graph` falling through on the card.  With its fit test
+    refusing the slot-dense form it picks the dense Moore form, fused
+    (K9f/K9b); with the card's shared-memory limit taken as one byte below
+    K2's carried state at this graph (K9b's is larger still) the sparse scan
+    of ops/den_scan.py.  Each form trains as many steps as the paths
+    (`--steps`): the first loss must agree with the trigram path's (the
+    slot-dense form's) within its gate, the loss must fall, the form's
+    kernels must have moved and no other.  Its step ms is the median of
+    steps 2..N, set beside the trigram path's median from the same run;
+    with --profile two more steps are traced for device-busy ms, idle
+    share and launches.  Returns each form's first loss, its distance, its
+    step ms and, with --profile, its trace."""
+    import torch
+
+    from torchain_tpu_torch import kernels
+    from torchain_tpu_torch.ops import (
+        DeviceDenGraph,
+        DeviceDenseDenGraph,
+        DeviceSupervision,
+        auto_den_graph,
+    )
+    from torchain_tpu_torch.ops import den_resident as dr
+    from torchain_tpu_torch.ops import device_graphs as dg
+
+    corpus, cfg, dataset = build_path("trigram", args.seed)
+    batch = next(dataset.batches(B, shuffle=False))
+    feats = torch.as_tensor(batch.feats, device="cuda")
+    sup = DeviceSupervision.from_host(batch.sup, device="cuda").with_kernel_tables()
+    graph = corpus.den_graph
+    S_pad, K = dr.slot_sizes(graph)
+    k2_carried = kernels.entry("den_resident", "den_shared_bytes")(
+        1, S_pad, K, graph.num_pdfs, 0, 0, 0)
+    real_fits = dg.den_form_fits
+    forms = {
+        "dense": (DeviceDenseDenGraph, DENSE + NUM, dict(
+            den_form_fits=lambda form, sizes, device: form != "resident"
+            and real_fits(form, sizes, device))),
+        "scan": (DeviceDenGraph, NUM, dict(den_shared_limit=lambda device: k2_carried - 1)),
+    }
+    ref = result["trigram"]["losses"][0]["loss"]
+    ref_ms = statistics.median(result["trigram"]["step_ms_all"][1:])
+    gate = REFERENCE_RTOL[PATHS["trigram"]["dtype"]]
+    out = {}
+    for name, (cls, must, patch) in forms.items():
+        saved = {k: getattr(dg, k) for k in patch}
+        for k, v in patch.items():
+            setattr(dg, k, v)
+        try:
+            den = auto_den_graph(graph, device="cuda")
+        finally:
+            for k, v in saved.items():
+                setattr(dg, k, v)
+        if not isinstance(den, cls):
+            raise AssertionError(f"auto_den_graph picked {type(den).__name__}, not {cls.__name__}")
+        losses, times, launches, step = train_steps(cfg, corpus.feat_dim, feats, den, sup,
+                                                    args.steps, args.seed)
+        for k, n in launches.items():
+            if (k in must) != (n > 0):
+                raise AssertionError(f"den form {name}: kernel {k} counted {n}")
+        first = losses[0]["loss"]
+        rel = abs(first - ref) / abs(ref)
+        step_ms = statistics.median(times[1:])
+        _log(f"den form {name} ({cls.__name__}): first loss {first:.6g} vs the slot-dense"
+             f" form's {ref:.6g}: rel {rel:.3g} (gate {gate:g}); steps 2..{args.steps} median"
+             f" {step_ms:.2f} ms/step, {step_ms / ref_ms:.2f}x the trigram path's median"
+             f" {ref_ms:.2f} (all {[round(t, 2) for t in times]}); K2's carried state"
+             f" {k2_carried} bytes")
+        if not (math.isfinite(first) and rel <= gate and losses[-1]["loss"] < first):
+            raise AssertionError(f"den form {name}: the first loss departs from the slot-dense"
+                                 " form's, or the loss did not fall")
+        out[name] = dict(form=cls.__name__, first_loss=first, first_loss_rel_to_resident=rel,
+                         step_ms=step_ms, step_ms_all=times, trigram_step_ms=ref_ms,
+                         launches=launches)
+        if args.profile:
+            prof = profile_steps(step, feats, den, sup, 2,
+                                 args.out / f"profile_den_{name}.txt" if args.out else None)
+            _log(f"den form {name} profile (traced steps only): wall {prof['wall_ms']:.2f}"
+                 f" ms/step, device busy {prof['device_busy_ms']:.2f} ms/step (traced idle"
+                 f" share {prof['idle_share']:.3f}) in {prof['kernel_launches']} launches/step")
+            for line in prof["top"]:
+                _log("  " + line)
+            out[name]["profile"] = prof
+    return out
+
+
 #: gates of the reference check, relative, per trunk dtype.  float32: sums
 #: in another order (cuBLAS vs the CPU BLAS, kernels vs plain) through 9
 #: layers, the 50-frame recursions and a backward.  bfloat16: the card's and
@@ -1677,6 +1875,8 @@ def main(argv=None) -> int:
     numbers.update(measured)
     measured, launches["dense"] = run_path("dense", args, result, ("dense",))
     numbers.update(measured)
+    if not args.kernels_only:
+        result["den_forms"] = check_den_forms(args, result)
     for name, m in second.items():
         numbers[name] = dict(**numbers[name], production=m)
     measured, probe_launches = check_probe()

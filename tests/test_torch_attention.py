@@ -34,6 +34,9 @@ CASES = [  # B, T, H, dh
 #: lengths past one 64-row tile of the kernels, and past the first design's
 #: limits (its backward took T <= 117 at dh 64)
 LONG = [(1, 118, 2, 8), (1, 150, 2, 8)]
+#: head widths past 64, which the kernels pad to tiles 96 and 128 wide (one
+#: of each width exact, one below it), the second shape past one T tile
+WIDE = [(2, 19, 2, 96), (1, 70, 1, 128), (2, 13, 1, 80), (1, 21, 1, 100)]
 
 
 def _inputs(B, T, H, dh, seed=0):
@@ -73,7 +76,7 @@ def test_plain_twins_match_jax_kernels_float32(B, T, H, dh):
 
 
 @pytest.mark.parametrize("bf16", [False, True], ids=["float32", "bfloat16"])
-@pytest.mark.parametrize("B,T,H,dh", CASES[:2] + LONG)
+@pytest.mark.parametrize("B,T,H,dh", CASES[:2] + LONG + WIDE)
 def test_autograd_function_matches_jax(B, T, H, dh, bf16):
     qkv, bias, g = _inputs(B, T, H, dh, seed=1)
     jdt, tdt = (jnp.bfloat16, torch.bfloat16) if bf16 else (jnp.float32, torch.float32)
@@ -173,16 +176,16 @@ def test_each_direction_checks_its_own_shared_memory(monkeypatch, backward):
 
 @pytest.mark.parametrize("backward", [0, 1], ids=["forward", "backward"])
 def test_wrappers_refuse_a_head_wider_than_the_kernels_take(monkeypatch, backward):
-    """The library answers -1 for a head width it does not take (above 64):
+    """The library answers -1 for a head width it does not take (above 128):
     the wrappers raise, they do not fall back."""
     asked = _stub_library(monkeypatch, -1)
-    qkv, bias, g = _meta(1, 40, 1, 72)
+    qkv, bias, g = _meta(1, 40, 1, 136)
     with pytest.raises(ValueError, match="head width"):
         if backward:
             ta.attention_backward(qkv, bias, g, 1, 0.125)
         else:
             ta.attention_forward(qkv, bias, 1, 0.125)
-    assert asked == [(72, 0, backward)]
+    assert asked == [(136, 0, backward)]
 
 
 def _tf32(x):

@@ -59,9 +59,9 @@ def _xla_cpu_sigmoid(x):
     return 1.0 / (1.0 + torch.exp(-x))
 
 
-def _setup(bf16, **kw):
-    jcfg = JCfg(dtype=jnp.bfloat16 if bf16 else jnp.float32, **SMALL, **kw)
-    tcfg = ConformerConfig(dtype=torch.bfloat16 if bf16 else torch.float32, **SMALL, **kw)
+def _setup(bf16, config=SMALL, **kw):
+    jcfg = JCfg(dtype=jnp.bfloat16 if bf16 else jnp.float32, **config, **kw)
+    tcfg = ConformerConfig(dtype=torch.bfloat16 if bf16 else torch.float32, **config, **kw)
     assert jcfg.context == tcfg.context
     left, right = tcfg.context
     rng = np.random.default_rng(0)
@@ -80,7 +80,7 @@ def _setup(bf16, **kw):
     )
     tm = Conformer(tcfg, FEAT, device="cpu")
     tm.load_state_dict(params_from_jax(params, stats, tcfg))
-    w = rng.normal(size=(B, T_OUT, SMALL["num_pdfs"])).astype(np.float32)
+    w = rng.normal(size=(B, T_OUT, config["num_pdfs"])).astype(np.float32)
     return jm, params, stats, tm, feats, w
 
 
@@ -117,6 +117,10 @@ def test_bf16_eval_forward_with_torch_sigmoid_stays_close():
 
 
 def test_train_forward_grads_and_stats_match(setup, monkeypatch):
+    _check_train(setup, monkeypatch)
+
+
+def _check_train(setup, monkeypatch, out_atol=1e-5):
     jm, params, stats, tm, feats, w, bf16 = setup
     if bf16:
         monkeypatch.setattr(torch, "sigmoid", _xla_cpu_sigmoid)
@@ -133,7 +137,7 @@ def test_train_forward_grads_and_stats_match(setup, monkeypatch):
     tc, tx = tm(torch.as_tensor(feats), train=True)
     (torch.sum(tc * torch.as_tensor(w)) + 0.5 * torch.sum(tx * torch.as_tensor(w))).backward()
 
-    out_atol = stat_atol = 1e-5
+    stat_atol = 1e-5
     g_rtol, g_atol = (0.0, 5e-2) if bf16 else (1e-4, 5e-5)
     np.testing.assert_allclose(tc.detach().numpy(), np.asarray(jc), atol=out_atol)
     np.testing.assert_allclose(tx.detach().numpy(), np.asarray(jx), atol=out_atol)
@@ -158,6 +162,16 @@ def test_train_forward_grads_and_stats_match(setup, monkeypatch):
     assert set(flat_stats) == set(buffers)
     for k, v in flat_stats.items():
         np.testing.assert_allclose(buffers[k].numpy(), np.asarray(v), atol=stat_atol, err_msg=k)
+
+
+def test_wide_heads_train_forward_grads_and_stats_match(monkeypatch):
+    """A conformer of dim 384 with 4 heads of 96 (the kernels' 96-wide
+    tiles), one block, float32: the train-mode forward, every gradient and
+    the statistics against the JAX package to the float32 tolerances, but
+    for the outputs, atol 5e-5: their sums run over 384- and 1536-wide rows,
+    12 and 48 times the 32-wide model's (1.3e-5 seen)."""
+    wide = dict(SMALL, dim=384, num_heads=4, num_layers=1)
+    _check_train((*_setup(False, config=wide), False), monkeypatch, out_atol=5e-5)
 
 
 def test_bf16_trunk_really_computes_in_bfloat16():

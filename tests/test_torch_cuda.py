@@ -289,7 +289,7 @@ def test_steady_backward_plans_match_plain(dev, B, T, S, Kr, W, staged):
     fits, bit-equal too."""
     alpha1, src, lpdf, logw, ysm, final = _steady_case(dev, B, T, S, Kr, W, seed=T)
     pre = nr.kernel_tables(src, lpdf, logw)
-    arc_off, arcs = pre[3], pre[4]
+    arc_off, arcs, _ = pre
     assert nr.steady_plan(arcs.shape[1], T - 1, S, S * Kr, W, dev)[1] == staged
     if S * Kr > 32:
         assert int((arc_off[:, 1:] - arc_off[:, :-1]).max()) > 32
@@ -356,6 +356,78 @@ def test_steady_backward_over_forty_frames_against_float64(dev):
     assert all(k <= p for k, p in share.values())
 
 
+def _lower_limit(monkeypatch, dev, k3=None, k8f=None):
+    """The shared-memory limit of K3 (sizes `k3`: L, T-1, S, W) and of K8f
+    (`k8f`: L, S) lowered to one byte below the staged plan the sizes
+    choose, so that the same sizes choose the unstaged plan."""
+    limits = {}
+    if k3 is not None:
+        limits[nr.NUM_LIMIT] = nr.steady_forward_plan(*k3, dev)[0] - 1
+    if k8f is not None:
+        limits[nr.E2E_LIMIT] = nr.e2e_forward_plan(*k8f, dev)[0] - 1
+    real = nr.shared_limit
+    monkeypatch.setattr(nr, "shared_limit",
+                        lambda entry, device: limits.get(entry) or real(entry, device))
+    if k3 is not None:
+        assert nr.steady_forward_plan(*k3, dev)[1] == 0
+    if k8f is not None:
+        assert nr.e2e_forward_plan(*k8f, dev)[1] == 0
+
+
+@pytest.mark.parametrize(
+    "B,T,S,Kr,W,staged",
+    [(3, 50, 20, 12, 16, 1), (3, 50, 12, 4, 16, 1), (2, 12, 70, 5, 40, 1),
+     (2, 150, 40, 8, 16, 0)],
+    ids=["trigram_widths", "production_widths", "more_states_than_a_warp",
+         "list_beyond_shared_memory"],
+    # S <= 32: one warp a sequence, a frame ends at __syncwarp; S = 70: three
+    # warps and a block barrier; the last: about 380 KB of records a
+    # sequence, so the list is read from device memory
+)
+def test_steady_forward_plans_match_plain(dev, monkeypatch, B, T, S, Kr, W, staged):
+    """K3 on each of its shared-memory plans: the plain version's values
+    within chip_smoke.py's tolerances, two launches bit-equal, and the
+    unstaged plan, where the sizes chose the staged one, bit-equal too (the
+    limit lowered below the staged plan)."""
+    alpha1, src, lpdf, logw, ysm, _ = _steady_case(dev, B, T, S, Kr, W, seed=T + S)
+    pre = nr.kernel_tables(src, lpdf, logw)
+    sizes = (pre[1].shape[1], T - 1, S, W)
+    assert nr.steady_forward_plan(*sizes, dev)[1] == staged
+    n3 = nr.steady_forward.launches
+    aT_k, rest_k = nr.steady_forward(alpha1, src, lpdf, logw, ysm, pre=pre)
+    torch.cuda.synchronize()
+    _close_where_finite(rest_k, nr.steady_forward_plain(alpha1, src, lpdf, logw, ysm)[1])
+    assert torch.equal(aT_k, rest_k[-1])
+    assert torch.equal(nr.steady_forward(alpha1, src, lpdf, logw, ysm, pre=pre)[1], rest_k)
+    assert nr.steady_forward.launches == n3 + 2
+    if staged:
+        _lower_limit(monkeypatch, dev, k3=sizes)
+        other = nr.steady_forward(alpha1, src, lpdf, logw, ysm, pre=pre)[1]
+        assert torch.equal(other, rest_k)
+
+
+def test_kernel_digests(dev):
+    """Digests of K3's alphas (the trigram and production widths over 49
+    frames, and over 39), and of K7f's and K7b's outputs at the main path's
+    head width 64 in both dtypes, on inputs from a seed, through calls that
+    every build since the first takes: run with -s in two checkouts to
+    compare two builds bit for bit."""
+    import hashlib
+
+    def digest(*xs):
+        return hashlib.sha256(b"".join(x.float().cpu().numpy().tobytes() for x in xs)
+                              ).hexdigest()[:16]
+
+    for B, T, S, Kr, W in ((8, 50, 20, 12, 16), (8, 50, 12, 4, 16), (3, 40, 20, 12, 16)):
+        alpha1, src, lpdf, logw, ysm, _ = _steady_case(dev, B, T, S, Kr, W, seed=T + S)
+        print(f"digest K3 B{B} T{T} S{S} Kr{Kr}:",
+              digest(*nr.steady_forward(alpha1, src, lpdf, logw, ysm)))
+    for dtype in DTYPES:
+        qkv, bias, g = _attn_case(dev, 8, 50, 4, 64, dtype, seed=7)
+        print(f"digest K7 dh64 {dtype}:", digest(at.attention_forward(qkv, bias, 4, 0.125),
+                                                 *at.attention_backward(qkv, bias, g, 4, 0.125)))
+
+
 def test_steady_kernels_without_steady_frames_launch_nothing(dev):
     """T = 1: alpha and beta pass through, and no kernel runs."""
     alpha1, src, lpdf, logw, ysm, final = _steady_case(dev, 3, 1, 5, 2, 8, seed=0)
@@ -374,8 +446,9 @@ def test_steady_kernels_raise_on_wrong_dtype(dev):
         nr.steady_forward(alpha1.double(), src, lpdf, logw, ysm)
     with pytest.raises(TypeError):
         nr.steady_forward(alpha1, src, lpdf, logw, ysm.half())
+    arc_off, arcs, dst_off = nr.kernel_tables(src, lpdf, logw)
     with pytest.raises(TypeError):  # placed tables must already be int32
-        nr.steady_forward(alpha1, src, lpdf, logw, ysm, pre=(src, lpdf, logw))
+        nr.steady_forward(alpha1, src, lpdf, logw, ysm, pre=(arc_off, arcs, dst_off.long()))
     alphas = torch.zeros(3, 3, 5, device=dev)
     with pytest.raises(TypeError):
         nr.steady_backward(src, lpdf, logw, ysm, alphas, final,
@@ -518,11 +591,36 @@ def test_attention_forward_runs_beyond_the_backward_limit(dev, T, dtype):
     assert torch.equal(again[0], dqkv) and torch.equal(again[1], dbias)
 
 
+@pytest.mark.parametrize("dtype", DTYPES, ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("T", [50, 150])
+@pytest.mark.parametrize("dh", [96, 128, 80, 100])
+def test_attention_wide_heads_match_plain(dev, dh, T, dtype):
+    """Heads past 64 wide take tiles 96 (dh 65-96) and 128 (97-128) wide:
+    both kernels against their plain versions at T 50 and 150 within
+    chip_smoke.py's tolerances (float32: sums of dh and T products in
+    another order; bfloat16: one rounding step), dbias as
+    `test_attention_kernels_match_plain`, two launches bit-equal."""
+    B, H = 4, 2
+    qkv, bias, g = _attn_case(dev, B, T, H, dh, dtype, seed=dh + T)
+    scale = 1.0 / math.sqrt(dh)
+    out = at.attention_forward(qkv, bias, H, scale)
+    dqkv, dbias = at.attention_backward(qkv, bias, g, H, scale)
+    torch.cuda.synchronize()
+    tol = dict(atol=5e-5, rtol=1e-5) if dtype == torch.float32 else dict(atol=2e-2, rtol=1e-2)
+    torch.testing.assert_close(out, at.attention_forward_plain(qkv, bias, H, scale), **tol)
+    dqkv_p, dbias_p = at.attention_backward_plain(qkv, bias, g, H, scale)
+    torch.testing.assert_close(dqkv, dqkv_p, **tol)
+    torch.testing.assert_close(dbias, dbias_p, atol=5e-5, rtol=1e-4)
+    assert torch.equal(at.attention_forward(qkv, bias, H, scale), out)
+    again = at.attention_backward(qkv, bias, g, H, scale)
+    assert torch.equal(again[0], dqkv) and torch.equal(again[1], dbias)
+
+
 def test_attention_beyond_the_shared_memory_limit_raises(dev):
-    """The kernels take heads up to 64 wide (a tile of 64 rows by the
+    """The kernels take heads up to 128 wide (a tile of 64 rows by the
     padded head width per operand): beyond that the wrappers raise, they do
     not fall back."""
-    T, H, dh = 40, 1, 72
+    T, H, dh = 40, 1, 136
     qkv = torch.zeros(1, T, 3 * H * dh, device=dev)
     bias = torch.zeros(H, T, T, device=dev)
     n_f, n_b = at.attention_forward.launches, at.attention_backward.launches
@@ -680,9 +778,8 @@ def _e2e_case(dev, B, T, S, K, seed, holes=False):
     "B,T,S,K,holes",
     [(5, 9, 7, 3, False), (3, 1, 5, 1, False), (2, 12, 70, 37, True), (2, 3, 300, 120, False)],
     ids=["odd_sizes", "one_frame", "holes_and_wide_rows", "tables_beyond_shared_memory"],
-    # the last: 8 bytes a slot, more than a block's shared memory holds; K8f
-    # reads the tables from device memory and K8b takes its unstaged plan, so
-    # no S * K is too large
+    # the last: more live arcs than a block's shared memory holds; K8f and
+    # K8b take their unstaged plans, so no S * K is too large
 )
 def test_e2e_kernels_match_plain(dev, B, T, S, K, holes, placed):
     ylocal, src, logw, final = _e2e_case(dev, B, T, S, K, seed=S, holes=holes)
@@ -732,7 +829,7 @@ def test_e2e_backward_plans_match_plain(dev, B, T, S, K, holes, staged):
     the staged one, bit-equal too."""
     ylocal, src, logw, final = _e2e_case(dev, B, T, S, K, seed=S + 1, holes=holes)
     pre = nr.e2e_kernel_tables(src, logw)
-    assert nr.e2e_backward_plan(pre[4].shape[1], S, dev)[1] == staged
+    assert nr.e2e_backward_plan(pre[5].shape[1], S, dev)[1] == staged
     rest = nr.e2e_forward_plain(ylocal, src, logw)
     log_p = torch.logsumexp(rest[-1] + final, dim=-1)
     if B > 2:
@@ -750,6 +847,50 @@ def test_e2e_backward_plans_match_plain(dev, B, T, S, K, holes, staged):
     assert torch.equal(nr.e2e_backward_resident(*args, pre=pre), post_k)
     if staged:
         assert torch.equal(nr.e2e_backward_resident(*args, pre=pre, staged=0), post_k)
+
+
+@pytest.mark.parametrize(
+    "B,T,S,K,holes,staged",
+    [(5, 9, 7, 3, False, 1), (4, 50, 55, 47, True, 1), (3, 20, 20, 120, False, 1),
+     (2, 3, 300, 120, False, 0)],
+    ids=["odd_sizes", "heavy_runs", "long_runs", "list_beyond_shared_memory"],
+    # heavy_runs: the trigram e2e batch's widths, about 19 live in-arcs a
+    # destination, so most runs go to the heavy warps; long_runs: up to 120,
+    # past the 48 values a group of them keeps in registers
+)
+def test_e2e_forward_plans_match_plain(dev, monkeypatch, B, T, S, K, holes, staged):
+    """K8f on each of its shared-memory plans: the plain version's values
+    within chip_smoke.py's tolerances, -inf where it has them, two launches
+    bit-equal, and the unstaged plan, where the sizes chose the staged one,
+    bit-equal too (the limit lowered below the staged plan)."""
+    ylocal, src, logw, _ = _e2e_case(dev, B, T, S, K, seed=S + 2, holes=holes)
+    pre = nr.e2e_kernel_tables(src, logw)
+    assert nr.e2e_forward_plan(pre[3].shape[1], S, dev)[1] == staged
+    if holes:
+        assert int(pre[2].diff(dim=1).max()) > nr.E2E_HEAVY_RUN
+    rest_k = nr.e2e_forward_resident(ylocal, src, logw, pre=pre)
+    torch.cuda.synchronize()
+    _close_where_finite(rest_k, nr.e2e_forward_plain(ylocal, src, logw))
+    assert torch.equal(nr.e2e_forward_resident(ylocal, src, logw, pre=pre), rest_k)
+    if staged:
+        _lower_limit(monkeypatch, dev, k8f=(pre[3].shape[1], S))
+        assert torch.equal(nr.e2e_forward_resident(ylocal, src, logw, pre=pre), rest_k)
+
+
+@pytest.mark.parametrize("staged", [1, 0])
+def test_e2e_forward_takes_a_sequence_without_arcs(dev, monkeypatch, staged):
+    """A sequence whose graph has no live arc gets -inf from frame 1 on, on
+    either plan, and the others the plain version's values."""
+    ylocal, src, logw, _ = _e2e_case(dev, 3, 6, 9, 4, seed=3, holes=True)
+    src[1] = -1
+    logw[1] = -math.inf
+    pre = nr.e2e_kernel_tables(src, logw)
+    if not staged:
+        _lower_limit(monkeypatch, dev, k8f=(pre[3].shape[1], 9))
+    rest = nr.e2e_forward_resident(ylocal, src, logw, pre=pre)
+    torch.cuda.synchronize()
+    assert torch.isneginf(rest[:, 1]).all()
+    _close_where_finite(rest, nr.e2e_forward_plain(ylocal, src, logw))
 
 
 def test_e2e_kernels_raise_on_wrong_dtype_and_shape(dev):
@@ -929,7 +1070,7 @@ def test_numerator_backward_kernels_are_one_device_launch(dev, plan):
     pre = nr.kernel_tables(src, lpdf, logw)
     S, W = k4_case[2], k4_case[4]
     want = int(plan == "staged")
-    assert nr.steady_plan(pre[4].shape[1], k4_case[1] - 1, S, S * k4_case[3], W, dev)[1] == want
+    assert nr.steady_plan(pre[1].shape[1], k4_case[1] - 1, S, S * k4_case[3], W, dev)[1] == want
     aT, rest = nr.steady_forward_plain(alpha1, src, lpdf, logw, ysm)
     args = (src, lpdf, logw, ysm, torch.cat([alpha1[None], rest[:-1]]), final,
             torch.logsumexp(aT + final, dim=-1))
@@ -940,7 +1081,7 @@ def test_numerator_backward_kernels_are_one_device_launch(dev, plan):
     ylocal, src, logw, final = _e2e_case(dev, *k8_case[:4], seed=5, holes=k8_case[4])
     pre = nr.e2e_kernel_tables(src, logw)
     S = k8_case[2]
-    assert nr.e2e_backward_plan(pre[4].shape[1], S, dev)[1] == want
+    assert nr.e2e_backward_plan(pre[5].shape[1], S, dev)[1] == want
     rest = nr.e2e_forward_plain(ylocal, src, logw)
     a0 = torch.full((1, k8_case[0], S), -math.inf, device=dev)
     a0[:, :, 0] = 0.0
@@ -949,6 +1090,90 @@ def test_numerator_backward_kernels_are_one_device_launch(dev, plan):
     nr.e2e_backward_resident(*args, pre=pre)
     assert _device_launches(lambda: nr.e2e_backward_resident(*args, pre=pre)) == {
         "e2e_bwd_kernel": 1}
+
+
+@pytest.mark.parametrize("plan", ["staged", "unstaged"])
+def test_numerator_forward_kernels_are_one_device_launch(dev, monkeypatch, plan):
+    """K3 and K8f each run as one device launch a call (torch.profiler), on
+    either of their shared-memory plans, and read nothing back to the host
+    when the placed tables are given (the launches queue behind a sleep of
+    the card without waiting for it)."""
+    staged = int(plan == "staged")
+    alpha1, src, lpdf, logw, ysm, _ = _steady_case(dev, 3, 50, 20, 12, 16, seed=6)
+    pre = nr.kernel_tables(src, lpdf, logw)
+    ylocal, esrc, elogw, _ = _e2e_case(dev, 4, 20, 55, 47, seed=6, holes=True)
+    epre = nr.e2e_kernel_tables(esrc, elogw)
+    if not staged:
+        _lower_limit(monkeypatch, dev, k3=(pre[1].shape[1], 49, 20, 16),
+                     k8f=(epre[3].shape[1], 55))
+
+    def k3():
+        return nr.steady_forward(alpha1, src, lpdf, logw, ysm, pre=pre)
+
+    def k8f():
+        return nr.e2e_forward_resident(ylocal, esrc, elogw, pre=epre)
+
+    k3(), k8f()
+    assert _device_launches(k3) == {"steady_fwd_kernel": 1}
+    assert _device_launches(k8f) == {"e2e_fwd_kernel": 1}
+    torch.cuda.synchronize()
+    done = torch.cuda.Event()
+    torch.cuda._sleep(200_000_000)
+    k3(), k8f()
+    done.record()
+    assert not done.query()  # still queued behind the sleep: no host sync
+    done.synchronize()
+
+
+def test_auto_den_graph_falls_through_on_the_card(dev, monkeypatch):
+    """With the card's shared-memory limit taken as below the resident
+    form's carried state and at the dense form's, `auto_den_graph` picks the
+    fused dense Moore form (K9f/K9b), and with the V budget also lowered the
+    sparse scan of ops/den_scan.py; the chain loss and its gradient through
+    each equal the resident form's within the den forms' tolerances (loss
+    rtol 1e-5; gradients rtol 1e-4, atol 1e-6).  The graph: a left-biphone
+    bigram over 8 phones, whose 80 pdfs outnumber its states, as
+    tests/test_torch_den_auto.py takes it on the CPU."""
+    from torchain_tpu_torch import kernels
+    from torchain_tpu_torch.ops import ChainLossOptions, DeviceDenGraph, DeviceDenseDenGraph
+    from torchain_tpu_torch.ops import chain_loss
+    from torchain_tpu_torch.ops import device_graphs as dg
+
+    c = tdata.synthetic_dataset(num_utts=6, num_phones=8, feat_dim=8, utt_frames_out=(9, 12),
+                                seed=6, context_width=2, lm_order=2, lm_extra_states=0)
+    ds = tdata.ChainDataset(c.utts, c.tree, c.norm_fst, chunk_frames_out=9, left_context=2,
+                            right_context=2, sup_opts=tgraphs.SupervisionOptions())
+    sup = DeviceSupervision.from_host(next(ds.batches(3, shuffle=False)).sup, device=dev)
+    sup = sup.with_kernel_tables()
+    g, P = c.den_graph, c.den_graph.num_pdfs
+    S_pad, K = dr.slot_sizes(g, 8)
+    moore = tgraphs.make_dense_den_graph(g, pad_to=8)
+    res_need = kernels.entry("den_resident", "den_shared_bytes")
+    dense_need = kernels.entry("den_dense", "dense_shared_bytes")
+    resident_bytes = max(res_need(d, S_pad, K, P, 0, 0, 0) for d in (0, 1))
+    dense_bytes = max(dense_need(d, moore.num_orig, moore.num_exp, 0, 0, 0) for d in (0, 1))
+    assert dense_bytes < resident_bytes
+    resident = auto_den_graph(g, pad_to=8, device=dev)
+    assert isinstance(resident, dr.DeviceResidentDenGraph)
+    monkeypatch.setattr(dg, "den_shared_limit", lambda device: dense_bytes)
+    dense = auto_den_graph(g, pad_to=8, device=dev)
+    assert isinstance(dense, DeviceDenseDenGraph) and dense.fused
+    monkeypatch.setattr(dg, "DENSE_V_BYTES_THRESHOLD", 0)
+    scan = auto_den_graph(g, pad_to=8, device=dev)
+    assert isinstance(scan, DeviceDenGraph)
+    B, T = sup.frame_vocab.shape[:2]
+    y = torch.as_tensor(np.random.default_rng(8).normal(size=(B, T, P)), dtype=torch.float32,
+                        device=dev)
+    opts = ChainLossOptions(l2_regularize=5e-4, leaky_hmm_coefficient=0.1, xent_regularize=0.1)
+    out = {}
+    for name, den in (("resident", resident), ("dense", dense), ("scan", scan)):
+        yy = y.detach().clone().requires_grad_()
+        loss, _ = chain_loss(yy, yy * 0.5, den, sup, opts)
+        loss.backward()
+        out[name] = (loss.detach(), yy.grad)
+    for name in ("dense", "scan"):
+        torch.testing.assert_close(out[name][0], out["resident"][0], rtol=1e-5, atol=0)
+        torch.testing.assert_close(out[name][1], out["resident"][1], rtol=1e-4, atol=1e-6)
 
 
 def test_dense_den_kernels_refuse_what_they_cannot_hold(dev):

@@ -206,7 +206,7 @@ def emulate_e2e_backward(pre, ylocal, alphas, final_logw, log_p):
     (lane g takes arcs g, g + 32, ... in order, then lane l adds lane
     l ^ off for off = 16 .. 1); the maximum first.  Elementwise values by
     torch's float32 operations."""
-    src32, logw32, _, by_off, by_arc = pre
+    src32, logw32, _, _, by_off, by_arc = pre
     B, T, S, K = ylocal.shape
     logp = torch.where(torch.isfinite(log_p), log_p, torch.inf)
     post = torch.zeros((B, T, S * K))
@@ -236,6 +236,88 @@ def emulate_e2e_backward(pre, ylocal, alphas, final_logw, log_p):
                     nxt[s] = m + torch.log(lanes[0])
             beta = nxt
     return post.view(B, T, S, K)
+
+
+def _lanes_lse(run):
+    """A run's log-sum-exp as K8f reduces it: up to E2E_HEAVY_RUN values in
+    order, one float32 addition at a time; a longer run by a group of 8
+    lanes (lane g takes values g, g + 8, ... in order, then lane l adds lane
+    l ^ off for off = 4, 2, 1); the maximum first, -inf where it is."""
+    m = run.max() if len(run) else torch.tensor(-torch.inf)
+    if not m > -torch.inf:
+        return torch.tensor(-torch.inf)
+    G = 1 if len(run) <= tnr.E2E_HEAVY_RUN else 8
+    lanes = []
+    for g in range(G):
+        acc = torch.tensor(0.0)
+        for v in torch.exp(run[g::G] - m):
+            acc = acc + v
+        lanes.append(acc)
+    off = G // 2
+    while off:
+        lanes = [lanes[i] + lanes[i ^ off] for i in range(G)]
+        off //= 2
+    return m + torch.log(lanes[0])
+
+
+def emulate_e2e_forward(pre, ylocal):
+    """K8f as csrc/num_e2e.cu computes it, on the by-destination list of
+    `pre` (each sequence's live slots in slot order): per frame, each
+    destination's run of values (alpha[src] + logw) + ylocal reduced as
+    `_lanes_lse` does.  Returns the alphas [T, B, S]."""
+    src32, logw32, in_off, in_arc, _, _ = pre
+    B, T, S, K = ylocal.shape
+    out = torch.empty((T, B, S))
+    for b in range(B):
+        slot = in_arc[b, :in_off[b, S]].long()
+        sp, lw = src32[b].reshape(-1)[slot].long(), logw32[b].reshape(-1)[slot]
+        assert (slot // K).diff().ge(0).all()  # destination order
+        alpha = torch.full((S,), -torch.inf)
+        alpha[0] = 0.0
+        for t in range(T):
+            v = (alpha[sp] + lw) + ylocal[b, t].reshape(-1)[slot]
+            alpha = torch.stack([_lanes_lse(v[in_off[b, s]:in_off[b, s + 1]])
+                                 for s in range(S)])
+            out[t, b] = alpha
+    return out
+
+
+def _heavy_inputs():
+    """Tables (B=2, S=6, K=64) where state 3 of sequence 0 has 60 in-arcs
+    (past the 48 a group of the heavy warps keeps in registers) and state 5
+    has 9 (runs for the heavy warps), the others 0 to 3, with per-arc
+    emissions for 12 frames."""
+    rng = np.random.default_rng(9)
+    B_, T_, S, K = 2, 12, 6, 64
+    src = np.full((B_, S, K), -1)
+    for b in range(B_):
+        for s in range(1, S):
+            n = 60 if (b, s) == (0, 3) else 9 if s == 5 else rng.integers(0, 4)
+            src[b, s, :n] = rng.integers(0, S, size=n)
+    src[:, 1, 0] = 0  # state 1 reached from the start state
+    logw = rng.normal(size=src.shape).astype(np.float32)
+    ylocal = rng.normal(size=(B_, T_, S, K)).astype(np.float32)
+    return torch.as_tensor(ylocal), torch.as_tensor(src), torch.as_tensor(logw)
+
+
+@pytest.mark.parametrize("case", ["batch", "heavy"])
+def test_k8f_order_over_the_list_matches_plain_and_pallas(sides, case):
+    """The kernel's order over its by-destination list against
+    e2e_forward_plain and the Pallas kernel in interpret mode, with the same
+    -inf entries: on the e2e batch (runs of 0 to 3 arcs) and on tables with
+    runs past E2E_HEAVY_RUN arcs."""
+    if case == "batch":
+        ylocal, src, logw, _ = _kernel_inputs(sides)
+        src, logw = torch.as_tensor(src), torch.as_tensor(logw)
+    else:
+        ylocal, src, logw = _heavy_inputs()
+    pre = tnr.e2e_kernel_tables(src, logw)
+    assert (int(pre[2].diff(dim=1).max()) > tnr.E2E_HEAVY_RUN) == (case == "heavy")
+    rest_e = emulate_e2e_forward(pre, ylocal)
+    _assert_close_with_infs(rest_e.numpy(), tnr.e2e_forward_plain(ylocal, src, logw).numpy())
+    rest_j = jnr.e2e_forward_resident(jnp.asarray(ylocal.numpy()), jnp.asarray(src.numpy()),
+                                      jnp.asarray(logw.numpy()), interpret=True)
+    _assert_close_with_infs(rest_e.numpy(), rest_j)
 
 
 def test_k8b_order_over_the_staged_list_matches_plain_and_pallas(sides):
@@ -274,31 +356,50 @@ def test_invalid_sequence_zeroes_gamma(sides):
     np.testing.assert_allclose(g[1:].sum(-1).numpy(), 1.0, atol=1e-5)
 
 
-def test_e2e_kernel_tables(sides):
-    """The tables K8f/K8b read: nk is one past each state's last live slot,
-    and the by-source lists hold every live slot exactly once, grouped by
-    source in slot order."""
-    sup = sides["tb"].sup
-    src32, logw32, nk, by_off, by_arc = tnr.e2e_kernel_tables(
-        torch.as_tensor(sup.in_src), torch.as_tensor(sup.in_logw))
-    S, K = sup.in_src.shape[1:]
-    assert src32.dtype == torch.int32 and logw32.dtype == torch.float32
-    assert nk.dtype == by_off.dtype == by_arc.dtype == torch.int32
-    live = sup.in_src >= 0
-    want_nk = np.where(live.any(-1), K - np.argmax(live[..., ::-1], -1), 0)
-    np.testing.assert_array_equal(nk.numpy(), want_nk)
-    assert by_arc.shape == (B, int(live.reshape(B, -1).sum(1).max()))
+def _brute_force_lists(src):
+    """Each sequence's live slots of src [B, S, K] by destination (slot
+    order) and by source, with their offsets, counted slot by slot."""
+    B, S, K = src.shape
+    out = []
     for b in range(B):
-        flat = sup.in_src[b].reshape(-1)
-        off, arcs = by_off[b].numpy(), by_arc[b].numpy()
-        assert off[0] == 0 and off[-1] == live[b].sum()
-        for s in range(S):
-            run = arcs[off[s]:off[s + 1]]
-            np.testing.assert_array_equal(run, np.flatnonzero(flat == s))
-    # a hole in a row (a live slot after a pad) is still covered by nk
-    holed = torch.tensor([[[-1, 0, -1, -1], [-1, -1, -1, -1]]])
-    _, _, nk2, off2, arc2 = tnr.e2e_kernel_tables(holed, torch.zeros(1, 2, 4))
-    assert nk2.tolist() == [[2, 0]] and off2.tolist() == [[0, 1, 1]] and arc2.tolist() == [[1]]
+        flat = src[b].reshape(-1)
+        by_dst = [[s * K + k for k in range(K) if src[b, s, k] >= 0] for s in range(S)]
+        by_src = [[a for a in range(S * K) if flat[a] == s] for s in range(S)]
+        out.append([(sum(x, []), np.cumsum([0] + [len(r) for r in x])) for x in (by_dst, by_src)])
+    return out
+
+
+def test_e2e_kernel_tables(sides):
+    """The tables K8f/K8b read against lists counted slot by slot: the
+    by-destination list holds every live slot once in slot order, with
+    each destination's run offsets, and zeros after a short list; the
+    by-source lists hold every live slot once, grouped by source in slot
+    order.  Also a sequence without a live slot, a hole in a row (a live
+    slot after a pad) and a sequence whose list is L long."""
+    sup = sides["tb"].sup
+    holed = np.full((3, 2, 4), -1)
+    holed[1, 0, 1] = 0
+    holed[2] = [[1, -1, 0, 1], [0, 0, -1, 1]]
+    for src in (sup.in_src, holed):
+        Bs, S, K = src.shape
+        logw = np.random.default_rng(2).normal(size=src.shape).astype(np.float32)
+        src32, logw32, in_off, in_arc, by_off, by_arc = tnr.e2e_kernel_tables(
+            torch.as_tensor(src), torch.as_tensor(logw))
+        assert src32.dtype == in_off.dtype == in_arc.dtype == torch.int32
+        assert by_off.dtype == by_arc.dtype == torch.int32 and logw32.dtype == torch.float32
+        assert torch.equal(src32.long(), torch.as_tensor(src).long())
+        assert torch.equal(logw32, torch.as_tensor(logw))
+        live = (src >= 0).reshape(Bs, -1).sum(1)
+        L = max(1, int(live.max()))
+        assert in_arc.shape == by_arc.shape == (Bs, L)
+        for b, ((dst_list, dst_off), (src_list, src_off)) in enumerate(_brute_force_lists(src)):
+            np.testing.assert_array_equal(in_off[b].numpy(), dst_off)
+            np.testing.assert_array_equal(in_arc[b, :len(dst_list)].numpy(), dst_list)
+            assert (in_arc[b, len(dst_list):] == 0).all()
+            np.testing.assert_array_equal(by_off[b].numpy(), src_off)
+            np.testing.assert_array_equal(by_arc[b, :len(src_list)].numpy(), src_list)
+    assert in_off.tolist()[:2] == [[0, 0, 0], [0, 1, 1]] and in_arc[1, 0] == 1
+    assert int(live[2]) == L == 6  # the list at L
 
 
 @pytest.mark.parametrize("frame_weights", [False, True], ids=["plain", "frame_weights"])

@@ -19,6 +19,7 @@ import torchain_tpu.ops.device_graphs as jdg
 import torchain_tpu_torch.data as tdata
 import torchain_tpu_torch.graphs as tgraphs
 import torchain_tpu_torch.ops.device_graphs as tdg
+import torchain_tpu_torch.ops.num_resident as tnr
 from torchain_tpu.ops.den_resident import DeviceResidentDenGraph as JResident
 from torchain_tpu_torch.ops.den_resident import DeviceResidentDenGraph as TResident
 
@@ -113,11 +114,13 @@ def test_batches_and_device_supervision_identical(corpora):
         kernel = ("src_k", "pdf_local_k", "logw_k")
         _assert_same_fields(jsup, tsup, skip=kernel)
         # the tables prepared for the steady-frame kernels hold the same
-        # values in each package's own layout: [T-1, Kr, S, B] for the TPU's
-        # lanes there, [B, T-1, S, Kr] (one thread block per sequence) here
-        for name in kernel:
-            _assert_same(np.transpose(np.asarray(getattr(jsup, name)), (3, 0, 2, 1)),
-                         getattr(tsup, name), name)
+        # arcs in each package's own layout: dense [T-1, Kr, S, B] tables
+        # for the TPU's lanes there, each sequence's list of live arcs (one
+        # thread block per sequence) here, which the dense tables list alike
+        dense = [np.transpose(np.array(getattr(jsup, name)), (3, 0, 2, 1)) for name in kernel]
+        want = tnr.kernel_tables(*(torch.as_tensor(x) for x in dense))
+        for name, a, b in zip(("arc_off_k", "arcs_k", "dst_off_k"), want, tsup.kernel_pre):
+            _assert_same(a, b, name)
     assert jd.num_dropped == td.num_dropped
 
 

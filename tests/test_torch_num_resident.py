@@ -140,15 +140,23 @@ def test_steady_backward_matches_pallas(setup, how):
 
 
 def test_kernel_tables_hold_the_same_values_in_the_kernels_types(setup):
+    """The placed batch carries what K3 and K4 read and nothing else: the
+    live list's per-frame offsets, its records and its per-frame
+    destination offsets, int32 and contiguous; the records hold the dense
+    tables' values (src, dst, lpdf, logw's bits)."""
     _, tsup, _, _ = setup
-    bare = dataclasses.replace(tsup, src_k=None, pdf_local_k=None, logw_k=None)
+    bare = dataclasses.replace(tsup, arc_off_k=None, arcs_k=None, dst_off_k=None)
     assert bare.kernel_pre is None
-    src_k, lpdf_k, logw_k = tsup.kernel_pre[:3]
-    for k, ref, dtype in ((src_k, tsup.in_src_r, torch.int32),
-                          (lpdf_k, tsup.pdf_local_r, torch.int32),
-                          (logw_k, tsup.in_logw_r, torch.float32)):
-        assert k.dtype == dtype and k.is_contiguous() and k.shape == ref.shape
-        assert torch.equal(k.to(ref.dtype), ref)
+    arc_off, arcs, dst_off = tsup.kernel_pre
+    B, Tm1, S, Kr = tsup.in_src_r.shape
+    for k, shape in ((arc_off, (B, Tm1 + 1)), (arcs, (B, arcs.shape[1], 4)),
+                     (dst_off, (B, Tm1, S + 1))):
+        assert k.dtype == torch.int32 and k.is_contiguous() and k.shape == shape
+    live = tsup.in_src_r >= 0
+    rec = torch.cat([arcs[b, :int(arc_off[b, -1])] for b in range(B)])
+    assert torch.equal(rec[:, 0].long(), tsup.in_src_r[live])
+    assert torch.equal(rec[:, 2].long(), tsup.pdf_local_r[live])
+    assert torch.equal(rec[:, 3].view(torch.float32), tsup.in_logw_r[live])
     # the int64 tables of the plain path stay
     assert tsup.in_src_r.dtype == torch.int64 and tsup.pdf_local_r.dtype == torch.int64
 
@@ -172,15 +180,33 @@ def _expected_list(src, lpdf, logw):
     return lists, np.asarray(offs)
 
 
+def _expected_dst_off(src):
+    """Where each destination state's run of each frame starts in its
+    sequence's list of live slots, counted slot by slot, and one past the
+    frame's last: [B, T-1, S+1]."""
+    B, Tm1, S, Kr = src.shape
+    out = np.zeros((B, Tm1, S + 1), dtype=np.int64)
+    for b in range(B):
+        n = 0
+        for t in range(Tm1):
+            for s in range(S):
+                out[b, t, s] = n
+                n += int((src[b, t, s] >= 0).sum())
+            out[b, t, S] = n
+    return out
+
+
 def _assert_list(pre, src, lpdf, logw):
-    """K4's list in `pre` holds every live slot of the dense tables, in slot
-    order, with the right per-frame offsets, and zeros after a short list."""
-    _, _, _, arc_off, arcs = pre
+    """The list in `pre` holds every live slot of the dense tables, in slot
+    order, with the right per-frame offsets (K4) and destination offsets
+    (K3), and zeros after a short list."""
+    arc_off, arcs, dst_off = pre
     src, lpdf, logw = (np.asarray(x) for x in (src, lpdf, logw))
     lists, offs = _expected_list(src, lpdf, logw)
-    assert arc_off.dtype == arcs.dtype == torch.int32
-    assert arc_off.is_contiguous() and arcs.is_contiguous()
+    assert arc_off.dtype == arcs.dtype == dst_off.dtype == torch.int32
+    assert arc_off.is_contiguous() and arcs.is_contiguous() and dst_off.is_contiguous()
     np.testing.assert_array_equal(arc_off.numpy(), offs)
+    np.testing.assert_array_equal(dst_off.numpy(), _expected_dst_off(src))
     L = max(1, max(len(x) for x in lists))
     assert arcs.shape == (src.shape[0], L, 4)
     for b, rows in enumerate(lists):
@@ -196,7 +222,7 @@ def _assert_list(pre, src, lpdf, logw):
 
 def _list_records(pre, b, t):
     """Frame t of sequence b in K4's list: src, dst, lpdf and logw."""
-    _, _, _, arc_off, arcs = pre
+    arc_off, arcs, _ = pre
     rec = arcs[b, arc_off[b, t]:arc_off[b, t + 1]]
     return (*(rec[:, i].long() for i in range(3)), rec[:, 3].view(torch.float32))
 
@@ -260,7 +286,7 @@ def _backward_inputs(tsup, ysmall, alpha1):
 def test_live_arc_list_holds_every_live_slot_in_slot_order(setup):
     _, tsup, _, _ = setup
     _assert_list(tsup.kernel_pre, tsup.in_src_r, tsup.pdf_local_r, tsup.in_logw_r)
-    # the tables K3 reads are the first three of the same tuple
+    # the placed tables are those `kernel_tables` makes from the dense ones
     rebuilt = tnr.kernel_tables(tsup.in_src_r, tsup.pdf_local_r, tsup.in_logw_r)
     for a, b in zip(rebuilt, tsup.kernel_pre):
         assert torch.equal(a, b)
@@ -327,10 +353,14 @@ def test_live_arc_list_at_the_edges(Kr):
     tables, args = _edge_tables(Kr)
     pre = tnr.kernel_tables(*tables)
     _assert_list(pre, *tables)
-    _, _, _, arc_off, arcs = pre
+    arc_off, arcs, dst_off = pre
     assert arc_off[0, 2] == arc_off[0, 1]  # the empty frame
+    assert (dst_off[0, 1] == arc_off[0, 1]).all()  # ... where every run is empty
     assert arc_off[1, 3] - arc_off[1, 2] == 6 * Kr  # the full frame
+    assert (dst_off[1, 2].diff() == Kr).all()  # ... where every run is Kr long
     assert arc_off[2, -1] == 0 and (arcs[2] == 0).all()  # the empty list
+    assert (dst_off[2] == 0).all()
+    assert int(arc_off[:, -1].max()) == arcs.shape[1]  # one sequence's list is L long
     beta1_e, gsm_e = emulate_steady_backward(lambda b, t: _list_records(pre, b, t), *args)
     beta1_d, gsm_d = emulate_steady_backward(lambda b, t: _dense_records(tables, b, t), *args)
     assert torch.equal(beta1_e, beta1_d) and torch.equal(gsm_e, gsm_d)
@@ -340,14 +370,81 @@ def test_live_arc_list_at_the_edges(Kr):
     assert (gsm_e[:, 2] == 0).all()
 
 
+def emulate_steady_forward(runs, alpha1, ysm):
+    """K3 as csrc/num_resident.cu computes it, over each destination's run
+    of each frame (`runs(b, t, s)`: src, lpdf, logw of its records, from
+    the list by its destination offsets, or the dense slot row with its
+    pads): v = alpha[src] + (logw + ysm[lpdf]) (-inf on a pad), the maximum,
+    then the sum of exp(v - m) one float32 addition at a time in order, and
+    m + log(sum), -inf where m is.  Returns alphas [T-1, B, S]."""
+    B, Tm1, _ = ysm.shape
+    S = alpha1.shape[1]
+    alpha = alpha1.clone()
+    out = torch.empty((Tm1, B, S))
+    for t in range(Tm1):
+        for b in range(B):
+            for s in range(S):
+                src, lpdf, lw = runs(b, t, s)
+                v = torch.where(src < 0, -torch.inf,
+                                alpha[b, src.clamp(min=0)] + (lw + ysm[b, t, lpdf]))
+                m = v.max() if len(v) else torch.tensor(-torch.inf)
+                r = torch.tensor(-torch.inf)
+                if m > -torch.inf:
+                    acc = torch.tensor(0.0)
+                    for x in torch.exp(v - m):
+                        acc = acc + x
+                    r = m + torch.log(acc)
+                out[t, b, s] = r
+        alpha = out[t]
+    return out
+
+
+def _list_run(pre, b, t, s):
+    """Destination s's run of frame t of sequence b in K3's list."""
+    _, arcs, dst_off = pre
+    rec = arcs[b, dst_off[b, t, s]:dst_off[b, t, s + 1]]
+    assert (rec[:, 1] == s).all()
+    return rec[:, 0].long(), rec[:, 2].long(), rec[:, 3].view(torch.float32)
+
+
+def _dense_run(tables, b, t, s):
+    src, lpdf, logw = tables
+    return src[b, t, s].long(), lpdf[b, t, s].long(), logw[b, t, s]
+
+
+@pytest.mark.parametrize("Kr", [4, 12, None], ids=["production_Kr4", "trigram_Kr12", "batch"])
+def test_k3_order_over_the_runs_matches_the_dense_order(setup, Kr):
+    """K3's walk of each destination's run gives the bits of the dense
+    design's walk of every slot (its pads only ever added +0.0 or left the
+    maximum as it was): on the edge tables (an empty frame, a full frame,
+    an empty list) and on the placed batch.  Against the plain version (torch
+    sums another way) and, on the batch, the JAX kernel in interpret mode
+    within 1e-5."""
+    jsup, tsup, ysmall, alpha1 = setup
+    if Kr is None:
+        tables = (tsup.in_src_r, tsup.pdf_local_r, tsup.in_logw_r)
+        pre, ysm, a1 = tsup.kernel_pre, torch.as_tensor(ysmall)[:, 1:], torch.as_tensor(alpha1)
+    else:
+        tables, (ysm, alphas, _, _) = _edge_tables(Kr)
+        pre, a1 = tnr.kernel_tables(*tables), alphas[0]
+    got = emulate_steady_forward(lambda b, t, s: _list_run(pre, b, t, s), a1, ysm)
+    want = emulate_steady_forward(lambda b, t, s: _dense_run(tables, b, t, s), a1, ysm)
+    assert torch.equal(got, want)
+    _same_where_finite(got, tnr.steady_forward_plain(a1, *tables, ysm)[1])
+    if Kr is None:
+        _, rest_j = jnr.steady_forward(
+            jnp.asarray(alpha1), jsup.in_src_r, jsup.pdf_local_r, jsup.in_logw_r,
+            jnp.asarray(ysmall[:, 1:]), interpret=True)
+        _same_where_finite(got, rest_j)
+
+
 def test_device_supervision_moves_with_its_live_arc_list(setup):
     _, tsup, _, _ = setup
     moved = tsup.to("meta")
     assert moved.arc_off_k.device.type == moved.arcs_k.device.type == "meta"
     assert all(x.device.type == "meta" for x in moved.kernel_pre)
-    assert len(moved.kernel_pre) == 5
-    bare = dataclasses.replace(tsup, src_k=None, pdf_local_k=None, logw_k=None,
-                               arc_off_k=None, arcs_k=None)
+    assert len(moved.kernel_pre) == 3
+    bare = dataclasses.replace(tsup, arc_off_k=None, arcs_k=None, dst_off_k=None)
     assert bare.to("meta").kernel_pre is None
 
 

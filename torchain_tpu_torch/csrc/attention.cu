@@ -24,10 +24,13 @@
 //   * Tiles.  A block has four warps and owns 64 rows (16 a warp) of one
 //     (batch row, head); the other operand comes in tiles of 64 rows, two
 //     stages deep, the next tile's copies in flight while this one's products
-//     run.  A tile is [64, DHP]: dh (1..64) padded with zeros to DHP, a
-//     multiple of 16, and each row padded by 16 bytes so that fragment loads
-//     hit distinct banks.  Rows past T are zero-filled by the copy.  The
-//     shared memory of a block depends on dh, never on T.
+//     run.  A tile is [64, DHP]: dh (1..128) padded with zeros to DHP, a
+//     multiple of 16 up to 64, else 96 or 128 (dh 65-96 pads to 96, 97-128
+//     to 128: two instantiations more, not four), and each row padded by 16
+//     bytes so that fragment loads hit distinct banks.  Rows past T are
+//     zero-filled by the copy.  The shared memory of a block depends on dh,
+//     never on T: at DHP 128 a bf16 forward block holds 87,040 bytes, a
+//     float32 backward block 202,752 of the H100's 232,448.
 //   * bfloat16 operands: mma.m16n8k16 bf16 fed by ldmatrix (.trans for the
 //     operand whose rows are the summed index).  A bf16 product is exact in
 //     float32, so q k^T and g v^T take one product each.  A float32
@@ -54,7 +57,10 @@
 //     logits are kept in base 2 (scale and bias times log2 e) for exp2f.
 // Forward: one block per (batch row, head, 64 query rows), an online softmax
 // over the key tiles: 512 blocks at the shape above, in one wave of four bf16
-// blocks per SM (at most 128 registers a thread).
+// blocks per SM (at most 128 registers a thread).  At DHP 96 and 128 the
+// output accumulators alone take 48 and 64 registers beside the 64 of the
+// logit and bias tiles, so the bf16 forward asks for two blocks per SM there
+// (at most 255 registers a thread).
 // Backward: three launches, no atomics (two calls give the same bits):
 //   rows  one block per (batch chunk, head, 64 query rows).  For each batch
 //         row in order: a pass over the key tiles for the softmax statistics
@@ -84,7 +90,7 @@ namespace {
 constexpr int WARPS = 4;
 constexpr int THREADS = 32 * WARPS;
 constexpr int TILE = 16 * WARPS;  // rows of a tile: 16 per warp
-constexpr int MAX_DH = 64;
+constexpr int MAX_DH = 128;
 constexpr int ROWS_BLOCKS = 396;            // the rows launch's most blocks: three per SM of an H100
 constexpr long long PART_FLOATS = 1 << 23;  // cap of the dbias partials: 32 MiB
 
@@ -474,7 +480,7 @@ __device__ __forceinline__ void store_rows(T* __restrict__ dst, long long stride
 
 // K7f: one block per (batch row, head, 64 query rows), grid B * H * nq.
 template <typename T, int DHP>
-__global__ void __launch_bounds__(THREADS, sizeof(T) == 2 ? 4 : 1)
+__global__ void __launch_bounds__(THREADS, sizeof(T) == 2 ? (DHP <= 64 ? 4 : 2) : 1)
 attn_fwd_kernel(const T* __restrict__ qkv, const float* __restrict__ bias, T* __restrict__ out,
                 int Tn, int H, int dh, float scale, int gran) {
   using L = Tile<T, DHP>;
@@ -777,7 +783,8 @@ __global__ void dbias_reduce_kernel(const float* __restrict__ dpart, float* __re
 // host side
 // ---------------------------------------------------------------------------
 
-int head_pad(int dh) { return cdiv(dh, 16) * 16; }
+// the tile width of head width dh: 16, 32, 48, 64, then 96 and 128
+int head_pad(int dh) { return dh <= 64 ? cdiv(dh, 16) * 16 : dh <= 96 ? 96 : 128; }
 
 // bytes of shared memory a block of the forward (backward = 0) or of the
 // larger backward launch (1) asks for; -1 for a head width not taken
@@ -891,6 +898,8 @@ int forward_any(const void* qkv, const float* bias, void* out, int B, int Tn, in
     case 32: return forward<T, 32>(qkv, bias, out, B, Tn, H, dh, scale, stream);
     case 48: return forward<T, 48>(qkv, bias, out, B, Tn, H, dh, scale, stream);
     case 64: return forward<T, 64>(qkv, bias, out, B, Tn, H, dh, scale, stream);
+    case 96: return forward<T, 96>(qkv, bias, out, B, Tn, H, dh, scale, stream);
+    case 128: return forward<T, 128>(qkv, bias, out, B, Tn, H, dh, scale, stream);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -903,6 +912,8 @@ int backward_any(const void* qkv, const float* bias, const void* g, void* dqkv, 
     case 32: return backward<T, 32>(qkv, bias, g, dqkv, scratch, dbias, B, Tn, H, dh, scale, stream);
     case 48: return backward<T, 48>(qkv, bias, g, dqkv, scratch, dbias, B, Tn, H, dh, scale, stream);
     case 64: return backward<T, 64>(qkv, bias, g, dqkv, scratch, dbias, B, Tn, H, dh, scale, stream);
+    case 96: return backward<T, 96>(qkv, bias, g, dqkv, scratch, dbias, B, Tn, H, dh, scale, stream);
+    case 128: return backward<T, 128>(qkv, bias, g, dqkv, scratch, dbias, B, Tn, H, dh, scale, stream);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -915,7 +926,7 @@ const char* cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)
 
 // Shared memory per block, in bytes, that the forward (backward = 0) or the
 // backward (1) asks for at head width dh, whatever T; -1 where the kernels do
-// not take dh (above 64).
+// not take dh (above 128).
 int attention_shared_bytes(int dh, int is_bf16, int backward) {
   return (int)shared_bytes(dh, is_bf16, backward);
 }

@@ -22,27 +22,45 @@
 //   anything is subtracted from it.  No fast-math: the recursion relies on
 //   expf(-inf) == 0 and on exact -inf arithmetic.
 //
-// What bounds K3 on the H100: neither bytes nor operations but latency.  The
-// tables are read once (about 18 MB at B=128, T=50, S=20, Kr=12: microseconds
-// of device memory time) and the arithmetic is a few hundred exp/log per
-// frame, but the T-1 frames depend on each other.  The TPU kernel keeps the
-// batch on the lanes ([Kr, S, B] tiles) and selects alpha[src] and ysm[lpdf]
-// with S- and W-long loops of comparison masks, because it cannot gather.
-// Here sequences are independent, so one thread block owns one sequence and
-// loops over all frames inside one launch: alpha lives in shared memory,
-// arcs index it directly, and a frame costs two __syncthreads().  Nothing
-// carries between blocks.  The next frame's table rows are prefetched into
-// L2 while the current frame computes.
-//
-// K4 walks only the live arcs.  97% of the dense slots are pads at the
-// trigram shapes (40,875 live of 1,505,280: about 6.5 a frame of a
+// K3 and K4 walk only the live arcs.  97% of the dense slots are pads at
+// the trigram shapes (40,875 live of 1,505,280: about 6.5 a frame of a
 // sequence), so the wrapper lists each sequence's live arcs once, when a
 // batch is placed (ops/num_resident.py kernel_tables): frame by frame, in
 // slot order, one 16-byte record each (src, dst = slot / Kr, lpdf, logw),
-// with per-frame offsets.  One block per sequence (a warp or more for the
-// source states, then one or more for the vocabulary slots) copies, by
-// cp.async before the first frame, everything the frame loop reads into
-// shared memory: the offsets, its whole list, its ysm rows and its alpha
+// with per-frame offsets, and for K3 also per-frame destination offsets
+// [T-1, S+1] (slot order is destination order, so each destination's
+// in-arcs are one run of its frame).  What bounds either kernel on the H100
+// is neither bytes (the list of a batch is 654 KB at trigram) nor
+// operations but the latency of 49 dependent frames.  The TPU kernels keep
+// the batch on the lanes ([Kr, S, B] tiles) and select alpha[src] and
+// ysm[lpdf] with S- and W-long loops of comparison masks, because they
+// cannot gather; here sequences are independent, one thread block owns one
+// sequence and loops over all frames inside one launch.
+//
+// K3.  One thread per destination state walks its run: the maximum of v =
+// alpha[src] + (logw + ysm[lpdf]), then the sum of expf(v - m) in list
+// order.  The first KEEP = 2 values of a run stay in registers between the
+// two passes, their loads sent together; a longer run's rest is read in a
+// loop (most frames' longest run is 2 arcs at both shipped shapes).  The
+// block copies, by cp.async before the first frame, its sequence's whole
+// list, destination offsets and ysm rows into shared memory (the staged
+// plan: 14,528 bytes at trigram, L 444, S 20, W 16), and alpha is
+// double-buffered there, so a frame has no global load on its chain and
+// one barrier; the alpha rows go out to device memory off the chain.
+// Where the list does not fit (the plan is chosen from sizes alone,
+// steady_fwd_shared_bytes) it is read from device memory instead.  A block
+// is 32 * ceil(S / 32) threads: at S <= 32 (trigram S 20, production 12)
+// one warp owns a sequence and a frame ends at __syncwarp, not at a block
+// barrier.  One sequence a block, not several: the 128 sequences of a batch
+// then spread over 128 of the H100's 132 SMs, each a chain of its own.
+// The dense design's pads only ever added +0.0 to a sum or left the maximum
+// as it was, and the runs keep slot order: K3 gives the dense design's
+// bits.
+//
+// K4.  One block per sequence (a warp or more for the source states, then
+// one or more for the vocabulary slots) copies, by cp.async before the
+// first frame, everything the frame loop reads into shared memory: the
+// offsets, its whole list, its ysm rows and its alpha
 // rows (the staged plan).  Where the list does not fit, each frame's
 // records, ysm row and alpha row are copied instead one frame ahead into
 // one of two buffers (the streamed plan, sized by S * Kr, the most live
@@ -71,56 +89,114 @@
 
 namespace {
 
-__device__ __forceinline__ void prefetch_l2(const void* p) {
-  asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
+// K3's shared memory.  Staged: the records [L], the destination offsets
+// [T-1][S+1] and the ysm rows [T-1][W]; then (both plans) alpha [2][S].
+struct K3Layout {
+  long long rec, off, ysm, alpha, bytes;
+};
+
+__host__ __device__ inline K3Layout k3_layout(bool staged, int L, int Tm1, int S, int W) {
+  K3Layout l{};
+  long long o = 0;
+  if (staged) {
+    l.rec = o;
+    o = up16(o + 16LL * L);
+    l.off = o;
+    o = up16(o + 4LL * Tm1 * (S + 1));
+    l.ysm = o;
+    o = up16(o + 4LL * Tm1 * W);
+  }
+  l.alpha = o;
+  l.bytes = up16(o + 8LL * S);
+  return l;
 }
 
-// K3.  One block per sequence b; dynamic shared memory (S + W + S*Kr) floats.
-// src, lpdf, logw [B, Tm1, S, Kr]; ysm rows at b * ys_b + t * ys_t, W wide;
-// alpha1 [B, S]; out [Tm1, B, S].
-__global__ void steady_fwd_kernel(const int* __restrict__ src, const int* __restrict__ lpdf,
-                                  const float* __restrict__ logw, const float* __restrict__ ysm,
-                                  long long ys_b, long long ys_t,
-                                  const float* __restrict__ alpha1, float* __restrict__ out,
-                                  int B, int Tm1, int S, int Kr, int W) {
-  extern __shared__ float sh[];
-  float* alpha_sh = sh;          // [S]
-  float* ysm_sh = alpha_sh + S;  // [W]
-  float* val_sh = ysm_sh + W;    // [S * Kr]
+// the end of a frame: the block's threads are one warp where S <= 32
+__device__ __forceinline__ void frame_sync(int nt) {
+  if (nt <= 32)
+    __syncwarp();
+  else
+    __syncthreads();
+}
+
+// values of a run K3 keeps in registers between its two passes, read
+// together whatever the run's length: a warp runs every lane through them,
+// so they are sized to the common run (most frames' longest run is 2 arcs
+// at the trigram and production batches; the few longer ones, up to 10,
+// read the rest in a loop)
+constexpr int KEEP = 2;
+
+// K3.  One block per sequence b, one thread per destination state.  arcs
+// [B, L] records (src, dst, lpdf, logw bits) of the live arcs, frame by
+// frame in slot order; dst_off [B, T-1, S+1]: where each destination's run
+// of frame t starts in the sequence's list, and (column S) one past the
+// frame's last.  ysm rows at b * ys_b + t * ys_t, W wide; alpha1 [B, S];
+// out [T-1, B, S].
+template <bool STAGED>
+__global__ void steady_fwd_kernel(const int4* __restrict__ arcs, const int* __restrict__ dst_off,
+                                  int L, const float* __restrict__ ysm, long long ys_b,
+                                  long long ys_t, const float* __restrict__ alpha1,
+                                  float* __restrict__ out, int B, int Tm1, int S, int W) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const K3Layout lay = k3_layout(STAGED, L, Tm1, S, W);
+  int4* rec_sh = reinterpret_cast<int4*>(smem + lay.rec);
+  int* off_sh = reinterpret_cast<int*>(smem + lay.off);
+  float* ysm_sh = reinterpret_cast<float*>(smem + lay.ysm);
+  float* alpha_sh = reinterpret_cast<float*>(smem + lay.alpha);  // [2][S]
   const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
-  const int A = S * Kr;
-  for (int s = tid; s < S; s += nt) alpha_sh[s] = alpha1[(size_t)b * S + s];
-  for (int t = 0; t < Tm1; ++t) {
-    const size_t base = ((size_t)b * Tm1 + t) * A;
-    const float* yrow = ysm + (size_t)b * ys_b + (size_t)t * ys_t;
-    for (int w = tid; w < W; w += nt) ysm_sh[w] = yrow[w];
-    if (t + 1 < Tm1)
-      for (int i = tid; i < A; i += nt) {
-        prefetch_l2(src + base + A + i);
-        prefetch_l2(lpdf + base + A + i);
-        prefetch_l2(logw + base + A + i);
-      }
-    __syncthreads();  // alpha_sh and ysm_sh of this frame are in place
-    for (int i = tid; i < A; i += nt) {
-      const int sp = src[base + i];
-      float v = -INFINITY;
-      if (sp >= 0) v = alpha_sh[sp] + (logw[base + i] + ysm_sh[lpdf[base + i]]);
-      val_sh[i] = v;
+  const int4* arcs_b = arcs + (size_t)b * L;
+  const int* off_b = dst_off + (size_t)b * Tm1 * (S + 1);
+  const float* ys_seq = ysm + (size_t)b * ys_b;
+  if (STAGED) {
+    for (int j = tid; j < L; j += nt) cp_async16(rec_sh + j, arcs_b + j);
+    for (int i = tid; i < Tm1 * (S + 1); i += nt) cp_async4(off_sh + i, off_b + i);
+    for (int i = tid; i < Tm1 * W; i += nt) {
+      const int t = i / W;
+      cp_async4(ysm_sh + i, ys_seq + (size_t)t * ys_t + (i - t * W));
     }
-    __syncthreads();  // every arc has read alpha_sh; val_sh is complete
+    commit_async();
+  }
+  for (int s = tid; s < S; s += nt) alpha_sh[s] = alpha1[(size_t)b * S + s];
+  if (STAGED) wait_async();
+  __syncthreads();  // the list, the offsets, the ysm rows and alpha1 are in place
+  const int4* rec = STAGED ? rec_sh : arcs_b;
+  for (int t = 0; t < Tm1; ++t) {
+    const float* cur = alpha_sh + (t & 1) * S;
+    float* nxt = alpha_sh + ((t + 1) & 1) * S;
+    const int* of = (STAGED ? off_sh : off_b) + (size_t)t * (S + 1);
+    const float* ys = STAGED ? ysm_sh + (size_t)t * W : ys_seq + (size_t)t * ys_t;
+    auto value = [&](int j) {
+      const int4 r = rec[j];
+      return cur[r.x] + (__int_as_float(r.w) + ys[r.z]);
+    };
     for (int s = tid; s < S; s += nt) {
-      const float* v = val_sh + s * Kr;
+      // the first KEEP records are read whatever the run's length (past its
+      // end, its last record again: an index inside the list even for an
+      // empty run), so that their loads go out together, not one a branch
+      const int j0 = of[s], j1 = of[s + 1], jl = max(j1 - 1, 0);
+      float v[KEEP];
+#pragma unroll
+      for (int k = 0; k < KEEP; ++k) {
+        const float x = value(min(j0 + k, jl));
+        v[k] = j0 + k < j1 ? x : -INFINITY;
+      }
       float m = -INFINITY;
-      for (int k = 0; k < Kr; ++k) m = fmaxf(m, v[k]);
+#pragma unroll
+      for (int k = 0; k < KEEP; ++k) m = fmaxf(m, v[k]);
+      for (int j = j0 + KEEP; j < j1; ++j) m = fmaxf(m, value(j));
       float r = -INFINITY;
       if (m > -INFINITY) {
         float sum = 0.0f;
-        for (int k = 0; k < Kr; ++k) sum += expf(v[k] - m);
+#pragma unroll
+        for (int k = 0; k < KEEP; ++k)
+          if (j0 + k < j1) sum += expf(v[k] - m);
+        for (int j = j0 + KEEP; j < j1; ++j) sum += expf(value(j) - m);
         r = m + logf(sum);
       }
-      alpha_sh[s] = r;
+      nxt[s] = r;
       out[((size_t)t * B + b) * S + s] = r;
     }
+    frame_sync(nt);  // nxt is complete, and every thread has left cur
   }
 }
 
@@ -271,14 +347,32 @@ extern "C" {
 
 const char* cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-// K3: alphas of frames 1 .. T-1, on `stream`, `threads` threads per block.
-int num_steady_forward(const int* src, const int* lpdf, const float* logw, const float* ysm,
-                       long long ys_b, long long ys_t, const float* alpha1, float* out,
-                       int B, int Tm1, int S, int Kr, int W, int threads, cudaStream_t stream) {
+// Bytes of dynamic shared memory a K3 block asks for: with the sequence's
+// list, destination offsets and ysm rows staged (staged = 1) or alpha
+// alone (0).
+int steady_fwd_shared_bytes(int staged, int L, int Tm1, int S, int W) {
+  const long long bytes = k3_layout(staged != 0, L, Tm1, S, W).bytes;
+  return bytes > INT_MAX ? INT_MAX : (int)bytes;
+}
+
+// K3: alphas of frames 1 .. T-1, on `stream`; `staged` as
+// steady_fwd_shared_bytes; `threads` a multiple of 32.
+int num_steady_forward(const int4* arcs, const int* dst_off, int L, const float* ysm,
+                       long long ys_b, long long ys_t, const float* alpha1, float* out, int B,
+                       int Tm1, int S, int W, int staged, int threads, cudaStream_t stream) {
   if (B == 0 || Tm1 == 0) return 0;
-  const size_t smem = sizeof(float) * ((size_t)S + W + (size_t)S * Kr);
-  steady_fwd_kernel<<<B, threads, smem, stream>>>(src, lpdf, logw, ysm, ys_b, ys_t, alpha1, out,
-                                                  B, Tm1, S, Kr, W);
+  static int granted[2] = {0, 0};
+  const long long bytes = k3_layout(staged != 0, L, Tm1, S, W).bytes;
+  int err;
+  if (staged) {
+    if ((err = allow_shared(steady_fwd_kernel<true>, bytes, granted[1]))) return err;
+    steady_fwd_kernel<true><<<B, threads, bytes, stream>>>(arcs, dst_off, L, ysm, ys_b, ys_t,
+                                                           alpha1, out, B, Tm1, S, W);
+  } else {
+    if ((err = allow_shared(steady_fwd_kernel<false>, bytes, granted[0]))) return err;
+    steady_fwd_kernel<false><<<B, threads, bytes, stream>>>(arcs, dst_off, L, ysm, ys_b, ys_t,
+                                                            alpha1, out, B, Tm1, S, W);
+  }
   return (int)cudaGetLastError();
 }
 

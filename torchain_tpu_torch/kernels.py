@@ -52,9 +52,11 @@ SIGNATURES: dict[str, dict[str, list]] = {
         "vocab_scatter": [_P] * 3 + [_I] * 4 + [_P],
     },
     "num_resident": {
-        # src, lpdf, logw, ysm, ysm strides (b, t), alpha1, out,
-        # B, T-1, S, Kr, W, threads, stream
-        "num_steady_forward": [_P] * 4 + [_L] * 2 + [_P] * 2 + [_I] * 6 + [_P],
+        # arcs, dst_off, L, ysm, ysm strides (b, t), alpha1, out,
+        # B, T-1, S, W, staged, threads, stream
+        "num_steady_forward": [_P] * 2 + [_I, _P] + [_L] * 2 + [_P] * 2 + [_I] * 6 + [_P],
+        # staged, L, T-1, S, W -> bytes of shared memory per K3 block
+        "steady_fwd_shared_bytes": [_I] * 5,
         # arcs, arc_off, L, ysm, ysm strides (b, t), alphas, final_logw,
         # log_p, gsm, beta1, B, T-1, S, S*Kr, W, staged, threads, stream
         "num_steady_backward": [_P] * 2 + [_I, _P] + [_L] * 2 + [_P] * 5 + [_I] * 7 + [_P],
@@ -64,8 +66,10 @@ SIGNATURES: dict[str, dict[str, list]] = {
         "num_shared_limit": [],
     },
     "num_e2e": {
-        # ylocal, src, logw, nk, out, B, T, S, K, threads, stream
-        "e2e_forward": [_P] * 5 + [_I] * 5 + [_P],
+        # ylocal, src, logw, in_off, in_arc, out, B, T, S, K, L, staged, stream
+        "e2e_forward": [_P] * 6 + [_I] * 6 + [_P],
+        # staged, L, S -> bytes of shared memory per K8f block
+        "e2e_forward_shared_bytes": [_I] * 3,
         # ylocal, alphas, src, logw, final_logw, log_p, by_off, by_arc, post,
         # B, T, S, K, L, staged, stream
         "e2e_backward": [_P] * 9 + [_I] * 6 + [_P],

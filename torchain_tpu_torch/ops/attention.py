@@ -23,8 +23,9 @@ the forward; the backward in three launches: dq, the softmax statistics
 and the bias gradient by query tiles, dk and dv by key tiles, and a
 fixed-order sum of the bias gradient's batch-chunk partials), so any T is
 taken; the shared memory of a block depends on the head width dh only.
-They take dh from 1 to 64, and each wrapper raises on a wider head (or a
-block the card cannot give) instead of falling back.
+They take dh from 1 to 128 (tiles 16, 32, 48, 64, 96 or 128 wide), and
+each wrapper raises on a wider head (or a block the card cannot give)
+instead of falling back.
 """
 
 from __future__ import annotations
@@ -137,7 +138,7 @@ def _check_fits(device, dh: int, bf16: int, backward: int) -> None:
     what = "attention_backward" if backward else "attention_forward"
     need = kernels.entry("attention", "attention_shared_bytes")(dh, bf16, backward)
     if need < 0:
-        raise ValueError(f"{what}: head width dh={dh} is not taken by the kernels (1 to 64)")
+        raise ValueError(f"{what}: head width dh={dh} is not taken by the kernels (1 to 128)")
     limit = kernels.entry("attention", "attention_shared_limit")()
     if need > limit:
         raise ValueError(

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import typing
 
 import numpy as np
 import torch
@@ -156,36 +157,19 @@ class DeviceResidentDenGraph:
     def from_host(
         g: DenGraph, pad_to: int = 128, max_slots: int = 2, device="cuda"
     ) -> "DeviceResidentDenGraph":
-        S = g.num_states
-        dst = np.repeat(np.arange(S, dtype=np.int64), np.diff(g.in_offsets))
-        pdf = g.in_pdf.astype(np.int64)
-        src = g.in_src.astype(np.int64)
-        prob = np.exp(g.in_logw.astype(np.float64)).astype(np.float32)
-        # k-th distinct (dst, pdf) pair per dst; states entered through more
-        # than max_slots distinct pdfs are SPLIT into clones sharing the
-        # original's out-arc row (forward dynamics unchanged: alpha mass
-        # just distributes across the clones); only clone 0 carries the
-        # initial probability
-        key = dst * (g.num_pdfs + 1) + pdf
-        uniq_keys, inv = np.unique(key, return_inverse=True)
-        uniq_dst = (uniq_keys // (g.num_pdfs + 1)).astype(np.int64)
-        uniq_pdf = (uniq_keys % (g.num_pdfs + 1)).astype(np.int32)
-        first_of_dst = np.searchsorted(uniq_dst, np.arange(S))
-        slot_of_uniq = np.arange(uniq_keys.shape[0]) - first_of_dst[uniq_dst]
-        K = min(int(slot_of_uniq.max()) + 1 if uniq_keys.size else 1, max_slots)
-
-        clone_rank = slot_of_uniq // K
-        uniq_slot = (slot_of_uniq % K).astype(np.int64)
-        n_clones_of = np.zeros(S, dtype=np.int64)
-        np.maximum.at(n_clones_of, uniq_dst, clone_rank + 1)
-        n_clones_of = np.maximum(n_clones_of, 1)
-        extra = n_clones_of - 1
-        clone_base = S + np.concatenate([[0], np.cumsum(extra)[:-1]])
-        S_tot = S + int(extra.sum())
-        uniq_state = np.where(
-            clone_rank == 0, uniq_dst, clone_base[uniq_dst] + clone_rank - 1
+        return DeviceResidentDenGraph._from_layout(
+            g, slot_layout(g, max_slots), pad_to, device
         )
 
+    @staticmethod
+    def _from_layout(
+        g: DenGraph, layout: "SlotLayout", pad_to: int, device
+    ) -> "DeviceResidentDenGraph":
+        """`from_host` on the slot layout `slot_layout` gave for `g`."""
+        inv, uniq_pdf, uniq_slot, uniq_state, extra, clone_base, K, S_tot = layout
+        S = g.num_states
+        src = g.in_src.astype(np.int64)
+        prob = np.exp(g.in_logw.astype(np.float64)).astype(np.float32)
         S_pad = _round_up(S_tot, pad_to)
         KS = K * S_pad
         slot_pdf = np.full(KS, -1, dtype=np.int32)
@@ -203,6 +187,61 @@ class DeviceResidentDenGraph:
         return DeviceResidentDenGraph.from_dense(
             V, slot_pdf, init, int(g.num_pdfs), S, device=device
         )
+
+
+class SlotLayout(typing.NamedTuple):
+    """Where each distinct (dst, pdf) pair of a graph's arcs goes in the
+    slot layout, before padding (`slot_layout`)."""
+
+    inv: np.ndarray  # each arc's pair
+    uniq_pdf: np.ndarray  # each pair's pdf,
+    uniq_slot: np.ndarray  # slot
+    uniq_state: np.ndarray  # and state
+    extra: np.ndarray  # the extra clones of each state
+    clone_base: np.ndarray  # where they start
+    K: int
+    S_tot: int  # the states with clones
+
+    def sizes(self, pad_to: int) -> tuple[int, int]:
+        """(S_pad, K) of the slot-dense graph built on this layout."""
+        return _round_up(self.S_tot, pad_to), self.K
+
+
+def slot_layout(g: DenGraph, max_slots: int = 2) -> SlotLayout:
+    """The slot layout of `g`: the k-th distinct (dst, pdf) pair of a state
+    takes slot k; a state entered through more than `max_slots` distinct
+    pdfs is SPLIT into clones sharing the original's out-arc row (forward
+    dynamics unchanged: alpha mass just distributes across the clones),
+    numbered after the real states; only clone 0 carries the initial
+    probability.  Its sizes need no V (an S_pad x K*S_pad float32 matrix),
+    and `len(uniq_pdf)` is the count of distinct pairs, the expanded states
+    of the dense Moore form."""
+    S = g.num_states
+    dst = np.repeat(np.arange(S, dtype=np.int64), np.diff(g.in_offsets))
+    key = dst * (g.num_pdfs + 1) + g.in_pdf.astype(np.int64)
+    uniq_keys, inv = np.unique(key, return_inverse=True)
+    uniq_dst = (uniq_keys // (g.num_pdfs + 1)).astype(np.int64)
+    uniq_pdf = (uniq_keys % (g.num_pdfs + 1)).astype(np.int32)
+    first_of_dst = np.searchsorted(uniq_dst, np.arange(S))
+    slot_of_uniq = np.arange(uniq_keys.shape[0]) - first_of_dst[uniq_dst]
+    K = min(int(slot_of_uniq.max()) + 1 if uniq_keys.size else 1, max_slots)
+
+    clone_rank = slot_of_uniq // K
+    uniq_slot = (slot_of_uniq % K).astype(np.int64)
+    n_clones_of = np.zeros(S, dtype=np.int64)
+    np.maximum.at(n_clones_of, uniq_dst, clone_rank + 1)
+    n_clones_of = np.maximum(n_clones_of, 1)
+    extra = n_clones_of - 1
+    clone_base = S + np.concatenate([[0], np.cumsum(extra)[:-1]])
+    S_tot = S + int(extra.sum())
+    uniq_state = np.where(clone_rank == 0, uniq_dst, clone_base[uniq_dst] + clone_rank - 1)
+    return SlotLayout(inv, uniq_pdf, uniq_slot, uniq_state, extra, clone_base, K, S_tot)
+
+
+def slot_sizes(g: DenGraph, pad_to: int = 128, max_slots: int = 2) -> tuple[int, int]:
+    """(S_pad, K) of the slot-dense graph `from_host` would build from `g`,
+    without building its V."""
+    return slot_layout(g, max_slots).sizes(pad_to)
 
 
 # ---------------------------------------------------------------------------

@@ -17,7 +17,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from torchain_tpu_torch.graphs.den_graph import DenGraph, DenseDenGraph
+from torchain_tpu_torch import kernels
+from torchain_tpu_torch.graphs.den_graph import DenGraph, DenseDenGraph, make_dense_den_graph
 from torchain_tpu_torch.graphs.supervision import (  # noqa: F401 (re-exported)
     Supervision,
     _frame_vocab_tables,
@@ -27,6 +28,7 @@ from torchain_tpu_torch.ops.den_resident import (
     INDEX16_LIMIT,
     DeviceResidentDenGraph,
     compress,
+    slot_layout,
 )
 from torchain_tpu_torch.ops.num_resident import kernel_tables
 
@@ -118,8 +120,8 @@ class DeviceDenseDenGraph:
     `fused` chooses the recursion for this graph in ops/chain_loss.py:
     False, ops/den_dense.py (the JAX package's default); True, the fused
     kernels K9f/K9b of ops/den_pallas.py (the JAX package's
-    TORCHAIN_USE_PALLAS=1).  The choice is the caller's, made at
-    `from_host`: there is no fit test and no fallback."""
+    TORCHAIN_USE_PALLAS=1).  The choice is made at `from_host`, by the
+    caller or by `auto_den_graph` (which takes the fused form)."""
 
     V: torch.Tensor  # float32 [S, E]
     E_mat: torch.Tensor  # float32 [E, S] one-hot
@@ -190,14 +192,71 @@ class DeviceDenseDenGraph:
         )
 
 
+#: budget of the dense Moore form's V [S, E] in bytes (float32, both axes
+#: padded): the JAX package's DENSE_V_BYTES_THRESHOLD
+#: (torchain_tpu/ops/device_graphs.py), kept here as the port's own copy
+DENSE_V_BYTES_THRESHOLD = 48 * 1024 * 1024
+
+
+def den_shared_limit(device) -> int | None:
+    """The shared memory a block of the denominator kernels may ask for on
+    `device` (the card's opt-in limit), in bytes; None on the CPU, where the
+    plain versions run and every form fits."""
+    if torch.device(device).type != "cuda":
+        return None
+    return kernels.entry("den_resident", "den_shared_limit")()
+
+
+def den_form_fits(form: str, sizes: tuple, device) -> bool:
+    """Whether both kernels of a denominator form can carry a sequence's
+    state in one block's shared memory on `device`, decided from sizes alone
+    by the library's own counts, as their `shared_plan`s decide it (what
+    else a block stages there is optional): "resident", sizes (S_pad, K, P),
+    K1 and K2 (ops/den_resident.py); "dense", sizes (S, E) padded, K9f and
+    K9b (ops/den_pallas.py).  Both also index states and slots with 16
+    bits.  Always True on the CPU.  The one fit test of `auto_den_graph`."""
+    limit = den_shared_limit(device)
+    if limit is None:
+        return True
+    if form == "resident":
+        S, K, P = sizes
+        need = kernels.entry("den_resident", "den_shared_bytes")
+        fits = lambda bwd: need(bwd, S, K, P, 0, 0, 0) <= limit  # noqa: E731
+        return K * S < INDEX16_LIMIT and fits(0) and fits(1)
+    S, E = sizes
+    need = kernels.entry("den_dense", "dense_shared_bytes")
+    fits = lambda bwd: need(bwd, S, E, 0, 0, 0) <= limit  # noqa: E731
+    return max(S, E) < INDEX16_LIMIT and fits(0) and fits(1)
+
+
 def auto_den_graph(host_graph: DenGraph, pad_to: int = 128, device="cuda"):
-    """The denominator representation for `host_graph` on the accelerator:
-    the slot-dense graph of ops/den_resident.py in float32, which is the JAX
-    package's first preference on its accelerator too.  The dense Moore form
-    (`DeviceDenseDenGraph`, plain or fused) and the sparse arc list
-    (`DeviceDenGraph`) are built explicitly with their `from_host`; the
-    de Bruijn and padded-table forms of the JAX package are not ported."""
-    return DeviceResidentDenGraph.from_host(host_graph, pad_to=pad_to, device=device)
+    """The denominator representation for `host_graph` on `device`, in the
+    JAX package's order of preference over the forms the port has
+    (torchain_tpu/ops/device_graphs.py `auto_den_graph`):
+
+      1. the slot-dense graph of ops/den_resident.py (K1, K2) where a
+         sequence's carried state fits a block's shared memory (always on
+         the CPU);
+      2. else the dense Moore form, fused (K9f, K9b), while its V of
+         pad(S) * pad(E) float32 stays within DENSE_V_BYTES_THRESHOLD and
+         K9's carried state fits;
+      3. else the sparse arc list of ops/den_scan.py (plain PyTorch).
+
+    Each test runs on sizes before any V is built, through `den_form_fits`:
+    the slot layout (`slot_layout`, computed once and built on where the
+    resident form is taken) gives S_pad and K, and its distinct (dst, pdf)
+    pairs are E.  The de Bruijn and padded-table forms of the JAX package
+    are not ported."""
+    layout = slot_layout(host_graph)
+    if den_form_fits("resident", (*layout.sizes(pad_to), host_graph.num_pdfs), device):
+        return DeviceResidentDenGraph._from_layout(host_graph, layout, pad_to, device)
+    S, E = host_graph.num_states, len(layout.uniq_pdf)
+    pad = lambda n: -(-n // pad_to) * pad_to  # noqa: E731
+    if (pad(S) * pad(E) * 4 <= DENSE_V_BYTES_THRESHOLD
+            and den_form_fits("dense", (pad(S), pad(E)), device)):
+        dense = make_dense_den_graph(host_graph, pad_to=pad_to)
+        return DeviceDenseDenGraph.from_host(dense, device=device, fused=True)
+    return DeviceDenGraph.from_host(host_graph, device=device)
 
 
 @dataclasses.dataclass
@@ -233,41 +292,35 @@ class DeviceSupervision:
     frame_weights: torch.Tensor | None = None
     #: optional steady tables as the resident numerator kernels read them
     #: (ops/num_resident.py `kernel_tables`), filled by
-    #: `with_kernel_tables()`: K3's int32 / int32 / float32 [B, T-1, S, Kst]
-    #: contiguous, and K4's live-arc list, per-frame offsets int32 [B, T]
-    #: and 16-byte records int32 [B, L, 4]
-    src_k: torch.Tensor | None = None
-    pdf_local_k: torch.Tensor | None = None
-    logw_k: torch.Tensor | None = None
+    #: `with_kernel_tables()`: the live-arc list, per-frame offsets int32
+    #: [B, T] (K4), 16-byte records int32 [B, L, 4] (K3, K4) and per-frame
+    #: destination offsets int32 [B, T-1, S+1] (K3)
     arc_off_k: torch.Tensor | None = None
     arcs_k: torch.Tensor | None = None
+    dst_off_k: torch.Tensor | None = None
 
     def to(self, device) -> "DeviceSupervision":
         return _to_device(self, device)
 
     def with_kernel_tables(self) -> "DeviceSupervision":
-        """A copy that also carries the steady tables in the kernels' types
-        and K4's list of live arcs, prepared once when the batch is placed
-        so that a replayed batch pays nothing per step (sizing the list
-        syncs with the device once, here).  The int64 tables stay for the
-        plain path."""
+        """A copy that also carries the live-arc list K3 and K4 read,
+        prepared once when the batch is placed so that a replayed batch pays
+        nothing per step (sizing the list syncs with the device once, here).
+        The int64 tables stay for the plain path."""
         if self.in_src_r.shape[1] == 0:
             return self
-        src_k, pdf_local_k, logw_k, arc_off_k, arcs_k = kernel_tables(
+        arc_off_k, arcs_k, dst_off_k = kernel_tables(
             self.in_src_r, self.pdf_local_r, self.in_logw_r
         )
-        return dataclasses.replace(
-            self, src_k=src_k, pdf_local_k=pdf_local_k, logw_k=logw_k,
-            arc_off_k=arc_off_k, arcs_k=arcs_k,
-        )
+        return dataclasses.replace(self, arc_off_k=arc_off_k, arcs_k=arcs_k, dst_off_k=dst_off_k)
 
     @property
     def kernel_pre(self) -> tuple | None:
-        """(src_k, pdf_local_k, logw_k, arc_off_k, arcs_k) where placed,
-        else None."""
-        if self.src_k is None:
+        """(arc_off_k, arcs_k, dst_off_k), what K3 and K4 read, where
+        placed, else None."""
+        if self.arcs_k is None:
             return None
-        return self.src_k, self.pdf_local_k, self.logw_k, self.arc_off_k, self.arcs_k
+        return self.arc_off_k, self.arcs_k, self.dst_off_k
 
     @staticmethod
     def from_host(s: Supervision, device="cuda") -> "DeviceSupervision":

@@ -23,12 +23,11 @@ block per sequence); on a CPU tensor the plain PyTorch version beside it
 runs the same recursion as a loop over frames.  There is no other
 fallback.
 
-K3 reads the arc tables as int32 `src` and `lpdf` and float32 `logw`, each
-[B, T-1, S, Kr] contiguous; K4 reads only the live arcs, listed per
-sequence frame by frame.  `kernel_tables` makes both from the int64 tables
-the plain path indexes with, once, when a batch is placed
-(`DeviceSupervision.with_kernel_tables`), and the wrappers take the result
-as `pre`.
+K3 and K4 read only the live arcs, listed per sequence frame by frame,
+with per-frame offsets (K4) and per-frame destination offsets (K3).
+`kernel_tables` makes them from the int64 tables the plain path indexes
+with, once, when a batch is placed (`DeviceSupervision.with_kernel_tables`),
+and the wrappers take the result as `pre`.
 """
 
 from __future__ import annotations
@@ -38,10 +37,6 @@ import torch
 from torchain_tpu_torch import kernels
 
 NEG_INF = float("-inf")
-
-#: shared memory a K3 block may use without opting in to more
-_SMEM_LIMIT = 48 * 1024
-
 
 def emit(ysm: torch.Tensor, pdf_local: torch.Tensor) -> torch.Tensor:
     """ysm [B, W], pdf_local [B, S, K] -> emission log-probs [B, S, K]."""
@@ -90,36 +85,43 @@ def kernel_tables(src, lpdf, logw):
     """The steady tables as K3 and K4 read them, from src, lpdf (any integer
     dtype, src -1 = pad) and logw, each [B, T-1, S, Kr]:
 
-      src, lpdf int32 and logw float32, [B, T-1, S, Kr] contiguous (K3);
       arc_off int32 [B, T]: where each frame's live arcs start in its
-        sequence's list, and (last column) one past the list's end;
+        sequence's list, and (last column) one past the list's end (K4);
       arcs int32 [B, L, 4]: each sequence's live slots (src >= 0), frame by
         frame in slot order, as (src, dst = slot // Kr, lpdf, logw's float32
         bits); L is the longest list of the batch, at least 1, and a shorter
-        list ends in zeros.
+        list ends in zeros (K3, K4);
+      dst_off int32 [B, T-1, S+1]: where the run of each destination state
+        (its in-arcs: slot order is destination order) of each frame starts
+        in its sequence's list, and (last column) one past the frame's last
+        record (K3).
 
     Sizing the list reads one number back to the host (a sync): call it
     where a batch is placed, not inside a step."""
-    src32 = src.to(torch.int32).contiguous()
-    lpdf32 = lpdf.to(torch.int32).contiguous()
-    logw32 = logw.to(torch.float32).contiguous()
+    src32 = src.to(torch.int32)
     B, Tm1, S, Kr = src32.shape
     A = S * Kr
     live = (src32 >= 0).reshape(B, Tm1 * A)
+    per_dst = live.view(B, Tm1 * S, Kr).sum(-1)
+    ends = torch.cumsum(per_dst, 1).view(B, Tm1, S)
+    dst_off = torch.zeros((B, Tm1, S + 1), device=src.device, dtype=torch.int32)
+    dst_off[:, :, 1:] = ends
+    dst_off[:, 1:, 0] = ends[:, :-1, -1]
     arc_off = torch.zeros((B, Tm1 + 1), device=src.device, dtype=torch.int32)
-    arc_off[:, 1:] = torch.cumsum(live.view(B, Tm1, A).sum(-1), 1)
+    arc_off[:, 1:] = ends[:, :, -1]
     L = max(1, int(arc_off[:, -1].max())) if B else 1
     dst = torch.arange(S, device=src.device, dtype=torch.int32).repeat_interleave(Kr)
     rec = torch.stack(
-        [src32.reshape(B, Tm1, A), dst.expand(B, Tm1, A), lpdf32.reshape(B, Tm1, A),
-         logw32.view(torch.int32).reshape(B, Tm1, A)], -1,
+        [src32.reshape(B, Tm1, A), dst.expand(B, Tm1, A),
+         lpdf.to(torch.int32).reshape(B, Tm1, A),
+         logw.to(torch.float32).contiguous().view(torch.int32).reshape(B, Tm1, A)], -1,
     ).reshape(B, Tm1 * A, 4)
     # each live slot's place in its sequence's list; pads go to column L,
     # which is dropped
     pos = torch.where(live, torch.cumsum(live, 1) - 1, L)
     arcs = torch.zeros((B, L + 1, 4), device=src.device, dtype=torch.int32)
     arcs.scatter_(1, pos[..., None].expand(B, Tm1 * A, 4), rec)
-    return src32, lpdf32, logw32, arc_off, arcs[:, :L].contiguous()
+    return arc_off, arcs[:, :L].contiguous(), dst_off
 
 
 def _rows(ysm: torch.Tensor, like: torch.Tensor, B: int, Tm1: int) -> torch.Tensor:
@@ -131,22 +133,11 @@ def _rows(ysm: torch.Tensor, like: torch.Tensor, B: int, Tm1: int) -> torch.Tens
     return ysm if ysm.stride(-1) == 1 else ysm.contiguous()
 
 
-def _block_threads(n: int) -> int:
-    return min(1024, max(64, -(-n // 32) * 32))
-
-
 def _steady_bwd_threads(S: int, W: int) -> int:
     """K4's block: warps for the S source states, then warps for the W
     vocabulary slots (taken from the top), so that the two scans of a frame
     run in different warps."""
     return min(1024, 32 * (-(-S // 32) + -(-W // 32)))
-
-
-def _check_tables(pre, B, Tm1, S, Kr):
-    for name, x, dtype in zip(
-        ("src", "lpdf", "logw"), pre[:3], (torch.int32, torch.int32, torch.float32)
-    ):
-        kernels.check_tensor(name, x, dtype, (B, Tm1, S, Kr))
 
 
 # ---------------------------------------------------------------------------
@@ -167,6 +158,61 @@ def steady_forward_plain(alpha1, src, lpdf, logw, ysm):
     return alpha, torch.stack(rest)
 
 
+#: (kernel, device index, sizes, plan asked for, limit) -> (bytes, staged)
+#: of K3's, K4's, K8f's and K8b's blocks
+_PLANS: dict[tuple, tuple[int, int]] = {}
+#: the opt-in shared-memory limit by (library entry, device index)
+_LIMITS: dict[tuple, int] = {}
+#: the library entry that gives K3's and K4's shared-memory limit
+NUM_LIMIT = ("num_resident", "num_shared_limit")
+
+
+def shared_limit(entry: tuple, device) -> int:
+    """Bytes of shared memory a numerator kernel's block may ask for on
+    `device` (its opt-in limit), read once through the library `entry`.  The
+    one limit the plans are held to: a test lowers it to make the sizes
+    choose the unstaged plan."""
+    key = (entry, device.index)
+    limit = _LIMITS.get(key)
+    if limit is None:
+        limit = _LIMITS[key] = kernels.entry(*entry)()
+    return limit
+
+
+def _plan(key: tuple, need, staged: int | None, what: str, device,
+          limit_entry=NUM_LIMIT) -> tuple[int, int]:
+    """(bytes, staged) of a block whose shared memory takes need(p) bytes
+    in plan p: 1 (the sequence's list staged) wherever that fits under
+    `shared_limit`, else 0, unless `staged` asks for one plan; raises
+    ValueError with `what` where the plan does not fit."""
+    limit = shared_limit(limit_entry, device)
+    key = (*key, limit)
+    plan = _PLANS.get(key)
+    if plan is None:
+        sizes = {p: need(p) for p in (0, 1)}
+        if staged is None:
+            staged = int(sizes[1] <= limit)
+        if sizes[staged] > limit:
+            raise ValueError(
+                f"{what} need {sizes[staged]} bytes of shared memory, more than the {limit}"
+                " a block may have"
+            )
+        plan = _PLANS[key] = (sizes[staged], staged)
+    return plan
+
+
+def steady_forward_plan(L: int, Tm1: int, S: int, W: int, device) -> tuple[int, int]:
+    """Bytes of shared memory a K3 block asks for, and whether it stages its
+    sequence's live list, destination offsets and ysm rows there (1) or
+    reads them from device memory each frame and keeps only alpha there
+    (0): staged wherever that fits under `shared_limit`.  At the shipped
+    shapes (H100, limit 232,448 bytes) it is staged: 14,528 bytes at
+    trigram.  Raises ValueError where the plan does not fit."""
+    need = kernels.entry("num_resident", "steady_fwd_shared_bytes")
+    return _plan(("fwd", device.index, L, Tm1, S, W), lambda p: need(p, L, Tm1, S, W), None,
+                 f"steady_forward: {S} states and {L} live arcs", device)
+
+
 def steady_forward(
     alpha1: torch.Tensor,  # [B, S] alpha after the frame-0 step
     src: torch.Tensor,  # [B, T-1, S, Kr] steady slice (any integer dtype)
@@ -176,29 +222,32 @@ def steady_forward(
     pre: tuple | None = None,  # kernel_tables(src, lpdf, logw)
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """K3.  Returns (aT [B, S], alphas_rest [T-1, B, S]).  Launches
-    csrc/num_resident.cu:num_steady_forward on a CUDA tensor."""
+    csrc/num_resident.cu:num_steady_forward on a CUDA tensor, which walks
+    the live-arc list of `pre` by destination; without `pre` the list is
+    built here (one host sync, see `kernel_tables`).  Both plans
+    (`steady_forward_plan`) give the same bits."""
     if alpha1.device.type == "cpu":
         return steady_forward_plain(alpha1, src, lpdf, logw, ysm)
     B, Tm1, S, Kr = src.shape
     W = ysm.shape[-1]
     kernels.check_tensor("alpha1", alpha1, torch.float32, (B, S))
-    if pre is None:
-        pre = tuple(
-            x.contiguous() for x in (src.to(torch.int32), lpdf.to(torch.int32), logw.float())
-        )
-    _check_tables(pre, B, Tm1, S, Kr)
     ysm = _rows(ysm, alpha1, B, Tm1)
     if Tm1 == 0:
         return alpha1, alpha1.new_empty((0, B, S))
-    smem = 4 * (S * Kr + S + W)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"steady_forward: S*Kr = {S * Kr} arc slots exceed shared memory")
-    out = torch.empty((Tm1, B, S), device=alpha1.device, dtype=torch.float32)
+    if pre is None:
+        pre = kernel_tables(src, lpdf, logw)
+    _, arcs, dst_off = pre
+    L = arcs.shape[1]
+    kernels.check_tensor("arcs", arcs, torch.int32, (B, L, 4))
+    kernels.check_tensor("dst_off", dst_off, torch.int32, (B, Tm1, S + 1))
+    dev = alpha1.device
+    _, staged = steady_forward_plan(L, Tm1, S, W, dev)
+    out = torch.empty((Tm1, B, S), device=dev, dtype=torch.float32)
     lib = kernels.library("num_resident")
     err = lib.num_steady_forward(
-        pre[0].data_ptr(), pre[1].data_ptr(), pre[2].data_ptr(), ysm.data_ptr(),
-        ysm.stride(0), ysm.stride(1), alpha1.data_ptr(), out.data_ptr(),
-        B, Tm1, S, Kr, W, _block_threads(S * Kr), kernels.stream_of(alpha1.device),
+        arcs.data_ptr(), dst_off.data_ptr(), L, ysm.data_ptr(), ysm.stride(0), ysm.stride(1),
+        alpha1.data_ptr(), out.data_ptr(), B, Tm1, S, W, staged,
+        min(1024, 32 * -(-S // 32)), kernels.stream_of(dev),
     )
     kernels.check(lib, err, "num_steady_forward")
     steady_forward.launches += 1
@@ -227,35 +276,19 @@ def steady_backward_plain(src, lpdf, logw, ysm, alphas, final_logw, log_p):
     return beta, torch.stack(gsm)
 
 
-#: (device index, L, T-1, S, S*Kr, W, plan asked for) -> K4's (bytes, staged)
-_PLANS: dict[tuple, tuple[int, int]] = {}
-
-
 def steady_plan(L: int, Tm1: int, S: int, A: int, W: int, device,
                 staged: int | None = None) -> tuple[int, int]:
     """Bytes of shared memory a K4 block asks for, and whether it stages
     its sequence's whole live list there (1) or streams each frame's records
     through two buffers of A = S * Kr records (0): staged wherever that fits
-    under the device's opt-in limit, unless `staged` asks for one plan.  At
-    the shipped shapes (H100, limit 232,448 bytes) the list is staged.  The
+    under `shared_limit`, unless `staged` asks for one plan.  At the
+    shipped shapes (H100, limit 232,448 bytes) the list is staged.  The
     streamed plan takes about 40 bytes an arc slot, so it holds up to about
     5,800 slots on the H100; raises ValueError where the plan does not fit."""
-    key = (device.index, L, Tm1, S, A, W, staged)
-    plan = _PLANS.get(key)
-    if plan is None:
-        need = kernels.entry("num_resident", "steady_shared_bytes")
-        limit = kernels.entry("num_resident", "num_shared_limit")()
-        sizes = {p: need(p, L, Tm1, S, A, W) for p in (0, 1)}
-        if staged is None:
-            staged = int(sizes[1] <= limit)
-        if sizes[staged] > limit:
-            raise ValueError(
-                f"steady_backward: S*Kr = {A} arc slots need {sizes[staged]} bytes of shared"
-                f" memory, more than the {limit} a block may have (the streamed plan holds"
-                f" about {limit // 40} slots)"
-            )
-        plan = _PLANS[key] = (sizes[staged], staged)
-    return plan
+    need = kernels.entry("num_resident", "steady_shared_bytes")
+    return _plan(("bwd", device.index, L, Tm1, S, A, W, staged),
+                 lambda p: need(p, L, Tm1, S, A, W), staged,
+                 f"steady_backward: S*Kr = {A} arc slots", device)
 
 
 def steady_backward(
@@ -285,7 +318,7 @@ def steady_backward(
         return final_logw, final_logw.new_empty((0, B, W))
     if pre is None:
         pre = kernel_tables(src, lpdf, logw)
-    arc_off, arcs = pre[3], pre[4]
+    arc_off, arcs, _ = pre
     L = arcs.shape[1]
     kernels.check_tensor("arc_off", arc_off, torch.int32, (B, Tm1 + 1))
     kernels.check_tensor("arcs", arcs, torch.int32, (B, L, 4))
@@ -335,34 +368,59 @@ def e2e_kernel_tables(src: torch.Tensor, logw: torch.Tensor):
     integer dtype, -1 = pad) and logw [B, S, K]:
 
       src int32 [B, S, K], logw float32 [B, S, K];
-      nk int32 [B, S]: one past the last live slot of each state;
-      by_off int32 [B, S + 1], by_arc int32 [B, L]: each sequence's live
-        slots (s * K + k) ordered by source state, slot order within one
-        source, and where each source's run starts (L = the most live slots
-        of any sequence, at least 1; the tail of a shorter list is unused).
-    """
+      in_off int32 [B, S + 1], in_arc int32 [B, L]: each sequence's live
+        slots (s * K + k) in slot order, which is destination order (K8f),
+        and where each destination's run starts; a shorter list ends in
+        zeros;
+      by_off int32 [B, S + 1], by_arc int32 [B, L]: the same slots ordered
+        by source state, slot order within one source, and where each
+        source's run starts (K8b; the tail of a shorter list is unused).
+
+    L is the most live slots of any sequence, at least 1.  Sizing the lists
+    reads one number back to the host (a sync): call it where a batch is
+    placed, not inside a step."""
     B, S, K = src.shape
     src32 = src.to(torch.int32).contiguous()
-    live = src32 >= 0
-    slots = torch.arange(1, K + 1, device=src.device, dtype=torch.int32)
-    nk = (live * slots).amax(-1).to(torch.int32).contiguous()
-    key = torch.where(live, src32, S).reshape(B, S * K).long()
+    live = (src32 >= 0).reshape(B, S * K)
+    L = max(1, int(live.sum(1).max())) if B else 1
+    in_off = torch.zeros((B, S + 1), device=src.device, dtype=torch.int32)
+    in_off[:, 1:] = torch.cumsum(live.view(B, S, K).sum(-1), 1)
+    # each live slot's place in its sequence's list; pads go to column L,
+    # which is dropped
+    pos = torch.where(live, torch.cumsum(live, 1) - 1, L)
+    slots = torch.arange(S * K, device=src.device, dtype=torch.int32).expand(B, S * K)
+    in_arc = torch.zeros((B, L + 1), device=src.device, dtype=torch.int32)
+    in_arc.scatter_(1, pos, slots)
+    key = torch.where(live, src32.reshape(B, S * K), S).long()
     order = torch.argsort(key, dim=1, stable=True)
     counts = torch.zeros((B, S + 1), device=src.device, dtype=torch.int64)
     counts.scatter_add_(1, key, torch.ones_like(key))
     by_off = torch.zeros((B, S + 1), device=src.device, dtype=torch.int32)
     by_off[:, 1:] = torch.cumsum(counts[:, :S], 1)
-    L = max(1, int(live.reshape(B, -1).sum(1).max())) if B else 1
     by_arc = order[:, :L].to(torch.int32).contiguous()
-    return src32, logw.to(torch.float32).contiguous(), nk, by_off, by_arc
+    return (src32, logw.to(torch.float32).contiguous(), in_off, in_arc[:, :L].contiguous(),
+            by_off, by_arc)
 
 
-def _e2e_threads(lib, S: int, vectors: int, what: str) -> int:
-    """Threads per block for one sequence per block, whose kernel keeps
-    `vectors` float32 vectors over the S states in shared memory."""
-    if 4 * vectors * S > lib.e2e_shared_limit():
-        raise ValueError(f"{what}: {S} states exceed the shared memory of a block")
-    return min(1024, max(64, 32 * S))
+#: K8f and K8b reduce a run of more arcs than this with several lanes (K8f
+#: a group of 8, K8b a warp), a shorter one with one thread
+#: (csrc/num_e2e.cu HEAVY_RUN)
+E2E_HEAVY_RUN = 4
+
+#: the library entry that gives K8f's and K8b's shared-memory limit
+E2E_LIMIT = ("num_e2e", "e2e_shared_limit")
+
+
+def e2e_forward_plan(L: int, S: int, device) -> tuple[int, int]:
+    """Bytes of shared memory a K8f block asks for, and whether it stages
+    its sequence's live list (records and a ring of per-frame ylocal values)
+    there (1) or keeps only the offsets, the heavy states and alpha there
+    and reads the rest from device memory (0): staged wherever that fits
+    under `shared_limit` (on the H100 up to about 7,200 live arcs a
+    sequence at S = 55).  Raises ValueError where the plan does not fit."""
+    need = kernels.entry("num_e2e", "e2e_forward_shared_bytes")
+    return _plan(("e2e_fwd", device.index, L, S), lambda p: need(p, L, S), None,
+                 f"e2e_forward_resident: {S} states and {L} live arcs", device, E2E_LIMIT)
 
 
 def e2e_forward_plain(ylocal, src, logw):
@@ -388,25 +446,30 @@ def e2e_forward_resident(
 ) -> torch.Tensor:
     """K8f.  Returns the alphas of frames 1..T, [T, B, S] (the frame-0
     alpha is set inside).  Launches csrc/num_e2e.cu:e2e_forward on a CUDA
-    tensor."""
+    tensor, which walks the by-destination list of `pre`; without `pre` the
+    lists are built here (one host sync, see `e2e_kernel_tables`).  Both
+    plans (`e2e_forward_plan`) give the same bits."""
     if ylocal.device.type == "cpu":
         return e2e_forward_plain(ylocal, src, logw)
     B, T, S, K = ylocal.shape
     kernels.check_tensor("ylocal", ylocal, torch.float32)
     if pre is None:
         pre = e2e_kernel_tables(src, logw)
-    src32, logw32, nk, _, _ = pre
+    src32, logw32, in_off, in_arc, _, _ = pre
+    L = in_arc.shape[-1]
     kernels.check_tensor("src", src32, torch.int32, (B, S, K))
     kernels.check_tensor("logw", logw32, torch.float32, (B, S, K))
-    kernels.check_tensor("nk", nk, torch.int32, (B, S))
+    kernels.check_tensor("in_off", in_off, torch.int32, (B, S + 1))
+    kernels.check_tensor("in_arc", in_arc, torch.int32, (B, L))
     out = torch.empty((T, B, S), device=ylocal.device, dtype=torch.float32)
     if B == 0 or T == 0:
         return out
     lib = kernels.library("num_e2e")
-    threads = _e2e_threads(lib, S, 2, "e2e_forward_resident")
+    _, staged = e2e_forward_plan(L, S, ylocal.device)
     err = lib.e2e_forward(
-        ylocal.data_ptr(), src32.data_ptr(), logw32.data_ptr(), nk.data_ptr(),
-        out.data_ptr(), B, T, S, K, threads, kernels.stream_of(ylocal.device),
+        ylocal.data_ptr(), src32.data_ptr(), logw32.data_ptr(), in_off.data_ptr(),
+        in_arc.data_ptr(), out.data_ptr(), B, T, S, K, L, staged,
+        kernels.stream_of(ylocal.device),
     )
     kernels.check(lib, err, "e2e_forward")
     e2e_forward_resident.launches += 1
@@ -416,15 +479,6 @@ def e2e_forward_resident(
 e2e_forward_resident.launches = 0
 
 
-#: K8b reduces a source state's run of more arcs than this with a whole
-#: warp, a shorter one with one thread (csrc/num_e2e.cu HEAVY_RUN)
-E2E_HEAVY_RUN = 4
-
-
-#: (device index, L, S, plan asked for) -> K8b's (bytes, staged)
-_E2E_PLANS: dict[tuple, tuple[int, int]] = {}
-
-
 def e2e_backward_plan(L: int, S: int, device, staged: int | None = None) -> tuple[int, int]:
     """Bytes of shared memory a K8b block asks for, and whether it stages
     its sequence's live list (records and a ring of per-frame inputs) there
@@ -432,21 +486,9 @@ def e2e_backward_plan(L: int, S: int, device, staged: int | None = None) -> tupl
     staged wherever that fits under the device's opt-in limit (on the H100
     up to about 7,200 live arcs a sequence at S = 55), unless `staged` asks
     for one plan.  Raises ValueError where the plan does not fit."""
-    key = (device.index, L, S, staged)
-    plan = _E2E_PLANS.get(key)
-    if plan is None:
-        need = kernels.entry("num_e2e", "e2e_backward_shared_bytes")
-        limit = kernels.entry("num_e2e", "e2e_shared_limit")()
-        sizes = {p: need(p, L, S) for p in (0, 1)}
-        if staged is None:
-            staged = int(sizes[1] <= limit)
-        if sizes[staged] > limit:
-            raise ValueError(
-                f"e2e_backward_resident: {S} states and {L} live arcs need {sizes[staged]}"
-                f" bytes of shared memory, more than the {limit} a block may have"
-            )
-        plan = _E2E_PLANS[key] = (sizes[staged], staged)
-    return plan
+    need = kernels.entry("num_e2e", "e2e_backward_shared_bytes")
+    return _plan(("e2e_bwd", device.index, L, S, staged), lambda p: need(p, L, S), staged,
+                 f"e2e_backward_resident: {S} states and {L} live arcs", device, E2E_LIMIT)
 
 
 def e2e_backward_plain(ylocal, alphas, src, logw, final_logw, log_p):
@@ -493,7 +535,7 @@ def e2e_backward_resident(
     kernels.check_tensor("log_p", log_p, torch.float32, (B,))
     if pre is None:
         pre = e2e_kernel_tables(src, logw)
-    src32, logw32, _, by_off, by_arc = pre
+    src32, logw32, _, _, by_off, by_arc = pre
     L = by_arc.shape[-1]
     kernels.check_tensor("src", src32, torch.int32, (B, S, K))
     kernels.check_tensor("logw", logw32, torch.float32, (B, S, K))
