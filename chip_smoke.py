@@ -52,6 +52,13 @@ Phases, in order; any failure exits non-zero before the last line:
      card's limit taken as below K2's carried state: the sparse scan of
      ops/den_scan.py), as many steps each, their first loss against (a)'s
      and their median step against (a)'s (with --profile, traced too);
+     then training from a finished Kaldi chain prep (`check_cegs`): (a)'s
+     corpus written as a binary OpenFst den.fst and a merged cegs archive
+     of B sequences a record, read back through `_load_any_fst`,
+     `compile_den_graph`, `auto_den_graph` and `CegsDataset`, (a)'s model
+     trained as many steps on the first record (K1-K6 and no other kernel;
+     the first loss against (a)'s), and its outputs for that record written
+     to a binary and a text Kaldi archive and read back;
   5. a reference check on a small input for each path: the first-step loss
      and gradient norm on the card (kernels) against the CPU (plain
      versions); for the bfloat16 conformer paths also each parameter
@@ -1411,7 +1418,8 @@ def counters():
 
 
 def train_steps(cfg, feat_dim, feats, den, sup, steps: int, seed: int):
-    """Phase 4: one path.  Returns (losses, step ms list, launches, step)."""
+    """Phase 4: one path.  Returns (losses, step ms list, launches, step,
+    model)."""
     import torch
 
     from torchain_tpu_torch.ops import ChainLossOptions
@@ -1436,7 +1444,7 @@ def train_steps(cfg, feat_dim, feats, den, sup, steps: int, seed: int):
         times.append((time.perf_counter() - t0) * 1e3)
         losses.append({k: float(v) for k, v in m.items()})
     launches = {k: fn.launches for k, fn in counters().items()}
-    return losses, times, launches, step
+    return losses, times, launches, step, model
 
 
 def profile_steps(step, feats, den, sup, n: int, out_path: pathlib.Path | None) -> dict:
@@ -1550,8 +1558,8 @@ def check_den_forms(args, result: dict) -> dict:
                 setattr(dg, k, v)
         if not isinstance(den, cls):
             raise AssertionError(f"auto_den_graph picked {type(den).__name__}, not {cls.__name__}")
-        losses, times, launches, step = train_steps(cfg, corpus.feat_dim, feats, den, sup,
-                                                    args.steps, args.seed)
+        losses, times, launches, step, _ = train_steps(cfg, corpus.feat_dim, feats, den, sup,
+                                                       args.steps, args.seed)
         for k, n in launches.items():
             if (k in must) != (n > 0):
                 raise AssertionError(f"den form {name}: kernel {k} counted {n}")
@@ -1578,6 +1586,152 @@ def check_den_forms(args, result: dict) -> dict:
             for line in prof["top"]:
                 _log("  " + line)
             out[name]["profile"] = prof
+    return out
+
+
+def check_cegs(args, result: dict) -> dict:
+    """Phase 4 again, from a finished Kaldi chain prep: the trigram path's
+    corpus and dataset written as a binary OpenFst den.fst (standard arcs,
+    pdf+1 labels) and a merged cegs archive of B sequences a record
+    (`dataset_to_cegs`, with its .scp), then read back as a user would
+    (`_load_any_fst` -> `compile_den_graph` -> `auto_den_graph`;
+    `CegsDataset.peek` and the first batch of `.batches`), and the trigram
+    path's model trained `--steps` steps on that record from the same seed.
+    Gates: the loss is finite and falls; K1-K6 moved and no other kernel;
+    the first loss within REFERENCE_RTOL["float32"] of the trigram path's
+    (the same sequences and features; the supervision split back out of the
+    merged FST, its states renumbered).  Then the trained model's outputs
+    for that batch (train=False, one [T_out, P] matrix per sequence, keyed
+    `<record key>-<n>`) through a binary ark (read back bit for bit) and
+    a text ark (`%.7g`, read back within 1e-6 relative).  The host's
+    write and read seconds are logged apart from the step times.  Returns
+    the phase's numbers; its launch counts are under "launches"."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from torchain_tpu_torch.cli.graphs import _load_any_fst
+    from torchain_tpu_torch.data import CegsDataset, dataset_to_cegs
+    from torchain_tpu_torch.fstkit import write_openfst
+    from torchain_tpu_torch.graphs import compile_den_graph
+    from torchain_tpu_torch.io import MatrixWriter, read_ark, read_ark_text, write_ark_binary
+    from torchain_tpu_torch.ops import DeviceSupervision, auto_den_graph
+
+    t_phase = time.perf_counter()
+    corpus, cfg, dataset = build_path("trigram", args.seed)
+    in_process = next(dataset.batches(B, shuffle=False))
+    ref = result["trigram"]["losses"][0]["loss"]
+    ref_ms = statistics.median(result["trigram"]["step_ms_all"][1:])
+    gate = REFERENCE_RTOL[PATHS["trigram"]["dtype"]]
+    with tempfile.TemporaryDirectory() as tmp:
+        den_path, ark, scp = (os.path.join(tmp, n) for n in ("den.fst", "cegs.1.ark",
+                                                               "cegs.1.scp"))
+        t0 = time.perf_counter()
+        write_openfst(den_path, corpus.den_fst,
+                      [a.label for _s, a in corpus.den_fst.all_arcs()], arctype="standard")
+        records = dataset_to_cegs(dataset, ark, batch_size=B, scp_path=scp)
+        write_s = time.perf_counter() - t0
+        ark_bytes, den_bytes = os.path.getsize(ark), os.path.getsize(den_path)
+        with open(scp) as f:
+            key = f.readline().split()[0]
+
+        t0 = time.perf_counter()
+        fst, fsttype, arctype = _load_any_fst(den_path)
+        cegs = CegsDataset(ark)
+        feat_dim, num_pdfs, bsz, t_out = cegs.peek()
+        graph = compile_den_graph(fst, num_pdfs)
+        peek_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        batch = next(cegs.batches(bsz, shuffle=False))
+        read_s = time.perf_counter() - t0
+        den = auto_den_graph(graph, device="cuda")
+        sup = DeviceSupervision.from_host(batch.sup, device="cuda").with_kernel_tables()
+        feats = torch.as_tensor(batch.feats, device="cuda")
+        torch.cuda.synchronize()
+        sizes = _sizes(den, sup)
+        feats_equal = bool(np.array_equal(batch.feats, in_process.feats))
+        _log(f"cegs prep: den.fst {den_bytes} bytes ({fsttype}, {arctype}), {records} merged"
+             f" records of {bsz} in {ark_bytes} bytes, written in {write_s:.2f} s (host);"
+             f" den.fst + peek {peek_s:.2f} s, first batch read and split {read_s:.2f} s (host)")
+        _log(f"cegs batch: feats {tuple(batch.feats.shape)} equal to the in-process batch's:"
+             f" {feats_equal}; host tables in_src {batch.sup.in_src.shape} against the"
+             f" in-process batch's {in_process.sup.in_src.shape}; " + json.dumps(sizes))
+        if records < 1 or (bsz, t_out, feat_dim, num_pdfs) != (
+                B, T_OUT, corpus.feat_dim, corpus.tree.num_pdfs):
+            raise AssertionError(f"cegs prep: {records} records of B={bsz}, T_out={t_out},"
+                                 f" feat_dim {feat_dim}, {num_pdfs} pdfs")
+
+        losses, times, launches, step, model = train_steps(cfg, feat_dim, feats, den, sup,
+                                                           args.steps, args.seed)
+        for i, (m, ms) in enumerate(zip(losses, times)):
+            _log(f"cegs step {i}: {ms:.1f} ms  " + "  ".join(f"{k}={v:.6g}" for k, v in m.items()))
+        for k, n in launches.items():
+            if (k in DEN_NUM) != (n > 0):
+                raise AssertionError(f"cegs path: kernel {k} counted {n}")
+        first = losses[0]["loss"]
+        rel = abs(first - ref) / abs(ref)
+        step_ms = statistics.median(times[1:])
+        _log(f"launches on the cegs path ({args.steps} steps): {launches}")
+        _log(f"cegs path: first loss {first:.8g} vs the trigram path's {ref:.8g}: rel {rel:.3g}"
+             f" (gate {gate:g}); steps 2..{args.steps} median {step_ms:.2f} ms/step,"
+             f" {step_ms / ref_ms:.2f}x the trigram path's median {ref_ms:.2f}")
+        if not all(math.isfinite(m["loss"]) for m in losses):
+            raise AssertionError("non-finite loss on the cegs path")
+        if not losses[-1]["loss"] < first:
+            raise AssertionError("the loss did not fall on the cegs path")
+        if not rel <= gate:
+            raise AssertionError("the cegs path's first loss departs from the trigram path's")
+        out = dict(records=records, ark_bytes=ark_bytes, den_fst_bytes=den_bytes,
+                   write_s=write_s, peek_s=peek_s, read_split_s=read_s, feats_equal=feats_equal,
+                   host_in_src=list(batch.sup.in_src.shape),
+                   in_process_in_src=list(in_process.sup.in_src.shape), sizes=sizes,
+                   first_loss=first, first_loss_rel_to_trigram=rel, step_ms=step_ms,
+                   step_ms_all=times, trigram_step_ms=ref_ms, losses=losses, launches=launches)
+
+        # the trained model's outputs for the batch, as Kaldi's decoders read them
+        with torch.no_grad():
+            post = model(feats, train=False)[0].float().cpu().numpy()
+        if post.shape != (bsz, t_out, num_pdfs) or not np.isfinite(post).all():
+            raise AssertionError(f"cegs posteriors: shape {post.shape} or non-finite values")
+        mats = {f"{key}-{n}": post[n] for n in range(bsz)}
+        binary, text = os.path.join(tmp, "post.ark"), os.path.join(tmp, "post.txt")
+        t0 = time.perf_counter()
+        write_ark_binary(binary, mats)
+        back = read_ark(binary)
+        with MatrixWriter(text) as w:
+            for k, v in mats.items():
+                w[k] = v
+        back_text = read_ark_text(text)
+        post_s = time.perf_counter() - t0
+        if list(back) != list(mats) or list(back_text) != list(mats):
+            raise AssertionError("cegs posteriors: the archives' keys differ")
+        bin_err = max(float(np.max(np.abs(back[k] - v))) for k, v in mats.items())
+        bits = all(back[k].dtype == np.float32 and back[k].tobytes() == v.tobytes()
+                   for k, v in mats.items())
+        text_rel = max(float(np.max(np.abs(back_text[k] - v) / np.maximum(np.abs(v), 1e-30)))
+                       for k, v in mats.items())
+        _log(f"cegs posteriors {post.shape}: binary ark {os.path.getsize(binary)} bytes, bit"
+             f" for bit {bits} (max abs err {bin_err:g}); text ark {os.path.getsize(text)}"
+             f" bytes, max rel err {text_rel:.3g} (gate 1e-6); written and read in"
+             f" {post_s:.2f} s (host)")
+        if not bits or not text_rel <= 1e-6:
+            raise AssertionError("cegs posteriors do not round-trip through the archives")
+        out.update(posteriors=list(post.shape), post_binary_max_abs_err=bin_err,
+                   post_binary_bit_equal=bits, post_text_max_rel_err=text_rel, post_io_s=post_s)
+
+    if args.profile:
+        prof = profile_steps(step, feats, den, sup, 2,
+                             args.out / "profile_cegs.txt" if args.out else None)
+        _log(f"cegs profile (traced steps only): wall {prof['wall_ms']:.2f} ms/step, device"
+             f" busy {prof['device_busy_ms']:.2f} ms/step (traced idle share"
+             f" {prof['idle_share']:.3f}) in {prof['kernel_launches']} launches/step")
+        for line in prof["top"]:
+            _log("  " + line)
+        out["profile"] = prof
+    out["phase_s"] = time.perf_counter() - t_phase
+    _log(f"cegs phase: {out['phase_s']:.1f} s")
     return out
 
 
@@ -1759,7 +1913,7 @@ def run_path(path: str, args, result: dict, checks: tuple = ()):
 
     # phase 4: the path itself
     torch.cuda.reset_peak_memory_stats()
-    losses, times, launches, step = train_steps(
+    losses, times, launches, step, _ = train_steps(
         cfg, corpus.feat_dim, feats, den, sup, args.steps, args.seed
     )
     for i, (m, ms) in enumerate(zip(losses, times)):
@@ -1877,6 +2031,8 @@ def main(argv=None) -> int:
     numbers.update(measured)
     if not args.kernels_only:
         result["den_forms"] = check_den_forms(args, result)
+        result["cegs"] = check_cegs(args, result)
+        launches["cegs"] = result["cegs"]["launches"]
     for name, m in second.items():
         numbers[name] = dict(**numbers[name], production=m)
     measured, probe_launches = check_probe()
@@ -1898,7 +2054,7 @@ def main(argv=None) -> int:
                 raise AssertionError(f"the first loss of {b_path} departs from {a_path}'s")
     # `launches` is the count of the first path that must run the kernel (the
     # probe's: its own phase); every path's count is under "launches_by_path"
-    must = {**{p: PATHS[p]["kernels"] for p in PATHS}, "probe": PROBE}
+    must = {**{p: PATHS[p]["kernels"] for p in PATHS}, "cegs": DEN_NUM, "probe": PROBE}
     records = []
     for name, (_, _, source, replaces) in KERNELS.items():
         first = next(p for p in must if name in must[p])

@@ -1232,3 +1232,81 @@ def test_probe_smem_finds_the_device_limit(dev):
     assert torch.equal(ps.try_size(x, 64), 5.0 * x)
     with pytest.raises(TypeError):
         ps.try_size(x.double(), 64)
+
+
+# ---------------------------------------------------------------------------
+# records read from a merged cegs archive, on the card
+# ---------------------------------------------------------------------------
+
+
+def _e2e_record_and_batch(c, ds, B):
+    """The first B utterances E2eChainDataset keeps, as one merged e2e
+    record (make_e2e_chain_example) and as the dataset's own first batch."""
+    from torchain_tpu_torch.data import make_e2e_chain_example
+    from torchain_tpu_torch.graphs import make_e2e_supervision_fst
+
+    fsts, feats = [], []
+    for ui, utt in enumerate(ds.utts):
+        if ds._sup_of(ui) is None:
+            continue
+        starts = np.cumsum([0] + [d for _, d in utt.alignment])[:-1] // ds.fsf
+        keep = [p for (p, _d), s in zip(utt.alignment, starts) if s < ds.chunk_frames_out]
+        fsts.append(make_e2e_supervision_fst(keep, c.tree, ds._norm_ready, norm_ready=True))
+        idx = np.clip(np.arange(-ds.left_context,
+                                ds.chunk_frames_out * ds.fsf + ds.right_context),
+                      0, utt.feats.shape[0] - 1)
+        feats.append(utt.feats[idx])
+        if len(fsts) == B:
+            break
+    eg = make_e2e_chain_example(np.stack(feats), fsts, c.tree.num_pdfs,
+                                frames_per_sequence=ds.chunk_frames_out,
+                                frame_subsampling_factor=ds.fsf, left_context=ds.left_context)
+    return eg, next(ds.batches(B, shuffle=False))
+
+
+@pytest.mark.parametrize("e2e", [False, True], ids=["standard", "e2e"])
+def test_a_cegs_record_trains_like_the_in_process_batch(dev, tmp_path, e2e):
+    """A small record written to a merged cegs archive and read back
+    (CegsDataset) gives, on the card, the in-process batch's chain loss
+    within 1e-5 relative, through K1-K6 (K1, K2, K8f, K8b for e2e)."""
+    from torchain_tpu_torch.data import CegsDataset, dataset_to_cegs, write_cegs_ark
+    from torchain_tpu_torch.ops import ChainLossOptions, DeviceE2eSupervision, chain_loss
+
+    B, T = 4, 12
+    c = tdata.synthetic_dataset(num_utts=10, num_phones=8, feat_dim=8, utt_frames_out=(12, 16),
+                                seed=3, lm_order=3, lm_extra_states=40)
+    ark = str(tmp_path / "cegs.1.ark")
+    if e2e:
+        ds = tdata.E2eChainDataset(c.utts, c.tree, c.norm_fst, chunk_frames_out=T,
+                                   left_context=3, right_context=3)
+        eg, ref = _e2e_record_and_batch(c, ds, B)
+        write_cegs_ark(ark, {"eg-0": eg})
+        cls, kernels = DeviceE2eSupervision, (dr.den_forward_kernel, dr.den_backward_kernel,
+                                              nr.e2e_forward_resident, nr.e2e_backward_resident)
+    else:
+        ds = tdata.ChainDataset(c.utts, c.tree, c.norm_fst, chunk_frames_out=T,
+                                left_context=3, right_context=3,
+                                sup_opts=tgraphs.SupervisionOptions())
+        assert dataset_to_cegs(ds, ark, batch_size=B) >= 1
+        ref = next(ds.batches(B, shuffle=False))
+        cls, kernels = DeviceSupervision, (dr.den_forward_kernel, dr.den_backward_kernel,
+                                           nr.steady_forward, nr.steady_backward,
+                                           ns.vocab_gather, ns.vocab_scatter)
+    batch = next(CegsDataset(ark).batches(0, shuffle=False))
+    np.testing.assert_array_equal(batch.feats, ref.feats)
+    den = auto_den_graph(c.den_graph, device=dev)
+    y = torch.as_tensor(np.random.default_rng(7).normal(size=(B, T, den.num_pdfs)),
+                        dtype=torch.float32, device=dev)
+    opts = ChainLossOptions(leaky_hmm_coefficient=0.1, l2_regularize=5e-4)
+    losses = []
+    for host in (ref.sup, batch.sup):
+        sup = cls.from_host(host, device=dev).with_kernel_tables()
+        before = [k.launches for k in kernels]
+        yy = y.clone().requires_grad_(True)
+        loss, _aux = chain_loss(yy, None, den, sup, opts)
+        loss.backward()
+        assert all(k.launches > n for k, n in zip(kernels, before))
+        assert torch.isfinite(yy.grad).all()
+        losses.append(float(loss.detach()))
+    assert math.isfinite(losses[1])
+    assert abs(losses[1] - losses[0]) <= 1e-5 * abs(losses[0]), losses

@@ -225,3 +225,42 @@ def test_auto_den_graph_keeps_the_requested_device():
     )
     den = auto_den_graph(g, pad_to=8, device="meta")
     assert den.V.device.type == "meta" and den.num_states == 8
+
+
+#: the Kaldi interchange modules: port module -> (JAX module, names the
+#: port leaves out).  select_device is a JAX-runtime helper; make-den-fst
+#: and ali-to-phones need the Kaldi model readers, which are not ported.
+KALDI_MODULES = {
+    "torchain_tpu_torch.utils.kaldi_io": ("torchain_tpu.utils.kaldi_io", set()),
+    "torchain_tpu_torch.fstkit.algorithms": ("torchain_tpu.fstkit.algorithms", set()),
+    "torchain_tpu_torch.fstkit.openfst_io": ("torchain_tpu.fstkit.openfst_io", set()),
+    "torchain_tpu_torch.fstkit": ("torchain_tpu.fstkit", set()),
+    "torchain_tpu_torch.io": ("torchain_tpu.io", {"select_device"}),
+    "torchain_tpu_torch.data.cegs": ("torchain_tpu.data.cegs", set()),
+    "torchain_tpu_torch.cli.graphs": ("torchain_tpu.cli.graphs",
+                                      {"_cmd_make_den_fst", "_cmd_ali_to_phones"}),
+    "torchain_tpu_torch.cli.egs": ("torchain_tpu.cli.egs", set()),
+}
+
+
+@pytest.mark.parametrize("name", sorted(KALDI_MODULES))
+def test_kaldi_modules_keep_the_reference_names(name):
+    """Each module keeps every function and class of its JAX counterpart,
+    under the same name, and defines them itself (no re-export from the
+    JAX package)."""
+    import importlib
+    import inspect
+
+    pytest.importorskip("jax")
+    ref_name, left_out = KALDI_MODULES[name]
+    port, ref = importlib.import_module(name), importlib.import_module(ref_name)
+
+    def defined(mod):
+        return {k for k, v in vars(mod).items()
+                if (inspect.isfunction(v) or inspect.isclass(v))
+                and v.__module__.split(".")[0] == mod.__name__.split(".")[0]}
+
+    assert defined(ref) - left_out <= defined(port)
+    assert all(getattr(port, k).__module__.startswith("torchain_tpu_torch") for k in defined(port))
+    if hasattr(ref, "__all__"):
+        assert set(ref.__all__) - left_out <= set(port.__all__)

@@ -9,4 +9,4 @@ The CUDA sources in `csrc/` are compiled by nvcc at first use
 (`kernels.py`).
 """
 
-__all__ = ["convert", "data", "fstkit", "graphs", "kernels", "models", "ops", "train"]
+__all__ = ["cli", "convert", "data", "fstkit", "graphs", "io", "kernels", "models", "ops", "train", "utils"]
