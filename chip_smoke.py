@@ -58,7 +58,13 @@ Phases, in order; any failure exits non-zero before the last line:
      `compile_den_graph`, `auto_den_graph` and `CegsDataset`, (a)'s model
      trained as many steps on the first record (K1-K6 and no other kernel;
      the first loss against (a)'s), and its outputs for that record written
-     to a binary and a text Kaldi archive and read back;
+     to a binary and a text Kaldi archive and read back; then the recipe's
+     entry points on that prep (`check_recipe`): `cli.train` 10 steps at
+     (a)'s widths (K1-K6 and no other kernel, the semi-orthogonal constraint
+     twice), the same run cut after 6 steps and resumed from its checkpoint
+     (equal to the uninterrupted run within REFERENCE_RTOL), `cli.compute_prob`
+     on the card (no K2) and against the CPU, and `cli.export_posteriors` on
+     the card against the CPU;
   5. a reference check on a small input for each path: the first-step loss
      and gradient norm on the card (kernels) against the CPU (plain
      versions); for the bfloat16 conformer paths also each parameter
@@ -86,6 +92,7 @@ import pathlib
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -1589,7 +1596,7 @@ def check_den_forms(args, result: dict) -> dict:
     return out
 
 
-def check_cegs(args, result: dict) -> dict:
+def check_cegs(args, result: dict, tmp: str) -> dict:
     """Phase 4 again, from a finished Kaldi chain prep: the trigram path's
     corpus and dataset written as a binary OpenFst den.fst (standard arcs,
     pdf+1 labels) and a merged cegs archive of B sequences a record
@@ -1604,10 +1611,11 @@ def check_cegs(args, result: dict) -> dict:
     for that batch (train=False, one [T_out, P] matrix per sequence, keyed
     `<record key>-<n>`) through a binary ark (read back bit for bit) and
     a text ark (`%.7g`, read back within 1e-6 relative).  The host's
-    write and read seconds are logged apart from the step times.  Returns
-    the phase's numbers; its launch counts are under "launches"."""
+    write and read seconds are logged apart from the step times.  The prep
+    (den.fst, cegs.1.ark and its .scp) is written to `tmp`, where the
+    recipe phase reads it again.  Returns the phase's numbers; its launch
+    counts are under "launches"."""
     import os
-    import tempfile
 
     import numpy as np
     import torch
@@ -1625,101 +1633,100 @@ def check_cegs(args, result: dict) -> dict:
     ref = result["trigram"]["losses"][0]["loss"]
     ref_ms = statistics.median(result["trigram"]["step_ms_all"][1:])
     gate = REFERENCE_RTOL[PATHS["trigram"]["dtype"]]
-    with tempfile.TemporaryDirectory() as tmp:
-        den_path, ark, scp = (os.path.join(tmp, n) for n in ("den.fst", "cegs.1.ark",
-                                                               "cegs.1.scp"))
-        t0 = time.perf_counter()
-        write_openfst(den_path, corpus.den_fst,
-                      [a.label for _s, a in corpus.den_fst.all_arcs()], arctype="standard")
-        records = dataset_to_cegs(dataset, ark, batch_size=B, scp_path=scp)
-        write_s = time.perf_counter() - t0
-        ark_bytes, den_bytes = os.path.getsize(ark), os.path.getsize(den_path)
-        with open(scp) as f:
-            key = f.readline().split()[0]
+    den_path, ark, scp = (os.path.join(tmp, n) for n in ("den.fst", "cegs.1.ark",
+                                                           "cegs.1.scp"))
+    t0 = time.perf_counter()
+    write_openfst(den_path, corpus.den_fst,
+                  [a.label for _s, a in corpus.den_fst.all_arcs()], arctype="standard")
+    records = dataset_to_cegs(dataset, ark, batch_size=B, scp_path=scp)
+    write_s = time.perf_counter() - t0
+    ark_bytes, den_bytes = os.path.getsize(ark), os.path.getsize(den_path)
+    with open(scp) as f:
+        key = f.readline().split()[0]
 
-        t0 = time.perf_counter()
-        fst, fsttype, arctype = _load_any_fst(den_path)
-        cegs = CegsDataset(ark)
-        feat_dim, num_pdfs, bsz, t_out = cegs.peek()
-        graph = compile_den_graph(fst, num_pdfs)
-        peek_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        batch = next(cegs.batches(bsz, shuffle=False))
-        read_s = time.perf_counter() - t0
-        den = auto_den_graph(graph, device="cuda")
-        sup = DeviceSupervision.from_host(batch.sup, device="cuda").with_kernel_tables()
-        feats = torch.as_tensor(batch.feats, device="cuda")
-        torch.cuda.synchronize()
-        sizes = _sizes(den, sup)
-        feats_equal = bool(np.array_equal(batch.feats, in_process.feats))
-        _log(f"cegs prep: den.fst {den_bytes} bytes ({fsttype}, {arctype}), {records} merged"
-             f" records of {bsz} in {ark_bytes} bytes, written in {write_s:.2f} s (host);"
-             f" den.fst + peek {peek_s:.2f} s, first batch read and split {read_s:.2f} s (host)")
-        _log(f"cegs batch: feats {tuple(batch.feats.shape)} equal to the in-process batch's:"
-             f" {feats_equal}; host tables in_src {batch.sup.in_src.shape} against the"
-             f" in-process batch's {in_process.sup.in_src.shape}; " + json.dumps(sizes))
-        if records < 1 or (bsz, t_out, feat_dim, num_pdfs) != (
-                B, T_OUT, corpus.feat_dim, corpus.tree.num_pdfs):
-            raise AssertionError(f"cegs prep: {records} records of B={bsz}, T_out={t_out},"
-                                 f" feat_dim {feat_dim}, {num_pdfs} pdfs")
+    t0 = time.perf_counter()
+    fst, fsttype, arctype = _load_any_fst(den_path)
+    cegs = CegsDataset(ark)
+    feat_dim, num_pdfs, bsz, t_out = cegs.peek()
+    graph = compile_den_graph(fst, num_pdfs)
+    peek_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    batch = next(cegs.batches(bsz, shuffle=False))
+    read_s = time.perf_counter() - t0
+    den = auto_den_graph(graph, device="cuda")
+    sup = DeviceSupervision.from_host(batch.sup, device="cuda").with_kernel_tables()
+    feats = torch.as_tensor(batch.feats, device="cuda")
+    torch.cuda.synchronize()
+    sizes = _sizes(den, sup)
+    feats_equal = bool(np.array_equal(batch.feats, in_process.feats))
+    _log(f"cegs prep: den.fst {den_bytes} bytes ({fsttype}, {arctype}), {records} merged"
+         f" records of {bsz} in {ark_bytes} bytes, written in {write_s:.2f} s (host);"
+         f" den.fst + peek {peek_s:.2f} s, first batch read and split {read_s:.2f} s (host)")
+    _log(f"cegs batch: feats {tuple(batch.feats.shape)} equal to the in-process batch's:"
+         f" {feats_equal}; host tables in_src {batch.sup.in_src.shape} against the"
+         f" in-process batch's {in_process.sup.in_src.shape}; " + json.dumps(sizes))
+    if records < 1 or (bsz, t_out, feat_dim, num_pdfs) != (
+            B, T_OUT, corpus.feat_dim, corpus.tree.num_pdfs):
+        raise AssertionError(f"cegs prep: {records} records of B={bsz}, T_out={t_out},"
+                             f" feat_dim {feat_dim}, {num_pdfs} pdfs")
 
-        losses, times, launches, step, model = train_steps(cfg, feat_dim, feats, den, sup,
-                                                           args.steps, args.seed)
-        for i, (m, ms) in enumerate(zip(losses, times)):
-            _log(f"cegs step {i}: {ms:.1f} ms  " + "  ".join(f"{k}={v:.6g}" for k, v in m.items()))
-        for k, n in launches.items():
-            if (k in DEN_NUM) != (n > 0):
-                raise AssertionError(f"cegs path: kernel {k} counted {n}")
-        first = losses[0]["loss"]
-        rel = abs(first - ref) / abs(ref)
-        step_ms = statistics.median(times[1:])
-        _log(f"launches on the cegs path ({args.steps} steps): {launches}")
-        _log(f"cegs path: first loss {first:.8g} vs the trigram path's {ref:.8g}: rel {rel:.3g}"
-             f" (gate {gate:g}); steps 2..{args.steps} median {step_ms:.2f} ms/step,"
-             f" {step_ms / ref_ms:.2f}x the trigram path's median {ref_ms:.2f}")
-        if not all(math.isfinite(m["loss"]) for m in losses):
-            raise AssertionError("non-finite loss on the cegs path")
-        if not losses[-1]["loss"] < first:
-            raise AssertionError("the loss did not fall on the cegs path")
-        if not rel <= gate:
-            raise AssertionError("the cegs path's first loss departs from the trigram path's")
-        out = dict(records=records, ark_bytes=ark_bytes, den_fst_bytes=den_bytes,
-                   write_s=write_s, peek_s=peek_s, read_split_s=read_s, feats_equal=feats_equal,
-                   host_in_src=list(batch.sup.in_src.shape),
-                   in_process_in_src=list(in_process.sup.in_src.shape), sizes=sizes,
-                   first_loss=first, first_loss_rel_to_trigram=rel, step_ms=step_ms,
-                   step_ms_all=times, trigram_step_ms=ref_ms, losses=losses, launches=launches)
+    losses, times, launches, step, model = train_steps(cfg, feat_dim, feats, den, sup,
+                                                       args.steps, args.seed)
+    for i, (m, ms) in enumerate(zip(losses, times)):
+        _log(f"cegs step {i}: {ms:.1f} ms  " + "  ".join(f"{k}={v:.6g}" for k, v in m.items()))
+    for k, n in launches.items():
+        if (k in DEN_NUM) != (n > 0):
+            raise AssertionError(f"cegs path: kernel {k} counted {n}")
+    first = losses[0]["loss"]
+    rel = abs(first - ref) / abs(ref)
+    step_ms = statistics.median(times[1:])
+    _log(f"launches on the cegs path ({args.steps} steps): {launches}")
+    _log(f"cegs path: first loss {first:.8g} vs the trigram path's {ref:.8g}: rel {rel:.3g}"
+         f" (gate {gate:g}); steps 2..{args.steps} median {step_ms:.2f} ms/step,"
+         f" {step_ms / ref_ms:.2f}x the trigram path's median {ref_ms:.2f}")
+    if not all(math.isfinite(m["loss"]) for m in losses):
+        raise AssertionError("non-finite loss on the cegs path")
+    if not losses[-1]["loss"] < first:
+        raise AssertionError("the loss did not fall on the cegs path")
+    if not rel <= gate:
+        raise AssertionError("the cegs path's first loss departs from the trigram path's")
+    out = dict(records=records, ark_bytes=ark_bytes, den_fst_bytes=den_bytes,
+               write_s=write_s, peek_s=peek_s, read_split_s=read_s, feats_equal=feats_equal,
+               host_in_src=list(batch.sup.in_src.shape),
+               in_process_in_src=list(in_process.sup.in_src.shape), sizes=sizes,
+               first_loss=first, first_loss_rel_to_trigram=rel, step_ms=step_ms,
+               step_ms_all=times, trigram_step_ms=ref_ms, losses=losses, launches=launches)
 
-        # the trained model's outputs for the batch, as Kaldi's decoders read them
-        with torch.no_grad():
-            post = model(feats, train=False)[0].float().cpu().numpy()
-        if post.shape != (bsz, t_out, num_pdfs) or not np.isfinite(post).all():
-            raise AssertionError(f"cegs posteriors: shape {post.shape} or non-finite values")
-        mats = {f"{key}-{n}": post[n] for n in range(bsz)}
-        binary, text = os.path.join(tmp, "post.ark"), os.path.join(tmp, "post.txt")
-        t0 = time.perf_counter()
-        write_ark_binary(binary, mats)
-        back = read_ark(binary)
-        with MatrixWriter(text) as w:
-            for k, v in mats.items():
-                w[k] = v
-        back_text = read_ark_text(text)
-        post_s = time.perf_counter() - t0
-        if list(back) != list(mats) or list(back_text) != list(mats):
-            raise AssertionError("cegs posteriors: the archives' keys differ")
-        bin_err = max(float(np.max(np.abs(back[k] - v))) for k, v in mats.items())
-        bits = all(back[k].dtype == np.float32 and back[k].tobytes() == v.tobytes()
+    # the trained model's outputs for the batch, as Kaldi's decoders read them
+    with torch.no_grad():
+        post = model(feats, train=False)[0].float().cpu().numpy()
+    if post.shape != (bsz, t_out, num_pdfs) or not np.isfinite(post).all():
+        raise AssertionError(f"cegs posteriors: shape {post.shape} or non-finite values")
+    mats = {f"{key}-{n}": post[n] for n in range(bsz)}
+    binary, text = os.path.join(tmp, "post.ark"), os.path.join(tmp, "post.txt")
+    t0 = time.perf_counter()
+    write_ark_binary(binary, mats)
+    back = read_ark(binary)
+    with MatrixWriter(text) as w:
+        for k, v in mats.items():
+            w[k] = v
+    back_text = read_ark_text(text)
+    post_s = time.perf_counter() - t0
+    if list(back) != list(mats) or list(back_text) != list(mats):
+        raise AssertionError("cegs posteriors: the archives' keys differ")
+    bin_err = max(float(np.max(np.abs(back[k] - v))) for k, v in mats.items())
+    bits = all(back[k].dtype == np.float32 and back[k].tobytes() == v.tobytes()
+               for k, v in mats.items())
+    text_rel = max(float(np.max(np.abs(back_text[k] - v) / np.maximum(np.abs(v), 1e-30)))
                    for k, v in mats.items())
-        text_rel = max(float(np.max(np.abs(back_text[k] - v) / np.maximum(np.abs(v), 1e-30)))
-                       for k, v in mats.items())
-        _log(f"cegs posteriors {post.shape}: binary ark {os.path.getsize(binary)} bytes, bit"
-             f" for bit {bits} (max abs err {bin_err:g}); text ark {os.path.getsize(text)}"
-             f" bytes, max rel err {text_rel:.3g} (gate 1e-6); written and read in"
-             f" {post_s:.2f} s (host)")
-        if not bits or not text_rel <= 1e-6:
-            raise AssertionError("cegs posteriors do not round-trip through the archives")
-        out.update(posteriors=list(post.shape), post_binary_max_abs_err=bin_err,
-                   post_binary_bit_equal=bits, post_text_max_rel_err=text_rel, post_io_s=post_s)
+    _log(f"cegs posteriors {post.shape}: binary ark {os.path.getsize(binary)} bytes, bit"
+         f" for bit {bits} (max abs err {bin_err:g}); text ark {os.path.getsize(text)}"
+         f" bytes, max rel err {text_rel:.3g} (gate 1e-6); written and read in"
+         f" {post_s:.2f} s (host)")
+    if not bits or not text_rel <= 1e-6:
+        raise AssertionError("cegs posteriors do not round-trip through the archives")
+    out.update(posteriors=list(post.shape), post_binary_max_abs_err=bin_err,
+               post_binary_bit_equal=bits, post_text_max_rel_err=text_rel, post_io_s=post_s)
 
     if args.profile:
         prof = profile_steps(step, feats, den, sup, 2,
@@ -1732,6 +1739,230 @@ def check_cegs(args, result: dict) -> dict:
         out["profile"] = prof
     out["phase_s"] = time.perf_counter() - t_phase
     _log(f"cegs phase: {out['phase_s']:.1f} s")
+    return out
+
+
+#: the kernels a forward-only pass launches (compute_prob): the denominator
+#: forward and the numerator forward-backward of the xent target, no K2
+EVAL_DEN_NUM = ("den_forward",) + NUM
+
+
+def _launch_gate(what: str, launches: dict, must: tuple):
+    for k, n in launches.items():
+        if (k in must) != (n > 0):
+            raise AssertionError(f"{what}: kernel {k} counted {n}")
+
+
+def _jsonl(path) -> list[dict]:
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def check_recipe(args, result: dict, tmp: str) -> dict:
+    """Phase 4, last: the recipe's entry points as a user calls them, on the
+    prep `check_cegs` wrote to `tmp` (den.fst and the 2-record B=128
+    archive), with the trigram path's full-width TDNN-F (9 x 768/96):
+
+      (a) `cli.train.main` for 5 epochs (10 steps) with max-change 0.75/2.0
+          and an exponential LR decay to 1e-4 over --steps 10, into
+          checkpoint directory A.  Gates: each record's loss in the last
+          epoch below its loss in the first, all finite; K1-K6 moved and no
+          other kernel; the semi-orthogonal constraint ran twice (steps 4
+          and 8; `orthogonality_error` of tdnnf1.linear_pre logged before
+          and after);
+      (b) the same run cut after 3 epochs into directory B, then run again
+          for 5 epochs on B: it must resume from the step-6 checkpoint, take
+          its first step in epoch 3 (0-based) as step 7 and end at step 10.
+          Gate: the last logged loss and every parameter within
+          REFERENCE_RTOL["float32"] of (a)'s (each tensor's difference in
+          norm over its norm); whether they are equal bit for bit is logged;
+      (c) `cli.compute_prob` on A's checkpoint over the archive: K1, K3, K4,
+          K5 and K6 moved, K2 and every other kernel not; then on a record
+          of the first 8 sequences, once on the card and once on the CPU:
+          objf, l2 and xent per frame within REFERENCE_RTOL["float32"];
+      (d) `cli.export_posteriors --synthetic` at the same widths (40 phones,
+          40-dim features) without a checkpoint (the seeded init), on the
+          card and on the CPU: the same keys, each matrix within 1e-3 of the
+          CPU's in norm.
+
+    --steps 10 in every training run fixes the decay's horizon, so the run
+    cut after 3 epochs follows (a)'s schedule.  Returns (the phase's
+    numbers, the launch counts of (a) and of (c) on the card)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from torchain_tpu_torch.cli import compute_prob, export_posteriors
+    from torchain_tpu_torch.cli import train as cli_train
+    from torchain_tpu_torch.data import dataset_to_cegs
+    from torchain_tpu_torch.io import read_ark_text
+    from torchain_tpu_torch.models import orthogonality_error
+    from torchain_tpu_torch.train import trainer as trainer_mod
+
+    t_phase = time.perf_counter()
+    smi = result["nvidia_smi"]
+    gate = REFERENCE_RTOL["float32"]
+    ark, den = os.path.join(tmp, "cegs.1.ark"), os.path.join(tmp, "den.fst")
+    A, Bdir = os.path.join(tmp, "A"), os.path.join(tmp, "B")
+    model = ["--model", "tdnnf", "--hidden-dim", "768", "--bottleneck-dim", "96",
+             "--num-layers", str(LAYERS), "--seed", str(args.seed)]
+    train = ["--cegs", ark, "--den-fst", den, *model, "--max-change-per-component", "0.75",
+             "--max-param-change", "2.0", "--lr-final", "1e-4", "--steps", "10",
+             "--log-every", "1", "--device", "cuda"]
+
+    # the constraint's calls, counted where the Trainer makes them
+    applied = []
+    constrain = trainer_mod.constrain_semi_orthogonal
+
+    def counted(m, *a, **k):
+        applied.append(1)
+        return constrain(m, *a, **k)
+
+    def ckpt(d, step):
+        return torch.load(os.path.join(d, str(step), "state.pt"), map_location="cpu",
+                          weights_only=True)["model"]
+
+    trainer_mod.constrain_semi_orthogonal = counted
+    try:
+        # (a)
+        for fn in counters().values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        out_a = cli_train.main([*train, "--epochs", "5", "--checkpoint-dir", A,
+                                "--metrics-out", os.path.join(A, "metrics.jsonl")])
+        a_s = time.perf_counter() - t0
+        launches_a = {k: fn.launches for k, fn in counters().items()}
+        n_applied = len(applied)
+        # (b)
+        t0 = time.perf_counter()
+        out_b1 = cli_train.main([*train, "--epochs", "3", "--checkpoint-dir", Bdir,
+                                 "--metrics-out", os.path.join(Bdir, "m1.jsonl")])
+        out_b2 = cli_train.main([*train, "--epochs", "5", "--checkpoint-dir", Bdir,
+                                 "--metrics-out", os.path.join(Bdir, "m2.jsonl")])
+        b_s = time.perf_counter() - t0
+    finally:
+        trainer_mod.constrain_semi_orthogonal = constrain
+
+    log_a = _jsonl(os.path.join(A, "metrics.jsonl"))
+    losses = [m["loss"] for m in log_a]
+    _log(f"recipe (a) cli.train: {out_a['steps']} steps in {a_s:.1f} s (host clock, setup"
+         f" included); losses {[round(x, 6) for x in losses]}; launches {launches_a}")
+    _launch_gate("recipe (a)", launches_a, DEN_NUM)
+    if out_a["steps"] != 10 or len(losses) != 10 or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"recipe (a): {out_a['steps']} steps, losses {losses}")
+    if not (losses[8] < losses[0] and losses[9] < losses[1]):
+        raise AssertionError("recipe (a): a record's loss did not fall from the first epoch"
+                             " to the last")
+    sd_a = ckpt(A, 10)
+    init, _ = cli_train._build_model(cli_train.build_argparser().parse_args(train),
+                                     int(sd_a["chain_head.Dense_1.bias"].shape[0]),
+                                     int(sd_a["input_proj.kernel"].shape[1]), "cpu")
+    w0 = init.tdnnf1.linear_pre.kernel.detach()
+    w1 = sd_a["tdnnf1.linear_pre.kernel"]
+    err0 = float(orthogonality_error(w0.reshape(-1, w0.shape[-1])))
+    err1 = float(orthogonality_error(w1.reshape(-1, w1.shape[-1])))
+    _log(f"recipe (a): semi-orthogonal constraint applied {n_applied} times; tdnnf1.linear_pre"
+         f" orthogonality_error {err0:.6g} at init, {err1:.6g} after 10 steps")
+    if n_applied != 2:
+        raise AssertionError(f"recipe (a): the semi-orthogonal constraint ran {n_applied} times")
+
+    log_b1 = _jsonl(os.path.join(Bdir, "m1.jsonl"))
+    log_b2 = _jsonl(os.path.join(Bdir, "m2.jsonl"))
+    read = out_b2["timings"]["ckpt_read"]
+    where = [(m["step"], m["epoch"]) for m in log_b2]
+    _log(f"recipe (b): cut after {out_b1['steps']} steps; resumed from the step"
+         f" {read[0][0] if read else None} checkpoint, logged (step, epoch) {where}")
+    if (out_b1["steps"] != 6 or not read or read[0][0] != 6 or out_b2["steps"] != 10
+            or where != [(7, 3), (8, 3), (9, 4), (10, 4)]):
+        raise AssertionError("recipe (b): the run did not resume at step 6 in epoch 3 and end"
+                             " at step 10")
+    sd_b = ckpt(Bdir, 10)
+    loss_rel = abs(log_b2[-1]["loss"] - losses[-1]) / abs(losses[-1])
+    param_rel = max(float(torch.linalg.vector_norm(sd_b[k].float() - v.float())
+                          / max(float(torch.linalg.vector_norm(v.float())), 1e-30))
+                    for k, v in sd_a.items())
+    bits = all(torch.equal(sd_b[k], v) for k, v in sd_a.items()) and log_b2[-1]["loss"] == \
+        losses[-1] and [m["loss"] for m in log_b1 + log_b2] == losses
+    _log(f"recipe (b): last loss {log_b2[-1]['loss']:.8g} vs (a)'s {losses[-1]:.8g}: rel"
+         f" {loss_rel:.3g}; parameters max rel {param_rel:.3g} (gate {gate:g}); bit-equal to"
+         f" (a): {bits}; {b_s:.1f} s for both runs (host clock)")
+    if not (loss_rel <= gate and param_rel <= gate):
+        raise AssertionError("recipe (b): the resumed run departs from the uninterrupted one")
+
+    # (c)
+    for fn in counters().values():
+        fn.launches = 0
+    cp = ["--cegs", ark, "--den-fst", den, *model, "--checkpoint-dir", A]
+    t0 = time.perf_counter()
+    prob = compute_prob.main([*cp, "--device", "cuda"])
+    cp_s = time.perf_counter() - t0
+    launches_c = {k: fn.launches for k, fn in counters().items()}
+    _log(f"recipe (c) compute_prob on A's checkpoint: {json.dumps(prob)} in {cp_s:.1f} s"
+         f" (host clock); launches {launches_c}")
+    _launch_gate("recipe (c)", launches_c, EVAL_DEN_NUM)
+    if not prob["restored"] or not all(math.isfinite(prob[k]) for k in ("objf", "l2_term",
+                                                                       "xent_objf")):
+        raise AssertionError("recipe (c): compute_prob did not restore or is not finite")
+    _, _, dataset = build_path("trigram", args.seed)
+    first8 = copy.copy(dataset)
+    first8.chunks = dataset.chunks[:8]
+    small = os.path.join(tmp, "cegs.b8.ark")
+    if dataset_to_cegs(first8, small, batch_size=8) != 1:
+        raise AssertionError("recipe (c): the B=8 record was not written")
+    cp8 = ["--cegs", small, "--den-fst", den, *model, "--checkpoint-dir", A]
+    on_card = compute_prob.main([*cp8, "--device", "cuda"])
+    on_cpu = compute_prob.main([*cp8, "--device", "cpu"])
+    prob_rel = {k: abs(on_card[k] - on_cpu[k]) / max(abs(on_cpu[k]), 1e-30)
+                for k in ("objf", "l2_term", "xent_objf")}
+    _log(f"recipe (c) B=8: card {json.dumps(on_card)}; cpu {json.dumps(on_cpu)}; rel"
+         f" {json.dumps(prob_rel)} (gate {gate:g})")
+    if on_card["frames"] != on_cpu["frames"] or not all(r <= gate for r in prob_rel.values()):
+        raise AssertionError("recipe (c): compute_prob on the card departs from the CPU")
+
+    # (d)
+    exp = ["--synthetic", "--num-phones", "40", "--feat-dim", "40", "--model", "tdnnf",
+           "--hidden-dim", "768", "--bottleneck-dim", "96", "--num-layers", str(LAYERS),
+           "--seed", str(args.seed)]
+    posts = {}
+    for dev in ("cuda", "cpu"):
+        path = os.path.join(tmp, f"post_{dev}.ark")
+        if export_posteriors.main([*exp, "--device", dev, "--out", path]) != 0:
+            raise AssertionError(f"recipe (d): export_posteriors on {dev} failed")
+        posts[dev] = read_ark_text(path)
+    if list(posts["cuda"]) != list(posts["cpu"]) or not posts["cpu"]:
+        raise AssertionError("recipe (d): the archives' keys differ")
+    export_rel = max(float(np.linalg.norm(posts["cuda"][k] - v) / np.linalg.norm(v))
+                     for k, v in posts["cpu"].items())
+    _log(f"recipe (d) export_posteriors: {len(posts['cpu'])} matrices, card against CPU max"
+         f" rel {export_rel:.3g} in norm (gate 1e-3)")
+    if not export_rel <= 1e-3:
+        raise AssertionError("recipe (d): the exported posteriors depart from the CPU's")
+
+    ta = out_a["timings"]
+    cegs_ms = result["cegs"]["step_ms"]
+    write = ta["ckpt_write"][-1]
+    read_b = read[0]
+    out = dict(
+        train_s=a_s, resume_runs_s=b_s, compute_prob_s=cp_s, losses=losses,
+        launches=launches_a, compute_prob_launches=launches_c, semi_ortho_applied=n_applied,
+        orthogonality_error=[err0, err1], resume_loss_rel=loss_rel,
+        resume_param_rel=param_rel, resume_bit_equal=bits, compute_prob=prob,
+        compute_prob_b8=dict(cuda=on_card, cpu=on_cpu, rel=prob_rel),
+        export_rel=export_rel, cli_step_ms=ta["step_ms"], cegs_step_ms=cegs_ms,
+        sup_caps_s=ta["sup_caps_s"], place_ms_median=ta["place_ms_median"],
+        place_n=ta["place_n"], ckpt_bytes=write[1], ckpt_write_s=write[2],
+        ckpt_read_s=read_b[2],
+    )
+    out["phase_s"] = time.perf_counter() - t_phase
+    _log(f"recipe: cli.train steps 2..10 median {ta['step_ms']:.2f} ms between steps (host"
+         f" clock) against the cegs phase's {cegs_ms:.2f} ms/step ({smi})")
+    _log(f"recipe: checkpoint {write[1]} bytes, written in {write[2]:.3f} s, read in"
+         f" {read_b[2]:.3f} s (host; {smi})")
+    _log(f"recipe: estimate_sup_caps {ta['sup_caps_s']:.2f} s; placement on the prefetch"
+         f" thread median {ta['place_ms_median']:.2f} ms over {ta['place_n']} batches (host;"
+         f" {smi})")
+    _log(f"recipe phase: {out['phase_s']:.1f} s ({smi})")
     return out
 
 
@@ -2031,8 +2262,12 @@ def main(argv=None) -> int:
     numbers.update(measured)
     if not args.kernels_only:
         result["den_forms"] = check_den_forms(args, result)
-        result["cegs"] = check_cegs(args, result)
-        launches["cegs"] = result["cegs"]["launches"]
+        with tempfile.TemporaryDirectory() as prep:
+            result["cegs"] = check_cegs(args, result, prep)
+            launches["cegs"] = result["cegs"]["launches"]
+            result["recipe"] = check_recipe(args, result, prep)
+            launches["recipe"] = result["recipe"]["launches"]
+            launches["recipe_compute_prob"] = result["recipe"]["compute_prob_launches"]
     for name, m in second.items():
         numbers[name] = dict(**numbers[name], production=m)
     measured, probe_launches = check_probe()
@@ -2054,7 +2289,8 @@ def main(argv=None) -> int:
                 raise AssertionError(f"the first loss of {b_path} departs from {a_path}'s")
     # `launches` is the count of the first path that must run the kernel (the
     # probe's: its own phase); every path's count is under "launches_by_path"
-    must = {**{p: PATHS[p]["kernels"] for p in PATHS}, "cegs": DEN_NUM, "probe": PROBE}
+    must = {**{p: PATHS[p]["kernels"] for p in PATHS}, "cegs": DEN_NUM, "probe": PROBE,
+            "recipe": DEN_NUM, "recipe_compute_prob": EVAL_DEN_NUM}
     records = []
     for name, (_, _, source, replaces) in KERNELS.items():
         first = next(p for p in must if name in must[p])

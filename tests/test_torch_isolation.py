@@ -264,3 +264,23 @@ def test_kaldi_modules_keep_the_reference_names(name):
     assert all(getattr(port, k).__module__.startswith("torchain_tpu_torch") for k in defined(port))
     if hasattr(ref, "__all__"):
         assert set(ref.__all__) - left_out <= set(port.__all__)
+
+
+RECIPE = ("cli/train.py", "cli/compute_prob.py", "cli/export_posteriors.py", "train/trainer.py",
+          "train/step.py", "train/state.py", "data/prefetch.py", "models/semi_orthogonal.py")
+
+
+def test_the_recipe_entry_points_are_walked_and_default_to_the_card():
+    """The fresh-interpreter walk and the import-statement check above reach
+    the recipe's entry points and the trainer; each entry point and the
+    Trainer run on "cuda" unless the caller asks for the CPU."""
+    from torchain_tpu_torch.cli import compute_prob, export_posteriors, train
+    from torchain_tpu_torch.train import TrainerConfig
+
+    walked = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+    assert set(RECIPE) <= walked
+    assert train.build_argparser().parse_args(["--synthetic"]).device == "cuda"
+    assert compute_prob.build_argparser().parse_args(
+        ["--cegs", "x", "--den-fst", "y"]).device == "cuda"
+    assert export_posteriors.build_argparser().parse_args(["--out", "x"]).device == "cuda"
+    assert TrainerConfig().device == "cuda"

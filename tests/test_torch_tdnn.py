@@ -148,3 +148,77 @@ def test_params_from_jax_rejects_mismatch(setup):
         params_from_jax(bad, stats, TdnnfConfig(**SMALL))
     with pytest.raises(ValueError, match="shape"):
         params_from_jax(params, stats, TdnnfConfig(**{**SMALL, "num_pdfs": 12}))
+
+
+# -- the plain TDNN and TDNN-F dropout ------------------------------------------
+
+
+def test_tdnn_matches_jax_on_carried_parameters():
+    """The plain TDNN (dilated convolutions, flax's stock batchnorm) against
+    the JAX package's TDNN, parameters carried by convert.params_from_jax:
+    outputs in eval and train mode, gradients, and the running statistics
+    after one train-mode forward; the same tolerances as the TDNN-F's."""
+    from torchain_tpu.models import TDNN as JTDNN
+    from torchain_tpu.models import TdnnConfig as JTdnnCfg
+    from torchain_tpu_torch.models import TDNN, TdnnConfig
+
+    small = dict(num_pdfs=7, hidden_dim=32, prefinal_dim=16,
+                 layers=((5, 1, 1), (3, 1, 3), (3, 3, 1)))
+    jcfg, tcfg = JTdnnCfg(**small), TdnnConfig(**small)
+    assert jcfg.context == tcfg.context
+    assert jcfg.frame_subsampling_factor == tcfg.frame_subsampling_factor
+    left, right = tcfg.context
+    rng = np.random.default_rng(1)
+    feats = rng.normal(size=(3, 6 * 3 + left + right, 8)).astype(np.float32)
+    jm = JTDNN(jcfg)
+    variables = jm.init(jax.random.PRNGKey(2), jnp.asarray(feats), train=False)
+    stats = jax.tree.map(
+        lambda v: v + jnp.asarray(rng.random(size=v.shape).astype(np.float32)),
+        variables["batch_stats"])
+    tm = TDNN(tcfg, 8, device="cpu")
+    tm.load_state_dict(params_from_jax(variables["params"], stats, tcfg))
+    x = torch.tensor(feats)
+    w = rng.normal(size=(3, 6, 7)).astype(np.float32)
+    (jc, jx) = jm.apply({"params": variables["params"], "batch_stats": stats},
+                        jnp.asarray(feats), train=False)
+    tc, tx = tm(x, train=False)
+    np.testing.assert_allclose(tc.detach().numpy(), np.asarray(jc), atol=1e-5)
+    np.testing.assert_allclose(tx.detach().numpy(), np.asarray(jx), atol=1e-5)
+
+    def jloss(p):
+        (c, xe), upd = jm.apply({"params": p, "batch_stats": stats}, jnp.asarray(feats),
+                                train=True, mutable=["batch_stats"])
+        return jnp.sum(c * w) + 0.5 * jnp.sum(xe * w), upd
+
+    (jval, upd), jgrads = jax.value_and_grad(jloss, has_aux=True)(variables["params"])
+    tc, tx = tm(x, train=True)
+    tval = torch.sum(tc * torch.tensor(w)) + 0.5 * torch.sum(tx * torch.tensor(w))
+    tval.backward()
+    np.testing.assert_allclose(float(tval.detach()), float(jval), rtol=1e-5)
+    named = dict(tm.named_parameters())
+    for k, g in _flatten(jax.tree.map(np.asarray, jgrads)).items():
+        tol = 1e-5 * float(np.abs(g).max())
+        np.testing.assert_allclose(named[k].grad.numpy(), g, rtol=1e-4, atol=tol, err_msg=k)
+    buffers = dict(tm.named_buffers())
+    for k, v in _flatten(jax.tree.map(np.asarray, upd["batch_stats"])).items():
+        np.testing.assert_allclose(buffers[k].numpy(), v, atol=1e-5, err_msg=k)
+
+
+def test_tdnnf_dropout_rate_zero_and_its_masks(setup):
+    """With a rate given the layers take the unfused bypass add (the JAX
+    package's order); at rate 0 that meets the fused path to rounding.  A
+    rate of 0.2 changes the outputs, and the same generator seed draws the
+    same masks."""
+    _jm, _params, _stats, tm, feats, _w = setup
+    x = torch.tensor(feats)
+    with torch.no_grad():
+        base = tm(x, train=True)[0]
+        zero = tm(x, train=True, dropout_rate=0.0, generator=torch.Generator().manual_seed(1))[0]
+        np.testing.assert_allclose(zero.numpy(), base.numpy(), rtol=1e-6, atol=1e-6)
+        a = tm(x, train=True, dropout_rate=0.2, generator=torch.Generator().manual_seed(1))[0]
+        b = tm(x, train=True, dropout_rate=0.2, generator=torch.Generator().manual_seed(1))[0]
+        assert torch.equal(a, b) and not torch.allclose(a, base)
+        # eval mode ignores the rate
+        ev = tm(x, train=False, dropout_rate=0.2, generator=torch.Generator().manual_seed(1))[0]
+        np.testing.assert_allclose(ev.numpy(), tm(x, train=False)[0].numpy(), rtol=1e-6,
+                                   atol=1e-6)

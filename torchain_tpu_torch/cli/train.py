@@ -1,0 +1,383 @@
+"""End-to-end chain training recipe (torch), port of
+torchain_tpu/cli/train.py.
+
+The torchain example/train.py CLI: argparse flags mirroring
+ChainTrainingOptions (l2-regularize, leaky-hmm-coefficient,
+xent-regularize, lr), the trainer's recipe options (LR schedule,
+max-change, dropout schedule, backstitch, gradient accumulation,
+semi-orthogonal constraint), per-interval ChainResults logging and
+checkpoints with exact resume.  Two data sources: the built-in synthetic
+corpus (--synthetic), or a completed Kaldi chain prep (--cegs + --den-fst).
+
+It runs on the card unless asked otherwise: `--device cuda` (default)
+needs a CUDA device and exits 2 without one; `--device cpu` runs on the
+CPU, where every kernel wrapper takes its plain PyTorch version.
+
+Usage:
+  python -m torchain_tpu_torch.cli.train --synthetic --steps 200
+  python -m torchain_tpu_torch.cli.train --synthetic --model tdnnf --epochs 4
+  python -m torchain_tpu_torch.cli.train --cegs 'exp/egs/cegs.*.ark' \\
+      --den-fst exp/chain/den.fst --checkpoint-dir exp/ckpt
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+
+import numpy as np
+import torch
+
+
+def build_argparser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--synthetic", action="store_true", help="use the built-in synthetic corpus")
+    p.add_argument("--num-utts", type=int, default=64)
+    p.add_argument("--num-phones", type=int, default=12)
+    p.add_argument("--feat-dim", type=int, default=24)
+    p.add_argument("--context-width", type=int, default=1, choices=(1, 2))
+    p.add_argument("--model", choices=("tdnn", "tdnnf", "conformer"), default="tdnnf")
+    p.add_argument(
+        "--cegs",
+        help="train directly from merged Kaldi cegs archives (comma-separated "
+        "paths/globs) of a completed Kaldi chain prep; requires --den-fst.  "
+        "The normalization FST is already composed into the egs, so no "
+        "corpus or tree stage runs",
+    )
+    p.add_argument("--den-fst", help="with --cegs: the denominator FST (binary OpenFst or text)")
+    p.add_argument(
+        "--num-pdfs", type=int, default=0,
+        help="with --cegs: output dim (default: the egs' label_dim)",
+    )
+    p.add_argument("--no-ivector", action="store_true", help="with --cegs: ignore the egs' ivector io")
+    p.add_argument(
+        "--ignore-deriv-weights", action="store_true",
+        help="with --cegs: treat non-uniform deriv_weights as 1.0 (default: apply "
+        "them as per-frame derivative row scales, Kaldi ApplyDerivWeights)",
+    )
+    p.add_argument("--hidden-dim", type=int, default=256)
+    p.add_argument("--bottleneck-dim", type=int, default=64)
+    p.add_argument("--num-layers", type=int, default=5)
+    p.add_argument("--chunk-frames", type=int, default=30, help="output-rate chunk size")
+    p.add_argument("--batch-size", type=int, default=16)
+    p.add_argument(
+        "--grad-accum-steps", type=int, default=1,
+        help="accumulate gradients over N micro-batches per optimizer update "
+        "(effective batch = N * batch-size)",
+    )
+    p.add_argument("--epochs", type=int, default=3)
+    p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument(
+        "--lr-final", type=float, default=0.0,
+        help="exponential LR decay from --lr to this value over the run "
+        "(Kaldi nnet3 train.py initial/final-effective-lrate schedule)",
+    )
+    p.add_argument(
+        "--combine-last", type=int, default=0,
+        help="after training, average the params of the last N checkpoints "
+        "(Kaldi 'combine' stage); requires --checkpoint-dir",
+    )
+    p.add_argument("--optimizer", choices=("adam", "sgd"), default="adam")
+    p.add_argument(
+        "--dropout-schedule", default="",
+        help="Kaldi --trainer.dropout-schedule, e.g. '0,0@0.20,0.5@0.50,0' "
+        "(continuous per-dim dropout; '' = off)",
+    )
+    p.add_argument(
+        "--frame-shift-cycle", action="store_true",
+        help="cycle the input frame shift 0..fsf-1 across epochs (Kaldi "
+        "frame-shift egs augmentation)",
+    )
+    p.add_argument(
+        "--max-param-change", type=float, default=0.0,
+        help="cap the global parameter update 2-norm per step (Kaldi "
+        "--trainer.max-param-change; recipe default 2.0; 0 = off)",
+    )
+    p.add_argument(
+        "--max-change-per-component", type=float, default=0.0,
+        help="cap each component's update 2-norm per step (Kaldi "
+        "max-change; recipe default 0.75; 0 = off)",
+    )
+    p.add_argument(
+        "--backstitch-scale", type=float, default=0.0,
+        help="Kaldi --trainer.backstitch-training-scale (e.g. 0.3; 0 = off)",
+    )
+    p.add_argument("--backstitch-interval", type=int, default=1)
+    p.add_argument("--l2-regularize", type=float, default=5e-4)
+    p.add_argument("--leaky-hmm-coefficient", type=float, default=0.1)
+    p.add_argument("--xent-regularize", type=float, default=0.1)
+    p.add_argument("--left-tolerance", type=int, default=2)
+    p.add_argument("--right-tolerance", type=int, default=2)
+    p.add_argument("--e2e", action="store_true", help="flat-start: train from transcripts only (no alignments)")
+    p.add_argument("--semi-ortho-every", type=int, default=4)
+    p.add_argument("--checkpoint-dir", default=None)
+    p.add_argument("--metrics-out", default=None)
+    p.add_argument("--log-every", type=int, default=20, help="steps between metric reads and log lines")
+    p.add_argument(
+        "--valid-utts", type=int, default=0,
+        help="hold out the last N utterances and report validation objf "
+        "(nnet3-chain-compute-prob parity)",
+    )
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument(
+        "--steps", type=int, default=0,
+        help="stop after N steps (0 = run --epochs); also the LR decay's horizon",
+    )
+    p.add_argument(
+        "--device", default="cuda",
+        help="torch device to train on (default cuda; cpu runs the plain versions of the kernels)",
+    )
+    return p
+
+
+def resolve_device(name: str) -> torch.device:
+    """The device an entry point runs on; exits 2 where a CUDA device is
+    asked for and there is none (no fall-back to the CPU)."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        print(
+            f"no CUDA device for --device {name}: this tool runs on the card; "
+            "pass --device cpu to run it on the CPU",
+            file=sys.stderr,
+        )
+        raise SystemExit(2)
+    return device
+
+
+def _build_model(args, num_pdfs: int, feat_dim: int, device):
+    """The --model family from CLI args, its parameters drawn from --seed;
+    returns (model, cfg)."""
+    from torchain_tpu_torch.models import (
+        TDNN,
+        TDNNF,
+        Conformer,
+        ConformerConfig,
+        TdnnConfig,
+        TdnnfConfig,
+    )
+
+    gen = torch.Generator().manual_seed(args.seed)
+    if args.model == "tdnn":
+        cfg = TdnnConfig(num_pdfs=num_pdfs, hidden_dim=args.hidden_dim)
+        return TDNN(cfg, feat_dim, device=device, generator=gen), cfg
+    if args.model == "tdnnf":
+        cfg = TdnnfConfig(
+            num_pdfs=num_pdfs,
+            hidden_dim=args.hidden_dim,
+            bottleneck_dim=args.bottleneck_dim,
+            num_layers=args.num_layers,
+        )
+        return TDNNF(cfg, feat_dim, device=device, generator=gen), cfg
+    cfg = ConformerConfig(num_pdfs=num_pdfs, dim=args.hidden_dim, num_layers=args.num_layers)
+    return Conformer(cfg, feat_dim, device=device, generator=gen), cfg
+
+
+def cegs_setup(args, device, tag: str = "cegs"):
+    """Shared --cegs setup (cli.compute_prob uses it too): dataset, compiled
+    den graph, model, den device form; one source of truth for the
+    train/score pairing."""
+    from torchain_tpu_torch.cli.graphs import _load_any_fst
+    from torchain_tpu_torch.data import CegsDataset
+    from torchain_tpu_torch.graphs import compile_den_graph
+    from torchain_tpu_torch.ops import auto_den_graph
+
+    if not args.den_fst:
+        raise SystemExit("--cegs needs --den-fst")
+    dataset = CegsDataset(
+        args.cegs,
+        append_ivector=not args.no_ivector,
+        seed=args.seed,
+        ignore_deriv_weights=getattr(args, "ignore_deriv_weights", False),
+    )
+    feat_dim, label_dim, bsz, t_out = dataset.peek()
+    num_pdfs = args.num_pdfs or label_dim
+    den_fst, fmt, _arct = _load_any_fst(args.den_fst)
+    graph = compile_den_graph(den_fst, num_pdfs)
+    print(
+        f"[{tag}] {len(dataset.paths)} archive(s); merged batch={bsz} "
+        f"t_out={t_out} feat_dim={feat_dim}; den.fst ({fmt}) "
+        f"S={graph.num_states} A={graph.num_arcs} P={num_pdfs}"
+    )
+    model, _cfg = _build_model(args, num_pdfs, feat_dim, device)
+    den = auto_den_graph(graph, device=device)
+    print(f"[{tag}] den path: {type(den).__name__}")
+    return dict(dataset=dataset, graph=graph, model=model, den=den, bsz=bsz, t_out=t_out,
+                feat_dim=feat_dim, num_pdfs=num_pdfs)
+
+
+def _trainer_config(args, device, batch_size: int, decay_steps: int):
+    from torchain_tpu_torch.ops import ChainLossOptions
+    from torchain_tpu_torch.train import TrainerConfig
+
+    return TrainerConfig(
+        lr=args.lr,
+        lr_final=args.lr_final,
+        lr_decay_steps=decay_steps if args.lr_final > 0 else 0,
+        grad_accum_steps=args.grad_accum_steps,
+        optimizer=args.optimizer,
+        dropout_schedule=args.dropout_schedule,
+        frame_shift_cycle=args.frame_shift_cycle,
+        max_param_change=args.max_param_change,
+        max_change_per_component=args.max_change_per_component,
+        backstitch_scale=args.backstitch_scale,
+        backstitch_interval=args.backstitch_interval,
+        batch_size=batch_size,
+        num_epochs=args.epochs,
+        semi_ortho_every=args.semi_ortho_every if args.model == "tdnnf" else 0,
+        checkpoint_dir=args.checkpoint_dir,
+        loss=ChainLossOptions(
+            l2_regularize=args.l2_regularize,
+            leaky_hmm_coefficient=args.leaky_hmm_coefficient,
+            xent_regularize=args.xent_regularize,
+        ),
+        log_every=args.log_every,
+        device=str(device),
+    )
+
+
+def _fit(args, trainer, dataset, tag: str, t0: float) -> dict:
+    """Resume where a checkpoint is, train, write the metrics, combine;
+    returns the CLI's result dict."""
+    if args.checkpoint_dir and trainer.restore_checkpoint():
+        print(f"[{tag}] resumed from step {int(trainer.state.step)} "
+              f"(epoch {trainer.start_epoch}, batch {trainer.skip_batches})")
+    start = int(trainer.state.step)
+    results = trainer.fit(dataset, log_fn=print, max_steps=args.steps)
+    if start == 0 and trainer.state.step == 0:
+        # batching groups chunks by length and drops partial minibatches;
+        # a batch size no bucket can fill trains nothing
+        raise SystemExit(
+            f"no full minibatch produced: --batch-size {args.batch_size} exceeds "
+            "every same-length chunk bucket of this dataset — reduce --batch-size "
+            "(or add data)"
+        )
+    print(f"[{tag}] done: {results} ({time.time() - t0:.1f}s)")
+    if args.metrics_out:
+        trainer.dump_metrics(args.metrics_out)
+    if args.combine_last and args.checkpoint_dir:
+        n = trainer.combine(args.combine_last)
+        print(f"[{tag}] combine: averaged last {n} checkpoints "
+              "(subsequent stages use the combined model)")
+    # host seconds and bytes of the run's stages (train/trainer.py timings)
+    tm = trainer.timings
+    place = tm["place_s"]
+    timings = dict(
+        sup_caps_s=tm["sup_caps_s"],
+        place_n=len(place),
+        place_ms_median=float(np.median(place)) * 1e3 if place else None,
+        place_s_total=float(np.sum(place)),
+        step_ms=trainer.step_ms(),
+        ckpt_write=tm["ckpt_write"],
+        ckpt_read=tm["ckpt_read"],
+    )
+    return dict(objf=results.objf, steps=int(trainer.state.step), timings=timings)
+
+
+def _decay_steps(args, records: int) -> int:
+    """Kaldi-style exponential decay reaches --lr-final at the last step of
+    the scheduled run; gradient accumulation advances the schedule once per
+    cycle, so the horizon is in optimizer updates."""
+    steps = args.steps if args.steps else args.epochs * records
+    return max(1, steps // max(1, args.grad_accum_steps))
+
+
+def _train_from_cegs(args, device) -> dict:
+    """Train from a completed Kaldi chain prep: merged cegs archives +
+    den.fst, the torchain example workflow.  nnet3-chain-get-egs composed
+    the normalization FST into the egs' supervision weights, so den.fst +
+    egs are the complete training inputs."""
+    from torchain_tpu_torch.train import Trainer
+
+    t0 = time.time()
+    setup = cegs_setup(args, device)
+    dataset = setup["dataset"]
+    decay = _decay_steps(args, dataset.count_records()) if args.lr_final > 0 else 0
+    trainer = Trainer(setup["model"], setup["den"],
+                      _trainer_config(args, device, setup["bsz"], decay))
+    out = _fit(args, trainer, dataset, "cegs", t0)
+    print(f"[cegs] chain objf/frame={out['objf']:.4f}")
+    print(json.dumps(out))
+    return out
+
+
+def main(argv=None) -> dict:
+    args = build_argparser().parse_args(argv)
+    if not args.synthetic and not args.cegs:
+        print(
+            "Pass --synthetic for the built-in corpus, or --cegs + --den-fst "
+            "for a completed Kaldi chain prep.",
+            file=sys.stderr,
+        )
+        sys.exit(2)
+    device = resolve_device(args.device)
+    if args.cegs:
+        return _train_from_cegs(args, device)
+
+    from torchain_tpu_torch.data import ChainDataset, E2eChainDataset, synthetic_dataset
+    from torchain_tpu_torch.graphs import SupervisionOptions
+    from torchain_tpu_torch.ops import auto_den_graph
+    from torchain_tpu_torch.train import Trainer
+
+    t0 = time.time()
+    print(f"[stage 0] preparing synthetic corpus ({args.num_utts} utts)")
+    corpus = synthetic_dataset(
+        num_utts=args.num_utts,
+        num_phones=args.num_phones,
+        feat_dim=args.feat_dim,
+        context_width=args.context_width,
+        seed=args.seed,
+    )
+    valid_utts = []
+    if args.valid_utts > 0:
+        valid_utts = corpus.utts[-args.valid_utts :]
+        corpus.utts = corpus.utts[: -args.valid_utts]
+
+    model, cfg = _build_model(args, corpus.tree.num_pdfs, args.feat_dim, device)
+    left, right = cfg.context
+    fsf = cfg.frame_subsampling_factor
+    print(
+        f"[stage 1] dataset: chunk={args.chunk_frames} ctx=({left},{right})"
+        + (" e2e/flat-start" if args.e2e else "")
+    )
+    sup_opts = SupervisionOptions(
+        left_tolerance=args.left_tolerance,
+        right_tolerance=args.right_tolerance,
+        frame_subsampling_factor=fsf,
+    )
+    if args.e2e:
+        dataset = E2eChainDataset(
+            corpus.utts, corpus.tree, corpus.norm_fst, chunk_frames_out=args.chunk_frames,
+            left_context=left, right_context=right, frame_subsampling_factor=fsf,
+            seed=args.seed,
+        )
+        n_records = len(corpus.utts)  # about one chunk an utterance
+    else:
+        dataset = ChainDataset(
+            corpus.utts, corpus.tree, corpus.norm_fst, chunk_frames_out=args.chunk_frames,
+            left_context=left, right_context=right, sup_opts=sup_opts, seed=args.seed,
+        )
+        n_records = len(dataset.chunks)
+    den = auto_den_graph(corpus.den_graph, device=device)
+    print(f"[stage 1] den path: {type(den).__name__}")
+    decay = _decay_steps(args, max(1, n_records // args.batch_size))
+    trainer = Trainer(model, den, _trainer_config(args, device, args.batch_size, decay),
+                      tree=corpus.tree)
+    print(f"[stage 2] training {args.model} on {n_records} "
+          + ("utterances" if args.e2e else "chunks"))
+    out = _fit(args, trainer, dataset, "stage 2", t0)
+    if valid_utts and not args.e2e:
+        valid_ds = ChainDataset(
+            valid_utts, corpus.tree, corpus.norm_fst, chunk_frames_out=args.chunk_frames,
+            left_context=left, right_context=right, sup_opts=sup_opts,
+        )
+        vres = trainer.evaluate(valid_ds)
+        print(f"[stage 2v] valid: {vres}")
+        out["valid_objf"] = vres.objf
+    print(json.dumps(out))
+    return out
+
+
+if __name__ == "__main__":
+    main()

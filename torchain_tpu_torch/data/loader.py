@@ -40,6 +40,7 @@ from torchain_tpu_torch.graphs.e2e import (
 )
 from torchain_tpu_torch.graphs.supervision import (
     Supervision,
+    frame_vocab_width,
     pad_and_stack_supervisions,
     split_alignment_into_chunks,
     subsample_alignment,
@@ -118,10 +119,16 @@ class ChainDataset:
                 t_out = sum(d for _, d in chunk_ali)
                 self.chunks.append((ui, c0, t_out, chunk_ali, left_ctx, right_ctx))
 
+    #: input-rate frame shift applied when slicing chunk features (Kaldi's
+    #: nnet3-chain-copy-egs --frame-shift augmentation: each epoch reads the
+    #: same chunks at a different sub-subsampling input phase, supervision
+    #: unchanged; Trainer.fit cycles this through 0..fsf-1 across epochs)
+    frame_shift: int = 0
+
     def _chunk_feats(self, utt: Utterance, c0_out: int, t_out: int) -> np.ndarray:
         """Input-rate features for chunk with context, edge-padded."""
-        t0 = c0_out * self.fsf - self.left_context
-        t1 = (c0_out + t_out) * self.fsf + self.right_context
+        t0 = c0_out * self.fsf - self.left_context + self.frame_shift
+        t1 = (c0_out + t_out) * self.fsf + self.right_context + self.frame_shift
         T = utt.feats.shape[0]
         idx = np.clip(np.arange(t0, t1), 0, T - 1)
         return utt.feats[idx]
@@ -157,17 +164,50 @@ class ChainDataset:
             )
         return self._sup_cache[chunk_idx]
 
+    def estimate_sup_caps(self) -> tuple[int, int, int, int]:
+        """(max_states, max_arcs, max_frame_vocab, max_steady_arcs) over ALL
+        chunks' compiled supervisions, rounded to the dataset's buckets: a
+        fixed supervision padding, so every batch of a run has the same
+        shapes.  Deterministic; O(dataset) supervision compiles (one-time,
+        cached for the batches that follow)."""
+        ms = ma = mv = mst = 1
+        for ci in range(len(self.chunks)):
+            sup = self._sup_of(ci)
+            if sup is None:
+                continue
+            ms = max(ms, sup.max_states)
+            ma = max(ma, sup.max_arcs)
+            if sup.frame_vocab is not None:
+                mv = max(mv, sup.frame_vocab.shape[1])
+            else:
+                mv = max(mv, frame_vocab_width(sup.in_src[None], sup.in_pdf[None]))
+            if sup.steady_need is not None:
+                mst = max(mst, int(sup.steady_need))
+            elif sup.in_src.shape[0] > 1:  # steady (frames >= 1) arc width
+                mst = max(mst, int((sup.in_src[1:] >= 0).sum(-1).max()))
+        r = lambda x, m: ((x + m - 1) // m) * m  # noqa: E731
+        return (
+            r(ms, self.sup_round_states),
+            r(ma, self.sup_round_arcs),
+            r(mv, 8),
+            r(mst, 4),
+        )
+
     def batches(
         self,
         batch_size: int,
         shuffle: bool = True,
         drop_last: bool = True,
         epoch: int | None = None,
+        sup_caps: tuple[int, int, int, int] | None = None,
     ):
         """Yield ChainBatch objects; chunks grouped by T_out.
 
         Passing `epoch` makes shuffling a pure function of (seed, epoch) so
-        a resumed run replays the identical batch order."""
+        a resumed run replays the identical batch order.  `sup_caps` (from
+        estimate_sup_caps: states, arcs, frame vocab, steady arcs) fixes the
+        supervision padding exactly; a chunk beyond it raises."""
+        pad_s, pad_k, pad_v, pad_st = sup_caps or (None,) * 4
         rng = (
             np.random.default_rng((self.seed, epoch)) if epoch is not None else self.rng
         )
@@ -200,6 +240,10 @@ class ChainDataset:
                         sups,
                         round_states_to=self.sup_round_states,
                         round_arcs_to=self.sup_round_arcs,
+                        pad_states_to=pad_s,
+                        pad_arcs_to=pad_k,
+                        pad_vocab_to=pad_v,
+                        pad_steady_to=pad_st,
                         # the device consumes pdf_local/frame_vocab only;
                         # the raw [B,T,S,K] pdf ids are dead weight here
                         materialize_pdf=False,

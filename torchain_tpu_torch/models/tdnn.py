@@ -1,5 +1,7 @@
-"""TDNN-F acoustic encoder (torch), port of torchain_tpu/models/tdnn.py for
-its default configuration (impl "dot", time-major trunk, fused batchnorm).
+"""TDNN-F and TDNN acoustic encoders (torch), port of
+torchain_tpu/models/tdnn.py: TDNN-F in its default configuration (impl
+"dot", time-major trunk, fused batchnorm), and the plain TDNN (dilated
+convolutions with flax's stock batchnorm).
 
 Behavioral reference: the Kaldi chain recipes' TDNN-F (factored layers with
 a semi-orthogonal bottleneck, batchnorm, and scaled bypass connections —
@@ -212,13 +214,21 @@ class TdnnfLayer(nn.Module):
                               device=device, generator=generator, dtype=dtype)
         self.BatchNorm_0 = FusedPostBN(hidden_dim, device=device)
 
-    def forward(self, x, train: bool = False):  # x [T, B, C]
+    def forward(self, x, train: bool = False, dropout_rate=None, generator=None):  # x [T, B, C]
         h, cb = self.affine(self.linear_pre(x))
         d = self.dilation
         crop = x[d :: self.stride][: h.shape[0]]
-        if crop.shape[-1] == h.shape[-1]:
+        has_bypass = crop.shape[-1] == h.shape[-1]
+        if has_bypass and dropout_rate is None:
             return self.BatchNorm_0(h, cb, crop, self.bypass_scale, train=train)
-        return self.BatchNorm_0(h, cb, train=train)
+        # Kaldi's tdnnf-layer order: dropout after the batchnorm, before the
+        # scaled bypass joins, so with a rate given (even 0) the bypass add
+        # stays outside the fused op
+        h = self.BatchNorm_0(h, cb, train=train)
+        h = continuous_dropout(h, dropout_rate, train, generator, time_axis=0)
+        if has_bypass:
+            h = h + rounded_scalar(self.bypass_scale, h.dtype) * crop.to(h.dtype)
+        return h
 
 
 @dataclasses.dataclass(frozen=True)
@@ -292,11 +302,127 @@ class TDNNF(nn.Module):
         self.chain_head = Prefinal(H, cfg.prefinal_dim, cfg.num_pdfs, device, generator, dt)
         self.xent_head = Prefinal(H, cfg.prefinal_dim, cfg.num_pdfs, device, generator, dt)
 
-    def forward(self, feats, train: bool = False):
+    def forward(self, feats, train: bool = False, dropout_rate=None, generator=None):
+        """`dropout_rate` (a float, or None for none) is Kaldi's continuous
+        dropout after each factored layer's batchnorm; its masks draw from
+        `generator` (none given: no dropout)."""
         x = torch.relu(self.input_proj(feats))
         x = self.BatchNorm_0(x, train)
         x = x.transpose(0, 1)  # [B, T, C] -> [T, B, C]
         for i in range(self.config.num_layers):
-            x = getattr(self, f"tdnnf{i}")(x, train)
+            x = getattr(self, f"tdnnf{i}")(x, train, dropout_rate, generator)
         x = x.transpose(0, 1)
+        return self.chain_head(x, train), self.xent_head(x, train)
+
+
+class FlaxBatchNorm(nn.Module):
+    """flax's stock nn.BatchNorm over all axes but the last, as the plain
+    TDNN trunk uses it: float32 statistics (mean, and the variance as
+    max(0, E[x^2] - mean^2)), y = (x - mean) * (rsqrt(var + eps) * scale)
+    + bias in float32, cast back to the input's dtype; running statistics
+    m * old + (1 - m) * new with m = 0.99, eps 1e-5.  Autograd takes the
+    backward through the statistics."""
+
+    def __init__(self, C: int, momentum: float = 0.99, eps: float = 1e-5, device=None):
+        super().__init__()
+        self.momentum, self.eps = momentum, eps
+        self.scale = _param((C,), device, fill=1.0)
+        self.bias = _param((C,), device, fill=0.0)
+        self.register_buffer("mean", torch.zeros(C, device=device))
+        self.register_buffer("var", torch.ones(C, device=device))
+
+    def forward(self, x, train: bool = False):
+        xf = x.float()
+        if train:
+            axes = tuple(range(x.dim() - 1))
+            mean = xf.mean(axes)
+            var = torch.clamp(torch.square(xf).mean(axes) - torch.square(mean), min=0.0)
+            m = self.momentum
+            with torch.no_grad():
+                self.mean.mul_(m).add_((1.0 - m) * mean)
+                self.var.mul_(m).add_((1.0 - m) * var)
+        else:
+            mean, var = self.mean, self.var
+        y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.scale) + self.bias
+        return y.to(x.dtype)
+
+
+class TdnnConv(nn.Module):
+    """A dilated, strided VALID 1-D convolution over [B, T, C] (flax nn.Conv
+    layout: kernel [K, in, out], bias [out]) as a sum of K strided-slice
+    matrix products in `dtype`."""
+
+    def __init__(self, in_feat, features, kernel_size, dilation=1, stride=1, device=None,
+                 generator=None, dtype=torch.float32):
+        super().__init__()
+        self.kernel_size, self.dilation, self.stride, self.dtype = (
+            kernel_size, dilation, stride, dtype)
+        self.kernel = _param((kernel_size, in_feat, features), device,
+                             fan_in=kernel_size * in_feat, generator=generator)
+        self.bias = _param((features,), device)
+
+    def forward(self, x):
+        K, d, s, dt = self.kernel_size, self.dilation, self.stride, self.dtype
+        t_out = (x.shape[1] - d * (K - 1) - 1) // s + 1
+        x, kernel = x.to(dt), self.kernel.to(dt)
+        y = None
+        for j in range(K):
+            tap = x[:, j * d : j * d + (t_out - 1) * s + 1 : s] @ kernel[j]
+            y = tap if y is None else y + tap
+        return y + self.bias.to(dt)
+
+
+@dataclasses.dataclass(frozen=True)
+class TdnnConfig:
+    num_pdfs: int = 120
+    hidden_dim: int = 512
+    prefinal_dim: int = 256
+    #: compute dtype of the trunk (parameters stay float32)
+    dtype: torch.dtype = torch.float32
+    #: (kernel, dilation, stride) per layer; exactly one stride equals
+    #: frame_subsampling_factor
+    layers: tuple = ((5, 1, 1), (3, 1, 3), (3, 3, 1), (3, 3, 1), (3, 3, 1))
+
+    @property
+    def frame_subsampling_factor(self) -> int:
+        f = 1
+        for _, _, s in self.layers:
+            f *= s
+        return f
+
+    @property
+    def context(self) -> tuple[int, int]:
+        """(left, right) input frames consumed beyond T_out * fsf."""
+        left = 0
+        rate = 1
+        for k, d, s in self.layers:
+            left += (k // 2) * d * rate
+            rate *= s
+        return left, left  # symmetric kernels
+
+
+class TDNN(nn.Module):
+    """Plain TDNN (torchain_tpu/models/tdnn.py `TDNN`): dilated VALID
+    convolutions, each followed by relu, flax's batchnorm and continuous
+    dropout, then the chain and xent heads (float32 outputs)."""
+
+    def __init__(self, cfg: TdnnConfig, feat_dim: int, device="cuda", generator=None):
+        super().__init__()
+        self.config = cfg
+        in_dim = feat_dim
+        for i, (k, d, s) in enumerate(cfg.layers):
+            setattr(self, f"tdnn{i}", TdnnConv(in_dim, cfg.hidden_dim, k, d, s, device,
+                                               generator, cfg.dtype))
+            setattr(self, f"BatchNorm_{i}", FlaxBatchNorm(cfg.hidden_dim, device=device))
+            in_dim = cfg.hidden_dim
+        H, dt = cfg.hidden_dim, cfg.dtype
+        self.chain_head = Prefinal(H, cfg.prefinal_dim, cfg.num_pdfs, device, generator, dt)
+        self.xent_head = Prefinal(H, cfg.prefinal_dim, cfg.num_pdfs, device, generator, dt)
+
+    def forward(self, feats, train: bool = False, dropout_rate=None, generator=None):
+        x = feats.to(self.config.dtype)
+        for i in range(len(self.config.layers)):
+            x = torch.relu(getattr(self, f"tdnn{i}")(x))
+            x = getattr(self, f"BatchNorm_{i}")(x, train)
+            x = continuous_dropout(x, dropout_rate, train, generator)
         return self.chain_head(x, train), self.xent_head(x, train)

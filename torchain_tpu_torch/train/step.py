@@ -1,6 +1,7 @@
 """The chain training step: model forward (two heads) -> chain loss (custom
-gradient) -> gradients -> global-norm clip -> Adam.  Port of
-torchain_tpu/train/step.py (make_train_step)."""
+gradient) -> gradients -> global-norm clip -> optimizer.  Port of
+torchain_tpu/train/step.py (make_train_step, make_eval_step,
+make_forward_fn, make_backstitch_step)."""
 
 from __future__ import annotations
 
@@ -10,15 +11,32 @@ from torchain_tpu_torch.ops.chain_loss import ChainLossOptions, chain_loss
 from torchain_tpu_torch.train.state import ChainTrainState
 
 
+def global_norm(grads: list[torch.Tensor]) -> torch.Tensor:
+    """optax.global_norm: the 2-norm of all the tensors together."""
+    return torch.sqrt(sum(torch.sum(torch.square(g)) for g in grads))
+
+
 def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float) -> torch.Tensor:
     """optax.clip_by_global_norm semantics: g * max_norm / ||g|| when
     ||g|| >= max_norm, else unchanged (torch's clip_grad_norm_ divides by
     ||g|| + 1e-6 instead).  Returns ||g|| before clipping."""
-    norm = torch.sqrt(sum(torch.sum(torch.square(g)) for g in grads))
+    norm = global_norm(grads)
     factor = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
     for g in grads:
         g.mul_(factor)
     return norm
+
+
+def _grads(model, feats, den, sup, loss_opts, use_xent, dropout_rate=None, generator=None):
+    """Forward, chain loss and backward into the parameters' .grad.
+    Returns (loss, aux) detached."""
+    model.train()
+    kw = {} if dropout_rate is None else dict(dropout_rate=dropout_rate, generator=generator)
+    chain_out, xent_out = model(feats, train=True, **kw)
+    loss, aux = chain_loss(chain_out, xent_out if use_xent else None, den, sup, loss_opts)
+    model.zero_grad(set_to_none=False)
+    loss.backward()
+    return loss.detach(), {k: v.detach() for k, v in aux.items()}
 
 
 def make_train_step(
@@ -26,27 +44,104 @@ def make_train_step(
     loss_opts: ChainLossOptions,
     use_xent: bool = True,
     max_grad_norm: float = 5.0,
+    dropout: bool = False,
 ):
     """Returns step(feats [B, T_in, F], den, sup) -> metrics, updating
-    `state` in place (parameters, optimizer moments, batchnorm running
+    `state` in place (parameters, optimizer state, batchnorm running
     statistics, step count).  Metric keys: loss, objf, l2_term, oor_term,
-    xent_objf, weight, num_failed, grad_norm (0-d tensors)."""
+    xent_objf, weight, num_failed, grad_norm (0-d tensors on the model's
+    device; grad_norm is the norm before any clip).
+
+    `max_grad_norm` > 0 clips the gradient before `state.optimizer` steps
+    (the head of the JAX package's optax chain); pass 0 where the optimizer
+    clips itself (`train.trainer.ChainOptimizer`, whose clip sees the
+    accumulated gradient).  With `dropout=True` the step takes two more
+    arguments, step(feats, den, sup, dropout_rate, generator): the rate a
+    float, the masks drawn from the torch.Generator (the JAX step's traced
+    rate and PRNG key)."""
     model, opt = state.model, state.optimizer
     params = [p for p in model.parameters() if p.requires_grad]
 
-    def step(feats, den, sup) -> dict:
-        model.train()
-        chain_out, xent_out = model(feats, train=True)
-        loss, aux = chain_loss(
-            chain_out, xent_out if use_xent else None, den, sup, loss_opts
-        )
-        opt.zero_grad(set_to_none=False)
-        loss.backward()
-        grad_norm = clip_by_global_norm_([p.grad for p in params], max_grad_norm)
+    def step(feats, den, sup, dropout_rate=None, generator=None) -> dict:
+        rate, gen = (dropout_rate, generator) if dropout else (None, None)
+        loss, metrics = _grads(model, feats, den, sup, loss_opts, use_xent, rate, gen)
+        grads = [p.grad for p in params]
+        if max_grad_norm and max_grad_norm > 0:
+            grad_norm = clip_by_global_norm_(grads, max_grad_norm)
+        else:
+            grad_norm = global_norm(grads)
         opt.step()
         state.step += 1
-        metrics = {k: v.detach() for k, v in aux.items()}
-        metrics["loss"] = loss.detach()
+        metrics["loss"] = loss
+        metrics["grad_norm"] = grad_norm
+        return metrics
+
+    return step
+
+
+def make_eval_step(loss_opts: ChainLossOptions, use_xent: bool = True):
+    """Returns eval_step(model, feats, den, sup) -> the chain loss's aux
+    dict (objf, l2_term, oor_term, xent_objf, weight, num_failed), with the
+    model in eval mode (running batchnorm statistics) and no gradient: the
+    denominator's backward (K2) never runs."""
+
+    @torch.no_grad()
+    def eval_step(model, feats, den, sup) -> dict:
+        model.eval()
+        chain_out, xent_out = model(feats, train=False)
+        _, aux = chain_loss(chain_out, xent_out if use_xent else None, den, sup, loss_opts)
+        return aux
+
+    return eval_step
+
+
+def make_forward_fn(model):
+    """The posterior export path: forward(feats) -> the chain head's raw
+    output [B, T_out, P] in eval mode.  Chain models decode the raw output
+    as pseudo-loglikes with acoustic scale 1.0 and no prior division
+    (latgen-faster-mapped in the chain recipes)."""
+
+    @torch.no_grad()
+    def forward(feats):
+        model.eval()
+        return model(feats, train=False)[0]
+
+    return forward
+
+
+def make_backstitch_step(
+    state: ChainTrainState,
+    loss_opts: ChainLossOptions,
+    alpha: float,
+    use_xent: bool = True,
+):
+    """Backstitch training step (Kaldi --trainer.backstitch-training-scale,
+    nnet-training.cc TrainInternalBackstitch; Wang et al. 2017): on one
+    minibatch, a negative update scaled -alpha from the current parameters,
+    then a positive one scaled (1 + alpha) from the moved point.  The
+    scales apply to the optimizer's update (after its clip, learning rate
+    and max-change), so `state.optimizer` must take `step(scale=...)`
+    (`train.trainer.ChainOptimizer`); its state advances twice.  The
+    batchnorm running statistics keep the second pass's update, and
+    grad_norm is the norm of the second pass's gradient."""
+    model, opt = state.model, state.optimizer
+    params = [p for p in model.parameters() if p.requires_grad]
+    stats = [b for _, b in model.named_buffers()]
+
+    def step(feats, den, sup) -> dict:
+        # pass 1 from the current point: its batchnorm update is undone
+        saved = [b.clone() for b in stats]
+        _grads(model, feats, den, sup, loss_opts, use_xent)
+        opt.step(scale=-alpha)
+        with torch.no_grad():
+            for b, s in zip(stats, saved):
+                b.copy_(s)
+        # pass 2 from the moved point
+        loss, metrics = _grads(model, feats, den, sup, loss_opts, use_xent)
+        grad_norm = global_norm([p.grad for p in params])
+        opt.step(scale=1.0 + alpha)
+        state.step += 1
+        metrics["loss"] = loss
         metrics["grad_norm"] = grad_norm
         return metrics
 
