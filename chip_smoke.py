@@ -64,12 +64,22 @@ Phases, in order; any failure exits non-zero before the last line:
      twice), the same run cut after 6 steps and resumed from its checkpoint
      (equal to the uninterrupted run within REFERENCE_RTOL), `cli.compute_prob`
      on the card (no K2) and against the CPU, and `cli.export_posteriors` on
-     the card against the CPU;
+     the card against the CPU; then decode and score (`check_decode`):
+     `cli.train --synthetic-words --flat-start-ladder --decode` at (a)'s
+     widths on 256 utterances (K1-K6, K8f and K8b, none in the decode
+     stages; PER, WER, the best LMWT and the MBR WER), the final
+     checkpoint's posteriors on the card against the CPU, the native
+     decoders against the NumPy ones on the card's posteriors, and the
+     standalone `cli.decode` over the exported posteriors with both
+     backends, with the forward at B=1, the decoders' host time, the
+     real-time factors and the HCLG build timed;
   5. a reference check on a small input for each path: the first-step loss
      and gradient norm on the card (kernels) against the CPU (plain
      versions); for the bfloat16 conformer paths also each parameter
      group's gradient on the card and on the CPU against a float32 CPU copy
-     of the same weights, and that copy run on the card;
+     of the same weights, and that copy run on the card, which must agree
+     with the CPU within REFERENCE_RTOL["float32"] in every group and
+     whole;
   6. one JSON line of kernel records, the nvidia-smi line, and the final
      line `{"ok": true, "device": {...}}`.
 
@@ -1966,6 +1976,318 @@ def check_recipe(args, result: dict, tmp: str) -> dict:
     return out
 
 
+#: the decode phase: the kernels its training launches (the ladder's e2e
+#: stage, then the standard supervision), its batch size, seconds of audio
+#: per output frame (10 ms input frames, subsampled by 3), and the
+#: utterances of the card-vs-CPU check (b) and of the native-vs-NumPy check
+#: (c).  The word corpus's 256 utterances run 8 to 82 output frames, and
+#: the loaders batch only sequences of one length: at 128 (or 64) neither
+#: stage forms a minibatch; at 16 the e2e stage forms 5 an epoch and the
+#: chunks of 50 frames 5
+DECODE_KERNELS = DEN_NUM + E2E
+DECODE_BATCH = 16
+FRAME_S = 0.03
+DECODE_CPU_UTTS, DECODE_NUMPY_UTTS = 8, 16
+
+
+def _forward_timing(forward, xs) -> dict:
+    """The decode stages' forward at B=1: per utterance, the card's ms from
+    the call's start to its end (CUDA events; the card waits on the host's
+    launches, as it does in the decode stage), the device-only ms of one
+    median-length utterance (`_device_ms`), and the device kernels per
+    forward (torch.profiler over 4 utterances; None where it records no
+    device kernel)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    ms = []
+    for x in xs:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        forward(x)
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+    mid = sorted(xs, key=lambda x: x.shape[1])[len(xs) // 2]
+    device_ms = _device_ms(lambda: forward(mid), 20)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for x in xs[:4]:
+            forward(x)
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
+            and "#" not in e.key]
+    launches = sum(e.count for e in kern) / 4 if kern else None
+    return dict(ms_median=statistics.median(ms), ms_mean=statistics.fmean(ms),
+                device_ms_median_utt=device_ms, median_utt_frames_in=int(mid.shape[1]),
+                launches_per_utt=launches)
+
+
+def _close(a: float, b: float, rel: float) -> bool:
+    return abs(a - b) <= rel * max(abs(b), 1.0)
+
+
+def check_decode(args, result: dict, tmp: str) -> dict:
+    """Phase 4, after the recipe: decode and score, the inference path a
+    user runs on every model.
+
+      (a) `cli.train.main --synthetic-words --flat-start-ladder --decode`
+          on 256 utterances (40 phones, 40-dim features, 20 words) with
+          the trigram path's full-width TDNN-F (9 x 768/96), batch 16
+          (DECODE_BATCH), chunks of 50, 2 epochs a stage, the LMWT sweep
+          1-12 and MBR.
+          Gates: every step's loss of both training stages finite; the
+          run launched K1-K6, K8f and K8b and no other kernel; its decode
+          stages (the forward at B=1 and the host decoders, counted around
+          `_posteriors` and `_decode_stages`) none; per, wer, best_lmwt
+          and mbr_wer present and finite;
+      (b) the final checkpoint's posteriors of the first 8 utterances on
+          the card against the CPU: each within REFERENCE_RTOL["float32"]
+          in norm; both sets decoded by the native Viterbi over the word
+          HCLG, the hypotheses that differ counted (near-ties may flip:
+          not gated);
+      (c) on the card's posteriors of 16 utterances: `viterbi_decode` and
+          `lattice_decode` native against NumPy: the same hypotheses,
+          `lattice_best_path` equal to the Viterbi hypothesis, every score
+          within 1e-4 relative (of at least 1);
+      (d) the standalone `cli.decode` in phone mode over the recipe
+          phase's exported posteriors (`post_cuda.ark`, 16 matrices) with
+          the trigram corpus's phone LM, --nbest 3, --lattice-out and
+          --ctm-out, once with --backend native and once with numpy: the
+          same stdout; lattice arks of the same utterances, each of the
+          same states and arcs, best path, and best and total score (the
+          JAX package's contract between its backends; the two write
+          their arcs in another order and sum in float32 and float64, so
+          their bytes differ).
+
+    Timed: the forward at B=1 (`_forward_timing`), the decoders' host ms
+    per utterance (native on all 256 utterances, NumPy on the 16), the
+    real-time factors (decode seconds over T_out x 30 ms of audio), and
+    the HCLG build.  Returns the phase's numbers."""
+    import io
+    import os
+
+    import numpy as np
+    import torch
+
+    from torchain_tpu_torch.cli import decode as cli_decode
+    from torchain_tpu_torch.cli import train as cli_train
+    from torchain_tpu_torch.data import synthetic_word_dataset, train_word_lm
+    from torchain_tpu_torch.eval import (
+        lattice_best_path,
+        lattice_decode,
+        make_word_decoding_graph,
+        viterbi_decode,
+    )
+    from torchain_tpu_torch.eval.align import with_context
+    from torchain_tpu_torch.eval.lattice import read_lattice_ark
+    from torchain_tpu_torch.fstkit import shortest_distance
+    from torchain_tpu_torch.train.step import make_forward_fn
+
+    t_phase = time.perf_counter()
+    smi = result["nvidia_smi"]
+    gate = REFERENCE_RTOL["float32"]
+    ck = os.path.join(tmp, "decode")
+    metrics = os.path.join(tmp, "decode_metrics.jsonl")
+    corpus_args = ["--synthetic-words", "--num-utts", "256", "--num-phones", "40",
+                   "--feat-dim", "40", "--vocab-size", "20", "--seed", str(args.seed)]
+    model_args = ["--model", "tdnnf", "--hidden-dim", "768", "--bottleneck-dim", "96",
+                  "--num-layers", str(LAYERS)]
+    argv = [*corpus_args, *model_args, "--batch-size", str(DECODE_BATCH), "--chunk-frames", "50",
+            "--flat-start-ladder", "--epochs", "2", "--decode", "--lmwt-min", "1",
+            "--lmwt-max", "12", "--mbr", "--device", "cuda", "--checkpoint-dir", ck,
+            "--log-every", "1", "--metrics-out", metrics]
+
+    # (a), the decode stages' launches counted around them
+    stage_launches = []
+    wrapped = {name: getattr(cli_train, name) for name in ("_posteriors", "_decode_stages")}
+
+    def counting(name, fn):
+        def run(*a, **k):
+            before = {n: f.launches for n, f in counters().items()}
+            out = fn(*a, **k)
+            stage_launches.append((name, {n: f.launches - before[n]
+                                          for n, f in counters().items()}))
+            return out
+        return run
+
+    for fn in counters().values():
+        fn.launches = 0
+    for name, fn in wrapped.items():
+        setattr(cli_train, name, counting(name, fn))
+    try:
+        t0 = time.perf_counter()
+        out = cli_train.main(argv)
+        train_s = time.perf_counter() - t0
+    finally:
+        for name, fn in wrapped.items():
+            setattr(cli_train, name, fn)
+    launches = {k: fn.launches for k, fn in counters().items()}
+    log = _jsonl(metrics)
+    n1 = out["ladder_steps"]
+    e2e_losses = [m["loss"] for m in log if m["step"] <= n1]
+    std_losses = [m["loss"] for m in log if m["step"] > n1]
+    dec, stages = out["decode"], out["timings"]["stages_s"]
+    audio_s = dec["frames"] * FRAME_S
+    _log(f"decode (a) cli.train: {train_s:.1f} s (host clock); e2e stage {n1} steps, losses"
+         f" {[round(x, 6) for x in e2e_losses]}; stage 3 {out['steps'] - n1} steps, losses"
+         f" {[round(x, 6) for x in std_losses]}; launches {launches}")
+    _log(f"decode (a) stages (host s; {smi}): {json.dumps(stages)}; decode {json.dumps(dec)}")
+    _log(f"decode (a) HCLG: {dec['hclg_states']} states, {dec['hclg_arcs']} arcs, built in"
+         f" {dec['hclg_s']:.3f} s (host; {smi})")
+    _log(f"decode (a) PER {out['per']:.2f}% WER {out['wer']:.2f}% best LMWT {out['best_lmwt']}"
+         f" MBR WER {out['mbr_wer']:.2f}% over {dec['utts']} utterances, {audio_s:.1f} s of"
+         f" audio; decode stage RTF {stages['decode_s'] / audio_s:.4f}, forward"
+         f" {dec['forward_s']:.2f} s (host; {smi})")
+    _log(f"decode (a) decode-stage launches: {stage_launches}")
+    _launch_gate("decode (a)", launches, DECODE_KERNELS)
+    if [n for n, _ in stage_launches] != ["_posteriors", "_decode_stages"] or any(
+            any(d.values()) for _, d in stage_launches):
+        raise AssertionError(f"decode (a): the decode stages launched kernels {stage_launches}")
+    if not e2e_losses or not std_losses or not all(map(math.isfinite, e2e_losses + std_losses)):
+        raise AssertionError(f"decode (a): losses e2e {e2e_losses}, stage 3 {std_losses}")
+    for k in ("per", "wer", "best_lmwt", "mbr_wer"):
+        if not (k in out and math.isfinite(out[k])):
+            raise AssertionError(f"decode (a): {k} missing or not finite")
+
+    # (b) the final checkpoint on the card and on the CPU
+    parsed = cli_train.build_argparser().parse_args(argv)
+    words = synthetic_word_dataset(num_utts=256, vocab_size=20, num_phones=40, feat_dim=40,
+                                   seed=args.seed)
+    utts, tree = words.corpus.utts, words.corpus.tree
+    step = max(int(d) for d in os.listdir(ck) if d.isdigit())
+    state = torch.load(os.path.join(ck, str(step), "state.pt"), map_location="cpu",
+                       weights_only=True)["model"]
+    models = {}
+    for dev in ("cuda", "cpu"):
+        models[dev], cfg = cli_train._build_model(parsed, tree.num_pdfs, 40, torch.device(dev))
+        models[dev].load_state_dict(state)
+    left, right = cfg.context
+    fsf = cfg.frame_subsampling_factor
+    t0 = time.perf_counter()
+    lm = train_word_lm(words.transcripts, order=2)
+    wgraph = make_word_decoding_graph(lm, words.lexicon, tree)
+    hclg_s = time.perf_counter() - t0
+    posts, posts_s = cli_train._posteriors(models["cuda"], utts, left, right, fsf)
+    cpu_posts, _ = cli_train._posteriors(models["cpu"], utts[:DECODE_CPU_UTTS], left, right, fsf)
+    post_rel = [float(np.linalg.norm(a - b) / np.linalg.norm(b))
+                for a, b in zip(posts, cpu_posts)]
+    hyp_card = [viterbi_decode(wgraph, y, backend="native")[0] for y in posts[:DECODE_CPU_UTTS]]
+    hyp_cpu = [viterbi_decode(wgraph, y, backend="native")[0] for y in cpu_posts]
+    differ = sum(a != b for a, b in zip(hyp_card, hyp_cpu))
+    _log(f"decode (b) step-{step} checkpoint, {DECODE_CPU_UTTS} utterances: posteriors card vs"
+         f" CPU max rel {max(post_rel):.3g} in norm (gate {gate:g}); native Viterbi hypotheses"
+         f" that differ: {differ} of {DECODE_CPU_UTTS}")
+    if not max(post_rel) <= gate:
+        raise AssertionError("decode (b): the card's posteriors depart from the CPU's")
+
+    # timing: the forward at B=1, the decoders on the host
+    forward = make_forward_fn(models["cuda"])
+    xs = [torch.as_tensor(with_context(u.feats, fsf, left, right), device="cuda") for u in utts]
+    fwd = _forward_timing(forward, xs)
+    n = DECODE_NUMPY_UTTS
+    audio = {"all": sum(y.shape[0] for y in posts) * FRAME_S,
+             "numpy": sum(y.shape[0] for y in posts[:n]) * FRAME_S}
+    timed = {}
+
+    def run(name, fn, ys):
+        t0 = time.perf_counter()
+        got = [fn(y) for y in ys]
+        timed[name] = time.perf_counter() - t0
+        return got
+
+    vit_nat = run("viterbi_native", lambda y: viterbi_decode(wgraph, y, backend="native"), posts)
+    lat_nat = run("lattice_native", lambda y: lattice_decode(wgraph, y, beam=16.0,
+                                                             backend="native"), posts)
+    vit_np = run("viterbi_numpy", lambda y: viterbi_decode(wgraph, y, backend="numpy"), posts[:n])
+    lat_np = run("lattice_numpy", lambda y: lattice_decode(wgraph, y, beam=16.0,
+                                                           backend="numpy"), posts[:n])
+    per_utt = {k: v / (len(posts) if k.endswith("native") else n) * 1e3 for k, v in timed.items()}
+    rtf = {k: v / (audio["all"] if k.endswith("native") else audio["numpy"])
+           for k, v in timed.items()}
+    lat_arcs = sum(lat.num_arcs for lat in lat_nat) / len(lat_nat)
+    _log(f"decode timing ({smi}): forward at B=1 {fwd['ms_median']:.3f} ms/utt median (card"
+         f" clock, host launches included), {fwd['device_ms_median_utt']:.3f} ms device-only"
+         f" ({fwd['median_utt_frames_in']} input frames), {fwd['launches_per_utt']} kernel"
+         f" launches/utt; all {len(posts)} posteriors in {posts_s:.2f} s (host)")
+    _log(f"decode timing ({smi}): host ms/utt {json.dumps(per_utt)}; RTF {json.dumps(rtf)};"
+         f" native lattices {lat_arcs:.0f} arcs/utt; HCLG built in {hclg_s:.3f} s")
+
+    # (c) native against NumPy on the card's posteriors
+    for i in range(n):
+        (hn, sn), (hp, sp) = vit_nat[i], vit_np[i]
+        bn, bsn = lattice_best_path(lat_nat[i])
+        bp, bsp = lattice_best_path(lat_np[i])
+        if not (hn == hp == bn == bp):
+            raise AssertionError(f"decode (c) utterance {i}: hypotheses differ: viterbi native"
+                                 f" {hn}, numpy {hp}; lattice native {bn}, numpy {bp}")
+        if not (_close(sn, sp, 1e-4) and _close(bsn, bsp, 1e-4) and _close(bsn, sp, 1e-4)):
+            raise AssertionError(f"decode (c) utterance {i}: scores {sn} {sp} {bsn} {bsp}")
+        if lat_nat[i].num_arcs != lat_np[i].num_arcs:
+            raise AssertionError(f"decode (c) utterance {i}: lattice arcs"
+                                 f" {lat_nat[i].num_arcs} vs {lat_np[i].num_arcs}")
+    _log(f"decode (c): {n} utterances, native and NumPy Viterbi and lattices agree"
+         " (hypotheses, lattice best paths, scores within 1e-4)")
+
+    # (d) the standalone cli.decode over the recipe's exported posteriors
+    plm_path = os.path.join(tmp, "trigram_phone_lm.txt")
+    with open(plm_path, "w") as f:
+        f.write(_corpus(args.seed, tuple(sorted(PATHS["trigram"]["corpus"].items())))
+                .phone_lm.to_text())
+    runs = {}
+    for backend in ("native", "numpy"):
+        lat_path = os.path.join(tmp, f"lat_{backend}.txt")
+        stdout, stderr = io.StringIO(), io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(stdout), contextlib.redirect_stderr(stderr):
+            cli_decode.main(["--posteriors", os.path.join(tmp, "post_cuda.ark"),
+                             "--num-phones", "40", "--phone-lm", plm_path, "--nbest", "3",
+                             "--backend", backend, "--lattice-out", lat_path,
+                             "--ctm-out", os.path.join(tmp, f"ctm_{backend}.ctm")])
+        runs[backend] = dict(s=time.perf_counter() - t0, stdout=stdout.getvalue(),
+                             lats=read_lattice_ark(lat_path))
+    nat, num = runs["native"], runs["numpy"]
+    content = {}
+    for backend, r in runs.items():
+        content[backend] = {}
+        for utt, lat in r["lats"].items():
+            words_, score = lattice_best_path(lat)
+            total = shortest_distance(lat, reverse_dir=True, semiring="log")[0]
+            content[backend][utt] = (lat.num_states, lat.num_arcs, words_, score, total)
+    same = nat["stdout"] == num["stdout"] and content["native"].keys() == content["numpy"].keys()
+    for utt, a in content["native"].items():
+        b = content["numpy"].get(utt)
+        same = same and b is not None and a[:3] == b[:3] and all(
+            abs(x - y) <= max(1e-4, 1e-6 * abs(y)) for x, y in zip(a[3:], b[3:]))
+    ctm_equal = (pathlib.Path(tmp, "ctm_native.ctm").read_bytes()
+                 == pathlib.Path(tmp, "ctm_numpy.ctm").read_bytes())
+    arcs = [c[1] for c in content["native"].values()]
+    _log(f"decode (d) cli.decode: {len(nat['lats'])} utterances, native {nat['s']:.2f} s,"
+         f" numpy {num['s']:.2f} s (host; {smi}); lattices {min(arcs)}-{max(arcs)} arcs;"
+         f" stdout and lattices agree: {same}; CTM files equal: {ctm_equal}")
+    if not same or not nat["lats"]:
+        raise AssertionError("decode (d): the native and NumPy cli.decode runs disagree")
+
+    res = dict(
+        train_s=train_s, steps=out["steps"], ladder_steps=n1, e2e_losses=e2e_losses,
+        losses=std_losses, launches=launches, stage_launches=stage_launches,
+        per=out["per"], wer=out["wer"], best_lmwt=out["best_lmwt"], mbr_wer=out["mbr_wer"],
+        stages_s=stages, cli_decode=dec, audio_s=audio_s,
+        cli_decode_rtf=stages["decode_s"] / audio_s,
+        posteriors_rel=post_rel, hyps_differ_cpu=differ, hclg_s=hclg_s, forward=fwd,
+        posteriors_s=posts_s, host_s=timed, host_ms_per_utt=per_utt, rtf=rtf,
+        lattice_arcs_per_utt=lat_arcs,
+        standalone=dict(native_s=nat["s"], numpy_s=num["s"], utts=len(nat["lats"]),
+                        ctm_equal=ctm_equal),
+    )
+    res["phase_s"] = time.perf_counter() - t_phase
+    _log(f"decode phase: {res['phase_s']:.1f} s ({smi})")
+    return res
+
+
 #: gates of the reference check, relative, per trunk dtype.  float32: sums
 #: in another order (cuBLAS vs the CPU BLAS, kernels vs plain) through 9
 #: layers, the 50-frame recursions and a backward.  bfloat16: the card's and
@@ -2060,6 +2382,18 @@ def reference_check(cfg, feat_dim, dataset, corpus, seed: int, path: str) -> dic
             _log(f"  {path} group {n}: {g['card_vs_cpu']:.3e} {g['card_vs_f32']:.3e}"
                  f" {g['cpu_vs_f32']:.3e} {g['card_f32_vs_f32']:.3e} {g['f32_norm']:.6g}")
         _log(f"{path} reference vs float32 (seed {seed}): " + json.dumps(out["vs_float32"]))
+        # the kernels without bfloat16: the float32 copy on the card against
+        # the CPU, per group and whole, at the float32 gate
+        f32_gate = REFERENCE_RTOL["float32"]
+        worst = max(out["groups"].items(), key=lambda kv: kv[1]["card_f32_vs_f32"])
+        out["card_f32_gate"] = f32_gate
+        _log(f"{path} reference float32 copy, card vs CPU: worst group {worst[0]}"
+             f" {worst[1]['card_f32_vs_f32']:.3e}, whole"
+             f" {out['vs_float32']['card_f32_vs_f32']:.3e} (gate {f32_gate:g})")
+        if not (worst[1]["card_f32_vs_f32"] <= f32_gate
+                and out["vs_float32"]["card_f32_vs_f32"] <= f32_gate):
+            raise AssertionError(f"reference check [{path}]: the float32 copy's gradient on"
+                                 " the card departs from the CPU's")
     for k in ("loss", "objf", "grad_norm"):
         a, b = out["cuda"][k], out["cpu"][k]
         rel = abs(a - b) / max(abs(b), 1e-12)
@@ -2268,6 +2602,8 @@ def main(argv=None) -> int:
             result["recipe"] = check_recipe(args, result, prep)
             launches["recipe"] = result["recipe"]["launches"]
             launches["recipe_compute_prob"] = result["recipe"]["compute_prob_launches"]
+            result["decode"] = check_decode(args, result, prep)
+            launches["decode"] = result["decode"]["launches"]
     for name, m in second.items():
         numbers[name] = dict(**numbers[name], production=m)
     measured, probe_launches = check_probe()
@@ -2290,7 +2626,7 @@ def main(argv=None) -> int:
     # `launches` is the count of the first path that must run the kernel (the
     # probe's: its own phase); every path's count is under "launches_by_path"
     must = {**{p: PATHS[p]["kernels"] for p in PATHS}, "cegs": DEN_NUM, "probe": PROBE,
-            "recipe": DEN_NUM, "recipe_compute_prob": EVAL_DEN_NUM}
+            "recipe": DEN_NUM, "recipe_compute_prob": EVAL_DEN_NUM, "decode": DECODE_KERNELS}
     records = []
     for name, (_, _, source, replaces) in KERNELS.items():
         first = next(p for p in must if name in must[p])

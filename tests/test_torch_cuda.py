@@ -1310,3 +1310,67 @@ def test_a_cegs_record_trains_like_the_in_process_batch(dev, tmp_path, e2e):
         losses.append(float(loss.detach()))
     assert math.isfinite(losses[1])
     assert abs(losses[1] - losses[0]) <= 1e-5 * abs(losses[0]), losses
+
+
+@pytest.fixture(scope="module")
+def decode_setup(dev):
+    """A small word corpus and TDNN-F (seeded), its word HCLG, and the
+    model on the card and on the CPU from the same weights."""
+    from torchain_tpu_torch.eval import make_word_decoding_graph
+    from torchain_tpu_torch.models import TDNNF, TdnnfConfig
+
+    words = tdata.synthetic_word_dataset(num_utts=6, vocab_size=8, num_phones=6, feat_dim=8,
+                                         seed=3)
+    tree = words.corpus.tree
+    cfg = TdnnfConfig(num_pdfs=tree.num_pdfs, hidden_dim=64, bottleneck_dim=16,
+                      prefinal_dim=32, num_layers=3)
+    cpu = TDNNF(cfg, 8, device="cpu", generator=torch.Generator().manual_seed(4))
+    card = TDNNF(cfg, 8, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    graph = make_word_decoding_graph(tdata.train_word_lm(words.transcripts), words.lexicon, tree)
+    return words, cfg, cpu, card, graph
+
+
+def test_decode_forward_at_b1_on_card_matches_cpu(decode_setup):
+    """The decode stages' forward (one utterance at a time, B=1) on the card
+    against the CPU, within chip_smoke's float32 reference gate in norm;
+    then the native decoders over the card's posteriors give the NumPy
+    reference's hypotheses."""
+    from torchain_tpu_torch.cli.train import _posteriors
+    from torchain_tpu_torch.eval import lattice_best_path, lattice_decode, viterbi_decode
+
+    words, cfg, cpu, card, graph = decode_setup
+    left, right = cfg.context
+    on_card, _ = _posteriors(card, words.corpus.utts, left, right, 3)
+    on_cpu, _ = _posteriors(cpu, words.corpus.utts, left, right, 3)
+    for a, b in zip(on_card, on_cpu):
+        assert a.shape == b.shape and np.isfinite(a).all()
+        assert np.linalg.norm(a - b) / np.linalg.norm(b) <= chip_smoke.REFERENCE_RTOL["float32"]
+    for y in on_card:
+        hn, sn = viterbi_decode(graph, y, backend="native")
+        hp, sp = viterbi_decode(graph, y, backend="numpy")
+        assert hn == hp and sn == pytest.approx(sp, rel=1e-4)
+        ln = lattice_decode(graph, y, beam=8.0, backend="native")
+        lp = lattice_decode(graph, y, beam=8.0, backend="numpy")
+        assert ln.num_arcs == lp.num_arcs
+        assert lattice_best_path(ln)[0] == lattice_best_path(lp)[0] == viterbi_decode(
+            graph, y, beam=8.0, backend="native")[0]
+
+
+def test_align_corpus_from_the_card(decode_setup):
+    """align_corpus over the card's forward: the CPU forward's alignments,
+    each covering its utterance with the transcript's phones."""
+    from torchain_tpu_torch.eval import align_corpus
+    from torchain_tpu_torch.train.step import make_forward_fn
+
+    words, cfg, cpu, card, _ = decode_setup
+    left, right = cfg.context
+    ctx = dict(frame_subsampling_factor=3, left_context=left, right_context=right)
+    tree, utts = words.corpus.tree, words.corpus.utts
+    forward = make_forward_fn(card)
+    assert forward.device.type == "cuda"
+    got = align_corpus(forward, utts, tree, **ctx)
+    assert got == align_corpus(make_forward_fn(cpu), utts, tree, **ctx)
+    for u, ali in zip(utts, got):
+        assert sum(d for _, d in ali) == u.feats.shape[0]
+        assert [p for p, _ in ali] == [p for p, _ in u.alignment]

@@ -243,7 +243,25 @@ KALDI_MODULES = {
 }
 
 
-@pytest.mark.parametrize("name", sorted(KALDI_MODULES))
+#: the decode ladder: port module -> (JAX module, names the port leaves
+#: out).  native.py builds with the compiler itself (build, _compiler,
+#: _declare) where the JAX module ran make (_build); kaldi_compat holds
+#: only the symbol tables; cli.decode leaves out the Kaldi-model branches.
+DECODE_MODULES = {
+    "torchain_tpu_torch.eval.wer": ("torchain_tpu.eval.wer", set()),
+    "torchain_tpu_torch.eval.decoder": ("torchain_tpu.eval.decoder", set()),
+    "torchain_tpu_torch.eval.lattice": ("torchain_tpu.eval.lattice", set()),
+    "torchain_tpu_torch.eval.native": ("torchain_tpu.eval.native", {"_build"}),
+    "torchain_tpu_torch.eval.align": ("torchain_tpu.eval.align", set()),
+    "torchain_tpu_torch.eval": ("torchain_tpu.eval", set()),
+    "torchain_tpu_torch.graphs.hclg": ("torchain_tpu.graphs.hclg", set()),
+    "torchain_tpu_torch.data.words": ("torchain_tpu.data.words", set()),
+    "torchain_tpu_torch.cli.decode": ("torchain_tpu.cli.decode", set()),
+}
+REFERENCE_MODULES = {**KALDI_MODULES, **DECODE_MODULES}
+
+
+@pytest.mark.parametrize("name", sorted(REFERENCE_MODULES))
 def test_kaldi_modules_keep_the_reference_names(name):
     """Each module keeps every function and class of its JAX counterpart,
     under the same name, and defines them itself (no re-export from the
@@ -252,7 +270,7 @@ def test_kaldi_modules_keep_the_reference_names(name):
     import inspect
 
     pytest.importorskip("jax")
-    ref_name, left_out = KALDI_MODULES[name]
+    ref_name, left_out = REFERENCE_MODULES[name]
     port, ref = importlib.import_module(name), importlib.import_module(ref_name)
 
     def defined(mod):
@@ -284,3 +302,94 @@ def test_the_recipe_entry_points_are_walked_and_default_to_the_card():
         ["--cegs", "x", "--den-fst", "y"]).device == "cuda"
     assert export_posteriors.build_argparser().parse_args(["--out", "x"]).device == "cuda"
     assert TrainerConfig().device == "cuda"
+
+
+DECODE = ("eval/__init__.py", "eval/wer.py", "eval/decoder.py", "eval/lattice.py",
+          "eval/native.py", "eval/align.py", "graphs/hclg.py", "data/words.py",
+          "data/kaldi_compat.py", "cli/decode.py")
+
+
+def test_the_decode_modules_are_walked_and_the_symbol_tables_are_kept():
+    import importlib
+
+    walked = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+    assert set(DECODE) <= walked
+    kc = importlib.import_module("torchain_tpu_torch.data.kaldi_compat")
+    assert {"read_phone_table", "read_symbol_table", "write_symbol_table"} <= set(vars(kc))
+    assert "partial" in kc.__doc__
+    from torchain_tpu_torch.cli import decode
+
+    flags = {a for act in decode.build_argparser()._actions for a in act.option_strings}
+    assert not {"--hclg", "--mdl", "--tree", "--device"} & flags
+    assert {"--nbest", "--lattice-out", "--ctm-out", "--prune-beam", "--lm-rescore",
+            "--lm-rescore-old", "--mbr", "--confidence-out", "--oracle", "--lmwt-min",
+            "--lmwt-max", "--word-symbols", "--backend", "--max-active",
+            "--phone-insertion-bonus"} <= flags
+
+
+def test_native_library_is_the_ports_own():
+    """The port builds csrc/decoder.cc of its own package into its own
+    git-ignored build/, and nothing in eval/native.py reaches the repo
+    root's csrc/ (the JAX package's Makefile and library)."""
+    from torchain_tpu_torch.eval import native
+
+    assert native.SOURCE == PORT / "csrc" / "decoder.cc"
+    assert native.LIBRARY.parent == PORT / "build"
+    assert "torchain_tpu_torch/build/" in (ROOT / ".gitignore").read_text()
+    text = (PORT / "eval" / "native.py").read_text()
+    for reach in ("parent.parent.parent", "parents[2]", '"make"', "Makefile",
+                  "libtorchain_tpu_native"):
+        assert reach not in text, reach
+    for node in ast.walk(ast.parse(text)):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str):
+            assert str(ROOT / "csrc") not in node.value
+
+
+def test_native_build_writes_only_into_its_build_dir(monkeypatch, tmp_path):
+    from torchain_tpu_torch.eval import native
+
+    root_csrc = sorted((p.name, p.stat().st_mtime) for p in (ROOT / "csrc").iterdir())
+    monkeypatch.setattr(native, "BUILD", tmp_path / "build")
+    monkeypatch.setattr(native, "LIBRARY", tmp_path / "build" / "libdecoder.so")
+    assert native.build(force=True)
+    assert [p.name for p in (tmp_path / "build").iterdir()] == ["libdecoder.so"]
+    assert sorted((p.name, p.stat().st_mtime) for p in (ROOT / "csrc").iterdir()) == root_csrc
+    # a library newer than its source is not rebuilt
+    mtime = native.LIBRARY.stat().st_mtime_ns
+    assert native.build()
+    assert native.LIBRARY.stat().st_mtime_ns == mtime
+
+
+def test_native_build_failure_raises_and_no_compiler_says_so(monkeypatch, tmp_path, capsys):
+    """A compiler that fails raises with its output (never a quiet NumPy
+    decode); only where no compiler is found does backend="auto" run the
+    NumPy reference, and it says so once."""
+    from torchain_tpu_torch.eval import decoder, native
+
+    bad = tmp_path / "decoder.cc"
+    bad.write_text("this is not C++\n")
+    monkeypatch.setattr(native, "SOURCE", bad)
+    monkeypatch.setattr(native, "BUILD", tmp_path / "build")
+    monkeypatch.setattr(native, "LIBRARY", tmp_path / "build" / "libdecoder.so")
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_no_compiler", False)
+    with pytest.raises(RuntimeError, match="failed to build decoder.cc"):
+        native.get_lib()
+    assert not (tmp_path / "build" / "libdecoder.so").exists()
+    assert list((tmp_path / "build").iterdir()) == []  # the temporary is gone
+
+    monkeypatch.setattr(native, "_compiler", lambda: None)
+    assert native.get_lib() is None and native.get_lib() is None
+    assert capsys.readouterr().err.count("no C++ compiler") == 1
+    from torchain_tpu_torch.fstkit import Fst
+
+    f = Fst()
+    f.add_states(2)
+    f.add_arc(0, 1, -0.1, 1)
+    f.add_arc(1, 1, -0.2, 1)
+    f.set_final(1)
+    g = decoder.pack_decoding_graph(f, [3, 0], 1)
+    y = np.zeros((3, 1), np.float32)
+    assert decoder.viterbi_decode(g, y, backend="auto")[0] == [3]
+    with pytest.raises(RuntimeError, match="no C\\+\\+ compiler"):
+        decoder.viterbi_decode(g, y, backend="native")

@@ -6,8 +6,15 @@ ChainTrainingOptions (l2-regularize, leaky-hmm-coefficient,
 xent-regularize, lr), the trainer's recipe options (LR schedule,
 max-change, dropout schedule, backstitch, gradient accumulation,
 semi-orthogonal constraint), per-interval ChainResults logging and
-checkpoints with exact resume.  Two data sources: the built-in synthetic
-corpus (--synthetic), or a completed Kaldi chain prep (--cegs + --den-fst).
+checkpoints with exact resume.  Data sources: the built-in synthetic
+corpus (--synthetic), its word-level form (--synthetic-words), or a
+completed Kaldi chain prep (--cegs + --den-fst).  On the synthetic
+corpora, --flat-start-ladder trains flat-start (e2e) first, force-aligns
+the corpus with that model and trains on the generated alignments; --decode
+then decodes every utterance (the model's forward one utterance at a time,
+the decoders on the host): the phone PER over the training phone LM and,
+with --synthetic-words, the word WER over the word HCLG, with an LMWT
+sweep (--lmwt-min/--lmwt-max) and MBR (--mbr).
 
 It runs on the card unless asked otherwise: `--device cuda` (default)
 needs a CUDA device and exits 2 without one; `--device cpu` runs on the
@@ -16,6 +23,8 @@ CPU, where every kernel wrapper takes its plain PyTorch version.
 Usage:
   python -m torchain_tpu_torch.cli.train --synthetic --steps 200
   python -m torchain_tpu_torch.cli.train --synthetic --model tdnnf --epochs 4
+  python -m torchain_tpu_torch.cli.train --synthetic-words --flat-start-ladder \\
+      --decode --lmwt-min 1 --lmwt-max 12 --mbr
   python -m torchain_tpu_torch.cli.train --cegs 'exp/egs/cegs.*.ark' \\
       --den-fst exp/chain/den.fst --checkpoint-dir exp/ckpt
 """
@@ -34,6 +43,15 @@ import torch
 def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--synthetic", action="store_true", help="use the built-in synthetic corpus")
+    p.add_argument(
+        "--synthetic-words",
+        action="store_true",
+        help="word-level synthetic corpus: sentences are word sequences "
+        "expanded through a random lexicon; --decode then also builds the "
+        "word HCLG and reports word WER (latgen-faster-mapped role)",
+    )
+    p.add_argument("--vocab-size", type=int, default=20)
+    p.add_argument("--word-lm-order", type=int, default=2)
     p.add_argument("--num-utts", type=int, default=64)
     p.add_argument("--num-phones", type=int, default=12)
     p.add_argument("--feat-dim", type=int, default=24)
@@ -111,6 +129,13 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--left-tolerance", type=int, default=2)
     p.add_argument("--right-tolerance", type=int, default=2)
     p.add_argument("--e2e", action="store_true", help="flat-start: train from transcripts only (no alignments)")
+    p.add_argument(
+        "--flat-start-ladder",
+        action="store_true",
+        help="two-stage recipe: e2e flat-start training, then force-align "
+        "with the stage-1 model and continue with tolerance-lattice "
+        "supervision on the generated alignments",
+    )
     p.add_argument("--semi-ortho-every", type=int, default=4)
     p.add_argument("--checkpoint-dir", default=None)
     p.add_argument("--metrics-out", default=None)
@@ -119,6 +144,24 @@ def build_argparser() -> argparse.ArgumentParser:
         "--valid-utts", type=int, default=0,
         help="hold out the last N utterances and report validation objf "
         "(nnet3-chain-compute-prob parity)",
+    )
+    p.add_argument("--decode", action="store_true", help="decode + score after training")
+    p.add_argument("--decode-beam", type=float, default=16.0)
+    # score.sh LMWT sweep for the word decode stage (0 = plain best path)
+    p.add_argument("--lmwt-min", type=int, default=0)
+    p.add_argument("--lmwt-max", type=int, default=0)
+    p.add_argument(
+        "--mbr",
+        action="store_true",
+        help="decode stage also reports MBR (sausage) word WER at the "
+        "swept best LMWT (lattice-mbr-decode role; needs --lmwt sweep)",
+    )
+    p.add_argument(
+        "--phone-insertion-bonus",
+        type=float,
+        default=0.0,
+        help="added to phone-emitting arcs at decode time (counters "
+        "deletion-heavy error patterns; Kaldi insertion-penalty role)",
     )
     p.add_argument("--seed", type=int, default=0)
     p.add_argument(
@@ -237,12 +280,18 @@ def _trainer_config(args, device, batch_size: int, decay_steps: int):
     )
 
 
-def _fit(args, trainer, dataset, tag: str, t0: float) -> dict:
-    """Resume where a checkpoint is, train, write the metrics, combine;
-    returns the CLI's result dict."""
+def _restore(args, trainer, tag: str) -> None:
     if args.checkpoint_dir and trainer.restore_checkpoint():
         print(f"[{tag}] resumed from step {int(trainer.state.step)} "
               f"(epoch {trainer.start_epoch}, batch {trainer.skip_batches})")
+
+
+def _fit(args, trainer, dataset, tag: str, t0: float, restore: bool = True) -> dict:
+    """Resume where a checkpoint is (unless `restore` is False: the caller
+    did), train, write the metrics, combine; returns the CLI's result
+    dict."""
+    if restore:
+        _restore(args, trainer, tag)
     start = int(trainer.state.step)
     results = trainer.fit(dataset, log_fn=print, max_steps=args.steps)
     if start == 0 and trainer.state.step == 0:
@@ -302,12 +351,111 @@ def _train_from_cegs(args, device) -> dict:
     return out
 
 
+def _posteriors(model, utts, left: int, right: int, fsf: int):
+    """The chain head's output [T_out, P] of every utterance, one at a time
+    at B=1 on the model's device (the decode stages' forward, as the
+    reference runs it).  Returns (posteriors, host seconds)."""
+    from torchain_tpu_torch.eval.align import with_context
+    from torchain_tpu_torch.train.step import make_forward_fn
+
+    forward = make_forward_fn(model)
+    t0 = time.perf_counter()
+    out = []
+    for u in utts:
+        x = torch.as_tensor(with_context(u.feats, fsf, left, right), device=forward.device)
+        out.append(forward(x)[0].float().cpu().numpy())
+    return out, time.perf_counter() - t0
+
+
+def _decode_stages(args, corpus, word_corpus, posts, out: dict) -> None:
+    """Stages 3-5: the phone decode and PER over the training phone LM;
+    with a word corpus, the word HCLG decode and WER, with the LMWT sweep
+    and MBR.  Host code; fills `out` (per, wer, best_lmwt, mbr_wer, and
+    host seconds and sizes under "decode")."""
+    from torchain_tpu_torch.eval import make_decoding_graph, viterbi_decode, wer
+    from torchain_tpu_torch.graphs import PhoneLmOptions, estimate_phone_lm
+
+    dec = out.setdefault("decode", {})
+    print("[stage 3] decoding with the training LM")
+    refs = [[p for p, _ in u.alignment] for u in corpus.utts]
+    t0 = time.perf_counter()
+    lm = estimate_phone_lm(refs, PhoneLmOptions(ngram_order=2, num_extra_lm_states=500))
+    dgraph = make_decoding_graph(lm, corpus.tree)
+    dec["phone_graph_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hyps = [
+        viterbi_decode(dgraph, y, beam=args.decode_beam,
+                       phone_bonus=args.phone_insertion_bonus)[0]
+        for y in posts
+    ]
+    dec["phone_viterbi_s"] = time.perf_counter() - t0
+    score = wer(refs, hyps)
+    print(f"[stage 4] PER {score['wer']:.2f}% ({score})")
+    out["per"] = score["wer"]
+    if word_corpus is None:
+        return
+    # word-level decode over HCLG (latgen-faster-mapped role)
+    from torchain_tpu_torch.data import train_word_lm
+    from torchain_tpu_torch.eval import (
+        lattice_decode,
+        make_word_decoding_graph,
+        mbr_decode,
+        rescore_lattice,
+        score_sweep,
+    )
+
+    print("[stage 5] word decode: building HCLG from training transcripts")
+    t0 = time.perf_counter()
+    word_lm = train_word_lm(word_corpus.transcripts, order=args.word_lm_order)
+    wgraph = make_word_decoding_graph(word_lm, word_corpus.lexicon, corpus.tree)
+    dec["hclg_s"] = time.perf_counter() - t0
+    dec["hclg_states"] = int(wgraph.num_states)
+    dec["hclg_arcs"] = int(wgraph.src.shape[0])
+    print(f"[stage 5] HCLG: {wgraph.num_states} states, {wgraph.src.shape[0]} arcs")
+    sweep = args.lmwt_max >= args.lmwt_min > 0
+    t0 = time.perf_counter()
+    if sweep:
+        wlats = [lattice_decode(wgraph, y, beam=args.decode_beam) for y in posts]
+        dec["word_lattice_s"] = time.perf_counter() - t0
+        dec["lattice_arcs"] = int(sum(lat.num_arcs for lat in wlats))
+        # score.sh role: one corpus-level LMWT picked by best WER
+        t0 = time.perf_counter()
+        best_lmwt, wscore, whyps, by_lmwt = score_sweep(
+            wlats,
+            word_corpus.transcripts,
+            lmwt_range=range(args.lmwt_min, args.lmwt_max + 1),
+        )
+        dec["sweep_s"] = time.perf_counter() - t0
+        print(f"[stage 5] lmwt sweep: {by_lmwt} -> best {best_lmwt}")
+        out["best_lmwt"] = best_lmwt
+        if args.mbr:
+            # lattice-mbr-decode role: minimum-Bayes-risk word sequence
+            # from the sausage, at the swept LMWT
+            t0 = time.perf_counter()
+            mhyps = [
+                mbr_decode(rescore_lattice(lat, lm_scale=float(best_lmwt))).words
+                for lat in wlats
+            ]
+            dec["mbr_s"] = time.perf_counter() - t0
+            mscore = wer(word_corpus.transcripts, mhyps)
+            print(f"[stage 5m] MBR WER {mscore['wer']:.2f}% ({mscore})")
+            out["mbr_wer"] = mscore["wer"]
+    else:
+        whyps = [viterbi_decode(wgraph, y, beam=args.decode_beam)[0] for y in posts]
+        dec["word_viterbi_s"] = time.perf_counter() - t0
+        wscore = wer(word_corpus.transcripts, whyps)
+    print(f"[stage 5] WER {wscore['wer']:.2f}% ({wscore})")
+    out["wer"] = wscore["wer"]
+
+
 def main(argv=None) -> dict:
     args = build_argparser().parse_args(argv)
+    if args.synthetic_words:
+        args.synthetic = True
     if not args.synthetic and not args.cegs:
         print(
-            "Pass --synthetic for the built-in corpus, or --cegs + --den-fst "
-            "for a completed Kaldi chain prep.",
+            "Pass --synthetic (or --synthetic-words) for the built-in corpus, "
+            "or --cegs + --den-fst for a completed Kaldi chain prep.",
             file=sys.stderr,
         )
         sys.exit(2)
@@ -321,18 +469,39 @@ def main(argv=None) -> dict:
     from torchain_tpu_torch.train import Trainer
 
     t0 = time.time()
-    print(f"[stage 0] preparing synthetic corpus ({args.num_utts} utts)")
-    corpus = synthetic_dataset(
-        num_utts=args.num_utts,
-        num_phones=args.num_phones,
-        feat_dim=args.feat_dim,
-        context_width=args.context_width,
-        seed=args.seed,
-    )
+    stages: dict[str, float] = {}
+    t_stage = time.perf_counter()
+    word_corpus = None
+    if args.synthetic_words:
+        from torchain_tpu_torch.data import synthetic_word_dataset
+
+        print(f"[stage 0] preparing synthetic WORD corpus ({args.num_utts} utts, "
+              f"vocab {args.vocab_size})")
+        word_corpus = synthetic_word_dataset(
+            num_utts=args.num_utts,
+            vocab_size=args.vocab_size,
+            num_phones=args.num_phones,
+            feat_dim=args.feat_dim,
+            context_width=args.context_width,
+            seed=args.seed,
+        )
+        corpus = word_corpus.corpus
+    else:
+        print(f"[stage 0] preparing synthetic corpus ({args.num_utts} utts)")
+        corpus = synthetic_dataset(
+            num_utts=args.num_utts,
+            num_phones=args.num_phones,
+            feat_dim=args.feat_dim,
+            context_width=args.context_width,
+            seed=args.seed,
+        )
     valid_utts = []
     if args.valid_utts > 0:
         valid_utts = corpus.utts[-args.valid_utts :]
         corpus.utts = corpus.utts[: -args.valid_utts]
+        if word_corpus is not None:
+            word_corpus.transcripts = word_corpus.transcripts[: -args.valid_utts]
+    stages["corpus_s"] = time.perf_counter() - t_stage
 
     model, cfg = _build_model(args, corpus.tree.num_pdfs, args.feat_dim, device)
     left, right = cfg.context
@@ -346,28 +515,65 @@ def main(argv=None) -> dict:
         right_tolerance=args.right_tolerance,
         frame_subsampling_factor=fsf,
     )
-    if args.e2e:
-        dataset = E2eChainDataset(
+
+    def e2e_dataset():
+        return E2eChainDataset(
             corpus.utts, corpus.tree, corpus.norm_fst, chunk_frames_out=args.chunk_frames,
             left_context=left, right_context=right, frame_subsampling_factor=fsf,
             seed=args.seed,
         )
-        n_records = len(corpus.utts)  # about one chunk an utterance
-    else:
-        dataset = ChainDataset(
+
+    def chain_dataset():
+        return ChainDataset(
             corpus.utts, corpus.tree, corpus.norm_fst, chunk_frames_out=args.chunk_frames,
             left_context=left, right_context=right, sup_opts=sup_opts, seed=args.seed,
         )
+
+    e2e = args.e2e and not args.flat_start_ladder
+    if e2e:
+        dataset = e2e_dataset()
+        n_records = len(corpus.utts)  # about one chunk an utterance
+    else:
+        dataset = chain_dataset()
         n_records = len(dataset.chunks)
     den = auto_den_graph(corpus.den_graph, device=device)
     print(f"[stage 1] den path: {type(den).__name__}")
     decay = _decay_steps(args, max(1, n_records // args.batch_size))
     trainer = Trainer(model, den, _trainer_config(args, device, args.batch_size, decay),
                       tree=corpus.tree)
+    if args.flat_start_ladder:
+        from torchain_tpu_torch.data import Utterance
+        from torchain_tpu_torch.eval import align_corpus
+        from torchain_tpu_torch.train.step import make_forward_fn
+
+        _restore(args, trainer, "ladder 1")
+        print("[ladder 1] flat-start e2e training")
+        t_stage = time.perf_counter()
+        trainer.fit(e2e_dataset(), log_fn=print)
+        stages["ladder_e2e_s"] = time.perf_counter() - t_stage
+        ladder_steps = int(trainer.state.step)
+        print("[ladder 2] forced alignment with the stage-1 model")
+        t_stage = time.perf_counter()
+        gen = align_corpus(
+            make_forward_fn(model), corpus.utts, corpus.tree,
+            frame_subsampling_factor=fsf, left_context=left, right_context=right,
+        )
+        corpus.utts = [
+            Utterance(feats=u.feats, alignment=a, utt_id=u.utt_id)
+            for u, a in zip(corpus.utts, gen)
+        ]
+        dataset = chain_dataset()
+        stages["ladder_align_s"] = time.perf_counter() - t_stage
+        trainer.begin_stage()
+        print("[ladder 3] tolerance-lattice training on generated alignments")
     print(f"[stage 2] training {args.model} on {n_records} "
-          + ("utterances" if args.e2e else "chunks"))
-    out = _fit(args, trainer, dataset, "stage 2", t0)
-    if valid_utts and not args.e2e:
+          + ("utterances" if e2e else "chunks"))
+    t_stage = time.perf_counter()
+    out = _fit(args, trainer, dataset, "stage 2", t0, restore=not args.flat_start_ladder)
+    stages["train_s"] = time.perf_counter() - t_stage
+    if args.flat_start_ladder:
+        out["ladder_steps"] = ladder_steps  # the e2e stage's; the rest are stage 3's
+    if valid_utts and not e2e:
         valid_ds = ChainDataset(
             valid_utts, corpus.tree, corpus.norm_fst, chunk_frames_out=args.chunk_frames,
             left_context=left, right_context=right, sup_opts=sup_opts,
@@ -375,6 +581,17 @@ def main(argv=None) -> dict:
         vres = trainer.evaluate(valid_ds)
         print(f"[stage 2v] valid: {vres}")
         out["valid_objf"] = vres.objf
+    if args.decode:
+        posts, forward_s = _posteriors(model, corpus.utts, left, right, fsf)
+        out["decode"] = dict(
+            utts=len(posts),
+            frames=int(sum(y.shape[0] for y in posts)),
+            forward_s=forward_s,
+        )
+        t_stage = time.perf_counter()
+        _decode_stages(args, corpus, word_corpus, posts, out)
+        stages["decode_s"] = time.perf_counter() - t_stage
+    out["timings"]["stages_s"] = stages
     print(json.dumps(out))
     return out
 

@@ -1,5 +1,5 @@
-"""data — chunk loading, the synthetic corpus, and merged Kaldi cegs
-archives (cegs)."""
+"""data — chunk loading, the synthetic phone and word corpora, merged Kaldi
+cegs archives (cegs), and Kaldi symbol tables (kaldi_compat)."""
 
 from torchain_tpu_torch.data.cegs import (
     CegsDataset,
@@ -24,6 +24,12 @@ from torchain_tpu_torch.data.loader import (
     Utterance,
     synthetic_dataset,
 )
+from torchain_tpu_torch.data.words import (
+    WordCorpus,
+    random_lexicon,
+    synthetic_word_dataset,
+    train_word_lm,
+)
 
 __all__ = [
     "CegsDataset",
@@ -36,13 +42,17 @@ __all__ = [
     "NnetIo",
     "SyntheticCorpus",
     "Utterance",
+    "WordCorpus",
     "batches_from_cegs",
     "dataset_to_cegs",
     "example_to_batch",
     "iter_cegs_ark",
     "make_chain_example",
     "make_e2e_chain_example",
+    "random_lexicon",
     "read_cegs_ark",
     "synthetic_dataset",
+    "synthetic_word_dataset",
+    "train_word_lm",
     "write_cegs_ark",
 ]

@@ -4,7 +4,8 @@ HMM topology + context tree (kaldi/src/hmm/), the phone-LM estimator
 (kaldi/src/chain/language-model.cc), the denominator-graph compiler
 (kaldi/src/chain/chain-den-graph.cc), the supervision compiler
 (kaldi/src/chain/chain-supervision.cc), and the flat-start (e2e) supervision
-of kaldi/src/chain/chain-generic-numerator.cc.  Everything here runs on the host
+of kaldi/src/chain/chain-generic-numerator.cc, and the word-level decoding
+graph (HCLG, hclg.py).  Everything here runs on the host
 CPU at setup/data-loading time and emits packed numpy arrays for the
 device code in `torchain_tpu_torch.ops`.
 """
@@ -24,6 +25,7 @@ from torchain_tpu_torch.graphs.e2e import (
     pad_and_stack_e2e,
     transcript_to_e2e_fst,
 )
+from torchain_tpu_torch.graphs.hclg import Lexicon, make_hclg
 from torchain_tpu_torch.graphs.phone_lm import PhoneLmOptions, estimate_phone_lm
 from torchain_tpu_torch.graphs.supervision import (
     Supervision,
@@ -44,6 +46,7 @@ __all__ = [
     "DenGraph",
     "DenseDenGraph",
     "E2eSupervision",
+    "Lexicon",
     "PhoneLmOptions",
     "Supervision",
     "SupervisionOptions",
@@ -55,6 +58,7 @@ __all__ = [
     "make_den_fst",
     "make_dense_den_graph",
     "make_e2e_supervision_fst",
+    "make_hclg",
     "make_normalization_fst",
     "numerator_tables",
     "pad_and_stack_e2e",

@@ -99,13 +99,15 @@ def make_forward_fn(model):
     """The posterior export path: forward(feats) -> the chain head's raw
     output [B, T_out, P] in eval mode.  Chain models decode the raw output
     as pseudo-loglikes with acoustic scale 1.0 and no prior division
-    (latgen-faster-mapped in the chain recipes)."""
+    (latgen-faster-mapped in the chain recipes).  `forward.device` is the
+    device of the model's parameters, where its input belongs."""
 
     @torch.no_grad()
     def forward(feats):
         model.eval()
         return model(feats, train=False)[0]
 
+    forward.device = next(model.parameters()).device
     return forward
 
 

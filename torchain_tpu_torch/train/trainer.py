@@ -609,6 +609,19 @@ class Trainer:
             self.save_checkpoint()
         return self.results
 
+    def begin_stage(self) -> None:
+        """Start a new stage of training on another dataset (the flat-start
+        ladder's tolerance-lattice stage after its e2e stage): the next
+        `fit` counts its epochs from 0 again and re-estimates the
+        supervision padding; the model, the optimizer and the step count
+        carry on."""
+        self.start_epoch = 0
+        self.current_epoch = 0
+        self.batch_in_epoch = 0
+        self.skip_batches = 0
+        self._sup_caps = None
+        self._batches_per_epoch = None
+
     def step_ms(self) -> float | None:
         """Median host wall ms between consecutive steps of the last fit
         (None under two steps)."""
