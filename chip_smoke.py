@@ -72,7 +72,18 @@ Phases, in order; any failure exits non-zero before the last line:
      decoders against the NumPy ones on the card's posteriors, and the
      standalone `cli.decode` over the exported posteriors with both
      backends, with the forward at B=1, the decoders' host time, the
-     real-time factors and the HCLG build timed;
+     real-time factors and the HCLG build timed; then the Kaldi model files
+     (`check_kaldi`): `cli.train --synthetic`'s corpus over 40 phones
+     written as a Kaldi experiment dir (final.mdl, ali.1.gz, feats.ark,
+     utt2spk, cmvn.ark) and read back through `cli.graphs ali-to-phones`,
+     `load_kaldi_dir(cmvn="speaker")` and `cli.graphs make-den-fst`;
+     `cli.train` at (a)'s widths on a tied tree of 1000 pdfs, left context
+     (K1-K6) and triphone (62,917 den states: the sparse scan, K3-K6), each
+     step on the card's clock and two more traced; the triphone run's
+     first batch at B=8 and a lattice supervision on the card against the
+     CPU; `cli.decode --tree` over the triphone tree's Kaldi file, a word
+     HCLG written as HCLG.fst over transition ids through `cli.decode
+     --hclg/--mdl`, and an nnet3 body behind final.mdl written and read;
   5. a reference check on a small input for each path: the first-step loss
      and gradient norm on the card (kernels) against the CPU (plain
      versions); for the bfloat16 conformer paths also each parameter
@@ -2085,6 +2096,7 @@ def check_decode(args, result: dict, tmp: str) -> dict:
     from torchain_tpu_torch.eval.align import with_context
     from torchain_tpu_torch.eval.lattice import read_lattice_ark
     from torchain_tpu_torch.fstkit import shortest_distance
+    from torchain_tpu_torch.io import write_ark_binary
     from torchain_tpu_torch.train.step import make_forward_fn
 
     t_phase = time.perf_counter()
@@ -2172,6 +2184,9 @@ def check_decode(args, result: dict, tmp: str) -> dict:
     wgraph = make_word_decoding_graph(lm, words.lexicon, tree)
     hclg_s = time.perf_counter() - t0
     posts, posts_s = cli_train._posteriors(models["cuda"], utts, left, right, fsf)
+    # the kaldi phase decodes the first of these again, over a Kaldi HCLG.fst
+    write_ark_binary(os.path.join(tmp, "post_words.ark"),
+                     {u.utt_id: y for u, y in zip(utts[:KALDI_DECODE_UTTS], posts)})
     cpu_posts, _ = cli_train._posteriors(models["cpu"], utts[:DECODE_CPU_UTTS], left, right, fsf)
     post_rel = [float(np.linalg.norm(a - b) / np.linalg.norm(b))
                 for a, b in zip(posts, cpu_posts)]
@@ -2286,6 +2301,626 @@ def check_decode(args, result: dict, tmp: str) -> dict:
     res["phase_s"] = time.perf_counter() - t_phase
     _log(f"decode phase: {res['phase_s']:.1f} s ({smi})")
     return res
+
+
+#: the kaldi phase: the tied trees' pdf budget, the speakers of its data dir,
+#: the sequences of its card-vs-CPU checks and the utterances it decodes.
+#: The corpus is `cli.train --synthetic` over 40 phones (256 utterances,
+#: 40-dim features, a bigram phone LM of 41 states); its chunks of 50 frames
+#: form one B=128 minibatch an epoch (195 of them), so each run takes
+#: `--epochs` as many as its steps
+KALDI_PHONES, KALDI_UTTS, KALDI_FEAT_DIM = 40, 256, 40
+KALDI_PDFS = 1000
+KALDI_SPEAKERS = 4
+KALDI_REF_B = 8
+KALDI_DECODE_UTTS = 16
+
+
+def _kaldi_dir(args, root: str, smi: str) -> dict:
+    """(a) of `check_kaldi`: the corpus written as a Kaldi experiment dir
+    (final.mdl, ali.1.gz of transition ids, feats.ark, utt2spk of 4
+    speakers, cmvn.ark) and read back through `cli.graphs ali-to-phones`,
+    `load_kaldi_dir(cmvn="speaker")` and `cli.graphs make-den-fst`."""
+    import io
+    import os
+
+    import numpy as np
+
+    from torchain_tpu_torch.cli import graphs as cli_graphs
+    from torchain_tpu_torch.data import (
+        apply_cmvn_by_speaker,
+        compute_cmvn_stats_per_spk,
+        load_kaldi_dir,
+        synthetic_dataset,
+        write_utt2spk,
+    )
+    from torchain_tpu_torch.graphs import (
+        chain_transition_model,
+        compile_den_graph,
+        write_ali_ark,
+        write_transition_model,
+    )
+    from torchain_tpu_torch.io import write_ark_binary
+    from torchain_tpu_torch.ops import auto_den_graph
+
+    t0 = time.perf_counter()
+    corpus = synthetic_dataset(num_utts=KALDI_UTTS, num_phones=KALDI_PHONES,
+                               feat_dim=KALDI_FEAT_DIM, seed=args.seed)
+    tm = chain_transition_model(KALDI_PHONES)
+    tids = range(1, tm.num_transition_ids + 1)
+    fwd = {tm.transition_id_to_phone(t): t for t in tids if not tm.is_self_loop(t)}
+    loop = {tm.transition_id_to_phone(t): t for t in tids if tm.is_self_loop(t)}
+    d = os.path.join(root, "data")
+    os.makedirs(d)
+    mdl, ali = os.path.join(d, "final.mdl"), os.path.join(d, "ali.1.gz")
+    write_transition_model(mdl, tm)
+    # each segment (p, n): p's forward transition id, then n - 1 self-loop ids
+    write_ali_ark(ali, {u.utt_id: [x for p, n in u.alignment
+                                   for x in [fwd[p]] + [loop[p]] * (n - 1)]
+                        for u in corpus.utts})
+    feats = {u.utt_id: u.feats for u in corpus.utts}
+    write_ark_binary(os.path.join(d, "feats.ark"), feats)
+    u2s = {u.utt_id: f"spk{i % KALDI_SPEAKERS}" for i, u in enumerate(corpus.utts)}
+    write_utt2spk(os.path.join(d, "utt2spk"), u2s)
+    stats = compute_cmvn_stats_per_spk(feats, u2s)
+    write_ark_binary(os.path.join(d, "cmvn.ark"), stats)
+    times = dict(write_s=time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(io.StringIO()):
+        rc = cli_graphs.main(["ali-to-phones", mdl, ali, "--out", os.path.join(d, "ali.txt"),
+                              "--write-lengths"])
+    times["ali_to_phones_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    utts = load_kaldi_dir(d, cmvn="speaker")
+    times["load_kaldi_dir_s"] = time.perf_counter() - t0
+    by_id = {u.utt_id: u for u in corpus.utts}
+    want = apply_cmvn_by_speaker(feats, u2s, stats)
+    bad = [u.utt_id for u in utts if u.alignment != by_id[u.utt_id].alignment]
+    feat_err = max(float(np.abs(u.feats - want[u.utt_id]).max()) for u in utts)
+    _log(f"kaldi (a) data dir: {len(utts)} utterances of {len(by_id)} read back by"
+         f" load_kaldi_dir(cmvn='speaker') after ali-to-phones (rc {rc}); alignments that"
+         f" differ {len(bad)}; features against apply_cmvn_by_speaker max abs"
+         f" {feat_err:.3g} (gate 1e-6)")
+    if rc != 0 or sorted(u.utt_id for u in utts) != sorted(by_id) or bad:
+        raise AssertionError(f"kaldi (a): alignments read back differ: {bad[:5]}")
+    if not feat_err <= 1e-6:
+        raise AssertionError("kaldi (a): the speaker-normalised features differ")
+
+    t0 = time.perf_counter()
+    out = os.path.join(root, "graph")
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli_graphs.main(["make-den-fst", d, out, "--context-width", "2", "--lm-order", "4"])
+    times["make_den_fst_s"] = time.perf_counter() - t0
+    fst, fmt, _ = cli_graphs._load_any_fst(os.path.join(out, "den.fst"))
+    num_pdfs = json.loads(pathlib.Path(out, "tree.json").read_text())["num_pdfs"]
+    graph = compile_den_graph(fst, num_pdfs)
+    den = auto_den_graph(graph, device="cuda")
+    _log(f"kaldi (a) make-den-fst (rc {rc}; biphone, 4-gram): den.fst ({fmt}) read back,"
+         f" {graph.num_states} states, {graph.num_arcs} arcs, {num_pdfs} pdfs, compiled to"
+         f" {type(den).__name__} on the card; host s {json.dumps(times)} ({smi})")
+    if rc != 0 or graph.num_states < 2:
+        raise AssertionError("kaldi (a): make-den-fst failed")
+    return dict(utts=len(utts), feat_err=feat_err, den_fst_states=graph.num_states,
+                den_fst_arcs=graph.num_arcs, den_fst_form=type(den).__name__, host_s=times,
+                mdl=mdl)
+
+
+def _tied_run(args, context: str, root: str, smi: str) -> tuple[dict, dict]:
+    """(b) of `check_kaldi`: `cli.train.main` on a tied tree of KALDI_PDFS
+    pdfs in `context`, with the main path's TDNN-F.  Each step is timed on
+    the card's clock (CUDA events around the Trainer's step), the first
+    host batch and the first placed supervision kept, and 2 more steps
+    traced (`profile_steps`) for the device's idle share.  Returns (the
+    run's numbers, what was kept: the corpus, model, cfg, step, first host
+    batch and first placed batch)."""
+    import os
+
+    import torch
+
+    from torchain_tpu_torch.cli import train as cli_train
+    from torchain_tpu_torch.train import trainer as trainer_mod
+
+    keep = {}
+    events = []
+    stage, build = cli_train.tied_tree_stage, cli_train._build_model
+    make_step, put = trainer_mod.make_train_step, trainer_mod.Trainer._put_batch
+
+    def kept_stage(a, corpus):
+        stage(a, corpus)
+        keep["corpus"] = corpus
+
+    def kept_model(*a, **k):
+        keep["model"], keep["cfg"] = build(*a, **k)
+        return keep["model"], keep["cfg"]
+
+    def timed_step(*a, **k):
+        step = keep["step"] = make_step(*a, **k)
+
+        def run(feats, den, sup, *rest):
+            keep.setdefault("placed", (feats, den, sup))
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            m = step(feats, den, sup, *rest)
+            end.record()
+            events.append((start, end))
+            return m
+        return run
+
+    def kept_batch(self, batch):
+        keep.setdefault("batch", batch)
+        return put(self, batch)
+
+    metrics = os.path.join(root, f"metrics_{context}.jsonl")
+    argv = ["--synthetic", "--num-utts", str(KALDI_UTTS), "--num-phones", str(KALDI_PHONES),
+            "--feat-dim", str(KALDI_FEAT_DIM), "--tied-tree-pdfs", str(KALDI_PDFS),
+            "--tied-tree-context", context,
+            "--model", "tdnnf", "--hidden-dim", "768", "--bottleneck-dim", "96",
+            "--num-layers", str(LAYERS), "--batch-size", str(B), "--chunk-frames", str(T_OUT),
+            "--steps", str(args.steps), "--epochs", str(args.steps), "--log-every", "1",
+            "--device", "cuda", "--seed", str(args.seed), "--metrics-out", metrics]
+    for fn in counters().values():
+        fn.launches = 0
+    cli_train.tied_tree_stage, cli_train._build_model = kept_stage, kept_model
+    trainer_mod.make_train_step, trainer_mod.Trainer._put_batch = timed_step, kept_batch
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            out = cli_train.main(argv)
+        run_s = time.perf_counter() - t0
+    finally:
+        cli_train.tied_tree_stage, cli_train._build_model = stage, build
+        trainer_mod.make_train_step, trainer_mod.Trainer._put_batch = make_step, put
+    launches = {k: fn.launches for k, fn in counters().items()}
+    torch.cuda.synchronize()
+    step_ms = [s.elapsed_time(e) for s, e in events]
+    losses = [m["loss"] for m in _jsonl(metrics)]
+    feats, den, sup = keep["placed"]
+    steady = int((sup.in_src_r >= 0).sum())
+    sizes = dict(vocab_width=int(sup.frame_vocab.shape[-1]), steady_arcs_live=steady,
+                 steady_slots=sup.in_src_r.numel(), arc_list=int(sup.arcs_k.shape[1]),
+                 num_states=sup.max_states, num_arcs_steady=sup.in_src_r.shape[-1])
+    prof = profile_steps(keep["step"], feats, den, sup, 2,
+                         args.out / f"profile_kaldi_{context}.txt" if args.out else None)
+    stages, tm = out["timings"]["stages_s"], out["timings"]
+    res = dict(context=context, pdfs=out["den"]["pdfs"], den_form=out["den"]["form"],
+               den_states=out["den"]["states"], den_arcs=out["den"]["arcs"],
+               tree_s=stages["tree_s"], sup_caps_s=tm["sup_caps_s"], den_s=stages["den_s"],
+               run_s=run_s, steps=out["steps"], losses=losses, launches=launches,
+               step_ms=step_ms, step_ms_median=statistics.median(step_ms[1:]),
+               launches_per_step={k: n / out["steps"] for k, n in launches.items() if n},
+               sup=sizes, profile={k: v for k, v in prof.items() if k != "top"})
+    _log(f"kaldi (b) {context}: tied tree of {res['pdfs']} pdfs built in {res['tree_s']:.2f} s;"
+         f" den graph S={res['den_states']} A={res['den_arcs']}, form {res['den_form']}"
+         f" ({res['den_s']:.2f} s); supervisions composed (estimate_sup_caps)"
+         f" {res['sup_caps_s']:.2f} s (host clock; {smi})")
+    _log(f"kaldi (b) {context}: {out['steps']} steps in {run_s:.1f} s (host clock, set-up"
+         f" included); losses {[round(x, 6) for x in losses]}; launches {launches}")
+    _log(f"kaldi (b) {context}: steps 2..{out['steps']} median {res['step_ms_median']:.2f} ms"
+         f" (card clock), all {[round(x, 2) for x in step_ms]}; launches/step"
+         f" {json.dumps(res['launches_per_step'])}; supervision {json.dumps(sizes)};"
+         f" traced: wall {prof['wall_ms']:.2f} ms/step, device busy"
+         f" {prof['device_busy_ms']:.2f} ms, idle share {prof['idle_share']:.3f},"
+         f" {prof['kernel_launches']} device launches/step ({smi})")
+    for line in prof["top"][:6]:
+        _log("  " + line)
+    if out["steps"] != args.steps or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"kaldi (b) {context}: {out['steps']} steps, losses {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"kaldi (b) {context}: the loss did not fall")
+    if context == "left":
+        _launch_gate("kaldi (b) left", launches, DEN_NUM)
+    else:
+        _launch_gate("kaldi (b) triphone", launches, NUM)
+        if res["den_form"] != "DeviceDenGraph":
+            raise AssertionError(f"kaldi (b) triphone: den form {res['den_form']}")
+    return res, keep
+
+
+def _take(batch, idx):
+    """The sequences `idx` of a host ChainBatch, in that order."""
+    import numpy as np
+
+    sup = batch.sup
+    cut = {f.name: getattr(sup, f.name)[idx] for f in dataclasses.fields(sup)
+           if isinstance(getattr(sup, f.name), np.ndarray)}
+    return dataclasses.replace(batch, feats=batch.feats[idx], sup=dataclasses.replace(sup, **cut))
+
+
+def _tied_reference(args, keep, smi: str) -> dict:
+    """(c) of `check_kaldi`, first half: the triphone run's first batch cut
+    to KALDI_REF_B sequences on the card and on the CPU, each side's den form
+    picked by `auto_den_graph` (the sparse scan on both).  Gated within
+    REFERENCE_RTOL["float32"], from weights drawn from --seed + 1: the loss,
+    objf and gradient norm (`reference_check`'s three), and the loss's own
+    gradient with respect to both heads' outputs, computed on each side from
+    the CPU's outputs (what the scan and the numerator kernels give).
+    Logged: each parameter group's gradient and the whole, card against CPU,
+    beside the CPU against itself with the batch's sequences reversed (the
+    same sum in another order).  A ReLU trunk's parameter gradient is not
+    held: where a pre-activation lies within rounding of 0, another order
+    of summation moves it across the kink, and the groups below move by up
+    to ~1e-3 (z2: `xent_head` 2.5e-3 card against CPU, the whole 3.1e-4).
+    The run's final weights are logged too."""
+    import numpy as np
+    import torch
+
+    from torchain_tpu_torch.ops import (
+        ChainLossOptions,
+        DeviceDenGraph,
+        DeviceSupervision,
+        auto_den_graph,
+        chain_loss,
+    )
+
+    small = _take(keep["batch"], np.arange(KALDI_REF_B))
+    graph = keep["corpus"].den_graph
+    opts = ChainLossOptions(l2_regularize=5e-4, leaky_hmm_coefficient=0.1, xent_regularize=0.1)
+    dens = {dev: auto_den_graph(graph, device=dev) for dev in ("cuda", "cpu")}
+    for dev, den in dens.items():
+        if not isinstance(den, DeviceDenGraph):
+            raise AssertionError(f"kaldi (c): the {dev} took {type(den).__name__}, not the scan")
+
+    def step(weights, dev, batch):
+        model = copy.deepcopy(weights).to(dev)
+        model.zero_grad(set_to_none=True)
+        sup = DeviceSupervision.from_host(batch.sup, device=dev).with_kernel_tables()
+        t0 = time.perf_counter()
+        chain, xent = model(torch.as_tensor(batch.feats, device=dev), train=True)
+        loss, aux = chain_loss(chain, xent, dens[dev], sup, opts)
+        loss.backward()
+        gn = torch.sqrt(sum(torch.sum(q.grad.double() ** 2) for q in model.parameters()))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        return (dict(loss=float(loss.detach()), objf=float(aux["objf"].detach()),
+                     grad_norm=float(gn), s=time.perf_counter() - t0),
+                _grad_groups(model), (chain.detach().cpu(), xent.detach().cpu()))
+
+    def groups_rel(a, b):
+        rel = {n: _rel(a[n], b[n]) for n in b}
+        whole = _rel(torch.cat([a[n] for n in b]), torch.cat(list(b.values())))
+        return rel, whole
+
+    gate = REFERENCE_RTOL["float32"]
+    res = dict(rtol=gate)
+    for name, weights in (("init", make_model(keep["cfg"], KALDI_FEAT_DIM, "cpu", args.seed + 1)),
+                          ("trained", keep["model"])):
+        (card, gcard, _), (cpu, gcpu, outs) = step(weights, "cuda", small), step(weights, "cpu", small)
+        _, grev, _ = step(weights, "cpu", _take(small, np.arange(KALDI_REF_B)[::-1].copy()))
+        r = res[name] = dict(cuda=card, cpu=cpu)
+        for k in ("loss", "objf", "grad_norm"):
+            r[f"{k}_rel"] = abs(card[k] - cpu[k]) / max(abs(cpu[k]), 1e-12)
+        r["groups"], r["grad_rel"] = groups_rel(gcard, gcpu)
+        r["groups_cpu_reversed"], r["grad_rel_cpu_reversed"] = groups_rel(grev, gcpu)
+        worst = max(r["groups"].items(), key=lambda kv: kv[1])
+        worst_rev = max(r["groups_cpu_reversed"].items(), key=lambda kv: kv[1])
+        # the loss's own gradient, from the CPU's outputs on both sides
+        dout = {}
+        for dev in ("cuda", "cpu"):
+            y, x = (o.to(dev).requires_grad_() for o in outs)
+            sup = DeviceSupervision.from_host(small.sup, device=dev).with_kernel_tables()
+            loss, _ = chain_loss(y, x, dens[dev], sup, opts)
+            loss.backward()
+            dout[dev] = (y.grad.cpu(), x.grad.cpu())
+        r["dy_rel"] = _rel(dout["cuda"][0].double().flatten(), dout["cpu"][0].double().flatten())
+        r["dx_rel"] = _rel(dout["cuda"][1].double().flatten(), dout["cpu"][1].double().flatten())
+        _log(f"kaldi (c) triphone, B={KALDI_REF_B}, scan on both, {name} weights"
+             f"{'' if name == 'init' else ' (logged, not gated)'}: loss card {card['loss']:.8g}"
+             f" cpu {cpu['loss']:.8g} rel {r['loss_rel']:.3g}, objf rel {r['objf_rel']:.3g},"
+             f" gradient norm rel {r['grad_norm_rel']:.3g}; the loss's gradient on the heads'"
+             f" outputs rel {r['dy_rel']:.3g} (chain), {r['dx_rel']:.3g} (xent) (gate {gate:g});"
+             f" parameter gradient rel whole {r['grad_rel']:.3g}, worst group {worst[0]}"
+             f" {worst[1]:.3g}; the CPU against itself, batch reversed: whole"
+             f" {r['grad_rel_cpu_reversed']:.3g}, worst group {worst_rev[0]} {worst_rev[1]:.3g};"
+             f" host s card {card['s']:.2f}, cpu {cpu['s']:.2f} ({smi})")
+    r = res["init"]
+    held = ("loss_rel", "objf_rel", "grad_norm_rel", "dy_rel", "dx_rel")
+    if not (math.isfinite(r["cuda"]["loss"]) and all(r[k] <= gate for k in held)):
+        raise AssertionError("kaldi (c): the triphone loss or its gradient on the card departs"
+                             " from the CPU's")
+    return res
+
+
+def _lattice_reference(args, corpus, smi: str) -> dict:
+    """(c) of `check_kaldi`, second half: KALDI_REF_B sausage lattices over
+    the left tree (each phone of an utterance's first 50 output frames with
+    one other phone beside it, 0.7/0.3), through `lattice_to_supervision_fst`
+    and `compile_supervision`, the numerator on the card (K5, K3, K4, K6)
+    against the CPU: log-probability and occupancies, on outputs drawn from
+    --seed."""
+    import numpy as np
+    import torch
+
+    from torchain_tpu_torch.graphs import (
+        PhoneLattice,
+        SupervisionOptions,
+        compile_supervision,
+        lattice_to_supervision_fst,
+        pad_and_stack_supervisions,
+        subsample_alignment,
+    )
+    from torchain_tpu_torch.ops import DeviceSupervision
+    from torchain_tpu_torch.ops import num_scan as ns
+
+    rng = np.random.default_rng(args.seed)
+    tree = corpus.tree
+    sups = []
+    for u in corpus.utts:
+        ali = subsample_alignment(u.alignment, 3)
+        if sum(n for _, n in ali) < T_OUT:
+            continue
+        bins, durs, left = [], [], T_OUT
+        for p, n in ali:
+            n = min(n, left)
+            bins.append([(p, 0.7), (p % tree.num_phones + 1, 0.3)])
+            durs.append(n)
+            left -= n
+            if not left:
+                break
+        fst = lattice_to_supervision_fst(PhoneLattice.from_sausage(bins, durs), tree,
+                                         SupervisionOptions(left_tolerance=2, right_tolerance=2))
+        sups.append(compile_supervision(fst, tree.num_pdfs))
+        if len(sups) == KALDI_REF_B:
+            break
+    host = pad_and_stack_supervisions(sups)
+    y = rng.normal(size=(KALDI_REF_B, T_OUT, tree.num_pdfs)).astype(np.float32)
+    got = {}
+    for fn in counters().values():
+        fn.launches = 0
+    for dev in ("cuda", "cpu"):
+        sup = DeviceSupervision.from_host(host, device=dev).with_kernel_tables()
+        yy = torch.as_tensor(y, device=dev)
+        lp, al = ns.num_forward(yy, sup)
+        gamma = ns.num_backward(yy, sup, lp, al)
+        got[dev] = (lp.double().cpu(), gamma.double().cpu())
+        if dev == "cuda":
+            launches = {k: fn.launches for k, fn in counters().items()}
+    gate = REFERENCE_RTOL["float32"]
+    lp_rel = float(((got["cuda"][0] - got["cpu"][0]).abs() / got["cpu"][0].abs()).max())
+    g_rel = _rel(got["cuda"][1].flatten(), got["cpu"][1].flatten())
+    _log(f"kaldi (c) lattice supervision over the left tree, B={KALDI_REF_B} sausages of"
+         f" {T_OUT} frames: {host.in_src.shape} arc slots; numerator log-prob card vs CPU max"
+         f" rel {lp_rel:.3g}, occupancies rel {g_rel:.3g} in norm (gate {gate:g}); launches"
+         f" {launches} ({smi})")
+    _launch_gate("kaldi (c) lattice", launches, NUM)
+    if not (torch.isfinite(got["cuda"][0]).all() and lp_rel <= gate and g_rel <= gate):
+        raise AssertionError("kaldi (c): the lattice numerator on the card departs from the CPU")
+    return dict(logp_rel=lp_rel, gamma_rel=g_rel, launches=launches)
+
+
+def _decode_kaldi(args, keep, a: dict, tmp: str, root: str, smi: str) -> dict:
+    """(d) of `check_kaldi`: decoding with the imported model files."""
+    import io
+    import os
+
+    import numpy as np
+
+    from torchain_tpu_torch.cli import decode as cli_decode
+    from torchain_tpu_torch.cli import train as cli_train
+    from torchain_tpu_torch.data import synthetic_word_dataset, train_word_lm
+    from torchain_tpu_torch.eval import hclg_decoding_graph, make_word_decoding_graph
+    from torchain_tpu_torch.fstkit import Fst
+    from torchain_tpu_torch.fstkit.openfst_io import read_openfst, write_openfst
+    from torchain_tpu_torch.graphs import (
+        AmNnet,
+        Nnet,
+        make_hclg,
+        read_am_nnet,
+        read_kaldi_tree,
+        read_transition_model,
+        write_am_nnet,
+        write_kaldi_tree,
+    )
+    from torchain_tpu_torch.graphs import den_graph as den_graph_mod
+    from torchain_tpu_torch.graphs import tied_tree as tied_tree_mod
+    from torchain_tpu_torch.graphs.nnet3 import Component, Desc, Node
+    from torchain_tpu_torch.io import read_ark, write_ark_binary
+
+    n = KALDI_DECODE_UTTS
+    res = {}
+    # the triphone tree as a Kaldi tree file, and a phone decode over it
+    corpus, cfg = keep["corpus"], keep["cfg"]
+    t0 = time.perf_counter()
+    text = write_kaldi_tree(corpus.tree)
+    back = read_kaldi_tree(text)
+    res["tree_io_s"] = time.perf_counter() - t0
+    if not np.array_equal(back.pdf_map, corpus.tree.pdf_map):
+        raise AssertionError("kaldi (d): the Kaldi tree file does not read back to the tree")
+    paths = {k: os.path.join(root, k) for k in ("tree.txt", "post_tri.ark", "lm.txt",
+                                                  "phones_ref.txt", "HCLG.fst", "lexicon.txt",
+                                                  "g.txt", "words_ref.txt")}
+    pathlib.Path(paths["tree.txt"]).write_text(text)
+    left, right = cfg.context
+    utts = corpus.utts[:n]
+    posts, res["posteriors_s"] = cli_train._posteriors(keep["model"], utts, left, right,
+                                                        cfg.frame_subsampling_factor)
+    write_ark_binary(paths["post_tri.ark"], {u.utt_id: y for u, y in zip(utts, posts)})
+    pathlib.Path(paths["lm.txt"]).write_text(corpus.phone_lm.to_text())
+    pathlib.Path(paths["phones_ref.txt"]).write_text("".join(
+        f"{u.utt_id} {' '.join(str(p) for p, _ in u.alignment)}\n" for u in utts))
+    calls = {"read_kaldi_tree": 0, "_expand_lm_to_hmm_triphone": 0}
+    wrapped = {"read_kaldi_tree": tied_tree_mod, "_expand_lm_to_hmm_triphone": den_graph_mod}
+
+    def counting(name, fn):
+        def call(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return call
+
+    saved = {k: getattr(m, k) for k, m in wrapped.items()}
+    for k, m in wrapped.items():
+        setattr(m, k, counting(k, saved[k]))
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(io.StringIO()):
+            phone = cli_decode.main(["--posteriors", paths["post_tri.ark"], "--tree",
+                                     paths["tree.txt"], "--mode", "phone", "--phone-lm",
+                                     paths["lm.txt"], "--backend", "native", "--ref",
+                                     paths["phones_ref.txt"]])
+        res["tree_decode_s"] = time.perf_counter() - t0
+    finally:
+        for k, m in wrapped.items():
+            setattr(m, k, saved[k])
+    _log(f"kaldi (d) cli.decode --tree (triphone, {corpus.tree.num_pdfs} pdfs) over {n}"
+         f" utterances of the triphone model: PER {phone.get('wer')}%, calls {calls};"
+         f" {res['tree_decode_s']:.2f} s with the graph build, tree file written and read"
+         f" back in {res['tree_io_s']:.2f} s (host; {smi})")
+    if phone["num_utts"] != n or not math.isfinite(phone["wer"]) or not all(calls.values()):
+        raise AssertionError(f"kaldi (d): cli.decode --tree: {phone}, calls {calls}")
+    res.update(per=phone["wer"], tree_calls=calls)
+
+    # the decode phase's word HCLG as a Kaldi HCLG.fst over transition ids
+    words = synthetic_word_dataset(num_utts=KALDI_UTTS, vocab_size=20, num_phones=KALDI_PHONES,
+                                   feat_dim=KALDI_FEAT_DIM, seed=args.seed)
+    wtree, lex = words.corpus.tree, words.lexicon
+    g = train_word_lm(words.transcripts, order=2)
+    tm = read_transition_model(a["mdl"])
+    tid_of = {int(tm.id2pdf[t]): t for t in range(1, tm.num_transition_ids + 1)}
+    if len(tid_of) != wtree.num_pdfs:
+        raise AssertionError("kaldi (d): the chain model's pdfs are not the tree's")
+    t0 = time.perf_counter()
+    fst, olabels = make_hclg(g, lex, wtree)
+    hclg = Fst()
+    hclg.add_states(fst.num_states)
+    for s, arc in fst.all_arcs():
+        hclg.add_arc(s, tid_of[arc.label - 1] if arc.label else 0, arc.weight, arc.dst)
+    for s in range(fst.num_states):
+        if fst.is_final(s):
+            hclg.set_final(s, fst.final(s))
+    write_openfst(paths["HCLG.fst"], hclg, olabels)
+    res["hclg_write_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    from_file = hclg_decoding_graph(*read_openfst(paths["HCLG.fst"]), tm)
+    res["hclg_read_s"] = time.perf_counter() - t0
+    built = make_word_decoding_graph(g, lex, wtree)
+    same = from_file.num_states == built.num_states and all(
+        np.array_equal(getattr(from_file, k), getattr(built, k))
+        for k in ("src", "dst", "pdf", "olabel", "dst_offsets", "eps_src", "eps_dst"))
+    fin = np.isfinite(built.final_logw)
+    same = same and np.array_equal(np.isfinite(from_file.final_logw), fin)
+    w_rel = max(float(np.max(np.abs(from_file.weight - built.weight)
+                             / np.maximum(np.abs(built.weight), 1e-30))),
+                float(np.max(np.abs(from_file.final_logw[fin] - built.final_logw[fin])
+                             / np.maximum(np.abs(built.final_logw[fin]), 1e-30))))
+    _log(f"kaldi (d) HCLG.fst: {fst.num_states} states, {fst.num_arcs} arcs over transition"
+         f" ids, written in {res['hclg_write_s']:.2f} s, read and packed in"
+         f" {res['hclg_read_s']:.2f} s (host; {smi}); same labels and topology as"
+         f" make_word_decoding_graph: {same}; weights max rel {w_rel:.3g} (gate 1e-6)")
+    if not same or not w_rel <= 1e-6:
+        raise AssertionError("kaldi (d): the HCLG read from the file departs from the one built")
+    wposts = read_ark(os.path.join(tmp, "post_words.ark"))
+    pathlib.Path(paths["lexicon.txt"]).write_text("".join(
+        f"{w} {' '.join(map(str, p))}\n" for w, ps in lex.prons.items() for p in ps))
+    pathlib.Path(paths["g.txt"]).write_text(g.to_text())
+    by_id = {u.utt_id: tr for u, tr in zip(words.corpus.utts, words.transcripts)}
+    pathlib.Path(paths["words_ref.txt"]).write_text("".join(
+        f"{u} {' '.join(map(str, by_id[u]))}\n" for u in wposts))
+    runs = {}
+    for name, extra in (("hclg", ["--hclg", paths["HCLG.fst"], "--mdl", a["mdl"]]),
+                        ("word", ["--mode", "word", "--num-phones", str(KALDI_PHONES),
+                                  "--lexicon",
+                                  paths["lexicon.txt"], "--word-lm", paths["g.txt"],
+                                  "--sil-phone", str(lex.sil_phone), "--sil-prob",
+                                  str(lex.sil_prob)])):
+        hyp = os.path.join(root, f"hyp_{name}.txt")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(io.StringIO()):
+            r = cli_decode.main(["--posteriors", os.path.join(tmp, "post_words.ark"), *extra,
+                                 "--backend", "native", "--ref", paths["words_ref.txt"],
+                                 "--hyp-out", hyp])
+        runs[name] = dict(s=time.perf_counter() - t0, wer=r.get("wer"), utts=r["num_utts"],
+                          hyps=pathlib.Path(hyp).read_text().splitlines())
+    differ = sum(x != y for x, y in zip(runs["hclg"]["hyps"], runs["word"]["hyps"]))
+    _log(f"kaldi (d) cli.decode --hclg/--mdl: {runs['hclg']['utts']} utterances, WER"
+         f" {runs['hclg']['wer']}% in {runs['hclg']['s']:.2f} s; --mode word: WER"
+         f" {runs['word']['wer']}% in {runs['word']['s']:.2f} s (host; {smi}); hypotheses"
+         f" that differ {differ} of {len(wposts)}")
+    if len(wposts) != n or any(r["utts"] != n or len(r["hyps"]) != n for r in runs.values()):
+        raise AssertionError("kaldi (d): a cli.decode run did not decode every utterance")
+    res.update(hclg_same=same, hclg_weight_rel=w_rel, hyps_differ=differ,
+               decode={k: {x: y for x, y in r.items() if x != "hyps"} for k, r in runs.items()})
+
+    # an nnet3 body behind the transition model, written and read back
+    rng = np.random.default_rng(args.seed)
+    P, D = tm.num_pdfs, KALDI_FEAT_DIM
+    comps = {"affine": Component("affine", "NaturalGradientAffineComponent", {
+                 "LearningRate": 0.001,
+                 "LinearParams": rng.normal(size=(P, 3 * D)).astype(np.float32),
+                 "BiasParams": rng.normal(size=P).astype(np.float32)}),
+             "log-softmax": Component("log-softmax", "LogSoftmaxComponent", {"Dim": P})}
+    nodes = {"input": Node("input", "input", dim=D),
+             "affine": Node("component", "affine", component="affine",
+                            input=Desc.parse("Append(Offset(input,-1),input,Offset(input,1))")),
+             "log-softmax": Node("component", "log-softmax", component="log-softmax",
+                                 input=Desc.parse("affine")),
+             "output": Node("output", "output", input=Desc.parse("log-softmax"))}
+    am = AmNnet(nnet=Nnet(nodes=nodes, components=comps), left_context=1, right_context=1,
+                priors=np.zeros(0, np.float32))
+    mdl1, mdl2 = os.path.join(root, "nnet.mdl"), os.path.join(root, "nnet2.mdl")
+    write_am_nnet(mdl1, tm, am)
+    tm2, am2 = read_am_nnet(mdl1)
+    write_am_nnet(mdl2, tm2, am2)
+    x = rng.normal(size=(20, D)).astype(np.float32)
+    t = np.arange(1, 19)
+    fwd_equal = np.array_equal(am2.nnet.forward({"input": x}, t), am.nnet.forward({"input": x}, t))
+    bytes_equal = pathlib.Path(mdl1).read_bytes() == pathlib.Path(mdl2).read_bytes()
+    _log(f"kaldi (d) nnet3: final.mdl with an nnet body of {len(comps)} components, read back"
+         f" and written again byte for byte: {bytes_equal}; forward equal: {fwd_equal};"
+         f" transition model kept: {tm2.tuples == tm.tuples}")
+    if not (bytes_equal and fwd_equal and tm2.tuples == tm.tuples):
+        raise AssertionError("kaldi (d): the nnet3 model does not round-trip")
+    return res
+
+
+def check_kaldi(args, result: dict, tmp: str) -> dict:
+    """Phase 4, after the decode phase: the Kaldi model files.
+
+      (a) `cli.train --synthetic`'s corpus over 40 phones written as a Kaldi
+          experiment dir (`_kaldi_dir`) and read back.  Gates: every
+          alignment read back equals the corpus's; every feature matrix the
+          corpus's after `apply_cmvn_by_speaker`, within 1e-6; the den.fst
+          that make-den-fst writes reads back and compiles;
+      (b) `cli.train.main` on a tied tree of 1000 pdfs in each context
+          window (`_tied_run`) at the main path's widths: losses finite and
+          falling; `left` launched K1-K6 and no other kernel, `triphone`
+          K3-K6 and no other (its den graph, 62,917 states, takes the sparse
+          scan of ops/den_scan.py);
+      (c) the triphone run's first batch at B=8 on the card against the CPU,
+          the scan on both sides, from weights drawn from --seed + 1: the
+          loss, objf, gradient norm and the loss's gradient on the heads'
+          outputs (each parameter group's gradient logged beside the CPU's
+          own spread; `_tied_reference`), and a lattice supervision through
+          K3-K6 (`_lattice_reference`), within REFERENCE_RTOL["float32"];
+      (d) decoding with the imported model files (`_decode_kaldi`): the
+          triphone tree as a Kaldi tree file through `cli.decode --tree`;
+          the decode phase's word HCLG relabelled to transition ids, written
+          as HCLG.fst, read back against the graph built in process, and
+          through `cli.decode --hclg/--mdl` beside `--mode word`; an nnet3
+          body round trip.
+
+    Returns the phase's numbers; its two training runs' launch counts are
+    under "launches_left" and "launches_triphone"."""
+    import os
+
+    t_phase = time.perf_counter()
+    smi = result["nvidia_smi"]
+    root = os.path.join(tmp, "kaldi")
+    os.makedirs(root)
+    out = dict(dir=_kaldi_dir(args, root, smi))
+    runs = {}
+    for context in ("left", "triphone"):
+        out[context], runs[context] = _tied_run(args, context, root, smi)
+    out["triphone_reference"] = _tied_reference(args, runs["triphone"], smi)
+    out["lattice_reference"] = _lattice_reference(args, runs["left"]["corpus"], smi)
+    out["decode"] = _decode_kaldi(args, runs["triphone"], out["dir"], tmp, root, smi)
+    out["launches_left"] = out["left"]["launches"]
+    out["launches_triphone"] = out["triphone"]["launches"]
+    _log(f"kaldi: triphone step {out['triphone']['step_ms_median']:.2f} ms (scan) against the"
+         f" left tree's {out['left']['step_ms_median']:.2f} ms (K1/K2), card clock ({smi})")
+    out["phase_s"] = time.perf_counter() - t_phase
+    _log(f"kaldi phase: {out['phase_s']:.1f} s ({smi})")
+    return out
 
 
 #: gates of the reference check, relative, per trunk dtype.  float32: sums
@@ -2604,6 +3239,9 @@ def main(argv=None) -> int:
             launches["recipe_compute_prob"] = result["recipe"]["compute_prob_launches"]
             result["decode"] = check_decode(args, result, prep)
             launches["decode"] = result["decode"]["launches"]
+            result["kaldi"] = check_kaldi(args, result, prep)
+            launches["kaldi_left"] = result["kaldi"]["launches_left"]
+            launches["kaldi_triphone"] = result["kaldi"]["launches_triphone"]
     for name, m in second.items():
         numbers[name] = dict(**numbers[name], production=m)
     measured, probe_launches = check_probe()
@@ -2626,7 +3264,8 @@ def main(argv=None) -> int:
     # `launches` is the count of the first path that must run the kernel (the
     # probe's: its own phase); every path's count is under "launches_by_path"
     must = {**{p: PATHS[p]["kernels"] for p in PATHS}, "cegs": DEN_NUM, "probe": PROBE,
-            "recipe": DEN_NUM, "recipe_compute_prob": EVAL_DEN_NUM, "decode": DECODE_KERNELS}
+            "recipe": DEN_NUM, "recipe_compute_prob": EVAL_DEN_NUM, "decode": DECODE_KERNELS,
+            "kaldi_left": DEN_NUM, "kaldi_triphone": NUM}
     records = []
     for name, (_, _, source, replaces) in KERNELS.items():
         first = next(p for p in must if name in must[p])

@@ -155,7 +155,11 @@ def test_word_mode_trains_its_grammar_from_ref(files, tmp_path, capsys):
 
 def test_flags_left_out_and_refusals(files, capsys):
     base = ["--posteriors", str(files / "post.ark")]
-    for argv in (base + ["--hclg", "x"], base + ["--tree", "x"], base + ["--device", "cpu"]):
+    # --hclg needs --mdl; a --tree file still needs a phone LM; --device is not a flag
+    tree = files / "tree.txt"
+    tree.write_text("ContextDependency 2 1 ToPdf TE -1 2 ( TE 1 3 ( NULL CE 0 CE 1 ) "
+                    "TE 1 3 ( NULL CE 2 CE 3 ) ) EndContextDependency")
+    for argv in (base + ["--hclg", "x"], base + ["--tree", str(tree)], base + ["--device", "cpu"]):
         with pytest.raises(SystemExit):
             t_decode(argv)
     for argv in (base + ["--phone-lm", str(files / "phone_lm.txt")],

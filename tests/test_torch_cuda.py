@@ -1374,3 +1374,79 @@ def test_align_corpus_from_the_card(decode_setup):
     for u, ali in zip(utts, got):
         assert sum(d for _, d in ali) == u.feats.shape[0]
         assert [p for p, _ in ali] == [p for p, _ in u.alignment]
+
+
+# ---------------------------------------------------------------------------
+# Tied trees: a triphone supervision through K3-K6, tied-tree den graphs
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def tied_setup(dev):
+    """The synthetic corpus of 6 phones with a tied tree of 60 pdfs from its
+    alignments, in each context window (cli.train's stage 0t), and a B=6
+    batch of its chunks."""
+    import argparse
+
+    from torchain_tpu_torch.cli.train import tied_tree_stage
+
+    out = {}
+    for context in ("left", "triphone"):
+        c = tdata.synthetic_dataset(num_utts=24, num_phones=6, feat_dim=8,
+                                    utt_frames_out=(12, 20), seed=3)
+        tied_tree_stage(argparse.Namespace(tied_tree_pdfs=60, tied_tree_context=context,
+                                           num_phones=6), c)
+        ds = tdata.ChainDataset(c.utts, c.tree, c.norm_fst, chunk_frames_out=12,
+                                left_context=2, right_context=2,
+                                sup_opts=tgraphs.SupervisionOptions())
+        out[context] = (c, next(ds.batches(6, shuffle=False)))
+    return out
+
+
+def test_triphone_supervision_through_the_numerator_kernels(tied_setup):
+    """A triphone TiedTree's supervision batch through K5, K3, K4 and K6 on
+    the card against the plain versions on the CPU."""
+    c, batch = tied_setup["triphone"]
+    assert c.tree.right_dependent(0) or c.tree.right_dependent(1)
+    sup = DeviceSupervision.from_host(batch.sup, device="cuda")
+    B, T = sup.frame_vocab.shape[:2]
+    y = torch.as_tensor(np.random.default_rng(4).normal(size=(B, T, c.tree.num_pdfs)),
+                        dtype=torch.float32, device="cuda")
+    lp_c, al_c = ns.num_forward(y.cpu(), sup.to("cpu"))
+    g_c = ns.num_backward(y.cpu(), sup.to("cpu"), lp_c, al_c)
+    counts = [f.launches for f in (nr.steady_forward, nr.steady_backward, ns.vocab_gather,
+                                   ns.vocab_scatter)]
+    s = sup.with_kernel_tables()
+    lp, al = ns.num_forward(y, s)
+    g = ns.num_backward(y, s, lp, al)
+    torch.cuda.synchronize()
+    now = [f.launches for f in (nr.steady_forward, nr.steady_backward, ns.vocab_gather,
+                                ns.vocab_scatter)]
+    assert all(b > a for a, b in zip(counts, now)), (counts, now)
+    torch.testing.assert_close(lp.cpu(), lp_c, atol=1e-5, rtol=1e-5)
+    _close_where_finite(al.cpu(), al_c)
+    torch.testing.assert_close(g.cpu(), g_c, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("context", ["left", "triphone"])
+def test_tied_tree_chain_loss_on_card_matches_cpu(tied_setup, context):
+    """A tied tree's den graph through `auto_den_graph` (the same form on
+    both devices) and the chain loss, on the card against the CPU."""
+    from torchain_tpu_torch.ops import ChainLossOptions, chain_loss
+
+    c, batch = tied_setup[context]
+    opts = ChainLossOptions(l2_regularize=5e-4, leaky_hmm_coefficient=0.1, xent_regularize=0.1)
+    B, T = batch.sup.in_src.shape[:2]
+    y = np.random.default_rng(5).normal(size=(B, T, c.tree.num_pdfs)).astype(np.float32)
+    out = {}
+    for d in ("cuda", "cpu"):
+        den = auto_den_graph(c.den_graph, device=d)
+        sup = DeviceSupervision.from_host(batch.sup, device=d).with_kernel_tables()
+        yy = torch.tensor(y, device=d, requires_grad=True)
+        loss, aux = chain_loss(yy, yy * 0.5, den, sup, opts)
+        loss.backward()
+        out[d] = (type(den), loss.detach().cpu(), yy.grad.cpu(), float(aux["num_failed"]))
+    assert out["cuda"][0] is out["cpu"][0]
+    assert out["cuda"][3] == out["cpu"][3] == 0.0
+    torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(out["cuda"][2], out["cpu"][2], rtol=1e-4, atol=1e-6)

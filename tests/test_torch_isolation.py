@@ -228,8 +228,9 @@ def test_auto_den_graph_keeps_the_requested_device():
 
 
 #: the Kaldi interchange modules: port module -> (JAX module, names the
-#: port leaves out).  select_device is a JAX-runtime helper; make-den-fst
-#: and ali-to-phones need the Kaldi model readers, which are not ported.
+#: port leaves out).  select_device is a JAX-runtime helper; kaldi_compat
+#: leaves out the two functions that compute features (they wait for the
+#: port of data/features.py), the graphs package the de Bruijn den form.
 KALDI_MODULES = {
     "torchain_tpu_torch.utils.kaldi_io": ("torchain_tpu.utils.kaldi_io", set()),
     "torchain_tpu_torch.fstkit.algorithms": ("torchain_tpu.fstkit.algorithms", set()),
@@ -237,16 +238,49 @@ KALDI_MODULES = {
     "torchain_tpu_torch.fstkit": ("torchain_tpu.fstkit", set()),
     "torchain_tpu_torch.io": ("torchain_tpu.io", {"select_device"}),
     "torchain_tpu_torch.data.cegs": ("torchain_tpu.data.cegs", set()),
-    "torchain_tpu_torch.cli.graphs": ("torchain_tpu.cli.graphs",
-                                      {"_cmd_make_den_fst", "_cmd_ali_to_phones"}),
+    "torchain_tpu_torch.cli.graphs": ("torchain_tpu.cli.graphs", set()),
     "torchain_tpu_torch.cli.egs": ("torchain_tpu.cli.egs", set()),
+    "torchain_tpu_torch.graphs.transition_model": ("torchain_tpu.graphs.transition_model", set()),
+    "torchain_tpu_torch.graphs.tied_tree": ("torchain_tpu.graphs.tied_tree", set()),
+    "torchain_tpu_torch.graphs.lattice_supervision": (
+        "torchain_tpu.graphs.lattice_supervision", set()),
+    "torchain_tpu_torch.graphs.nnet3": ("torchain_tpu.graphs.nnet3", set()),
+    "torchain_tpu_torch.graphs.den_graph": ("torchain_tpu.graphs.den_graph", set()),
+    "torchain_tpu_torch.graphs": ("torchain_tpu.graphs", {
+        "DeBruijnDenGraph", "make_debruijn_den_graph", "materialize_lift_fst"}),
+    "torchain_tpu_torch.data.kaldi_compat": ("torchain_tpu.data.kaldi_compat", {
+        "compute_feats_from_wav_scp", "load_wav_dir"}),
 }
+
+#: the modules of the Kaldi model files, each imported alone in a fresh
+#: interpreter by `test_the_kaldi_model_modules_import_no_jax_and_no_features`
+KALDI_MODEL_MODULES = ("torchain_tpu_torch.graphs.transition_model",
+                       "torchain_tpu_torch.graphs.tied_tree",
+                       "torchain_tpu_torch.graphs.lattice_supervision",
+                       "torchain_tpu_torch.graphs.nnet3",
+                       "torchain_tpu_torch.data.kaldi_compat",
+                       "torchain_tpu_torch.cli.graphs")
+
+
+@pytest.mark.parametrize("name", KALDI_MODEL_MODULES)
+def test_the_kaldi_model_modules_import_no_jax_and_no_features(name):
+    """Each module of the Kaldi model files, imported alone, brings in no
+    module of JAX or of the JAX package, and no features module (the
+    raw-audio half of kaldi_compat waits for one)."""
+    probe = (f"import sys; import {name}; print(sorted(m for m in sys.modules"
+             f" if m.split('.')[0] in {BANNED!r} or 'features' in m))")
+    proc = subprocess.run(
+        [sys.executable, "-c", probe], cwd=str(ROOT), capture_output=True, text=True,
+        env={"PATH": "/usr/bin:/bin", "HOME": str(ROOT), "PYTHONPATH": str(ROOT)},
+        timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "[]"
 
 
 #: the decode ladder: port module -> (JAX module, names the port leaves
 #: out).  native.py builds with the compiler itself (build, _compiler,
-#: _declare) where the JAX module ran make (_build); kaldi_compat holds
-#: only the symbol tables; cli.decode leaves out the Kaldi-model branches.
+#: _declare) where the JAX module ran make (_build).
 DECODE_MODULES = {
     "torchain_tpu_torch.eval.wer": ("torchain_tpu.eval.wer", set()),
     "torchain_tpu_torch.eval.decoder": ("torchain_tpu.eval.decoder", set()),
@@ -316,11 +350,14 @@ def test_the_decode_modules_are_walked_and_the_symbol_tables_are_kept():
     assert set(DECODE) <= walked
     kc = importlib.import_module("torchain_tpu_torch.data.kaldi_compat")
     assert {"read_phone_table", "read_symbol_table", "write_symbol_table"} <= set(vars(kc))
-    assert "partial" in kc.__doc__
+    # the functions that wait for a features module are named, and absent
+    assert "compute_feats_from_wav_scp" in kc.__doc__ and "load_wav_dir" in kc.__doc__
+    assert not {"compute_feats_from_wav_scp", "load_wav_dir"} & set(vars(kc))
     from torchain_tpu_torch.cli import decode
 
     flags = {a for act in decode.build_argparser()._actions for a in act.option_strings}
-    assert not {"--hclg", "--mdl", "--tree", "--device"} & flags
+    assert "--device" not in flags
+    assert {"--hclg", "--mdl", "--tree"} <= flags
     assert {"--nbest", "--lattice-out", "--ctm-out", "--prune-beam", "--lm-rescore",
             "--lm-rescore-old", "--mbr", "--confidence-out", "--oracle", "--lmwt-min",
             "--lmwt-max", "--word-symbols", "--backend", "--max-active",

@@ -11,12 +11,16 @@ cli.export_posteriors (or any Kaldi-format text/binary ark of
 optional N-best lists, and WER/PER against a reference.  It reads an ark
 and decodes on the host: it needs no card and takes no --device.
 
-Graph sources (all plain text files):
-  phone mode: --phone-lm (fstkit text acceptor over phones) + the
-    enumerated tree of --num-phones/--context-width.
+Graph sources (all plain text files, but --hclg/--mdl):
+  phone mode: --phone-lm (fstkit text acceptor over phones) + a tree
+    (--tree Kaldi ContextDependency text, or --num-phones/--context-width
+    for the enumerated flavors).
   word mode: adds --lexicon ("word_id phone1 phone2 ..." lines) and a
     word grammar (--word-lm fstkit text, or --transcripts to estimate an
     n-gram from reference word sequences).
+  a Kaldi graph: --hclg HCLG.fst (binary or text OpenFst, transition-id
+    input labels) with --mdl final.mdl (its TransitionModel maps them to
+    pdfs); no graph is built.
 
 Reference/transcript file format: one utterance per line,
 "utt_id id1 id2 ..." (integer ids, matching the rest of the framework).
@@ -37,13 +41,24 @@ def build_argparser():
     p.add_argument("--posteriors", required=True, help="text or binary ark of [T,P] loglikes")
     p.add_argument("--mode", choices=("phone", "word"), default="phone")
     p.add_argument(
+        "--hclg",
+        help="decode over a REAL Kaldi HCLG.fst (binary/text OpenFst, "
+        "transition-id input labels) instead of building a graph; "
+        "requires --mdl (nnet3-latgen-faster role)",
+    )
+    p.add_argument(
+        "--mdl",
+        help="final.mdl / trans.mdl providing the TransitionModel that "
+        "maps --hclg input labels to pdfs",
+    )
+    p.add_argument(
         "--word-symbols",
         help="words.txt (OpenFst SymbolTable text): hypotheses, CTM rows "
         "and N-best lines print symbols instead of ids, and --ref may "
         "contain symbols",
     )
-    # the enumerated tree (a Kaldi tree file, --tree, and a real HCLG,
-    # --hclg/--mdl, wait for the port of the Kaldi model files)
+    # tree sources
+    p.add_argument("--tree", help="Kaldi ContextDependency text file (TiedTree import)")
     p.add_argument("--num-phones", type=int, default=0, help="enumerated tree: phone count")
     p.add_argument("--context-width", type=int, default=1, choices=(1, 2))
     # phone mode
@@ -148,9 +163,13 @@ def read_lexicon(path: str):
 
 def load_tree(args):
     from torchain_tpu_torch.graphs import ContextTree
+    from torchain_tpu_torch.graphs.tied_tree import read_kaldi_tree
 
+    if args.tree:
+        with open(args.tree) as f:
+            return read_kaldi_tree(f.read())
     if args.num_phones <= 0:
-        raise SystemExit("need --num-phones")
+        raise SystemExit("need --tree or --num-phones")
     return ContextTree(args.num_phones, context_width=args.context_width)
 
 
@@ -188,7 +207,17 @@ def main(argv=None) -> dict:
             return " ".join(map(str, ids))
         return " ".join(id2sym.get(i, str(i)) for i in ids)
 
-    if args.mode == "word":
+    if args.hclg:
+        if not args.mdl:
+            raise SystemExit("--hclg needs --mdl (transition-id -> pdf map)")
+        from torchain_tpu_torch.eval import hclg_decoding_graph
+        from torchain_tpu_torch.fstkit.openfst_io import read_openfst
+        from torchain_tpu_torch.graphs.transition_model import read_transition_model
+
+        hfst, holab = read_openfst(args.hclg)
+        tm = read_transition_model(args.mdl)
+        graph = hclg_decoding_graph(hfst, holab, tm)
+    elif args.mode == "word":
         tree = load_tree(args)
         if not args.lexicon:
             raise SystemExit("word mode needs --lexicon")

@@ -14,7 +14,10 @@ the corpus with that model and trains on the generated alignments; --decode
 then decodes every utterance (the model's forward one utterance at a time,
 the decoders on the host): the phone PER over the training phone LM and,
 with --synthetic-words, the word WER over the word HCLG, with an LMWT
-sweep (--lmwt-min/--lmwt-max) and MBR (--mbr).
+sweep (--lmwt-min/--lmwt-max) and MBR (--mbr).  --tied-tree-pdfs N builds a
+tied tree of N pdfs from the corpus's alignments (stage 0t, left or
+triphone context by --tied-tree-context) and trains on it, with the den
+graph and normalization FST that tree gives.
 
 It runs on the card unless asked otherwise: `--device cuda` (default)
 needs a CUDA device and exits 2 without one; `--device cpu` runs on the
@@ -23,6 +26,8 @@ CPU, where every kernel wrapper takes its plain PyTorch version.
 Usage:
   python -m torchain_tpu_torch.cli.train --synthetic --steps 200
   python -m torchain_tpu_torch.cli.train --synthetic --model tdnnf --epochs 4
+  python -m torchain_tpu_torch.cli.train --synthetic --num-phones 40 \\
+      --tied-tree-pdfs 1000 --tied-tree-context triphone --steps 10
   python -m torchain_tpu_torch.cli.train --synthetic-words --flat-start-ladder \\
       --decode --lmwt-min 1 --lmwt-max 12 --mbr
   python -m torchain_tpu_torch.cli.train --cegs 'exp/egs/cegs.*.ark' \\
@@ -52,6 +57,21 @@ def build_argparser() -> argparse.ArgumentParser:
     )
     p.add_argument("--vocab-size", type=int, default=20)
     p.add_argument("--word-lm-order", type=int, default=2)
+    p.add_argument(
+        "--tied-tree-pdfs",
+        type=int,
+        default=0,
+        help="build a data-driven TIED tree from the corpus alignments with "
+        "this pdf budget (Kaldi build-tree role) and train/decode with it; "
+        "0 keeps the enumerated ContextTree",
+    )
+    p.add_argument(
+        "--tied-tree-context",
+        choices=("left", "triphone"),
+        default="left",
+        help="context window of the tied tree (triphone enables the "
+        "delayed-emission right-context graph expansion)",
+    )
     p.add_argument("--num-utts", type=int, default=64)
     p.add_argument("--num-phones", type=int, default=12)
     p.add_argument("--feat-dim", type=int, default=24)
@@ -351,6 +371,44 @@ def _train_from_cegs(args, device) -> dict:
     return out
 
 
+def tied_tree_stage(args, corpus) -> None:
+    """Stage 0t: a tied tree of --tied-tree-pdfs pdfs from the corpus's
+    alignments (subsampled by 3, the models' frame subsampling), in
+    --tied-tree-context; replaces the corpus's tree, den graph, den FST and
+    normalization FST (and drops its dense Moore form) before the model's
+    head is sized."""
+    from torchain_tpu_torch.graphs import (
+        accumulate_tree_stats,
+        build_tied_tree,
+        compile_den_graph,
+        make_den_fst,
+        make_normalization_fst,
+    )
+
+    print(
+        f"[stage 0t] building tied {args.tied_tree_context} tree "
+        f"({args.tied_tree_pdfs} pdfs) from alignments"
+    )
+    stats = accumulate_tree_stats(
+        corpus.utts,
+        args.num_phones,
+        frame_subsampling_factor=3,
+        context=args.tied_tree_context,
+    )
+    tied = build_tied_tree(stats, num_pdfs=args.tied_tree_pdfs)
+    den_fst = make_den_fst(corpus.phone_lm, tied)
+    graph = compile_den_graph(den_fst, tied.num_pdfs)
+    corpus.tree = tied
+    corpus.den_graph = graph
+    corpus.den_fst = den_fst
+    corpus.dense_den = None
+    corpus.norm_fst = make_normalization_fst(den_fst, graph.initial_probs)
+    print(
+        f"[stage 0t] tied tree: {tied.num_pdfs} pdfs, den graph "
+        f"S={graph.num_states} A={graph.num_arcs}"
+    )
+
+
 def _posteriors(model, utts, left: int, right: int, fsf: int):
     """The chain head's output [T_out, P] of every utterance, one at a time
     at B=1 on the model's device (the decode stages' forward, as the
@@ -502,6 +560,10 @@ def main(argv=None) -> dict:
         if word_corpus is not None:
             word_corpus.transcripts = word_corpus.transcripts[: -args.valid_utts]
     stages["corpus_s"] = time.perf_counter() - t_stage
+    if args.tied_tree_pdfs > 0:
+        t_stage = time.perf_counter()
+        tied_tree_stage(args, corpus)
+        stages["tree_s"] = time.perf_counter() - t_stage
 
     model, cfg = _build_model(args, corpus.tree.num_pdfs, args.feat_dim, device)
     left, right = cfg.context
@@ -536,7 +598,9 @@ def main(argv=None) -> dict:
     else:
         dataset = chain_dataset()
         n_records = len(dataset.chunks)
+    t_stage = time.perf_counter()
     den = auto_den_graph(corpus.den_graph, device=device)
+    stages["den_s"] = time.perf_counter() - t_stage
     print(f"[stage 1] den path: {type(den).__name__}")
     decay = _decay_steps(args, max(1, n_records // args.batch_size))
     trainer = Trainer(model, den, _trainer_config(args, device, args.batch_size, decay),
@@ -592,6 +656,8 @@ def main(argv=None) -> dict:
         _decode_stages(args, corpus, word_corpus, posts, out)
         stages["decode_s"] = time.perf_counter() - t_stage
     out["timings"]["stages_s"] = stages
+    out["den"] = dict(form=type(den).__name__, states=corpus.den_graph.num_states,
+                      arcs=corpus.den_graph.num_arcs, pdfs=corpus.tree.num_pdfs)
     print(json.dumps(out))
     return out
 

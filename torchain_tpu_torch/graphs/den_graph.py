@@ -11,7 +11,9 @@ state-split Moore form of ops/den_dense.py and ops/den_pallas.py.
 The expansion from phone LM to HMM acceptor is epsilon-free by construction:
 emissions ride on transitions labeled by the SOURCE topo state's pdf class
 (Kaldi HMM semantics), and left-biphone context is tracked directly in the
-expanded states (playing the role of C composition).
+expanded states (playing the role of C composition); a tree with right
+context (a triphone `TiedTree`) takes `_expand_lm_to_hmm_triphone`, which
+delays a phone's frames until its successor is chosen.
 """
 
 from __future__ import annotations
@@ -48,6 +50,9 @@ def expand_lm_to_hmm(
     """
     if phone_lm.has_epsilons():
         raise ValueError("phone LM must be epsilon-free")
+    rd = getattr(tree, "right_dependent", None)
+    if rd is not None and (rd(0) or rd(1)):
+        return _expand_lm_to_hmm_triphone(phone_lm, tree, topo)
     need_prev = tree.context_dependent(0) or tree.context_dependent(1)
     need_loop_ctx = tree.context_dependent(1)
 
@@ -99,6 +104,99 @@ def expand_lm_to_hmm(
     # NOTE: no connect() here — arc/olabel alignment must stay intact; the
     # expansion only creates reachable states, and every state reaches a
     # final state in any LM trained with EOS counts.
+    arc_olabel = [
+        ol
+        for s in range(out.num_states)
+        for ol in olabel_per_state.get(s, [])
+    ]
+    assert len(arc_olabel) == out.num_arcs
+    return out, arc_olabel
+
+
+def _expand_lm_to_hmm_triphone(
+    phone_lm: Fst,
+    tree,
+    topo: ChainTopology = ChainTopology(),
+) -> tuple[Fst, list[int]]:
+    """Right-context (triphone) variant of expand_lm_to_hmm: pdfs depend on
+    (left, phone, right), so a phone's frames can only be emitted once its
+    SUCCESSOR is chosen — the role of Kaldi's context FST (C) lookahead in
+    HCLG composition, folded directly into the expansion.
+
+    State kinds:
+      ("pend", ls, q, prev): committed to phone q (left context `prev`),
+        LM already advanced to ls; q's frames not yet emitted.  Expanding
+        chooses q's successor arc (or LM-final => right context 0), which
+        fixes q's pdfs, emits q's HMM, and lands in the successor's pend.
+      ("loop", ls2, q2, q, prev): mid-phone self-loop of q (entered knowing
+        successor q2), exiting into ("pend", ls2, q2, q).
+      ("final",): utterance-final sink.
+    The LM weight of the successor arc rides on q's phone-entry arcs.
+    """
+    out = Fst()
+    olabel_per_state: dict[int, list[int]] = {}
+    state_of: dict[tuple, int] = {}
+
+    def state(key: tuple) -> int:
+        if key not in state_of:
+            state_of[key] = out.add_state()
+        return state_of[key]
+
+    stack: list[tuple] = []
+    seen: set[tuple] = set()
+
+    def visit(key: tuple) -> int:
+        if key not in seen:
+            seen.add(key)
+            stack.append(key)
+        return state(key)
+
+    def add_arc(src: int, label: int, weight: float, dst: int, phone: int):
+        out.add_arc(src, label, weight, dst)
+        olabel_per_state.setdefault(src, []).append(phone)
+
+    def expand_pend(src: int, ls: int, q: int, prev: int, extra_w: float):
+        """Emit phone q's HMM from `src` for every successor choice."""
+        for a in phone_lm.arcs(ls):
+            q2, w, ls2 = a.label, a.weight + extra_w, a.dst
+            pdf0 = tree.pdf(q, 0, prev, q2)
+            loop = visit(("loop", ls2, q2, q, prev))
+            nxt = visit(("pend", ls2, q2, q))
+            add_arc(src, pdf0 + 1, w + topo.log_continue, loop, q)
+            add_arc(src, pdf0 + 1, w + topo.log_end, nxt, q)
+        if phone_lm.is_final(ls):
+            fw = phone_lm.final(ls) + extra_w
+            pdf0 = tree.pdf(q, 0, prev, BOUNDARY)
+            loop = visit(("loop", -1, BOUNDARY, q, prev))
+            fin = visit(("final",))
+            add_arc(src, pdf0 + 1, fw + topo.log_continue, loop, q)
+            add_arc(src, pdf0 + 1, fw + topo.log_end, fin, q)
+
+    # start state 0: first-phone choice folded in (no epsilon moves)
+    assert state(("start",)) == 0
+    seen.add(("start",))
+    for a in phone_lm.arcs(0):
+        expand_pend(0, a.dst, a.label, BOUNDARY, a.weight)
+
+    while stack:
+        key = stack.pop()
+        kind = key[0]
+        src = state(key)
+        if kind == "pend":
+            _, ls, q, prev = key
+            expand_pend(src, ls, q, prev, 0.0)
+        elif kind == "loop":
+            _, ls2, q2, q, prev = key
+            pdf1 = tree.pdf(q, 1, prev, q2)
+            if ls2 < 0:  # utterance-final variant
+                dst = visit(("final",))
+            else:
+                dst = visit(("pend", ls2, q2, q))
+            add_arc(src, pdf1 + 1, topo.log_continue, src, 0)
+            add_arc(src, pdf1 + 1, topo.log_end, dst, 0)
+        else:  # "final"
+            out.set_final(src, 0.0)
+
     arc_olabel = [
         ol
         for s in range(out.num_states)

@@ -207,14 +207,27 @@ def den_shared_limit(device) -> int | None:
     return kernels.entry("den_resident", "den_shared_limit")()
 
 
+def den_form_indexed(form: str, sizes: tuple) -> bool:
+    """Whether the kernels of a denominator form can index its states and
+    slots with 16 bits: "resident", sizes (S_pad, K, P), K * S_pad slots;
+    "dense", sizes (S, E) padded, both axes.  Sizes alone decide it, on
+    every device: on the CPU too a graph past it takes another form, and
+    builds no slot-dense or Moore V of its size."""
+    if form == "resident":
+        S, K, _P = sizes
+        return K * S < INDEX16_LIMIT
+    return max(sizes) < INDEX16_LIMIT
+
+
 def den_form_fits(form: str, sizes: tuple, device) -> bool:
     """Whether both kernels of a denominator form can carry a sequence's
     state in one block's shared memory on `device`, decided from sizes alone
     by the library's own counts, as their `shared_plan`s decide it (what
     else a block stages there is optional): "resident", sizes (S_pad, K, P),
     K1 and K2 (ops/den_resident.py); "dense", sizes (S, E) padded, K9f and
-    K9b (ops/den_pallas.py).  Both also index states and slots with 16
-    bits.  Always True on the CPU.  The one fit test of `auto_den_graph`."""
+    K9b (ops/den_pallas.py).  On the card it also holds the form to
+    `den_form_indexed`.  Always True on the CPU, where the plain versions
+    run.  With `den_form_indexed`, the fit test of `auto_den_graph`."""
     limit = den_shared_limit(device)
     if limit is None:
         return True
@@ -222,11 +235,11 @@ def den_form_fits(form: str, sizes: tuple, device) -> bool:
         S, K, P = sizes
         need = kernels.entry("den_resident", "den_shared_bytes")
         fits = lambda bwd: need(bwd, S, K, P, 0, 0, 0) <= limit  # noqa: E731
-        return K * S < INDEX16_LIMIT and fits(0) and fits(1)
-    S, E = sizes
-    need = kernels.entry("den_dense", "dense_shared_bytes")
-    fits = lambda bwd: need(bwd, S, E, 0, 0, 0) <= limit  # noqa: E731
-    return max(S, E) < INDEX16_LIMIT and fits(0) and fits(1)
+    else:
+        S, E = sizes
+        need = kernels.entry("den_dense", "dense_shared_bytes")
+        fits = lambda bwd: need(bwd, S, E, 0, 0, 0) <= limit  # noqa: E731
+    return den_form_indexed(form, sizes) and fits(0) and fits(1)
 
 
 def auto_den_graph(host_graph: DenGraph, pad_to: int = 128, device="cuda"):
@@ -234,26 +247,29 @@ def auto_den_graph(host_graph: DenGraph, pad_to: int = 128, device="cuda"):
     JAX package's order of preference over the forms the port has
     (torchain_tpu/ops/device_graphs.py `auto_den_graph`):
 
-      1. the slot-dense graph of ops/den_resident.py (K1, K2) where a
-         sequence's carried state fits a block's shared memory (always on
-         the CPU);
+      1. the slot-dense graph of ops/den_resident.py (K1, K2) where its
+         slots take 16-bit indices and a sequence's carried state fits a
+         block's shared memory (on the CPU the index test alone);
       2. else the dense Moore form, fused (K9f, K9b), while its V of
          pad(S) * pad(E) float32 stays within DENSE_V_BYTES_THRESHOLD and
-         K9's carried state fits;
+         its states take 16-bit indices and K9's carried state fits;
       3. else the sparse arc list of ops/den_scan.py (plain PyTorch).
 
-    Each test runs on sizes before any V is built, through `den_form_fits`:
+    Each test runs on sizes before any V is built, through
+    `den_form_indexed` and `den_form_fits`:
     the slot layout (`slot_layout`, computed once and built on where the
     resident form is taken) gives S_pad and K, and its distinct (dst, pdf)
     pairs are E.  The de Bruijn and padded-table forms of the JAX package
     are not ported."""
     layout = slot_layout(host_graph)
-    if den_form_fits("resident", (*layout.sizes(pad_to), host_graph.num_pdfs), device):
+    resident = (*layout.sizes(pad_to), host_graph.num_pdfs)
+    if den_form_indexed("resident", resident) and den_form_fits("resident", resident, device):
         return DeviceResidentDenGraph._from_layout(host_graph, layout, pad_to, device)
     S, E = host_graph.num_states, len(layout.uniq_pdf)
     pad = lambda n: -(-n // pad_to) * pad_to  # noqa: E731
-    if (pad(S) * pad(E) * 4 <= DENSE_V_BYTES_THRESHOLD
-            and den_form_fits("dense", (pad(S), pad(E)), device)):
+    dense = (pad(S), pad(E))
+    if (pad(S) * pad(E) * 4 <= DENSE_V_BYTES_THRESHOLD and den_form_indexed("dense", dense)
+            and den_form_fits("dense", dense, device)):
         dense = make_dense_den_graph(host_graph, pad_to=pad_to)
         return DeviceDenseDenGraph.from_host(dense, device=device, fused=True)
     return DeviceDenGraph.from_host(host_graph, device=device)
