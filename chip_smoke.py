@@ -18,7 +18,9 @@ Phases, in order; any failure exits non-zero before the last line:
      graph, P=80, and its production graph, a 4-gram phone LM over a
      left-biphone tree, P=1680; K1 and K2 also against a frame loop of
      cuSPARSE products, captured as one CUDA graph, and launched twice for
-     equal bits; K5 and K6 also at P=83, and with the host's microseconds
+     equal bits; at the production graph also with V, p and ah in bfloat16
+     against their bfloat16 plain versions, timed in turns with the float32
+     kernels; K5 and K6 also at P=83, and with the host's microseconds
      per call),
      the flat-start numerator kernels at the e2e batches of both corpora,
      the fused dense-denominator kernels at the trigram graph's Moore form
@@ -33,7 +35,8 @@ Phases, in order; any failure exits non-zero before the last line:
      microseconds per wrapper call and the device's per launch), and the
      shared-memory probe against the device's opt-in limit; K3, K4, K8f and
      K8b also on the shared-memory plan their sizes did not choose, for
-     equal bits and a time in the same turns;
+     equal bits and a time in the same turns, and K10 also at D 512,
+     F 2048 (rows cut into two column groups);
   4. six paths, each a full-width model trained for a few steps with the
      LF-MMI chain loss on one replayed batch through `make_train_step`:
      (a) TDNN-F (9 layers, hidden 768, bottleneck 96, prefinal 256) on the
@@ -51,7 +54,11 @@ Phases, in order; any failure exits non-zero before the last line:
      fit (its fit test made to refuse it: the fused dense Moore form; the
      card's limit taken as below K2's carried state: the sparse scan of
      ops/den_scan.py), as many steps each, their first loss against (a)'s
-     and their median step against (a)'s (with --profile, traced too);
+     and their median step against (a)'s (with --profile, traced too),
+     then on the de Bruijn lift that `auto_den_graph` takes next on the card
+     given the phone LM and tree, on the padded-table form and on the scan
+     with alpha checkpointed every 10 frames, and (b)'s model and batch on
+     its de Bruijn lift, each with its peak memory and allocator counters;
      then training from a finished Kaldi chain prep (`check_cegs`): (a)'s
      corpus written as a binary OpenFst den.fst and a merged cegs archive
      of B sequences a record, read back through `_load_any_fst`,
@@ -84,6 +91,10 @@ Phases, in order; any failure exits non-zero before the last line:
      CPU; `cli.decode --tree` over the triphone tree's Kaldi file, a word
      HCLG written as HCLG.fst over transition ids through `cli.decode
      --hclg/--mdl`, and an nnet3 body behind final.mdl written and read;
+     the triphone run's den graph and first batch on the scan, the
+     alpha-checkpointed scan and the padded-table form (on as many
+     sequences as its [B, S, K_in] temporary allows), with K_in, K_out,
+     step ms, peak memory and the allocator's counters;
   5. a reference check on a small input for each path: the first-step loss
      and gradient norm on the card (kernels) against the CPU (plain
      versions); for the bfloat16 conformer paths also each parameter
@@ -1003,24 +1014,16 @@ def check_conformer_kernels(seed: int, dtype_name: str) -> dict[str, dict]:
     """Phase 3, conformer: K7f, K7b, K10f and K10b against their plain
     versions at the conformer path's shapes (B=128, T=50, 4 heads of 64;
     N = B*T = 6400 rows, D=256, F=1024) with operands of one dtype, with
-    times; with bfloat16 also K7f and K7b at T=150 (`check_attention`).
+    times; with bfloat16 also K7f and K7b at T=150 (`check_attention`), and
+    K10f and K10b also at D 512, F 2048 (`check_ffn`).
     Returns the measurements by kernel name; raises on disagreement."""
     import numpy as np
-    import torch
 
-    from torchain_tpu_torch.ops import fused_ffn as ff
-
-    dev = torch.device("cuda")
-    dtype = getattr(torch, dtype_name)
-    bf16 = dtype == torch.bfloat16
-    esz = 2 if bf16 else 4
     D, Fh, N = CONFORMER["dim"], 4 * CONFORMER["dim"], B * T_OUT
     label = f"conformer {dtype_name}"
+    bf16 = dtype_name == "bfloat16"
     rng = np.random.default_rng(seed)
     measured = {}
-
-    def rand(*shape, scale=1.0):
-        return torch.as_tensor(rng.standard_normal(shape).astype(np.float32) * scale, device=dev)
 
     # K7f / K7b at the path's T, and for bfloat16 also at T=150 (chunks of
     # 150 output frames; the first design's K7b refused T > 117)
@@ -1036,10 +1039,40 @@ def check_conformer_kernels(seed: int, dtype_name: str) -> dict[str, dict]:
             for name, rec in check_attention(rng, B, T, dtype_name, D=wide).items():
                 measured[name].setdefault("wide_heads", {})[f"dh {wide // 4}, T={T}"] = rec
 
-    # K10f / K10b.  xn as a LayerNorm leaves it, weights of the scale of
-    # their initialiser (variance 1 / fan-in), cast to the trunk dtype.  The
-    # products run on the tensor cores: bfloat16 at its peak, float32 as
-    # three TF32 products each (the bound counts the operations it does)
+    # K10f / K10b at the conformer's width, and at D 512, F 2048 (a
+    # conformer of dim 512: two column groups a row tile, xn streamed)
+    measured.update(check_ffn(rng, dtype_name, D, Fh, N, label))
+    for name, rec in check_ffn(rng, dtype_name, *FFN_WIDE, N, f"{label}, D 512").items():
+        measured[name]["d512"] = rec
+    return measured
+
+
+#: a conformer width past one block's 384 output columns: dim 512, F 2048
+FFN_WIDE = (512, 2048)
+
+
+def check_ffn(rng, dtype_name: str, D: int, Fh: int, N: int, label: str) -> dict[str, dict]:
+    """K10f and K10b against their plain versions on N rows of width D
+    (hidden width Fh) with operands of one dtype, with times.  Returns the
+    measurements by kernel name; raises on disagreement."""
+    import numpy as np
+    import torch
+
+    from torchain_tpu_torch.ops import fused_ffn as ff
+
+    dev = torch.device("cuda")
+    dtype = getattr(torch, dtype_name)
+    bf16 = dtype == torch.bfloat16
+    esz = 2 if bf16 else 4
+    measured = {}
+
+    def rand(*shape, scale=1.0):
+        return torch.as_tensor(rng.standard_normal(shape).astype(np.float32) * scale, device=dev)
+
+    # xn as a LayerNorm leaves it, weights of the scale of their initialiser
+    # (variance 1 / fan-in), cast to the trunk dtype.  The products run on
+    # the tensor cores: bfloat16 at its peak, float32 as three TF32 products
+    # each (the bound counts the operations it does)
     xn, res, gf = rand(N, D).to(dtype), rand(N, D).to(dtype), rand(N, D).to(dtype)
     w1, w2 = rand(D, Fh, scale=D ** -0.5).to(dtype), rand(Fh, D, scale=Fh ** -0.5).to(dtype)
     b1, b2 = rand(Fh, scale=0.1), rand(D, scale=0.1)
@@ -1047,7 +1080,7 @@ def check_conformer_kernels(seed: int, dtype_name: str) -> dict[str, dict]:
     o_k = ff.ffn_forward(xn, res, w1, b1, w2, b2, 0.5)
     torch.cuda.synchronize()
     o_p = ff.ffn_forward_plain(xn, res, w1, b1, w2, b2, 0.5)
-    # float32: sums of 256 and 1024 products in another order
+    # float32: sums of D and F products in another order
     tol = (2e-2, 1e-2) if bf16 else (1e-4, 1e-4)
 
     def dense_chain(x, r, a1, c1, a2, c2):
@@ -1445,9 +1478,10 @@ def counters():
     }
 
 
-def train_steps(cfg, feat_dim, feats, den, sup, steps: int, seed: int):
+def train_steps(cfg, feat_dim, feats, den, sup, steps: int, seed: int, after_step=None):
     """Phase 4: one path.  Returns (losses, step ms list, launches, step,
-    model)."""
+    model).  `after_step(i)`, where given, is called after step i's
+    synchronize."""
     import torch
 
     from torchain_tpu_torch.ops import ChainLossOptions
@@ -1471,6 +1505,8 @@ def train_steps(cfg, feat_dim, feats, den, sup, steps: int, seed: int):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         losses.append({k: float(v) for k, v in m.items()})
+        if after_step is not None:
+            after_step(len(times) - 1)
     launches = {k: fn.launches for k, fn in counters().items()}
     return losses, times, launches, step, model
 
@@ -1530,90 +1566,164 @@ def profile_steps(step, feats, den, sup, n: int, out_path: pathlib.Path | None) 
                 kernel_launches=launches, top=lines[:12])
 
 
+def _den_form_run(name: str, cfg, feat_dim, feats, den, sup, must: tuple, ref: float | None,
+                  gate: float, ref_ms: float | None, label: str, args, steps: int) -> dict:
+    """One denominator form trained `steps` steps from the seeded weights:
+    the kernels of `must` moved and no other, the first loss within `gate`
+    of `ref` (None: this form is the reference) and falling; its median step (steps 2..N, host clock around a
+    synchronize), peak device memory, and the allocator's counters
+    (`torch.cuda.memory_stats`: cudaMalloc calls and retries after a failed
+    one) over steps 1 and 2..N; with --profile two more steps traced."""
+    import torch
+
+    keys = ("num_alloc_retries", "num_device_alloc")
+    stats = []
+
+    def snap(i):
+        if i in (0, steps - 1):
+            stats.append(torch.cuda.memory_stats())
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stats.append(torch.cuda.memory_stats())
+    losses, times, launches, step, _ = train_steps(cfg, feat_dim, feats, den, sup, steps,
+                                                   args.seed, after_step=snap)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    alloc = {f"{k}_step1": stats[1].get(k, 0) - stats[0].get(k, 0) for k in keys}
+    alloc.update({f"{k}_steps2_{steps}": stats[2].get(k, 0) - stats[1].get(k, 0) for k in keys})
+    for k, n in launches.items():
+        if (k in must) != (n > 0):
+            raise AssertionError(f"den form {name} [{label}]: kernel {k} counted {n}")
+    first = losses[0]["loss"]
+    step_ms = statistics.median(times[1:])
+    ref, ref_ms = (first, step_ms) if ref is None else (ref, ref_ms)
+    rel = abs(first - ref) / abs(ref)
+    _log(f"den form {name} [{label}] ({type(den).__name__}): first loss {first:.6g} vs"
+         f" {ref:.6g}: rel {rel:.3g} (gate {gate:g}); steps 2..{steps} median {step_ms:.2f}"
+         f" ms/step, {step_ms / ref_ms:.2f}x the reference's {ref_ms:.2f} (all"
+         f" {[round(t, 2) for t in times]}); peak device memory {peak_gib:.2f} GiB;"
+         f" allocator over the steps {alloc}")
+    if not (math.isfinite(first) and rel <= gate and losses[-1]["loss"] < first):
+        raise AssertionError(f"den form {name} [{label}]: the first loss departs from the"
+                             " reference's, or the loss did not fall")
+    out = dict(form=type(den).__name__, first_loss=first, first_loss_rel=rel, step_ms=step_ms,
+               step_ms_all=times, reference_step_ms=ref_ms, peak_memory_gib=peak_gib,
+               allocator=alloc, launches=launches)
+    if args.profile:
+        prof = profile_steps(step, feats, den, sup, 2,
+                             args.out / f"profile_den_{label}_{name}.txt" if args.out else None)
+        _log(f"den form {name} [{label}] profile (traced steps only): wall"
+             f" {prof['wall_ms']:.2f} ms/step, device busy {prof['device_busy_ms']:.2f} ms/step"
+             f" (traced idle share {prof['idle_share']:.3f}) in {prof['kernel_launches']}"
+             f" launches/step")
+        for line in prof["top"]:
+            _log("  " + line)
+        out["profile"] = prof
+    return out
+
+
+@contextlib.contextmanager
+def _patched(module, **attrs):
+    """`module`'s attributes replaced by `attrs` for the block."""
+    saved = {k: getattr(module, k) for k in attrs}
+    for k, v in attrs.items():
+        setattr(module, k, v)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(module, k, v)
+
+
 def check_den_forms(args, result: dict) -> dict:
-    """Phase 4 again, on the trigram path's corpus, model and batch:
-    `auto_den_graph` falling through on the card.  With its fit test
-    refusing the slot-dense form it picks the dense Moore form, fused
-    (K9f/K9b); with the card's shared-memory limit taken as one byte below
+    """Phase 4 again, on the trigram path's corpus, model and batch: every
+    denominator form other than the slot-dense one.  `auto_den_graph`
+    falling through on the card: with its fit test refusing the slot-dense
+    form it picks the dense Moore form, fused (K9f/K9b), or, given the
+    corpus's phone LM and tree, the de Bruijn lift of ops/den_debruijn.py
+    (C = 41^2); with the card's shared-memory limit taken as one byte below
     K2's carried state at this graph (K9b's is larger still) the sparse scan
-    of ops/den_scan.py.  Each form trains as many steps as the paths
-    (`--steps`): the first loss must agree with the trigram path's (the
-    slot-dense form's) within its gate, the loss must fall, the form's
-    kernels must have moved and no other.  Its step ms is the median of
-    steps 2..N, set beside the trigram path's median from the same run;
-    with --profile two more steps are traced for device-busy ms, idle
-    share and launches.  Returns each form's first loss, its distance, its
-    step ms and, with --profile, its trace."""
+    of ops/den_scan.py.  Then the explicit forms: the padded-table form of
+    ops/den_table.py and the scan with alpha checkpointed every 10 frames.
+    Last, the production path's model and batch on its de Bruijn lift
+    (C = 41^3, the case the JAX package's accelerator takes).  Each form
+    trains as many steps as the paths (`--steps`): the first loss must
+    agree with its path's (the slot-dense form's) within that path's gate,
+    the loss must fall, the form's kernels must have moved and no other (the
+    forms without a kernel: K3-K6 alone).  Its step ms is the median of
+    steps 2..N, set beside its path's median from the same run; with
+    --profile two more steps are traced for device-busy ms, idle share and
+    launches.  Returns each form's numbers by name."""
     import torch
 
     from torchain_tpu_torch import kernels
     from torchain_tpu_torch.ops import (
+        DeviceDeBruijnDenGraph,
         DeviceDenGraph,
         DeviceDenseDenGraph,
+        DeviceDenTableGraph,
         DeviceSupervision,
         auto_den_graph,
     )
     from torchain_tpu_torch.ops import den_resident as dr
     from torchain_tpu_torch.ops import device_graphs as dg
 
-    corpus, cfg, dataset = build_path("trigram", args.seed)
-    batch = next(dataset.batches(B, shuffle=False))
-    feats = torch.as_tensor(batch.feats, device="cuda")
-    sup = DeviceSupervision.from_host(batch.sup, device="cuda").with_kernel_tables()
-    graph = corpus.den_graph
-    S_pad, K = dr.slot_sizes(graph)
-    k2_carried = kernels.entry("den_resident", "den_shared_bytes")(
-        1, S_pad, K, graph.num_pdfs, 0, 0, 0)
-    real_fits = dg.den_form_fits
-    forms = {
-        "dense": (DeviceDenseDenGraph, DENSE + NUM, dict(
-            den_form_fits=lambda form, sizes, device: form != "resident"
-            and real_fits(form, sizes, device))),
-        "scan": (DeviceDenGraph, NUM, dict(den_shared_limit=lambda device: k2_carried - 1)),
-    }
-    ref = result["trigram"]["losses"][0]["loss"]
-    ref_ms = statistics.median(result["trigram"]["step_ms_all"][1:])
-    gate = REFERENCE_RTOL[PATHS["trigram"]["dtype"]]
     out = {}
-    for name, (cls, must, patch) in forms.items():
-        saved = {k: getattr(dg, k) for k in patch}
-        for k, v in patch.items():
-            setattr(dg, k, v)
-        try:
-            den = auto_den_graph(graph, device="cuda")
-        finally:
-            for k, v in saved.items():
-                setattr(dg, k, v)
-        if not isinstance(den, cls):
-            raise AssertionError(f"auto_den_graph picked {type(den).__name__}, not {cls.__name__}")
-        losses, times, launches, step, _ = train_steps(cfg, corpus.feat_dim, feats, den, sup,
-                                                       args.steps, args.seed)
-        for k, n in launches.items():
-            if (k in must) != (n > 0):
-                raise AssertionError(f"den form {name}: kernel {k} counted {n}")
-        first = losses[0]["loss"]
-        rel = abs(first - ref) / abs(ref)
-        step_ms = statistics.median(times[1:])
-        _log(f"den form {name} ({cls.__name__}): first loss {first:.6g} vs the slot-dense"
-             f" form's {ref:.6g}: rel {rel:.3g} (gate {gate:g}); steps 2..{args.steps} median"
-             f" {step_ms:.2f} ms/step, {step_ms / ref_ms:.2f}x the trigram path's median"
-             f" {ref_ms:.2f} (all {[round(t, 2) for t in times]}); K2's carried state"
-             f" {k2_carried} bytes")
-        if not (math.isfinite(first) and rel <= gate and losses[-1]["loss"] < first):
-            raise AssertionError(f"den form {name}: the first loss departs from the slot-dense"
-                                 " form's, or the loss did not fall")
-        out[name] = dict(form=cls.__name__, first_loss=first, first_loss_rel_to_resident=rel,
-                         step_ms=step_ms, step_ms_all=times, trigram_step_ms=ref_ms,
-                         launches=launches)
-        if args.profile:
-            prof = profile_steps(step, feats, den, sup, 2,
-                                 args.out / f"profile_den_{name}.txt" if args.out else None)
-            _log(f"den form {name} profile (traced steps only): wall {prof['wall_ms']:.2f}"
-                 f" ms/step, device busy {prof['device_busy_ms']:.2f} ms/step (traced idle"
-                 f" share {prof['idle_share']:.3f}) in {prof['kernel_launches']} launches/step")
-            for line in prof["top"]:
-                _log("  " + line)
-            out[name]["profile"] = prof
+    real_fits = dg.den_form_fits
+    no_resident = dict(den_form_fits=lambda form, sizes, device: form != "resident"
+                       and real_fits(form, sizes, device))
+    for path in ("trigram", "production"):
+        corpus, cfg, dataset = build_path(path, args.seed)
+        batch = next(dataset.batches(B, shuffle=False))
+        feats = torch.as_tensor(batch.feats, device="cuda")
+        sup = DeviceSupervision.from_host(batch.sup, device="cuda").with_kernel_tables()
+        graph = corpus.den_graph
+        lm_tree = dict(phone_lm=corpus.phone_lm, tree=corpus.tree)
+        if path == "trigram":
+            S_pad, K = dr.slot_sizes(graph)
+            k2_carried = kernels.entry("den_resident", "den_shared_bytes")(
+                1, S_pad, K, graph.num_pdfs, 0, 0, 0)
+            _log(f"den forms [{path}]: K2's carried state {k2_carried} bytes")
+            forms = {
+                "dense": (DeviceDenseDenGraph, DENSE + NUM, lambda: auto_den_graph(
+                    graph, device="cuda"), no_resident),
+                "scan": (DeviceDenGraph, NUM, lambda: auto_den_graph(graph, device="cuda"),
+                         dict(den_shared_limit=lambda device: k2_carried - 1)),
+                "debruijn": (DeviceDeBruijnDenGraph, NUM, lambda: auto_den_graph(
+                    graph, device="cuda", **lm_tree), no_resident),
+                "table": (DeviceDenTableGraph, NUM, lambda: DeviceDenTableGraph.from_host(
+                    graph, device="cuda"), {}),
+                "scan_ckpt": (DeviceDenGraph, NUM, lambda: DeviceDenGraph.from_host(
+                    graph, device="cuda", checkpoint_every=10), {}),
+            }
+        else:
+            forms = {"debruijn": (DeviceDeBruijnDenGraph, NUM, lambda: auto_den_graph(
+                graph, device="cuda", **lm_tree), no_resident)}
+        ref = result[path]["losses"][0]["loss"]
+        ref_ms = statistics.median(result[path]["step_ms_all"][1:])
+        gate = REFERENCE_RTOL[PATHS[path]["dtype"]]
+        for name, (cls, must, make, patch) in forms.items():
+            t0 = time.perf_counter()
+            with _patched(dg, **patch):
+                den = make()
+            build_s = time.perf_counter() - t0
+            if not isinstance(den, cls):
+                raise AssertionError(f"den form {name} [{path}]: {type(den).__name__},"
+                                     f" not {cls.__name__}")
+            sizes = {}
+            if cls is DeviceDeBruijnDenGraph:
+                sizes = dict(contexts=den.num_contexts, spec0=den.spec0, spec1=den.spec1)
+            elif cls is DeviceDenTableGraph:
+                sizes = dict(k_in=den.max_in, k_out=den.max_out)
+            elif name == "scan_ckpt":
+                sizes = dict(checkpoint_every=den.checkpoint_every)
+            _log(f"den form {name} [{path}]: built in {build_s:.2f} s (host clock) {sizes}")
+            key = name if path == "trigram" else f"{name}_{path}"
+            out[key] = _den_form_run(name, cfg, corpus.feat_dim, feats, den, sup, must, ref,
+                                     gate, ref_ms, path, args, args.steps)
+            out[key].update(build_s=build_s, **sizes)
+            del den
+            torch.cuda.empty_cache()
     return out
 
 
@@ -2518,6 +2628,82 @@ def _tied_run(args, context: str, root: str, smi: str) -> tuple[dict, dict]:
     return res, keep
 
 
+#: steps of each den form on the triphone graph (`_kaldi_forms`)
+KALDI_FORM_STEPS = 5
+#: the largest [B, S, K] float32 temporary the table form may make a frame on
+#: the triphone graph; past it, it runs on the batch's first sequences only
+TABLE_TEMP_BYTES = 4 << 30
+
+
+def _kaldi_forms(args, keep, smi: str) -> dict:
+    """(e) of `check_kaldi`: the triphone run's den graph (62,917 states) and
+    first batch, without a second composition, on the explicit forms
+    against the scan that `auto_den_graph` takes: the scan with alpha
+    checkpointed every 10 frames, and the padded-table form, whose per-op
+    temporary is B * S * K * 4 bytes (K_in forward, K_out backward) against
+    the scan's A * B * 4.  Where that temporary passes TABLE_TEMP_BYTES (a
+    size known before any launch) the table form and a scan beside it run on
+    the largest power-of-two count of the batch's first sequences within it.
+    Each form KALDI_FORM_STEPS steps from the seeded weights (`_den_form_run`:
+    K3-K6 alone, the first loss within REFERENCE_RTOL["float32"] of the
+    scan's on the same sequences, median step, peak memory, the allocator's
+    counters; traced with --profile)."""
+    import numpy as np
+    import torch
+
+    from torchain_tpu_torch.ops import DeviceDenGraph, DeviceDenTableGraph, DeviceSupervision
+
+    corpus, cfg = keep["corpus"], keep["cfg"]
+    graph = corpus.den_graph
+    S, A = graph.num_states, graph.num_arcs
+    feats, _, sup = keep["placed"]
+    Bf = feats.shape[0]
+    k_in = int(np.diff(graph.in_offsets).max())
+    k_out = int(np.diff(graph.out_offsets).max())
+    temp = Bf * S * max(k_in, k_out) * 4
+    _log(f"kaldi (e): triphone den graph S={S} A={A}, K_in {k_in}, K_out {k_out} (mean"
+         f" in-degree {A / S:.2f}); the table form's temporary at B={Bf}: {temp} bytes against"
+         f" the scan's A*B*4 = {A * Bf * 4} ({smi})")
+    gate = REFERENCE_RTOL["float32"]
+    steps = min(args.steps, KALDI_FORM_STEPS)
+    out = dict(k_in=k_in, k_out=k_out, table_temp_bytes_full_batch=temp,
+               scan_temp_bytes=A * Bf * 4)
+
+    def run(name, den, feats, sup, ref, ref_ms, label):
+        return _den_form_run(name, cfg, corpus.feat_dim, feats, den, sup, NUM, ref, gate,
+                             ref_ms, label, args, steps)
+
+    scan = DeviceDenGraph.from_host(graph, device="cuda")
+    out["scan"] = run("scan", scan, feats, sup, None, None, "triphone")
+    ref, ref_ms = out["scan"]["first_loss"], out["scan"]["step_ms"]
+    ckpt = DeviceDenGraph.from_host(graph, device="cuda", checkpoint_every=10)
+    out["scan_ckpt"] = run("scan_ckpt", ckpt, feats, sup, ref, ref_ms, "triphone")
+    del ckpt
+    table_b = Bf
+    while table_b > 1 and table_b * S * max(k_in, k_out) * 4 > TABLE_TEMP_BYTES:
+        table_b //= 2
+    t_feats, t_sup, t_ref, t_ref_ms = feats, sup, ref, ref_ms
+    if table_b < Bf:
+        small = _take(keep["batch"], np.arange(table_b))
+        t_feats = torch.as_tensor(small.feats, device="cuda")
+        t_sup = DeviceSupervision.from_host(small.sup, device="cuda").with_kernel_tables()
+        _log(f"kaldi (e): the table form at B={Bf} would make {temp} bytes a temporary, past"
+             f" {TABLE_TEMP_BYTES}: it and the scan run on the first {table_b} sequences")
+        out["scan_table_batch"] = run("scan", scan, t_feats, t_sup, None, None,
+                                      f"triphone_b{table_b}")
+        t_ref = out["scan_table_batch"]["first_loss"]
+        t_ref_ms = out["scan_table_batch"]["step_ms"]
+    del scan
+    torch.cuda.empty_cache()
+    table = DeviceDenTableGraph.from_host(graph, device="cuda")
+    out["table"] = run("table", table, t_feats, t_sup, t_ref, t_ref_ms,
+                       f"triphone_b{table_b}" if table_b < Bf else "triphone")
+    out["table"]["batch"] = table_b
+    del table
+    torch.cuda.empty_cache()
+    return out
+
+
 def _take(batch, idx):
     """The sequences `idx` of a host ChainBatch, in that order."""
     import numpy as np
@@ -2897,7 +3083,11 @@ def check_kaldi(args, result: dict, tmp: str) -> dict:
           the decode phase's word HCLG relabelled to transition ids, written
           as HCLG.fst, read back against the graph built in process, and
           through `cli.decode --hclg/--mdl` beside `--mode word`; an nnet3
-          body round trip.
+          body round trip;
+      (e) the triphone run's den graph and first batch on the explicit den
+          forms against the scan (`_kaldi_forms`): the alpha-checkpointed
+          scan and the padded-table form, each with its step ms, peak
+          memory and allocator counters.
 
     Returns the phase's numbers; its two training runs' launch counts are
     under "launches_left" and "launches_triphone"."""
@@ -2914,6 +3104,7 @@ def check_kaldi(args, result: dict, tmp: str) -> dict:
     out["triphone_reference"] = _tied_reference(args, runs["triphone"], smi)
     out["lattice_reference"] = _lattice_reference(args, runs["left"]["corpus"], smi)
     out["decode"] = _decode_kaldi(args, runs["triphone"], out["dir"], tmp, root, smi)
+    out["forms"] = _kaldi_forms(args, runs["triphone"], smi)
     out["launches_left"] = out["left"]["launches"]
     out["launches_triphone"] = out["triphone"]["launches"]
     _log(f"kaldi: triphone step {out['triphone']['step_ms_median']:.2f} ms (scan) against the"

@@ -120,7 +120,7 @@ def test_train_forward_grads_and_stats_match(setup, monkeypatch):
     _check_train(setup, monkeypatch)
 
 
-def _check_train(setup, monkeypatch, out_atol=1e-5):
+def _check_train(setup, monkeypatch, out_atol=1e-5, stat_atol=1e-5):
     jm, params, stats, tm, feats, w, bf16 = setup
     if bf16:
         monkeypatch.setattr(torch, "sigmoid", _xla_cpu_sigmoid)
@@ -137,7 +137,6 @@ def _check_train(setup, monkeypatch, out_atol=1e-5):
     tc, tx = tm(torch.as_tensor(feats), train=True)
     (torch.sum(tc * torch.as_tensor(w)) + 0.5 * torch.sum(tx * torch.as_tensor(w))).backward()
 
-    stat_atol = 1e-5
     g_rtol, g_atol = (0.0, 5e-2) if bf16 else (1e-4, 5e-5)
     np.testing.assert_allclose(tc.detach().numpy(), np.asarray(jc), atol=out_atol)
     np.testing.assert_allclose(tx.detach().numpy(), np.asarray(jx), atol=out_atol)
@@ -172,6 +171,28 @@ def test_wide_heads_train_forward_grads_and_stats_match(monkeypatch):
     12 and 48 times the 32-wide model's (1.3e-5 seen)."""
     wide = dict(SMALL, dim=384, num_heads=4, num_layers=1)
     _check_train((*_setup(False, config=wide), False), monkeypatch, out_atol=5e-5)
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["float32", "bfloat16"])
+def test_fused_ffn_conformer_past_the_kernels_width_matches(monkeypatch, bf16):
+    """A conformer of dim 512 with the fused feed-forward (F 2048, past one
+    K10 block's 384 output columns: the kernels cut such rows into column
+    groups), one block: the train-mode forward, every gradient and the
+    statistics against the JAX package.  float32: the
+    tolerances of the 384-wide model above (outputs atol 5e-5).  bfloat16:
+    outputs atol 5e-2, as the bfloat16 case with `torch.sigmoid` above: at
+    this width XLA's CPU products of bfloat16 operands put 0.3% of the
+    feed-forward's outputs one bfloat16 step from the port's (sums of 2048
+    products in another order), and the block carries that to 1e-2 (the
+    dense lowering at this width differs as much); gradients as the
+    bfloat16 cases above; the batchnorm statistics atol 1e-4 (a running
+    mean moves by a hundredth of the batch mean over those outputs: 2.8e-5
+    seen)."""
+    wide = dict(SMALL, dim=512, num_heads=4, num_layers=1)
+    jm, params, stats, tm, feats, w = _setup(bf16, config=wide, ffn_impl="fused")
+    assert tm.block0.ffn1_in.kernel.shape == (512, 2048)
+    _check_train((jm, params, stats, tm, feats, w, bf16), monkeypatch,
+                 out_atol=5e-2 if bf16 else 5e-5, stat_atol=1e-4 if bf16 else 1e-5)
 
 
 def test_bf16_trunk_really_computes_in_bfloat16():

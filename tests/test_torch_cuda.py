@@ -127,6 +127,22 @@ def test_den_kernels_match_plain(den_graphs, graph, B, T, leaky):
     assert torch.equal(dr.den_backward_kernel(*args), g_k)
 
 
+def test_host_copy_of_the_carried_state_equals_the_library(dev):
+    """ops/den_resident.py `carried_bytes` (what the CPU holds the resident
+    form to) against csrc/den_resident.cu `den_shared_bytes` over a sweep of
+    (S_pad, K, P), and the H100's limit against the card's where it is one."""
+    from torchain_tpu_torch import kernels
+
+    need = kernels.entry("den_resident", "den_shared_bytes")
+    for S in (8, 128, 2176, 3968, 11520, 11648, 32640):
+        for K in (1, 2, 3):
+            for P in (1, 80, 83, 1680, 60000):
+                for bwd in (0, 1):
+                    assert dr.carried_bytes(bwd, S, K, P) == need(bwd, S, K, P, 0, 0, 0)
+    if "H100" in torch.cuda.get_device_name(0):
+        assert kernels.entry("den_resident", "den_shared_limit")() == dr.H100_SHARED_LIMIT
+
+
 def test_den_kernels_refuse_a_carried_state_beyond_shared_memory(dev):
     """A graph whose carried state (here p rows of 60,000 pdfs: 240,000
     bytes each) exceeds a block's shared memory raises before any launch;
@@ -651,9 +667,10 @@ def _ffn_case(dev, N, D, F, dtype, seed=0, init=False):
 @pytest.mark.parametrize(
     "N,D,F,init",
     [(48, 128, 256, False), (1040, 128, 256, False), (37, 96, 192, False), (5, 24, 56, False),
-     (70, 300, 130, False), (6400, 256, 1024, True), (1000, 256, 200, True)],
+     (70, 300, 130, False), (6400, 256, 1024, True), (1000, 256, 200, True),
+     (200, 384, 256, True), (640, 512, 2048, True), (70, 1001, 130, True)],
     ids=["aligned", "many_rows", "non_aligned", "tiny", "wide_rows", "conformer",
-         "ragged_rows_and_chunk"],
+         "ragged_rows_and_chunk", "d384", "d512", "ragged_column_groups"],
 )
 def test_ffn_kernels_match_plain(dev, N, D, F, init, dtype):
     # the conformer's shape (and rows and F that are no multiple of the
@@ -661,7 +678,9 @@ def test_ffn_kernels_match_plain(dev, N, D, F, init, dtype):
     # scale: at 0.3, float32 weight gradients over 1000 and more rows reach
     # ~100, and the float32 rounding of such sums in any order (the plain
     # version's cuBLAS sums and an FMA loop's alike) sits at the 1e-4
-    # tolerance
+    # tolerance.  D 384 in float32 streams xn (its tile does not fit);
+    # D 512 and 1001 cut the rows into column groups (1001: three, and rows
+    # that are not 16-byte aligned)
     xn, res, w1, b1, w2, b2, g = _ffn_case(dev, N, D, F, dtype, init=init)
     n_f, n_b = ff.ffn_forward.launches, ff.ffn_backward.launches
     out = ff.ffn_forward(xn, res, w1, b1, w2, b2, 0.5)
@@ -701,7 +720,20 @@ def test_ffn_apply_on_card_matches_cpu(dev):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
 
 
-def test_ffn_kernels_raise_on_wrong_input(dev):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ffn_apply_at_dim_512_launches_the_kernels(dev, dtype):
+    """At D 512 (two column groups a row tile) `ffn_apply` launches K10f
+    and K10b once each: its output is the kernel's, bit for bit."""
+    xn, res, w1, b1, w2, b2, g = _ffn_case(dev, 64, 512, 2048, dtype, seed=2, init=True)
+    n = (ff.ffn_forward.launches, ff.ffn_backward.launches)
+    leaves = [t.clone().requires_grad_() for t in (xn, res, w1, b1, w2, b2)]
+    o = ff.ffn_apply(*leaves, 0.5)
+    torch.autograd.grad(o, leaves, g)
+    assert (ff.ffn_forward.launches, ff.ffn_backward.launches) == (n[0] + 1, n[1] + 1)
+    assert torch.equal(o.detach(), ff.ffn_forward(xn, res, w1, b1, w2, b2, 0.5))
+
+
+def test_ffn_kernels_raise_on_wrong_input(dev, monkeypatch):
     xn, res, w1, b1, w2, b2, g = _ffn_case(dev, 12, 16, 32, torch.float32)
     with pytest.raises(TypeError):
         ff.ffn_forward(xn.double(), res.double(), w1, b1, w2, b2, 0.5)
@@ -713,11 +745,18 @@ def test_ffn_kernels_raise_on_wrong_input(dev):
         ff.ffn_forward(xn, res, w1, b1, w2.t().contiguous(), b2, 0.5)
     with pytest.raises(ValueError):
         ff.ffn_backward(xn, g[:-1], w1, b1, w2, 0.5)
-    with pytest.raises(ValueError, match="shared memory"):  # a row tile too wide for one block
-        D = ff.MAX_D + 1
-        ff.ffn_forward(torch.zeros(4, D, device=dev), torch.zeros(4, D, device=dev),
-                       torch.zeros(D, 8, device=dev), torch.zeros(8, device=dev),
-                       torch.zeros(8, D, device=dev), torch.zeros(D, device=dev), 0.5)
+    # a card that gives a block less shared memory than a width needs: the
+    # wrappers raise before any launch (every width fits the H100's)
+    from torchain_tpu_torch import kernels
+
+    monkeypatch.setattr(kernels.library("fused_ffn"), "ffn_shared_limit", lambda: 1024)
+    n = (ff.ffn_forward.launches, ff.ffn_backward.launches)
+    xn, res, w1, b1, w2, b2, g = _ffn_case(dev, 4, 48, 8, torch.float32)
+    with pytest.raises(ValueError, match="shared memory"):
+        ff.ffn_forward(xn, res, w1, b1, w2, b2, 0.5)
+    with pytest.raises(ValueError, match="shared memory"):
+        ff.ffn_backward(xn, g, w1, b1, w2, 0.5)
+    assert (ff.ffn_forward.launches, ff.ffn_backward.launches) == n
 
 
 @pytest.mark.parametrize("ffn_impl", ["dense", "fused"])

@@ -79,6 +79,18 @@ def test_the_stub_counts_are_the_documented_ones():
     assert _dense_bytes(1, 2176, 4224, 0, 0, 0) == 51_584
 
 
+@pytest.mark.parametrize("backward", [0, 1])
+def test_the_host_copy_of_the_carried_state_is_the_mirror(backward):
+    """ops/den_resident.py `carried_bytes`, which `auto_den_graph` holds the
+    CPU's resident form to, gives the mirror's count over a sweep of sizes
+    (the card test holds it to the library's own)."""
+    for S in (8, 136, 2176, 3968, 11520, 32640):
+        for K in (1, 2, 3):
+            for P in (1, 80, 83, 1680):
+                assert tdr.carried_bytes(backward, S, K, P) == \
+                    _resident_bytes(backward, S, K, P, 0, 0, 0)
+
+
 def _stub(monkeypatch, limit):
     """The card's limit set to `limit` bytes and a library that counts as
     the kernels do; returns the list of (library, entry, args) asked."""

@@ -83,3 +83,49 @@ def test_the_index_limit_is_the_cards():
     assert not tdg.den_form_indexed("resident", (limit // 2, 2, 80))
     assert tdg.den_form_indexed("dense", (2176, limit - 128))
     assert not tdg.den_form_indexed("dense", (128, limit))
+
+
+# ---------------------------------------------------------------------------
+# the card's shared-memory limit on the CPU: a graph past K1/K2's carried
+# state takes the form the card takes, and builds no slot-dense V
+# ---------------------------------------------------------------------------
+
+
+def test_a_graph_of_12k_padded_states_builds_no_slot_dense_v_on_the_cpu(no_dense_v):
+    """A ring of 12,288 states entered by two pdfs each: its 24,576 slots
+    take 16-bit indices, but K2 would carry 246,032 bytes a sequence, past
+    the H100's 232,448, so the card refuses the resident form; on the CPU
+    `auto_den_graph` takes the scan too (the Moore V of 1.2 GB is past its
+    budget), with host memory under 64 MiB (the slot-dense V would take
+    1.2 GB)."""
+    g = _graph(DenGraph, 12288, 2)
+    sizes = (*tdr.slot_sizes(g, 128), g.num_pdfs)
+    assert sizes[:2] == (12288, 2) and tdg.den_form_indexed("resident", sizes)
+    assert tdr.carried_bytes(1, *sizes) == 246_032 > tdr.H100_SHARED_LIMIT
+    tracemalloc.start()
+    try:
+        den = tdg.auto_den_graph(g, device="cpu")
+        peak = tracemalloc.get_traced_memory()[1]
+    finally:
+        tracemalloc.stop()
+    assert type(den) is tdg.DeviceDenGraph
+    assert peak < 64 << 20, peak
+    jden = jdg.auto_den_graph(_graph(JDenGraph, 12288, 2))
+    assert type(jden) is jdg.DeviceDenGraph
+
+
+@pytest.mark.parametrize("S,resident", [(11520, True), (11648, False)])
+def test_the_cpu_holds_the_resident_form_to_the_cards_limit(monkeypatch, S, resident):
+    """At K 2 and P 2, K2's carried state reaches the H100's limit between
+    11,520 padded states (230,672 bytes: resident) and 11,648 (233,232:
+    not); `den_form_fits` keeps its CPU answer, True, either way."""
+    built = []
+    monkeypatch.setattr(tdr.DeviceResidentDenGraph, "_from_layout",
+                        staticmethod(lambda *a, **k: built.append(a) or "resident"))
+    monkeypatch.setattr(tdg, "make_dense_den_graph", lambda *a, **k: pytest.fail("Moore V"))
+    g = _graph(DenGraph, S, 2)
+    sizes = (*tdr.slot_sizes(g, 128), g.num_pdfs)
+    assert tdg.den_form_fits("resident", sizes, "cpu")
+    assert (tdr.carried_bytes(1, *sizes) <= tdr.H100_SHARED_LIMIT) == resident
+    den = tdg.auto_den_graph(g, device="cpu")
+    assert (den == "resident") == resident and len(built) == int(resident)

@@ -167,3 +167,34 @@ def test_three_tf32_products_stay_within_the_card_tolerance():
     single = lambda a, b: _tf32(a) @ _tf32(b)  # noqa: E731
     got = run(single, torch.float32)[1]
     assert not torch.allclose(got, want[1], atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+def test_ffn_apply_at_dim_512_takes_the_kernels_and_matches_jax(monkeypatch, dtype):
+    """At D 512 (a conformer of dim 512: rows the kernels cut into two
+    column groups) `ffn_apply` goes through the kernels' autograd.Function
+    (on the CPU, their plain versions), and its output and six gradients
+    match the JAX package's Pallas pair in interpret mode, within the
+    tolerances of the float32 and bfloat16 cases above."""
+    n, d, f = 24, 512, 256
+    args, g = _setup(n, d, f, seed=3)
+    j_out, j_grads = _jax_fused(args, g, jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32)
+    ts = [torch.tensor(a).requires_grad_() for a in args]
+    ts[0] = torch.tensor(args[0]).to(dtype).requires_grad_()
+    ts[1] = torch.tensor(args[1]).to(dtype).requires_grad_()
+    calls = []
+    real = tf._FfnApply.apply
+    monkeypatch.setattr(tf._FfnApply, "apply", lambda *a: calls.append(tuple(a[0].shape)) or real(*a))
+    out = tf.ffn_apply(*ts, 0.5)
+    torch.sum(out.float() * torch.tensor(g)).backward()
+    assert calls == [(n, d)] and out.dtype == dtype
+    if dtype == torch.float32:
+        np.testing.assert_allclose(out.detach().numpy(), j_out, rtol=2e-5, atol=2e-5)
+        for t, want, name in zip(ts, j_grads, NAMES):
+            np.testing.assert_allclose(t.grad.numpy(), want, rtol=2e-4, atol=2e-4,
+                                       err_msg=f"grad {name}")
+    else:
+        np.testing.assert_allclose(out.detach().float().numpy(), j_out, rtol=2e-2, atol=2e-2)
+        for t, want, name in zip(ts, j_grads, NAMES):
+            np.testing.assert_allclose(t.grad.float().numpy(), want,
+                                       atol=2e-2 * np.abs(want).max(), err_msg=f"grad {name}")

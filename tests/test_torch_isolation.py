@@ -230,7 +230,7 @@ def test_auto_den_graph_keeps_the_requested_device():
 #: the Kaldi interchange modules: port module -> (JAX module, names the
 #: port leaves out).  select_device is a JAX-runtime helper; kaldi_compat
 #: leaves out the two functions that compute features (they wait for the
-#: port of data/features.py), the graphs package the de Bruijn den form.
+#: port of data/features.py).
 KALDI_MODULES = {
     "torchain_tpu_torch.utils.kaldi_io": ("torchain_tpu.utils.kaldi_io", set()),
     "torchain_tpu_torch.fstkit.algorithms": ("torchain_tpu.fstkit.algorithms", set()),
@@ -246,8 +246,7 @@ KALDI_MODULES = {
         "torchain_tpu.graphs.lattice_supervision", set()),
     "torchain_tpu_torch.graphs.nnet3": ("torchain_tpu.graphs.nnet3", set()),
     "torchain_tpu_torch.graphs.den_graph": ("torchain_tpu.graphs.den_graph", set()),
-    "torchain_tpu_torch.graphs": ("torchain_tpu.graphs", {
-        "DeBruijnDenGraph", "make_debruijn_den_graph", "materialize_lift_fst"}),
+    "torchain_tpu_torch.graphs": ("torchain_tpu.graphs", set()),
     "torchain_tpu_torch.data.kaldi_compat": ("torchain_tpu.data.kaldi_compat", {
         "compute_feats_from_wav_scp", "load_wav_dir"}),
 }

@@ -70,7 +70,8 @@ def main(argv=None) -> int:
 
         trainer = Trainer(
             model,
-            auto_den_graph(corpus.den_graph, device=device),
+            auto_den_graph(corpus.den_graph, device=device, phone_lm=corpus.phone_lm,
+                           tree=corpus.tree),
             TrainerConfig(checkpoint_dir=args.checkpoint_dir, device=str(device)),
         )
         if not trainer.restore_checkpoint():

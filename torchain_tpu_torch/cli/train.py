@@ -599,7 +599,10 @@ def main(argv=None) -> dict:
         dataset = chain_dataset()
         n_records = len(dataset.chunks)
     t_stage = time.perf_counter()
-    den = auto_den_graph(corpus.den_graph, device=device)
+    # the phone LM and tree offer the de Bruijn lift on the card (a triphone
+    # tree's right context rules it out)
+    den = auto_den_graph(corpus.den_graph, device=device, phone_lm=corpus.phone_lm,
+                         tree=corpus.tree)
     stages["den_s"] = time.perf_counter() - t_stage
     print(f"[stage 1] den path: {type(den).__name__}")
     decay = _decay_steps(args, max(1, n_records // args.batch_size))

@@ -52,16 +52,25 @@
 // thread, 16 bytes a copy with src-size zero-filling the edges, or element
 // by element where a row's start is not 16-byte aligned.
 //
-// Forward: a block owns 64 rows and two warpgroups.  It keeps the xn tile
-// in shared memory and walks F in chunks of 128: warpgroup w computes
-// u[:, 64w : 64w + 64] of the chunk, adds b1, applies swish, rounds and
-// writes its half of the h tile into shared memory; then each adds h W2[c, :]
-// into its half of the [64, D] float32 output accumulator, which stays in
-// registers for the whole F loop (D <= 384: at most 96 floats a thread).
-// The [N, F] hidden tensor never leaves the SM.  Filling the card: N = 6400
-// gives 100 row tiles, one block per SM for 132 SMs (shared memory
-// 178 KB); 32 SMs stay idle.  Splitting F across blocks would fill them but
-// needs a second pass to add the partial outputs.
+// Forward: a block owns 64 rows, a group of at most 384 output columns and
+// two warpgroups.  It keeps the xn tile in shared memory and walks F in
+// chunks of 128: warpgroup w computes u[:, 64w : 64w + 64] of the chunk,
+// adds b1, applies swish, rounds and writes its half of the h tile into
+// shared memory; then each adds h W2[c, cols] into its half of the block's
+// [64, <= 384] float32 output accumulator, which stays in registers for the
+// whole F loop (at most 96 floats a thread).  The [N, F] hidden tensor never
+// leaves the SM.  Filling the card: N = 6400 gives 100 row tiles, one block
+// per SM for 132 SMs (shared memory 178 KB); 32 SMs stay idle.  Splitting F
+// across blocks would fill them but needs a second pass to add the partial
+// outputs.
+//
+// Rows wider than 384 (D 512, as in a conformer of dim 512) are cut into
+// column groups of at most 384 (D 512: two of 256), one grid row of blocks
+// each; every group recomputes the chunk's hidden values (u over all of D),
+// so the first product is done once per group.  Where the groups are more
+// than one, or the [64, D] xn tile and the ring would not fit one block's
+// shared memory (float32 D > 352), xn comes in [64, KS] slices beside W1's,
+// as in the backward's first pass, and no xn tile is kept.
 //
 // Backward, two launches and no atomics (two calls give the same bits).
 // Pass 1, one block per 64 rows, as the forward: per chunk of F, u = xn W1
@@ -69,14 +78,15 @@
 // weights, so no [64, D] tile is kept), then h, dh, dhb in registers; h and
 // dhb go to the [N, F] scratch in the trunk dtype and dhb to shared memory,
 // the block's column sums of dh (db1) and, in the first chunk, of g (db2) to
-// per-block partials; dx += dhb W1^T[c, :] in registers.  Pass 2: one block
+// per-block partials; dx += dhb W1^T[c, cols] in registers, the columns cut
+// into groups as the forward's (only the first group writes the scratch and
+// the partials; the others recompute u and t for their dx).  Pass 2: one block
 // per 64 x 64 tile of dW1 = xn^T dhb or dW2 = alpha h^T g (128 blocks at
 // the conformer shape); its two warpgroups take the first and the second
 // half of the N rows, and warpgroup 0 adds warpgroup 1's sum to its own.
 // The blocks after the tiles add the per-block bias partials in block order.
 //
-// Limits: D <= 384 (bfloat16) and D <= 352 (float32, shared memory); any N
-// and F.  ptxas serializes a warpgroup's wgmmas where its threads take
+// Any N, D and F.  ptxas serializes a warpgroup's wgmmas where its threads take
 // different paths while products are in flight, so every thread of a block
 // waits at the ring's barriers and TMA copies are predicated, not branched.
 
@@ -96,7 +106,7 @@ constexpr int WG = 128;          // threads of a warpgroup
 constexpr int THREADS = 2 * WG;  // two warpgroups per block
 constexpr int FC = 128;          // hidden columns per chunk, 64 per warpgroup
 constexpr int NSTW = 4;          // ring stages of the weight-gradient kernel
-constexpr int MAX_NA = 3;        // 64-column output blocks per warpgroup: D <= 384
+constexpr int MAX_NA = 3;        // 64-column output blocks per warpgroup: 384 a block
 constexpr int TW = 64;           // weight-gradient tile, square
 
 typedef __nv_bfloat16 bf16;
@@ -530,17 +540,22 @@ __host__ __device__ constexpr int row_stages(int NA, int esz) {
 constexpr int LIST = 128;
 __host__ __device__ inline long long fix_bytes(int esz) { return esz == 2 ? 8 * LIST * 8 : 0; }
 
+// `stream`: xn comes in [64, KS] slices at the start of the stages of W1's
+// slices (w1s: where W1's slice starts in a stage), and no xn tile is kept
 struct FwdPlan {
   Tile xs, hs;
-  long long stage0, stage, total;
+  long long stage0, stage, w1s, total;
 };
-__host__ __device__ inline FwdPlan fwd_plan(int esz, int KS, int D, int NA) {
+__host__ __device__ inline FwdPlan fwd_plan(int esz, int KS, int D, int NA, bool stream) {
   FwdPlan p;
   long long cur = BARS;
-  p.xs = make_tile(cur, esz, ROWS, (int)round_up(D, KS), true);
+  p.xs = stream ? Tile{0, ROWS, KS, 0} : make_tile(cur, esz, ROWS, (int)round_up(D, KS), true);
   p.hs = make_tile(cur, esz, ROWS, FC, true);
   p.stage0 = cur;
-  p.stage = tile_bytes(esz, KS, 128 * NA, false);  // the wider slice: W2 [KS, DP]
+  p.w1s = stream ? tile_bytes(esz, ROWS, KS, true) : 0;
+  const long long u_slice = p.w1s + tile_bytes(esz, KS, FC, false);
+  const long long out_slice = tile_bytes(esz, KS, 128 * NA, false);  // W2 [KS, DP]
+  p.stage = u_slice > out_slice ? u_slice : out_slice;
   p.total = cur + row_stages(NA, esz) * p.stage + 1024;  // + alignment slack
   return p;
 }
@@ -661,38 +676,46 @@ ffn_fwd_kernel(const __grid_constant__ Maps maps, const T* __restrict__ xn,
                const T* __restrict__ res, const T* __restrict__ w1,
                const float* __restrict__ b1, const T* __restrict__ w2,
                const float* __restrict__ b2, T* __restrict__ out, int N, int D, int F,
-               float alpha, int tma) {
+               float alpha, int tma, int stream) {
   constexpr int KS = Kind<T>::KS, ESZ = sizeof(T), S = row_stages(NA, ESZ);
   extern __shared__ unsigned char smem_raw[];
   uint32_t base;
   char* sb = aligned_base(smem_raw, base);
-  const FwdPlan p = fwd_plan(ESZ, KS, D, NA);
+  const FwdPlan p = fwd_plan(ESZ, KS, D, NA, stream);
   const uint32_t full = base, empty = base + 8 * S;
   const int wg = threadIdx.x / WG;
   const int row0 = blockIdx.x * ROWS;
-  const int DK = (int)round_up(D, KS), DP = 128 * NA;
+  const int DK = (int)round_up(D, KS), DP = 128 * NA, dc0 = blockIdx.y * DP;
   const int nk1 = DK / KS, per = nk1 + FC / KS, total = ((F + FC - 1) / FC) * per;
   const bool vD = aligned16(xn, D, ESZ) && aligned16(w2, D, ESZ);
   const bool vF = aligned16(w1, F, ESZ);
   auto stage_at = [&](int s) { return (uint32_t)(p.stage0 + (s % S) * p.stage); };
-  // a slice of W1 [KS, FC] (u) or of W2 [KS, DP] (the output), MN-major
-  auto w1s = [&](int s) { return Tile{stage_at(s), KS, FC, tstride(ESZ, FC, false)}; };
+  // a slice of xn [64, KS] (streamed) and of W1 [KS, FC] (u), or of W2
+  // [KS, DP] at the group's columns (the output); W1's and W2's MN-major
+  auto xsl = [&](int s) { return Tile{stage_at(s), ROWS, KS, tstride(ESZ, KS, true)}; };
+  auto w1s = [&](int s) {
+    return Tile{stage_at(s) + (uint32_t)p.w1s, KS, FC, tstride(ESZ, FC, false)};
+  };
   auto w2s = [&](int s) { return Tile{stage_at(s), KS, DP, tstride(ESZ, DP, false)}; };
   auto issue = [&](int s) {
     const int c = s / per, k = s - c * per;
     const uint32_t bar = full + 8 * (s % S);
+    const bool whole_x = s == 0 && !stream, x_slice = k < nk1 && stream;
     if (tma) {  // maps: xn, W1, W2
       uint32_t bytes = 0;
-      if (s == 0) bytes += p.xs.rows * p.xs.cols * 2;
+      if (whole_x) bytes += p.xs.rows * p.xs.cols * 2;
+      if (x_slice) bytes += ROWS * KS * 2;
       bytes += k < nk1 ? KS * FC * 2 : KS * DP * 2;
       mbar_expect(bar, bytes);
-      if (s == 0) tma_tile(maps.m[0], base, p.xs, row0, 0, bar);
+      if (whole_x) tma_tile(maps.m[0], base, p.xs, row0, 0, bar);
+      if (x_slice) tma_tile(maps.m[0], base, xsl(s), row0, k * KS, bar);
       if (k < nk1) tma_tile(maps.m[1], base, w1s(s), k * KS, c * FC, bar);
-      else tma_tile(maps.m[2], base, w2s(s), c * FC + (k - nk1) * KS, 0, bar);
+      else tma_tile(maps.m[2], base, w2s(s), c * FC + (k - nk1) * KS, dc0, bar);
     } else {
-      if (s == 0) load_tile<T>(base, sb, p.xs, xn, D, N, D, row0, 0, vD);
+      if (whole_x) load_tile<T>(base, sb, p.xs, xn, D, N, D, row0, 0, vD);
+      if (x_slice) load_tile<T>(base, sb, xsl(s), xn, D, N, D, row0, k * KS, vD);
       if (k < nk1) load_tile<T>(base, sb, w1s(s), w1, F, D, F, k * KS, c * FC, vF);
-      else load_tile<T>(base, sb, w2s(s), w2, D, F, D, c * FC + (k - nk1) * KS, 0, vD);
+      else load_tile<T>(base, sb, w2s(s), w2, D, F, D, c * FC + (k - nk1) * KS, dc0, vD);
       mbar_produced(bar, vD && vF);
     }
   };
@@ -707,7 +730,8 @@ ffn_fwd_kernel(const __grid_constant__ Maps maps, const T* __restrict__ xn,
     fence_proxy_async();
     const int c = s / per, k = s - c * per;
     if (k < nk1) {
-      product<T, 1, true, false>(u, sb, base, p.xs, k * KS, w1s(s), 64 * wg, k == 0);
+      product<T, 1, true, false>(u, sb, base, stream ? xsl(s) : p.xs, stream ? 0 : k * KS,
+                                 w1s(s), 64 * wg, k == 0);
       if (k == nk1 - 1) {  // swish, rounded, into this warpgroup's half of h
         retire<T, 0>(u);
         __syncthreads();  // both warpgroups are done with the chunk before's h
@@ -740,7 +764,7 @@ ffn_fwd_kernel(const __grid_constant__ Maps maps, const T* __restrict__ xn,
   for (int a = 0; a < NA; ++a)
 #pragma unroll
     for (int i = 0; i < 32; i += 2) {
-      const int row = row0 + frag_row(i), col = 64 * NA * wg + 64 * a + frag_col(i);
+      const int row = row0 + frag_row(i), col = dc0 + 64 * NA * wg + 64 * a + frag_col(i);
       if (row < N && col < D) {
         const T* r = res + (long long)row * D;
         const float r1 = col + 1 < D ? to_f32(r[col + 1]) : 0.0f;
@@ -772,7 +796,9 @@ ffn_bwd_rows_kernel(const __grid_constant__ Maps maps, const T* __restrict__ xn,
   float* red = reinterpret_cast<float*>(sb + p.red);
   const int tid = threadIdx.x, wg = tid / WG, lane = tid & 31, wq = (tid % WG) >> 5;
   const int row0 = blockIdx.x * ROWS;
-  const int DK = (int)round_up(D, KS), DP = 128 * NA;
+  const int DK = (int)round_up(D, KS), DP = 128 * NA, dc0 = blockIdx.y * DP;
+  // the first column group writes h, dhb and the bias partials
+  const bool lead = blockIdx.y == 0;
   const int nk1 = DK / KS, per = nk1 + FC / KS, total = ((F + FC - 1) / FC) * per;
   const bool vD = aligned16(xn, D, ESZ) && aligned16(g, D, ESZ) && aligned16(w2, D, ESZ);
   const bool vF = aligned16(w1, F, ESZ);
@@ -794,7 +820,7 @@ ffn_bwd_rows_kernel(const __grid_constant__ Maps maps, const T* __restrict__ xn,
         tma_tile(maps.m[2], base, w1s(s), k * KS, c * FC, bar);
         tma_tile(maps.m[3], base, w2t(s), c * FC, k * KS, bar);
       } else {
-        tma_tile(maps.m[2], base, w1k(s), 0, c * FC + (k - nk1) * KS, bar);
+        tma_tile(maps.m[2], base, w1k(s), dc0, c * FC + (k - nk1) * KS, bar);
       }
     } else {
       if (k < nk1) {
@@ -802,8 +828,8 @@ ffn_bwd_rows_kernel(const __grid_constant__ Maps maps, const T* __restrict__ xn,
         load_tile<T>(base, sb, gsl(s), g, D, N, D, row0, k * KS, vD);
         load_tile<T>(base, sb, w1s(s), w1, F, D, F, k * KS, c * FC, vF);
         load_tile<T>(base, sb, w2t(s), w2, D, F, D, c * FC, k * KS, vD);
-      } else {  // W1[0 : DP, c FC + (k - nk1) KS : +KS], read as W1^T K-major
-        load_tile<T>(base, sb, w1k(s), w1, F, D, F, 0, c * FC + (k - nk1) * KS, vF);
+      } else {  // W1[dc0 : dc0 + DP, c FC + (k - nk1) KS : +KS], read as W1^T K-major
+        load_tile<T>(base, sb, w1k(s), w1, F, D, F, dc0, c * FC + (k - nk1) * KS, vF);
       }
       mbar_produced(bar, vD && vF);
     }
@@ -867,7 +893,7 @@ ffn_bwd_rows_kernel(const __grid_constant__ Maps maps, const T* __restrict__ xn,
     if (k < nk1) {
       product<T, 1, true, false>(u, sb, base, xsl(s), 0, w1s(s), 64 * wg, k == 0);  // u += xn W1
       product<T, 1, true, true>(t, sb, base, gsl(s), 0, w2t(s), 64 * wg, k == 0);   // t += g W2^T
-      if (c == 0 && tid < KS && k * KS + tid < D) {  // this block's share of db2
+      if (lead && c == 0 && tid < KS && k * KS + tid < D) {  // this block's share of db2
         const Tile gt = gsl(s);
         float sum = 0.0f;
         for (int r = 0; r < ROWS; ++r)
@@ -896,12 +922,12 @@ ffn_bwd_rows_kernel(const __grid_constant__ Maps maps, const T* __restrict__ xn,
             h[e] = uu * sig;
             // rows past N have g = 0, so their dh is 0
             dh[e] = dswish(t[0][i + e], alpha, uu, sig);
-            if (sizeof(T) == 2 && row0 + r < N && c * FC + col + e < F &&
+            if (sizeof(T) == 2 && lead && row0 + r < N && c * FC + col + e < F &&
                 (near_midpoint(h[e]) || near_midpoint(dh[e])))
               mask |= 1u << (i + e);
           }
           store_pair(reinterpret_cast<T*>(sb + at<T>(p.dhs, r, col)), dh[0], dh[1]);
-          if (row0 + r < N) {
+          if (lead && row0 + r < N) {
             const long long o = (long long)(row0 + r) * F;
             store_row_pair(hbuf + o, c * FC + col, F, h[0], h[1]);
             store_row_pair(dhbuf + o, c * FC + col, F, dh[0], dh[1]);
@@ -931,11 +957,11 @@ ffn_bwd_rows_kernel(const __grid_constant__ Maps maps, const T* __restrict__ xn,
             red[wq * FC + 64 * wg + 8 * (j >> 1) + 2 * lane + (j & 1)] = colsum[j];
         }
         __syncthreads();
-        if (tid < FC && c * FC + tid < F)
+        if (lead && tid < FC && c * FC + tid < F)
           db1_part[(long long)blockIdx.x * F + c * FC + tid] =
               ((red[tid] + red[FC + tid]) + red[2 * FC + tid]) + red[3 * FC + tid];
       }
-    } else {  // dx += dhb W1^T[c, :]
+    } else {  // dx += dhb W1^T[c, group's columns]
       product<T, NA, true, true>(acc, sb, base, p.dhs, (k - nk1) * KS, w1k(s), 64 * NA * wg);
     }
     retire<T, 1>(acc);
@@ -947,7 +973,7 @@ ffn_bwd_rows_kernel(const __grid_constant__ Maps maps, const T* __restrict__ xn,
   for (int a = 0; a < NA; ++a)
 #pragma unroll
     for (int i = 0; i < 32; i += 2) {
-      const int row = row0 + frag_row(i), col = 64 * NA * wg + 64 * a + frag_col(i);
+      const int row = row0 + frag_row(i), col = dc0 + 64 * NA * wg + 64 * a + frag_col(i);
       if (row < N) store_row_pair(dx + (long long)row * D, col, D, acc[a][i], acc[a][i + 1]);
     }
   if (sizeof(T) == 2 && __any_sync(0xffffffffu, pending)) flush(std::integral_constant<int, 32>());
@@ -1061,13 +1087,29 @@ ffn_bwd_weights_kernel(const __grid_constant__ Maps maps, const T* __restrict__ 
 
 constexpr long long TOO_BIG = 0x7fffffffLL;
 
-int na_of(int D) { return (D + 127) / 128; }
+int shared_limit();
+
+// The output's columns in groups of at most 384 (64 NA per warpgroup), one
+// grid row of blocks each: as few groups as the width needs, as even as the
+// 128-column steps allow (D 512: two of 256)
+int col_groups(int D) { return ((D + 127) / 128 + MAX_NA - 1) / MAX_NA; }
+int na_of(int D) {
+  const int steps = (D + 127) / 128, groups = col_groups(D);
+  return (steps + groups - 1) / groups;
+}
+
+// whether the forward streams xn (see fwd_plan): past one column group, or
+// where the [64, D] tile and the ring do not fit the device's shared memory
+bool fwd_streams(int D, int esz) {
+  const int KS = esz == 2 ? Kind<bf16>::KS : Kind<float>::KS;
+  return col_groups(D) > 1 || fwd_plan(esz, KS, D, na_of(D), false).total > shared_limit();
+}
 
 long long shared_bytes(int D, int esz, int backward) {
   const int na = na_of(D);
-  if (na > MAX_NA) return TOO_BIG;
   const int KS = esz == 2 ? Kind<bf16>::KS : Kind<float>::KS;
-  return backward ? rows_plan(esz, KS, na).total : fwd_plan(esz, KS, D, na).total;
+  return backward ? rows_plan(esz, KS, na).total
+                  : fwd_plan(esz, KS, D, na, fwd_streams(D, esz)).total;
 }
 
 // the device's opt-in limit, asked once per device
@@ -1150,14 +1192,16 @@ int forward_na(const void* xn, const void* res, const void* w1, const float* b1,
                const float* b2, void* out, int N, int D, int F, float alpha,
                cudaStream_t stream) {
   static long long granted = 0;
-  const long long bytes = shared_bytes(D, sizeof(T), 0);
+  const bool streams = fwd_streams(D, sizeof(T));
+  const long long bytes = fwd_plan(sizeof(T), Kind<T>::KS, D, NA, streams).total;
   const int err = allow_shared(ffn_fwd_kernel<T, NA>, bytes, granted);
   if (err) return err;
   Maps maps{};
   const bool tma = make_maps<T>(maps, {{xn, N, D}, {w1, D, F}, {w2, F, D}});
-  ffn_fwd_kernel<T, NA><<<(N + ROWS - 1) / ROWS, THREADS, bytes, stream>>>(
+  const dim3 grid((N + ROWS - 1) / ROWS, col_groups(D));
+  ffn_fwd_kernel<T, NA><<<grid, THREADS, bytes, stream>>>(
       maps, (const T*)xn, (const T*)res, (const T*)w1, b1, (const T*)w2, b2, (T*)out, N, D, F,
-      alpha, tma);
+      alpha, tma, streams);
   return (int)cudaGetLastError();
 }
 
@@ -1182,7 +1226,8 @@ int rows_na(const void* xn, const void* g, const void* w1, const float* b1, cons
   if (err) return err;
   Maps maps{};
   const bool tma = make_maps<T>(maps, {{xn, N, D}, {g, N, D}, {w1, D, F}, {w2, F, D}});
-  ffn_bwd_rows_kernel<T, NA><<<(N + ROWS - 1) / ROWS, THREADS, bytes, stream>>>(
+  const dim3 grid((N + ROWS - 1) / ROWS, col_groups(D));
+  ffn_bwd_rows_kernel<T, NA><<<grid, THREADS, bytes, stream>>>(
       maps, (const T*)xn, (const T*)g, (const T*)w1, b1, (const T*)w2, (T*)dx, (T*)hbuf,
       (T*)dhbuf, db1_part, db2_part, N, D, F, alpha, tma);
   return (int)cudaGetLastError();
@@ -1228,7 +1273,8 @@ int ffn_rows_per_block() { return ROWS; }
 
 // Shared memory per block, in bytes, of the forward (backward = 0) or of the
 // backward's first pass (1) at width D, for float32 (is_bf16 = 0) or
-// bfloat16 (1) operands; 2^31 - 1 past the widest D the kernels take (384).
+// bfloat16 (1) operands, on the current device (the forward streams xn
+// where its tile would not fit).
 int ffn_shared_bytes(int D, int is_bf16, int backward) {
   const long long bytes = shared_bytes(D, is_bf16 ? 2 : 4, backward);
   return bytes > TOO_BIG ? (int)TOO_BIG : (int)bytes;

@@ -5,13 +5,19 @@ HMM topology + context tree (kaldi/src/hmm/), the phone-LM estimator
 (kaldi/src/chain/chain-den-graph.cc), the supervision compiler
 (kaldi/src/chain/chain-supervision.cc), and the flat-start (e2e) supervision
 of kaldi/src/chain/chain-generic-numerator.cc, the word-level decoding
-graph (HCLG, hclg.py), lattice supervision, and the Kaldi model files: the
+graph (HCLG, hclg.py), lattice supervision, the de Bruijn lift of the
+denominator graph (debruijn.py), and the Kaldi model files: the
 transition model and its alignments, tied context trees, and the nnet3
 body of a `final.mdl`.  Everything here runs on the host
 CPU at setup/data-loading time and emits packed numpy arrays for the
 device code in `torchain_tpu_torch.ops`.
 """
 
+from torchain_tpu_torch.graphs.debruijn import (
+    DeBruijnDenGraph,
+    make_debruijn_den_graph,
+    materialize_lift_fst,
+)
 from torchain_tpu_torch.graphs.den_graph import (
     DenGraph,
     DenseDenGraph,
@@ -68,6 +74,7 @@ __all__ = [
     "BOUNDARY",
     "ChainTopology",
     "ContextTree",
+    "DeBruijnDenGraph",
     "DenGraph",
     "DenseDenGraph",
     "E2eSupervision",
@@ -90,11 +97,13 @@ __all__ = [
     "compile_supervision",
     "estimate_phone_lm",
     "lattice_to_supervision_fst",
+    "make_debruijn_den_graph",
     "make_den_fst",
     "make_dense_den_graph",
     "make_e2e_supervision_fst",
     "make_hclg",
     "make_normalization_fst",
+    "materialize_lift_fst",
     "numerator_tables",
     "pad_and_stack_e2e",
     "pad_and_stack_supervisions",

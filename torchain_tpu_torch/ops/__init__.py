@@ -3,9 +3,12 @@
   device_graphs.py  DeviceSupervision, DeviceDenseDenGraph, DeviceDenGraph
                     (torch tensors), auto_den_graph
   den_resident.py   denominator on the slot-dense graph: kernels K1, K2
+  den_debruijn.py   denominator on the de Bruijn lift, gather-free (no kernel)
   den_dense.py      denominator on the dense Moore graph: matrix products
   den_pallas.py     the same, fused: kernels K9f, K9b
-  den_scan.py       denominator over sparse arcs, log semiring (no kernel)
+  den_table.py      denominator over padded in/out-arc tables (no kernel)
+  den_scan.py       denominator over sparse arcs, log semiring, and its
+                    alpha-checkpointed variant (no kernel)
   num_scan.py       numerator forward-backward: frame 0, kernels K5, K6
   num_resident.py   numerator recursions: kernels K3, K4 (steady frames)
                     and K8f, K8b (flat-start graphs)
@@ -19,7 +22,9 @@
 
 from torchain_tpu_torch.ops.attention import fused_relpos_attention, reference_relpos_attention
 from torchain_tpu_torch.ops.chain_loss import ChainLossOptions, ChainResults, chain_loss
+from torchain_tpu_torch.ops.den_debruijn import DeviceDeBruijnDenGraph
 from torchain_tpu_torch.ops.den_resident import DeviceResidentDenGraph
+from torchain_tpu_torch.ops.den_table import DeviceDenTableGraph
 from torchain_tpu_torch.ops.device_graphs import (
     DeviceDenGraph,
     DeviceDenseDenGraph,
@@ -33,7 +38,9 @@ from torchain_tpu_torch.ops.num_e2e import DeviceE2eSupervision
 __all__ = [
     "ChainLossOptions",
     "ChainResults",
+    "DeviceDeBruijnDenGraph",
     "DeviceDenGraph",
+    "DeviceDenTableGraph",
     "DeviceDenseDenGraph",
     "DeviceE2eSupervision",
     "DeviceResidentDenGraph",

@@ -21,9 +21,12 @@ occupancy gradient directly.
 
 The numerator is chosen by the supervision's type (`DeviceSupervision`:
 ops/num_scan.py; `DeviceE2eSupervision`: ops/num_e2e.py) and the
-denominator by the graph's (`DeviceResidentDenGraph`: ops/den_resident.py;
-`DeviceDenseDenGraph`: ops/den_dense.py or, when the graph was built with
-`fused=True`, ops/den_pallas.py; `DeviceDenGraph`: ops/den_scan.py).
+denominator by the graph's, in the JAX package's order
+(`DeviceResidentDenGraph`: ops/den_resident.py; `DeviceDeBruijnDenGraph`:
+ops/den_debruijn.py; `DeviceDenseDenGraph`: ops/den_dense.py or, when the
+graph was built with `fused=True`, ops/den_pallas.py;
+`DeviceDenTableGraph`: ops/den_table.py; `DeviceDenGraph`: ops/den_scan.py,
+alpha-checkpointed where its `checkpoint_every` divides a larger T).
 """
 
 from __future__ import annotations
@@ -33,10 +36,12 @@ import dataclasses
 import torch
 
 from torchain_tpu_torch.ops import (
+    den_debruijn,
     den_dense,
     den_pallas,
     den_resident,
     den_scan,
+    den_table,
     num_e2e,
     num_scan,
 )
@@ -79,9 +84,18 @@ def _den_forward(y, den, leaky):
     """(log_z [B], residuals) by graph type."""
     if isinstance(den, den_resident.DeviceResidentDenGraph):
         return den_resident.den_forward(y, den, leaky)
+    if isinstance(den, den_debruijn.DeviceDeBruijnDenGraph):
+        return den_debruijn.den_forward(y, den, leaky)
     if isinstance(den, DeviceDenseDenGraph):
         return (den_pallas if den.fused else den_dense).den_forward(y, den, leaky)
+    if isinstance(den, den_table.DeviceDenTableGraph):
+        log_z, alphas = den_table.den_forward(y, den, leaky)
+        return log_z, dict(alphas=alphas)
     if isinstance(den, DeviceDenGraph):
+        every, T = den.checkpoint_every, y.shape[1]
+        if every and T > every and T % every == 0:
+            log_z, chks = den_scan.den_forward_checkpointed(y, den, leaky, every)
+            return log_z, dict(chk=chks, every=every)
         log_z, alphas = den_scan.den_forward(y, den, leaky)
         return log_z, dict(alphas=alphas)
     raise TypeError(f"no denominator recursion for {type(den).__name__}")
@@ -92,9 +106,21 @@ def _den_backward(y, den, leaky, log_z, res):
     `_den_forward` on the same graph."""
     if isinstance(den, den_resident.DeviceResidentDenGraph):
         return den_resident.den_backward(den, res, leaky)
+    if isinstance(den, den_debruijn.DeviceDeBruijnDenGraph):
+        return den_debruijn.den_backward(y, den, log_z, res, leaky)
     if isinstance(den, DeviceDenseDenGraph):
         return (den_pallas if den.fused else den_dense).den_backward(den, res, leaky)
+    if isinstance(den, den_table.DeviceDenTableGraph):
+        return den_table.den_backward(y, den, log_z, res["alphas"], leaky)
+    if "chk" in res:
+        return den_scan.den_backward_checkpointed(
+            y, den, log_z, res["chk"], leaky, res["every"])
     return den_scan.den_backward(y, den, log_z, res["alphas"], leaky)
+
+
+#: the graph types whose backward reads y again (the others carry what they
+#: need in their residuals)
+_READS_Y = (DeviceDenGraph, den_table.DeviceDenTableGraph, den_debruijn.DeviceDeBruijnDenGraph)
 
 
 class _ChainLogprobs(torch.autograd.Function):
@@ -113,9 +139,7 @@ class _ChainLogprobs(torch.autograd.Function):
         den_logz, den_res = _den_forward(yd, den, leaky)
         ctx.den, ctx.sup, ctx.leaky, ctx.den_res = den, sup, leaky, den_res
         ctx.y_dtype = y.dtype
-        # the sparse recursion's backward reads y again; the others carry
-        # what they need in their residuals
-        needs_y = isinstance(den, DeviceDenGraph)
+        needs_y = isinstance(den, _READS_Y)
         ctx.save_for_backward(gamma_num, den_logz, *((yd,) if needs_y else ()))
         ctx.mark_non_differentiable(gamma_num)
         return num_logp, den_logz, gamma_num
@@ -147,7 +171,8 @@ def chain_logprobs(y, den, sup, leaky: float):
 def chain_loss(
     nnet_output: torch.Tensor,  # [B, T, P] chain-head outputs
     xent_output: torch.Tensor | None,  # [B, T, P] xent-head logits, or None
-    den: den_resident.DeviceResidentDenGraph | DeviceDenseDenGraph | DeviceDenGraph,
+    den: den_resident.DeviceResidentDenGraph | den_debruijn.DeviceDeBruijnDenGraph
+    | DeviceDenseDenGraph | den_table.DeviceDenTableGraph | DeviceDenGraph,
     sup: DeviceSupervision | DeviceE2eSupervision,
     opts: ChainLossOptions = ChainLossOptions(),
 ) -> tuple[torch.Tensor, dict]:

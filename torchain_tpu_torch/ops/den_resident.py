@@ -41,9 +41,27 @@ THREADS = 1024
 #: unsigned) below this many states and slots
 INDEX16_LIMIT = 65536
 
+#: the dynamic shared memory a block may ask for on the H100 (its opt-in
+#: limit, what `den_shared_limit` reports there): the CPU holds the resident
+#: form to it (ops/device_graphs.py `auto_den_graph`), so that the CPU takes
+#: the form the card takes
+H100_SHARED_LIMIT = 232_448
+
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+def carried_bytes(backward: int, S: int, K: int, P: int) -> int:
+    """The shared memory a K1 (backward=0) or K2 (1) block carries for one
+    sequence, without the graph's tables: a host copy of
+    csrc/den_resident.cu `den_shared_bytes(backward, S, K, P, 0, 0, 0)`
+    (K1: sigma [S], alpha [K*S], two p rows [P]; K2: bh [S], two ah rows,
+    one p row; each 16-byte aligned; two reduction arrays of a float a
+    warp)."""
+    up16 = lambda n: (n + 15) // 16 * 16  # noqa: E731
+    rows, prows = (2, 1) if backward else (1, 2)
+    return up16(4 * S) + rows * up16(4 * K * S) + prows * up16(4 * P) + 2 * 4 * (THREADS // 32)
 
 
 def compress(V: np.ndarray, index_dtype) -> tuple[np.ndarray, ...]:

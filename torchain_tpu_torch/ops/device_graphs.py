@@ -18,15 +18,20 @@ import numpy as np
 import torch
 
 from torchain_tpu_torch import kernels
+from torchain_tpu_torch.graphs.debruijn import lifts_right_context, make_debruijn_den_graph
 from torchain_tpu_torch.graphs.den_graph import DenGraph, DenseDenGraph, make_dense_den_graph
 from torchain_tpu_torch.graphs.supervision import (  # noqa: F401 (re-exported)
     Supervision,
     _frame_vocab_tables,
     frame_vocab_width,
 )
+from torchain_tpu_torch.graphs.topology import ChainTopology
+from torchain_tpu_torch.ops.den_debruijn import DeviceDeBruijnDenGraph
 from torchain_tpu_torch.ops.den_resident import (
+    H100_SHARED_LIMIT,
     INDEX16_LIMIT,
     DeviceResidentDenGraph,
+    carried_bytes,
     compress,
     slot_layout,
 )
@@ -64,12 +69,17 @@ class DeviceDenGraph:
     log_init: torch.Tensor  # float32 [S]
     num_states: int
     num_pdfs: int
+    #: store alpha every this many frames and recompute the rest in the
+    #: backward (ops/den_scan.py `den_forward_checkpointed`), where T is a
+    #: larger multiple of it; 0 stores every frame.  The JAX package's
+    #: TORCHAIN_ALPHA_CHECKPOINT
+    checkpoint_every: int = 0
 
     def to(self, device) -> "DeviceDenGraph":
         return _to_device(self, device)
 
     @staticmethod
-    def from_host(g: DenGraph, device="cuda") -> "DeviceDenGraph":
+    def from_host(g: DenGraph, device="cuda", checkpoint_every: int = 0) -> "DeviceDenGraph":
         states = np.arange(g.num_states, dtype=np.int64)
         in_dst = np.repeat(states, np.diff(g.in_offsets))
         out_src = np.repeat(states, np.diff(g.out_offsets))
@@ -91,6 +101,7 @@ class DeviceDenGraph:
             log_init=t(log_init, torch.float32),
             num_states=int(g.num_states),
             num_pdfs=int(g.num_pdfs),
+            checkpoint_every=int(checkpoint_every),
         )
 
 
@@ -197,6 +208,11 @@ class DeviceDenseDenGraph:
 #: (torchain_tpu/ops/device_graphs.py), kept here as the port's own copy
 DENSE_V_BYTES_THRESHOLD = 48 * 1024 * 1024
 
+#: budget of the de Bruijn lift in contexts C = (num_phones + 1)^m: beyond
+#: it `auto_den_graph` passes the lift over (its residuals are
+#: ~2 * T * B * C * 4 bytes).  The JAX package's DEBRUIJN_MAX_CONTEXTS
+DEBRUIJN_MAX_CONTEXTS = 200_000
+
 
 def den_shared_limit(device) -> int | None:
     """The shared memory a block of the denominator kernels may ask for on
@@ -242,29 +258,65 @@ def den_form_fits(form: str, sizes: tuple, device) -> bool:
     return den_form_indexed(form, sizes) and fits(0) and fits(1)
 
 
-def auto_den_graph(host_graph: DenGraph, pad_to: int = 128, device="cuda"):
+def _on_card(device) -> bool:
+    return torch.device(device).type == "cuda"
+
+
+def debruijn_contexts(phone_lm, tree) -> int | None:
+    """The contexts C = (num_phones + 1)^m of the de Bruijn lift of
+    `phone_lm` over `tree` (graphs/debruijn.py), computed from their sizes;
+    None where the lift cannot be built: no LM or tree, an LM not estimated
+    by truncation, or a tree whose pdfs depend on the right context (which
+    the JAX package's compiler would lift to another graph)."""
+    if phone_lm is None or tree is None or lifts_right_context(tree):
+        return None
+    if not getattr(phone_lm, "debruijn_compatible", False):
+        return None
+    tail = 2 if (tree.context_dependent(0) or tree.context_dependent(1)) else 1
+    m = max(phone_lm.ngram_order - 1, tail, 1)
+    return (tree.num_phones + 1) ** m
+
+
+def auto_den_graph(host_graph: DenGraph, pad_to: int = 128, device="cuda",
+                   phone_lm=None, tree=None):
     """The denominator representation for `host_graph` on `device`, in the
-    JAX package's order of preference over the forms the port has
-    (torchain_tpu/ops/device_graphs.py `auto_den_graph`):
+    JAX package's order of preference (torchain_tpu/ops/device_graphs.py
+    `auto_den_graph`):
 
       1. the slot-dense graph of ops/den_resident.py (K1, K2) where its
          slots take 16-bit indices and a sequence's carried state fits a
-         block's shared memory (on the CPU the index test alone);
-      2. else the dense Moore form, fused (K9f, K9b), while its V of
+         block's shared memory (on the CPU, the H100's: `carried_bytes`
+         against H100_SHARED_LIMIT, so that the CPU takes the form the card
+         takes and builds no slot-dense V the card would refuse);
+      2. else, on the card, the de Bruijn lift of ops/den_debruijn.py where
+         `phone_lm` and `tree` are given, the LM is truncation-estimated, the
+         tree has no right context (`debruijn_contexts`) and C stays within
+         DEBRUIJN_MAX_CONTEXTS, over the chain topology the port compiles
+         every den graph with (`ChainTopology()`).  Never on the CPU, as in
+         the JAX package;
+      3. else the dense Moore form, fused (K9f, K9b), while its V of
          pad(S) * pad(E) float32 stays within DENSE_V_BYTES_THRESHOLD and
          its states take 16-bit indices and K9's carried state fits;
-      3. else the sparse arc list of ops/den_scan.py (plain PyTorch).
+      4. else the sparse arc list of ops/den_scan.py (plain PyTorch).
 
-    Each test runs on sizes before any V is built, through
+    Each test runs on sizes before any V or table is built, through
     `den_form_indexed` and `den_form_fits`:
     the slot layout (`slot_layout`, computed once and built on where the
     resident form is taken) gives S_pad and K, and its distinct (dst, pdf)
-    pairs are E.  The de Bruijn and padded-table forms of the JAX package
-    are not ported."""
+    pairs are E.  The padded-table form (ops/den_table.py) and the
+    alpha-checkpointed scan are explicit forms: it picks neither, as the JAX
+    package does not."""
     layout = slot_layout(host_graph)
     resident = (*layout.sizes(pad_to), host_graph.num_pdfs)
-    if den_form_indexed("resident", resident) and den_form_fits("resident", resident, device):
+    on_card = _on_card(device)
+    if (den_form_indexed("resident", resident) and den_form_fits("resident", resident, device)
+            and (on_card or all(carried_bytes(bwd, *resident) <= H100_SHARED_LIMIT
+                                for bwd in (0, 1)))):
         return DeviceResidentDenGraph._from_layout(host_graph, layout, pad_to, device)
+    C = debruijn_contexts(phone_lm, tree)
+    if on_card and C is not None and C <= DEBRUIJN_MAX_CONTEXTS:
+        lift = make_debruijn_den_graph(phone_lm, tree, ChainTopology())
+        return DeviceDeBruijnDenGraph.from_host(lift, device=device)
     S, E = host_graph.num_states, len(layout.uniq_pdf)
     pad = lambda n: -(-n // pad_to) * pad_to  # noqa: E731
     dense = (pad(S), pad(E))

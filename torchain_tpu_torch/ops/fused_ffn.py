@@ -20,10 +20,11 @@ csrc/fused_ffn.cu, whose products run on the tensor cores (wgmma for
 bfloat16 operands, 3xTF32 mma.sync for float32); the backward is two
 device launches in one entry point: the row pass, then the weight-gradient
 tiles with the fixed-order sums of the bias gradients.  On a CPU tensor the
-plain PyTorch version beside them runs.  The kernels take any N and F and
-D up to 384 (bfloat16) or 352 (float32, whose row tiles fill the card's
-shared memory sooner: `ffn_shared_bytes` in the source) and raise beyond
-that; there is no fallback to the plain version on a CUDA tensor.
+plain PyTorch version beside them runs.  The kernels take any N, D and F:
+a block computes at most 384 output columns, so rows wider than that (a
+conformer of dim 512) are cut into column groups, each of which recomputes
+the hidden chunk, and the forward streams xn in slices where its [64, D]
+tile would not fit (float32 D > 352; `ffn_shared_bytes` in the source).
 """
 
 from __future__ import annotations
@@ -83,26 +84,22 @@ def _check_args(xn, w1, b1, w2):
     return N, D, F
 
 
-#: the widest rows the kernels take: three 64-column blocks of the output
-#: per warpgroup, two warpgroups (float32 rows wider than 352 do not fit
-#: the shared memory of one block: `_check_fits` raises for them too)
-MAX_D = 384
-
-
 #: (D, is_bf16, backward, device index) already found to fit
 _FITS: set[tuple[int, int, int, int]] = set()
 
 
 def _check_fits(lib, D, is_bf16, backward, device):
+    """Raises before a launch where the kernel's block would ask for more
+    shared memory than the card gives (on the H100 no width does)."""
     key = (D, is_bf16, backward, device.index)
     if key in _FITS:
         return
     need = lib.ffn_shared_bytes(D, is_bf16, backward)
     limit = lib.ffn_shared_limit()
-    if D > MAX_D or need > limit:
+    if need > limit:
         raise ValueError(
-            f"ffn: D={D} does not fit one block's shared memory and registers"
-            f" (needs {need} bytes, the card gives {limit}; D <= {MAX_D})"
+            f"ffn: D={D} does not fit one block's shared memory"
+            f" (needs {need} bytes, the card gives {limit})"
         )
     _FITS.add(key)
 
@@ -198,7 +195,7 @@ class _FfnApply(torch.autograd.Function):
 
 def ffn_apply(xn, res, w1, b1, w2, b2, alpha: float = 0.5) -> torch.Tensor:
     """res + alpha * (swish(xn @ W1 + b1) @ W2 + b2) over [..., D] operands,
-    differentiable in all six (K10f / K10b)."""
+    differentiable in all six: K10f / K10b."""
     D = xn.shape[-1]
     out = _FfnApply.apply(xn.reshape(-1, D), res.reshape(-1, D), w1, b1, w2, b2, float(alpha))
     return out.reshape(*xn.shape[:-1], D)
