@@ -94,7 +94,20 @@ Phases, in order; any failure exits non-zero before the last line:
      the triphone run's den graph and first batch on the scan, the
      alpha-checkpointed scan and the padded-table form (on as many
      sequences as its [B, S, K_in] temporary allows), with K_in, K_out,
-     step ms, peak memory and the allocator's counters;
+     step ms, peak memory and the allocator's counters; then training from
+     raw audio (`check_wav`): a synthetic raw-audio data dir of 160
+     utterances (`make_wav_data_dir`, 16 kHz, 40-bin fbank; the filterbank
+     on the card and on the CPU against a float64 yardstick), `cli.train
+     --wav-dir --cmvn speaker --speed-perturb --ivector-dim 100
+     --ivector-gauss 32 --precompile-egs 8 --save-egs --materialize-egs
+     device` at (a)'s widths (K1-K6 and no other kernel; each stage's
+     seconds), the forked precompile against a serial compile, the same run
+     from `--load-egs` (no compile; the first loss bit for bit), the live
+     loader (serial and on a pool of threads) against materialized batches
+     under `Trainer.fit`, and a B=8
+     batch on the card against the CPU.  The cegs phase also times
+     `Trainer.fit` over the live `CegsDataset` against
+     `MaterializedBatches` of it on the card;
   5. a reference check on a small input for each path: the first-step loss
      and gradient norm on the card (kernels) against the CPU (plain
      versions); for the bfloat16 conformer paths also each parameter
@@ -1858,6 +1871,10 @@ def check_cegs(args, result: dict, tmp: str) -> dict:
         raise AssertionError("cegs posteriors do not round-trip through the archives")
     out.update(posteriors=list(post.shape), post_binary_max_abs_err=bin_err,
                post_binary_bit_equal=bits, post_text_max_rel_err=text_rel, post_io_s=post_s)
+    from torchain_tpu_torch.data import CegsDataset
+
+    out["fits"] = _fit_live_vs_materialized("cegs fit", lambda: CegsDataset(ark), cfg,
+                                            feat_dim, den, bsz, args, result["nvidia_smi"])
 
     if args.profile:
         prof = profile_steps(step, feats, den, sup, 2,
@@ -1871,6 +1888,61 @@ def check_cegs(args, result: dict, tmp: str) -> dict:
     out["phase_s"] = time.perf_counter() - t_phase
     _log(f"cegs phase: {out['phase_s']:.1f} s")
     return out
+
+
+def _fit_live_vs_materialized(what: str, source, cfg, feat_dim: int, den, bsz: int, args,
+                              smi: str, threads: int = 0) -> dict:
+    """The model of `cfg` under `Trainer.fit` for --steps steps, over the
+    dataset `source()` read live (built and placed at every step on the
+    prefetch thread) and through `MaterializedBatches(source(),
+    device=True)` (built and placed once), in turns, twice each.  With
+    `threads`, a third pair of turns reads live with `TrainerConfig(
+    loader_threads=threads)`: the batches built on a pool of that width.
+    Records ms between steps (host clock, the Trainer's median) and the
+    placement's median.  Gates: every loss finite; the pooled turns' first
+    loss that of the serial live turn (the same batch, the same weights)
+    within REFERENCE_RTOL."""
+    from torchain_tpu_torch.data import MaterializedBatches
+    from torchain_tpu_torch.train import Trainer, TrainerConfig
+
+    turns = ("live",) + (("threaded",) if threads else ()) + ("materialized",)
+    fits = {}
+    for name in turns + tuple(f"{t}_again" for t in turns):
+        dataset = source()
+        if name.startswith("materialized"):
+            t0 = time.perf_counter()
+            dataset = MaterializedBatches(dataset, bsz, device=True)
+            fits.setdefault("materialize_s", time.perf_counter() - t0)
+            fits.setdefault("materialized_bytes", dataset.nbytes)
+        tr = Trainer(make_model(cfg, feat_dim, "cuda", args.seed), den,
+                     TrainerConfig(batch_size=bsz, num_epochs=args.steps, log_every=1,
+                                   device="cuda",
+                                   loader_threads=threads if name.startswith("threaded") else 0))
+        tr.fit(dataset, log_fn=lambda *_: None, max_steps=args.steps)
+        losses = [m["loss"] for m in tr.metrics_log]
+        if len(losses) != args.steps or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"{what} fit ({name}): losses {losses}")
+        fits[name] = dict(step_ms=tr.step_ms(), sup_caps_s=tr.timings["sup_caps_s"],
+                          place_ms_median=statistics.median(tr.timings["place_s"]) * 1e3,
+                          losses=losses)
+    line = f"{what}: Trainer.fit, ms between steps: live {fits['live']['step_ms']:.2f} /" \
+           f" {fits['live_again']['step_ms']:.2f}"
+    if threads:
+        first = [abs(fits[t]["losses"][0] - fits["live"]["losses"][0])
+                 / abs(fits["live"]["losses"][0]) for t in ("threaded", "threaded_again")]
+        fits["threads"], fits["threaded_first_loss_rel"] = threads, max(first)
+        line += (f", live with loader_threads={threads} {fits['threaded']['step_ms']:.2f} /"
+                 f" {fits['threaded_again']['step_ms']:.2f} (first loss rel {max(first):.3g}"
+                 f" to the serial turn's)")
+        if not max(first) <= REFERENCE_RTOL["float32"]:
+            raise AssertionError(f"{what} fit: the pooled loader's first loss departs from the"
+                                 " serial one's")
+    _log(line + f", materialized on the card {fits['materialized']['step_ms']:.2f} /"
+         f" {fits['materialized_again']['step_ms']:.2f} (two turns each); placement median live"
+         f" {fits['live']['place_ms_median']:.3f} ms, materialized"
+         f" {fits['materialized']['place_ms_median']:.3f} ms; materialized"
+         f" {fits['materialized_bytes'] / 1e6:.1f} MB in {fits['materialize_s']:.2f} s ({smi})")
+    return fits
 
 
 #: the kernels a forward-only pass launches (compute_prob): the denominator
@@ -2570,6 +2642,10 @@ def _tied_run(args, context: str, root: str, smi: str) -> tuple[dict, dict]:
             "--num-layers", str(LAYERS), "--batch-size", str(B), "--chunk-frames", str(T_OUT),
             "--steps", str(args.steps), "--epochs", str(args.steps), "--log-every", "1",
             "--device", "cuda", "--seed", str(args.seed), "--metrics-out", metrics]
+    if context == "triphone":
+        # its 62,917-state normalization FST makes each composition costly:
+        # compile them in forked workers (after CUDA's initialisation)
+        argv += ["--precompile-egs", str(WAV_WORKERS)]
     for fn in counters().values():
         fn.launches = 0
     cli_train.tied_tree_stage, cli_train._build_model = kept_stage, kept_model
@@ -2597,6 +2673,7 @@ def _tied_run(args, context: str, root: str, smi: str) -> tuple[dict, dict]:
     res = dict(context=context, pdfs=out["den"]["pdfs"], den_form=out["den"]["form"],
                den_states=out["den"]["states"], den_arcs=out["den"]["arcs"],
                tree_s=stages["tree_s"], sup_caps_s=tm["sup_caps_s"], den_s=stages["den_s"],
+               precompile_s=stages.get("precompile_s"),
                run_s=run_s, steps=out["steps"], losses=losses, launches=launches,
                step_ms=step_ms, step_ms_median=statistics.median(step_ms[1:]),
                launches_per_step={k: n / out["steps"] for k, n in launches.items() if n},
@@ -2604,7 +2681,10 @@ def _tied_run(args, context: str, root: str, smi: str) -> tuple[dict, dict]:
     _log(f"kaldi (b) {context}: tied tree of {res['pdfs']} pdfs built in {res['tree_s']:.2f} s;"
          f" den graph S={res['den_states']} A={res['den_arcs']}, form {res['den_form']}"
          f" ({res['den_s']:.2f} s); supervisions composed (estimate_sup_caps)"
-         f" {res['sup_caps_s']:.2f} s (host clock; {smi})")
+         f" {res['sup_caps_s']:.2f} s"
+         + (f", after a precompile in {WAV_WORKERS} forked workers of"
+            f" {res['precompile_s']:.2f} s" if res["precompile_s"] is not None else "")
+         + f" (host clock; {smi})")
     _log(f"kaldi (b) {context}: {out['steps']} steps in {run_s:.1f} s (host clock, set-up"
          f" included); losses {[round(x, 6) for x in losses]}; launches {launches}")
     _log(f"kaldi (b) {context}: steps 2..{out['steps']} median {res['step_ms_median']:.2f} ms"
@@ -3114,6 +3194,299 @@ def check_kaldi(args, result: dict, tmp: str) -> dict:
     return out
 
 
+#: the wav phase (`check_wav`): a raw-audio data dir of WAV_UTTS utterances of
+#: 16-24 words over WAV_PHONES phones, WAV_SPEAKERS speakers, WAV_PER_REC
+#: utterances a recording, at Kaldi's 16 kHz 40-bin fbank; 3-way speed
+#: perturbation, online i-vectors of WAV_IVECTOR (dim, Gaussians), so the
+#: model's input is 40 + 100 dims, as a chain recipe's hires features plus
+#: i-vector; the supervisions compiled in WAV_WORKERS worker processes
+WAV_UTTS, WAV_PHONES, WAV_SPEAKERS, WAV_PER_REC = 160, 40, 8, 4
+WAV_WORDS, WAV_VOCAB = (16, 25), 200
+WAV_IVECTOR = (100, 32)
+WAV_WORKERS = 8
+#: the pool width of the live loader's third pair of turns in (e)
+WAV_LOADER_THREADS = 4
+#: the log-mel gate: the card's and the CPU's filterbanks each within
+#: `features.fbank_tolerance` (elementwise) of `features.fbank64`, a float64
+#: NumPy computation of the same formula, as in tests/test_torch_features.py
+#: utterances whose filterbank is held card against CPU against the yardstick
+WAV_FBANK_UTTS = 16
+
+
+def _wav_fbank(root: str, opts, smi: str) -> dict:
+    """(a) of `check_wav`: the first WAV_FBANK_UTTS utterances' filterbank on
+    the card and on the CPU, each against the float64 yardstick."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from torchain_tpu_torch.data.features import fbank, fbank64, fbank_tolerance
+    from torchain_tpu_torch.data.kaldi_compat import extract_utterance_waves
+
+    waves = extract_utterance_waves(os.path.join(root, "wav.scp"),
+                                    segments_path=os.path.join(root, "segments"),
+                                    expected_rate=opts.sample_rate)
+    audio_s = sum(w.shape[0] for w in waves.values()) / opts.sample_rate
+    card_err = cpu_err = card_cpu = card_share = cpu_share = 0.0
+    frames = 0
+    card_s = 0.0
+    for k in sorted(waves)[:WAV_FBANK_UTTS]:
+        ref = fbank64(waves[k], opts)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card = fbank(waves[k], opts, device="cuda").cpu().numpy()
+        card_s += time.perf_counter() - t0
+        cpu = fbank(waves[k], opts, device="cpu").numpy()
+        if not card.shape == cpu.shape == ref.shape:
+            raise AssertionError(f"wav (a): fbank shapes {card.shape} {cpu.shape} {ref.shape}")
+        tol = fbank_tolerance(ref)
+        frames += ref.shape[0]
+        card_err = max(card_err, float(np.abs(card - ref).max()))
+        cpu_err = max(cpu_err, float(np.abs(cpu - ref).max()))
+        card_cpu = max(card_cpu, float(np.abs(card - cpu).max()))
+        card_share = max(card_share, float((np.abs(card - ref) / tol).max()))
+        cpu_share = max(cpu_share, float((np.abs(cpu - ref) / tol).max()))
+    res = dict(utterances=len(waves), audio_s=audio_s, checked=WAV_FBANK_UTTS, frames=frames,
+               card_max_abs_err=card_err, cpu_max_abs_err=cpu_err, card_vs_cpu=card_cpu,
+               card_err_over_tol=card_share, cpu_err_over_tol=cpu_share, card_host_s=card_s)
+    _log(f"wav (a): {len(waves)} utterances, {audio_s:.1f} s of audio; fbank of"
+         f" {WAV_FBANK_UTTS} utterances ({frames} frames) from the float64 yardstick: card max"
+         f" abs {card_err:.3g}, {card_share:.3g} of the elementwise gate; CPU {cpu_err:.3g},"
+         f" {cpu_share:.3g} of it; card against CPU {card_cpu:.3g}; card calls"
+         f" {card_s * 1e3:.1f} ms (host clock, one call an utterance, first calls included;"
+         f" {smi})")
+    if not (card_share <= 1 and cpu_share <= 1):
+        raise AssertionError("wav (a): the filterbank departs from the float64 yardstick")
+    return res
+
+
+def _same_sup(a, b) -> bool:
+    import numpy as np
+
+    if (a is None) != (b is None):
+        return False
+    if a is None:
+        return True
+    arrays = ("in_src", "in_pdf", "in_logw", "final_logw", "num_states", "frame_vocab",
+              "pdf_local")
+    scalars = ("num_frames", "num_pdfs", "max_states", "max_arcs", "steady_need")
+    return (all(np.array_equal(getattr(a, f), getattr(b, f)) for f in arrays)
+            and all(getattr(a, f) == getattr(b, f) for f in scalars)
+            and np.array_equal(np.asarray(a.weight), np.asarray(b.weight)))
+
+
+def check_wav(args, result: dict, tmp: str) -> dict:
+    """Phase 4, last: training from raw audio on the card, through the
+    recipe's entry point, at the trigram path's widths (TDNN-F 9 x (768,
+    96), prefinal 256, B=128, T_out=50).
+
+      (a) `make_wav_data_dir` writes a raw-audio Kaldi data dir (WAV_UTTS
+          utterances, Kaldi's 16 kHz 40-bin fbank); the first utterances'
+          filterbank on the card and on the CPU, each within
+          `features.fbank_tolerance` of the float64 yardstick
+          `features.fbank64` (`_wav_fbank`);
+      (b) `cli.train --wav-dir --cmvn speaker --speed-perturb --ivector-dim
+          100 --ivector-gauss 32 --precompile-egs 8 --save-egs E
+          --materialize-egs device`, --steps steps: the stages' seconds (wav
+          read, speed perturbation, fbank on the card, CMVN, i-vectors,
+          precompile in forked workers after CUDA's initialisation, egs save
+          with its bytes, materialisation with its MB), ms between steps,
+          peak device memory.  Gates: losses finite; K1-K6 launched and no
+          other kernel;
+      (c) the forked precompile against the serial compile: a fresh dataset
+          of the same chunks compiled in this process, every supervision
+          equal, array for array;
+      (d) the same run with --load-egs E in place of --precompile-egs and
+          --save-egs: no supervision compiled, the first loss equal to (b)'s
+          bit for bit;
+      (e) (d)'s dataset and a model of (b)'s config under `Trainer.fit`
+          (`_fit_live_vs_materialized`): the live loader, serial and with
+          WAV_LOADER_THREADS threads, against `MaterializedBatches(...,
+          device=True)`, ms between steps of each;
+      (f) (d)'s first batch cut to 8 sequences, on the card against the CPU
+          from weights drawn from --seed + 1: loss, objf and gradient norm
+          within REFERENCE_RTOL["float32"].
+
+    Returns the phase's numbers; (b)'s launch counts are under
+    "launches"."""
+    import os
+
+    import torch
+
+    from torchain_tpu_torch import ops as ops_mod
+    from torchain_tpu_torch.cli import train as cli_train
+    from torchain_tpu_torch.data import ChainDataset
+    from torchain_tpu_torch.data.features import FbankOptions
+    from torchain_tpu_torch.data.synth_wav import make_wav_data_dir
+    from torchain_tpu_torch.ops import ChainLossOptions, DeviceSupervision, chain_loss
+
+    t_phase = time.perf_counter()
+    smi = result["nvidia_smi"]
+    gate = REFERENCE_RTOL["float32"]
+    root, egs = os.path.join(tmp, "wav"), os.path.join(tmp, "wav_egs.npz")
+    opts = FbankOptions(sample_rate=16000, num_mel_bins=40)
+    t0 = time.perf_counter()
+    make_wav_data_dir(root, num_utts=WAV_UTTS, vocab_size=WAV_VOCAB, num_phones=WAV_PHONES,
+                      num_speakers=WAV_SPEAKERS, words_per_utt=WAV_WORDS,
+                      utts_per_recording=WAV_PER_REC, opts=opts, seed=args.seed)
+    out = dict(synth_s=time.perf_counter() - t0)
+    out["fbank"] = _wav_fbank(root, opts, smi)
+
+    # what the runs keep: each run's dataset, model config and den graph
+    keep: dict = {}
+    compiled: list = []
+    egs_stage, build = cli_train.egs_stage, cli_train._build_model
+    auto, sup_of = ops_mod.auto_den_graph, ChainDataset._chunk_supervision
+
+    def kept_egs(a, dataset, stages):
+        keep["dataset"] = dataset
+        return egs_stage(a, dataset, stages)
+
+    def kept_model(*a, **k):
+        keep["model"], keep["cfg"] = build(*a, **k)
+        return keep["model"], keep["cfg"]
+
+    def kept_den(graph, **k):
+        keep["graph"], keep["den_kw"] = graph, k
+        keep["den"] = auto(graph, **k)
+        return keep["den"]
+
+    def counted(self, *a, **k):
+        compiled.append(1)  # in this process only: forked workers count apart
+        return sup_of(self, *a, **k)
+
+    ivector_dim, gauss = WAV_IVECTOR
+    argv = ["--wav-dir", root, "--cmvn", "speaker", "--speed-perturb",
+            "--ivector-dim", str(ivector_dim), "--ivector-gauss", str(gauss),
+            "--model", "tdnnf", "--hidden-dim", "768", "--bottleneck-dim", "96",
+            "--num-layers", str(LAYERS), "--chunk-frames", str(T_OUT), "--batch-size", str(B),
+            "--steps", str(args.steps), "--epochs", str(args.steps), "--log-every", "1",
+            "--device", "cuda", "--seed", str(args.seed), "--materialize-egs", "device"]
+    runs = {}
+
+    def run(name: str, extra: list):
+        metrics = os.path.join(tmp, f"wav_{name}.jsonl")
+        compiled.clear()
+        for fn in counters().values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cli_train.egs_stage, cli_train._build_model = kept_egs, kept_model
+        ops_mod.auto_den_graph, ChainDataset._chunk_supervision = kept_den, counted
+        try:
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(sys.stderr):
+                res = cli_train.main([*argv, *extra, "--metrics-out", metrics])
+            run_s = time.perf_counter() - t0
+        finally:
+            cli_train.egs_stage, cli_train._build_model = egs_stage, build
+            ops_mod.auto_den_graph, ChainDataset._chunk_supervision = auto, sup_of
+        launches = {k: fn.launches for k, fn in counters().items()}
+        losses = [m["loss"] for m in _jsonl(metrics)]
+        r = runs[name] = dict(run_s=run_s, steps=res["steps"], losses=losses,
+                              stages_s=res["timings"]["stages_s"], egs=res.get("egs", {}),
+                              step_ms=res["timings"]["step_ms"],
+                              sup_caps_s=res["timings"]["sup_caps_s"],
+                              place_ms_median=res["timings"]["place_ms_median"],
+                              compiled_here=len(compiled), launches=launches,
+                              peak_bytes=torch.cuda.max_memory_allocated(),
+                              den=res["den"], dataset=keep.pop("dataset"))
+        st = r["stages_s"]
+        _log(f"wav ({name}) cli.train {' '.join(extra)}: {res['steps']} steps in {run_s:.1f} s"
+             f" (host clock, set-up included); stages (s): "
+             + ", ".join(f"{k} {v:.2f}" for k, v in st.items())
+             + f"; egs {json.dumps(r['egs'])}; supervisions compiled in this process"
+             f" {len(compiled)}; estimate_sup_caps {r['sup_caps_s']:.3f} s; ms between steps"
+             f" {r['step_ms']:.2f}; peak device memory {r['peak_bytes'] / 2**30:.2f} GiB;"
+             f" den {json.dumps(res['den'])}; losses {[round(x, 6) for x in losses]};"
+             f" launches {launches} ({smi})")
+        if res["steps"] != args.steps or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"wav ({name}): {res['steps']} steps, losses {losses}")
+        return r
+
+    # (b)
+    first = run("save", ["--precompile-egs", str(WAV_WORKERS), "--save-egs", egs])
+    _launch_gate("wav (b)", first["launches"], DEN_NUM)
+    ds = first["dataset"]
+    if first["compiled_here"] or first["egs"].get("precompiled") != len(ds.chunks):
+        raise AssertionError(f"wav (b): precompiled {first['egs'].get('precompiled')} of"
+                             f" {len(ds.chunks)} chunks, {first['compiled_here']} compiled here")
+    out["chunks"], out["dropped"] = len(ds.chunks), ds.num_dropped
+    out["feat_dim"] = int(ds.utts[0].feats.shape[1])
+    out["utterances"] = len(ds.utts)
+    out["frames"] = int(sum(u.feats.shape[0] for u in ds.utts))
+    if out["feat_dim"] != opts.num_mel_bins + ivector_dim:
+        raise AssertionError(f"wav (b): feature dim {out['feat_dim']}")
+
+    # (c)
+    serial = ChainDataset(ds.utts, ds.tree, ds.norm_fst, chunk_frames_out=ds.chunk_frames_out,
+                          left_context=ds.left_context, right_context=ds.right_context,
+                          sup_opts=ds.sup_opts, seed=ds.seed)
+    t0 = time.perf_counter()
+    differ = [i for i in range(len(ds.chunks))
+              if not _same_sup(serial._sup_of(i), ds._sup_cache.get(i))]
+    out["serial_compile_s"] = time.perf_counter() - t0
+    out["precompile_s"] = first["stages_s"]["precompile_s"]
+    _log(f"wav (c): {len(ds.chunks)} chunks ({ds.num_dropped} dropped) precompiled in"
+         f" {WAV_WORKERS} forked workers after CUDA's initialisation in"
+         f" {out['precompile_s']:.2f} s against {out['serial_compile_s']:.2f} s serial in this"
+         f" process (host clock); supervisions that differ: {len(differ)} ({smi})")
+    if differ:
+        raise AssertionError(f"wav (c): forked and serial supervisions differ at {differ[:10]}")
+
+    # (d)
+    second = run("load", ["--load-egs", egs])
+    if second["compiled_here"] or second["egs"].get("loaded") != first["egs"]["saved"]:
+        raise AssertionError(f"wav (d): loaded {second['egs'].get('loaded')} egs, compiled"
+                             f" {second['compiled_here']}")
+    out["first_loss_bit_equal"] = second["losses"][0] == first["losses"][0]
+    _log(f"wav (d): first loss {second['losses'][0]!r} against (b)'s {first['losses'][0]!r}:"
+         f" bit for bit {out['first_loss_bit_equal']}")
+    if not out["first_loss_bit_equal"]:
+        raise AssertionError("wav (d): the --load-egs run's first loss differs from (b)'s")
+
+    # (e)
+    ds2, cfg, den = second["dataset"], keep["cfg"], keep["den"]
+    out["fits"] = _fit_live_vs_materialized("wav (e)", lambda: ds2, cfg, out["feat_dim"], den,
+                                            B, args, smi, threads=WAV_LOADER_THREADS)
+
+    # (f)
+    batch = next(ds2.batches(8, shuffle=False))
+    opts_loss = ChainLossOptions(l2_regularize=5e-4, leaky_hmm_coefficient=0.1,
+                                 xent_regularize=0.1)
+    weights = make_model(cfg, out["feat_dim"], "cpu", args.seed + 1)
+    ref = {}
+    for dev in ("cuda", "cpu"):
+        model = copy.deepcopy(weights).to(dev)
+        den_dev = auto(keep["graph"], **{**keep["den_kw"], "device": dev})
+        sup = DeviceSupervision.from_host(batch.sup, device=dev).with_kernel_tables()
+        chain, xent = model(torch.as_tensor(batch.feats, device=dev), train=True)
+        loss, aux = chain_loss(chain, xent, den_dev, sup, opts_loss)
+        loss.backward()
+        gn = torch.sqrt(sum(torch.sum(p.grad.double() ** 2) for p in model.parameters()))
+        ref[dev] = dict(loss=float(loss.detach()), objf=float(aux["objf"].detach()),
+                        grad_norm=float(gn), den=type(den_dev).__name__)
+    for k in ("loss", "objf", "grad_norm"):
+        ref[f"{k}_rel"] = abs(ref["cuda"][k] - ref["cpu"][k]) / max(abs(ref["cpu"][k]), 1e-12)
+    out["reference"] = ref
+    _log(f"wav (f): B=8 card against CPU ({ref['cuda']['den']} / {ref['cpu']['den']}): loss"
+         f" {ref['cuda']['loss']:.8g} / {ref['cpu']['loss']:.8g} rel {ref['loss_rel']:.3g},"
+         f" objf rel {ref['objf_rel']:.3g}, gradient norm rel {ref['grad_norm_rel']:.3g}"
+         f" (gate {gate:g})")
+    if not (math.isfinite(ref["cuda"]["loss"])
+            and all(ref[f"{k}_rel"] <= gate for k in ("loss", "objf", "grad_norm"))):
+        raise AssertionError("wav (f): the loss or its gradient on the card departs from the"
+                             " CPU's")
+
+    for r in runs.values():
+        r.pop("dataset")
+    out.update(runs=runs, launches=first["launches"])
+    out["phase_s"] = time.perf_counter() - t_phase
+    _log(f"wav phase: {out['phase_s']:.1f} s ({smi})")
+    return out
+
+
 #: gates of the reference check, relative, per trunk dtype.  float32: sums
 #: in another order (cuBLAS vs the CPU BLAS, kernels vs plain) through 9
 #: layers, the 50-frame recursions and a backward.  bfloat16: the card's and
@@ -3433,6 +3806,8 @@ def main(argv=None) -> int:
             result["kaldi"] = check_kaldi(args, result, prep)
             launches["kaldi_left"] = result["kaldi"]["launches_left"]
             launches["kaldi_triphone"] = result["kaldi"]["launches_triphone"]
+            result["wav"] = check_wav(args, result, prep)
+            launches["wav"] = result["wav"]["launches"]
     for name, m in second.items():
         numbers[name] = dict(**numbers[name], production=m)
     measured, probe_launches = check_probe()
@@ -3456,7 +3831,7 @@ def main(argv=None) -> int:
     # probe's: its own phase); every path's count is under "launches_by_path"
     must = {**{p: PATHS[p]["kernels"] for p in PATHS}, "cegs": DEN_NUM, "probe": PROBE,
             "recipe": DEN_NUM, "recipe_compute_prob": EVAL_DEN_NUM, "decode": DECODE_KERNELS,
-            "kaldi_left": DEN_NUM, "kaldi_triphone": NUM}
+            "kaldi_left": DEN_NUM, "kaldi_triphone": NUM, "wav": DEN_NUM}
     records = []
     for name, (_, _, source, replaces) in KERNELS.items():
         first = next(p for p in must if name in must[p])

@@ -182,3 +182,194 @@ def test_each_cli_exits_2_without_a_card_unless_asked_for_the_cpu(tmp_path, caps
         assert e.value.code == 2
         assert "no CUDA device" in capsys.readouterr().err
     assert not (tmp_path / "p.ark").exists()
+
+
+# -- the raw-audio front and the egs cache -----------------------------------
+#
+# A raw-audio data dir (data/synth_wav.py, tests/test_wav_corpus.py's
+# fixture) through `cli.train --wav-dir --cmvn speaker --speed-perturb
+# --ivector-dim 3 --ivector-gauss 8` on both packages.  The port's model
+# starts from the JAX CLI's init (PRNGKey(0), convert.params_from_jax, put
+# in place of the port's seeded draw), so the two runs compute the same
+# function of features that differ by the filterbank's float32 rounding
+# (tests/test_torch_features.py) and of i-vectors trained on them in
+# float64: the run's mean objf is held at WAV_RTOL = 1e-3 (the float32
+# trunk's card-against-CPU gate).
+
+WAV_RTOL = 1e-3
+WAV_FIXTURE = dict(num_utts=8, vocab_size=6, num_phones=4, num_speakers=2, seed=0)
+WAV_ARGS = ["--cmvn", "speaker", "--speed-perturb", "--ivector-dim", "3", "--ivector-gauss",
+            "8", "--model", "tdnnf", *SMALL, "--chunk-frames", "8", "--batch-size", "4",
+            "--seed", "0"]
+
+
+@pytest.fixture(scope="module")
+def wav_dir(tmp_path_factory):
+    from torchain_tpu_torch.data import make_wav_data_dir
+
+    d = tmp_path_factory.mktemp("wavdir")
+    make_wav_data_dir(str(d), **WAV_FIXTURE)
+    return str(d)
+
+
+def _from_jax_init(monkeypatch):
+    """Make the port CLI's `_build_model` load the JAX CLI's init."""
+    from torchain_tpu.models import TdnnfConfig as JCfg
+    from torchain_tpu_torch.cli import train as cli_train
+    from torchain_tpu_torch.convert import params_from_jax
+
+    build = cli_train._build_model
+
+    def built(args, num_pdfs, feat_dim, device):
+        model, cfg = build(args, num_pdfs, feat_dim, device)
+        jcfg = JCfg(num_pdfs=num_pdfs, hidden_dim=args.hidden_dim,
+                    bottleneck_dim=args.bottleneck_dim, num_layers=args.num_layers)
+        params, stats = _jax_init(jcfg, np.zeros((2, 24, feat_dim), np.float32))
+        model.load_state_dict(params_from_jax(params, stats, cfg))
+        return model, cfg
+
+    monkeypatch.setattr(cli_train, "_build_model", built)
+
+
+def test_train_cli_from_raw_audio_matches_the_jax_cli(tmp_path, wav_dir, monkeypatch):
+    from torchain_tpu.cli.train import main as j_train_main
+
+    common = ["--wav-dir", wav_dir, *WAV_ARGS, "--epochs", "2"]
+    want = j_train_main(common)
+    _from_jax_init(monkeypatch)
+    out = str(tmp_path / "m.jsonl")
+    got = train_main([*common, "--device", "cpu", "--log-every", "1", "--metrics-out", out])
+    assert got["steps"] == want["steps"] >= 4
+    np.testing.assert_allclose(got["objf"], want["objf"], rtol=WAV_RTOL)
+    lines = _metrics(out)
+    assert all(set(m) == JAX_METRIC_KEYS for m in lines)
+    stages = got["timings"]["stages_s"]
+    assert {"wav_read_s", "speed_perturb_s", "fbank_s", "cmvn_s", "graph_s", "ivector_s",
+            "train_s"} <= set(stages)
+
+
+def test_saved_egs_train_to_the_same_losses_bit_for_bit(tmp_path, wav_dir, monkeypatch):
+    from torchain_tpu_torch.data import loader
+
+    egs = str(tmp_path / "egs.npz")
+    base = ["--wav-dir", wav_dir, *WAV_ARGS, "--epochs", "2", "--device", "cpu",
+            "--log-every", "1"]
+    first = train_main([*base, "--precompile-egs", "2", "--save-egs", egs,
+                        "--metrics-out", str(tmp_path / "a.jsonl")])
+    assert first["egs"]["precompiled"] == first["egs"]["saved"] > 0
+    assert first["egs"]["save_bytes"] > 0
+    compiled = []
+    orig = loader.ChainDataset._chunk_supervision
+
+    def counting(self, *a, **k):
+        compiled.append(1)
+        return orig(self, *a, **k)
+
+    monkeypatch.setattr(loader.ChainDataset, "_chunk_supervision", counting)
+    second = train_main([*base, "--load-egs", egs, "--metrics-out", str(tmp_path / "b.jsonl")])
+    assert not compiled  # every supervision came from the archive
+    assert second["egs"]["loaded"] == first["egs"]["saved"]
+    a, b = _metrics(tmp_path / "a.jsonl"), _metrics(tmp_path / "b.jsonl")
+    keys = JAX_METRIC_KEYS - {"wall_s", "frames_per_s"}
+    assert [{k: m[k] for k in keys} for m in a] == [{k: m[k] for k in keys} for m in b]
+
+
+@pytest.mark.parametrize("where", ["ram", "device"])
+def test_materialized_egs_give_the_live_runs_losses(tmp_path, wav_dir, where):
+    """With --lr 0 and no semi-orthogonal constraint the model stays put,
+    so each step's loss is a function of its batch alone: a materialized
+    epoch (--materialize-egs; "device" on --device cpu here) replays the
+    live epoch's batches in another order, and the losses agree as a
+    multiset, bit for bit."""
+    base = ["--wav-dir", wav_dir, *WAV_ARGS, "--epochs", "1", "--device", "cpu",
+            "--log-every", "1", "--lr", "0", "--semi-ortho-every", "0"]
+    runs = {}
+    for name, extra in (("live", []), ("mat", ["--materialize-egs", where])):
+        out = str(tmp_path / f"{name}.jsonl")
+        res = train_main([*base, *extra, "--metrics-out", out])
+        runs[name] = sorted(m["loss"] for m in _metrics(out))
+    assert res["egs"]["materialized"] == len(runs["mat"]) >= 3
+    assert res["egs"]["materialized_bytes"] > 0
+    assert runs["mat"] == runs["live"]
+    with pytest.raises(SystemExit, match="frame-shift"):
+        train_main([*base, "--materialize-egs", where, "--frame-shift-cycle"])
+
+
+def test_egs_get_from_raw_audio_writes_the_jax_tools_archive(tmp_path, wav_dir):
+    from torchain_tpu.cli.egs import main as j_egs_main
+    from torchain_tpu_torch.cli.egs import main as egs_main
+    from torchain_tpu_torch.data.cegs import iter_cegs_ark
+
+    args = ["--wav-dir", wav_dir, "--batch-size", "4", "--chunk-frames", "8",
+            "--left-context", "2", "--right-context", "4"]
+    jpath, tpath = str(tmp_path / "j.ark"), str(tmp_path / "t.ark")
+    assert j_egs_main(["get", jpath, *args]) == 0
+    assert egs_main(["get", tpath, *args, "--device", "cpu"]) == 0
+    want, got = list(iter_cegs_ark(jpath)), list(iter_cegs_ark(tpath))
+    assert [k for k, _ in got] == [k for k, _ in want] and len(got) >= 2
+    for (_, a), (_, b) in zip(got, want):
+        sa, sb = a.outputs[0].supervision, b.outputs[0].supervision
+        for f in ("weight", "num_sequences", "frames_per_sequence", "label_dim"):
+            assert getattr(sa, f) == getattr(sb, f), f
+        assert list(sa.fst.all_arcs()) == list(sb.fst.all_arcs())
+        assert [sa.fst.final(s) for s in range(sa.fst.num_states)] == [
+            sb.fst.final(s) for s in range(sb.fst.num_states)]
+        fa, fb = a.io("input").features, b.io("input").features
+        assert fa.shape == fb.shape
+        # speaker CMVN of log-mel values within the filterbank's gate
+        from tests.test_torch_features import TONE_ATOL
+
+        np.testing.assert_allclose(fa, fb, rtol=0, atol=2 * TONE_ATOL)
+
+
+def test_the_flags_the_port_still_lacks_are_queue_1_items_6_to_9():
+    """An argparse comparison of the two train CLIs: every JAX flag and
+    choice is in the port but the multi-device flags (item 9), the
+    recurrent/CNN trunks (item 7) and the optimizers (item 8); the port adds
+    --device and --log-every.  `cli.egs get` lacks nothing (and adds
+    --device)."""
+    from torchain_tpu.cli.train import build_argparser as j_parser
+    from torchain_tpu_torch.cli.train import build_argparser
+
+    def flags(p):
+        return {s: a for a in p._actions for s in a.option_strings}
+
+    j, t = flags(j_parser()), flags(build_argparser())
+    assert set(j) - set(t) == {"--data-parallel", "--model-parallel", "--distributed"}
+    assert set(t) - set(j) == {"--device", "--log-every"}
+    assert set(j["--model"].choices) - set(t["--model"].choices) == {"tdnn-lstm", "cnn-tdnn"}
+    assert set(j["--optimizer"].choices) - set(t["--optimizer"].choices) == {"adam-lowmem",
+                                                                            "ngsgd"}
+    for name in set(j) & set(t) - {"--model", "--optimizer", "--help", "-h"}:
+        assert j[name].choices == t[name].choices, name
+        assert j[name].default == t[name].default or name == "--log-every", name
+
+    import torchain_tpu.cli.egs as jegs
+    import torchain_tpu_torch.cli.egs as tegs
+
+    def get_flags(mod):
+        seen = {}
+
+        class Stop(Exception):
+            pass
+
+        def grab(self, args=None, namespace=None):
+            sub = next(a for a in self._actions if hasattr(a, "choices")
+                       and isinstance(a.choices, dict))
+            seen.update(flags(sub.choices["get"]))
+            raise Stop
+
+        import argparse
+
+        orig = argparse.ArgumentParser.parse_args
+        argparse.ArgumentParser.parse_args = grab
+        try:
+            mod.main(["get", "x"])
+        except Stop:
+            pass
+        finally:
+            argparse.ArgumentParser.parse_args = orig
+        return seen
+
+    jg, tg = get_flags(jegs), get_flags(tegs)
+    assert set(tg) - set(jg) == {"--device"} and not set(jg) - set(tg)

@@ -228,15 +228,14 @@ def test_auto_den_graph_keeps_the_requested_device():
 
 
 #: the Kaldi interchange modules: port module -> (JAX module, names the
-#: port leaves out).  select_device is a JAX-runtime helper; kaldi_compat
-#: leaves out the two functions that compute features (they wait for the
-#: port of data/features.py).
+#: port leaves out).  Nothing is left out: select_device checks a torch
+#: device, and kaldi_compat's two feature functions run data/features.py.
 KALDI_MODULES = {
     "torchain_tpu_torch.utils.kaldi_io": ("torchain_tpu.utils.kaldi_io", set()),
     "torchain_tpu_torch.fstkit.algorithms": ("torchain_tpu.fstkit.algorithms", set()),
     "torchain_tpu_torch.fstkit.openfst_io": ("torchain_tpu.fstkit.openfst_io", set()),
     "torchain_tpu_torch.fstkit": ("torchain_tpu.fstkit", set()),
-    "torchain_tpu_torch.io": ("torchain_tpu.io", {"select_device"}),
+    "torchain_tpu_torch.io": ("torchain_tpu.io", set()),
     "torchain_tpu_torch.data.cegs": ("torchain_tpu.data.cegs", set()),
     "torchain_tpu_torch.cli.graphs": ("torchain_tpu.cli.graphs", set()),
     "torchain_tpu_torch.cli.egs": ("torchain_tpu.cli.egs", set()),
@@ -247,8 +246,7 @@ KALDI_MODULES = {
     "torchain_tpu_torch.graphs.nnet3": ("torchain_tpu.graphs.nnet3", set()),
     "torchain_tpu_torch.graphs.den_graph": ("torchain_tpu.graphs.den_graph", set()),
     "torchain_tpu_torch.graphs": ("torchain_tpu.graphs", set()),
-    "torchain_tpu_torch.data.kaldi_compat": ("torchain_tpu.data.kaldi_compat", {
-        "compute_feats_from_wav_scp", "load_wav_dir"}),
+    "torchain_tpu_torch.data.kaldi_compat": ("torchain_tpu.data.kaldi_compat", set()),
 }
 
 #: the modules of the Kaldi model files, each imported alone in a fresh
@@ -265,9 +263,31 @@ KALDI_MODEL_MODULES = ("torchain_tpu_torch.graphs.transition_model",
 def test_the_kaldi_model_modules_import_no_jax_and_no_features(name):
     """Each module of the Kaldi model files, imported alone, brings in no
     module of JAX or of the JAX package, and no features module (the
-    raw-audio half of kaldi_compat waits for one)."""
+    raw-audio half of kaldi_compat imports data/features.py where it is
+    called)."""
     probe = (f"import sys; import {name}; print(sorted(m for m in sys.modules"
              f" if m.split('.')[0] in {BANNED!r} or 'features' in m))")
+    proc = subprocess.run(
+        [sys.executable, "-c", probe], cwd=str(ROOT), capture_output=True, text=True,
+        env={"PATH": "/usr/bin:/bin", "HOME": str(ROOT), "PYTHONPATH": str(ROOT)},
+        timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "[]"
+
+
+@pytest.mark.parametrize("name", ["torchain_tpu_torch.data.loader",
+                                  "torchain_tpu_torch.data.materialize",
+                                  "torchain_tpu_torch.data.ivector",
+                                  "torchain_tpu_torch.data.augment"])
+def test_the_host_data_modules_import_no_torch(name):
+    """The loader with its egs cache, MaterializedBatches (torch only where
+    it places batches), the i-vectors and the speed perturbation are host
+    code: imported alone (the data package with them), they bring in
+    neither torch nor the feature front, as the Kaldi modules above do
+    not."""
+    probe = (f"import sys; import {name}; print(sorted(m for m in sys.modules"
+             f" if m.split('.')[0] in {BANNED + ('torch',)!r} or 'features' in m))")
     proc = subprocess.run(
         [sys.executable, "-c", probe], cwd=str(ROOT), capture_output=True, text=True,
         env={"PATH": "/usr/bin:/bin", "HOME": str(ROOT), "PYTHONPATH": str(ROOT)},
@@ -291,7 +311,17 @@ DECODE_MODULES = {
     "torchain_tpu_torch.data.words": ("torchain_tpu.data.words", set()),
     "torchain_tpu_torch.cli.decode": ("torchain_tpu.cli.decode", set()),
 }
-REFERENCE_MODULES = {**KALDI_MODULES, **DECODE_MODULES}
+#: the raw-audio front and the egs cache: port module -> (JAX module, names
+#: the port leaves out)
+RAW_AUDIO_MODULES = {
+    "torchain_tpu_torch.data.features": ("torchain_tpu.data.features", set()),
+    "torchain_tpu_torch.data.augment": ("torchain_tpu.data.augment", set()),
+    "torchain_tpu_torch.data.synth_wav": ("torchain_tpu.data.synth_wav", set()),
+    "torchain_tpu_torch.data.ivector": ("torchain_tpu.data.ivector", set()),
+    "torchain_tpu_torch.data.materialize": ("torchain_tpu.data.materialize", set()),
+    "torchain_tpu_torch.data.loader": ("torchain_tpu.data.loader", set()),
+}
+REFERENCE_MODULES = {**KALDI_MODULES, **DECODE_MODULES, **RAW_AUDIO_MODULES}
 
 
 @pytest.mark.parametrize("name", sorted(REFERENCE_MODULES))
@@ -315,6 +345,23 @@ def test_kaldi_modules_keep_the_reference_names(name):
     assert all(getattr(port, k).__module__.startswith("torchain_tpu_torch") for k in defined(port))
     if hasattr(ref, "__all__"):
         assert set(ref.__all__) - left_out <= set(port.__all__)
+
+
+def test_the_data_package_exports_the_jax_packages_names():
+    """Every name of the JAX package's data/__init__.py is exported by the
+    port's, and resolves there to a port object (the feature front's names
+    are loaded where first used)."""
+    import importlib
+    import inspect
+
+    pytest.importorskip("jax")
+    port = importlib.import_module("torchain_tpu_torch.data")
+    ref = importlib.import_module("torchain_tpu.data")
+    assert set(ref.__all__) <= set(port.__all__)
+    for name in port.__all__:
+        obj = getattr(port, name)
+        if inspect.isfunction(obj) or inspect.isclass(obj):
+            assert obj.__module__.startswith("torchain_tpu_torch."), name
 
 
 RECIPE = ("cli/train.py", "cli/compute_prob.py", "cli/export_posteriors.py", "train/trainer.py",
@@ -349,9 +396,9 @@ def test_the_decode_modules_are_walked_and_the_symbol_tables_are_kept():
     assert set(DECODE) <= walked
     kc = importlib.import_module("torchain_tpu_torch.data.kaldi_compat")
     assert {"read_phone_table", "read_symbol_table", "write_symbol_table"} <= set(vars(kc))
-    # the functions that wait for a features module are named, and absent
+    # the raw-audio functions are named, and defined here
     assert "compute_feats_from_wav_scp" in kc.__doc__ and "load_wav_dir" in kc.__doc__
-    assert not {"compute_feats_from_wav_scp", "load_wav_dir"} & set(vars(kc))
+    assert {"compute_feats_from_wav_scp", "load_wav_dir"} <= set(vars(kc))
     from torchain_tpu_torch.cli import decode
 
     flags = {a for act in decode.build_argparser()._actions for a in act.option_strings}

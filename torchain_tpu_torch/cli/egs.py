@@ -7,7 +7,7 @@ prepping archives once and training many times, or handing egs to/from a
 Kaldi system.
 
 Subcommands:
-  get      synthetic corpus -> merged cegs ark
+  get      corpus (synthetic or raw-audio Kaldi dir) -> merged cegs ark
   copy     copy records (optionally a subset / every-nth), re-keying
   shuffle  deterministic seeded permutation of records
   merge    re-merge records into a different minibatch size
@@ -15,6 +15,8 @@ Subcommands:
 
 Usage examples:
   python -m torchain_tpu_torch.cli.egs get --synthetic --batch-size 8 out.ark
+  python -m torchain_tpu_torch.cli.egs get --wav-dir data/train --batch-size 32 \\
+      --chunk-frames 50 out.ark --scp out.scp
   python -m torchain_tpu_torch.cli.egs shuffle in.ark out.ark --seed 7
   python -m torchain_tpu_torch.cli.egs merge in.ark out.ark --batch-size 64
   python -m torchain_tpu_torch.cli.egs info in.ark
@@ -33,19 +35,31 @@ def _cmd_get(args) -> int:
     from torchain_tpu_torch.data.cegs import dataset_to_cegs
     from torchain_tpu_torch.graphs import SupervisionOptions
 
-    if not args.synthetic:
-        print("egs get: pass --synthetic", file=sys.stderr)
-        return 2
-    from torchain_tpu_torch.data import synthetic_dataset
+    if args.synthetic:
+        from torchain_tpu_torch.data import synthetic_dataset
 
-    corpus = synthetic_dataset(
-        num_utts=args.num_utts,
-        num_phones=args.num_phones,
-        feat_dim=args.feat_dim,
-        utt_frames_out=(args.chunk_frames, args.chunk_frames + 10),
-        seed=args.seed,
-    )
-    utts, tree, norm = corpus.utts, corpus.tree, corpus.norm_fst
+        corpus = synthetic_dataset(
+            num_utts=args.num_utts,
+            num_phones=args.num_phones,
+            feat_dim=args.feat_dim,
+            utt_frames_out=(args.chunk_frames, args.chunk_frames + 10),
+            seed=args.seed,
+        )
+        utts, tree, norm = corpus.utts, corpus.tree, corpus.norm_fst
+    elif args.wav_dir:
+        from torchain_tpu_torch.cli.train import resolve_device
+        from torchain_tpu_torch.data.kaldi_compat import load_wav_dir
+
+        # the filterbank runs on --device
+        wc = load_wav_dir(args.wav_dir, cmvn=args.cmvn, device=resolve_device(args.device))
+        utts, tree, norm = (
+            wc.corpus.utts,
+            wc.corpus.tree,
+            wc.corpus.norm_fst,
+        )
+    else:
+        print("egs get: pass --synthetic or --wav-dir", file=sys.stderr)
+        return 2
     dataset = ChainDataset(
         utts,
         tree,
@@ -215,6 +229,12 @@ def main(argv=None) -> int:
     g = sub.add_parser("get", help="corpus -> merged cegs archive")
     g.add_argument("output")
     g.add_argument("--synthetic", action="store_true")
+    g.add_argument("--wav-dir")
+    g.add_argument("--cmvn", default="speaker")
+    g.add_argument(
+        "--device", default="cuda",
+        help="with --wav-dir: the torch device of the filterbank (default cuda)",
+    )
     g.add_argument("--num-utts", type=int, default=32)
     g.add_argument("--num-phones", type=int, default=20)
     g.add_argument("--feat-dim", type=int, default=40)

@@ -8,7 +8,13 @@ max-change, dropout schedule, backstitch, gradient accumulation,
 semi-orthogonal constraint), per-interval ChainResults logging and
 checkpoints with exact resume.  Data sources: the built-in synthetic
 corpus (--synthetic), its word-level form (--synthetic-words), or a
-completed Kaldi chain prep (--cegs + --den-fst).  On the synthetic
+completed Kaldi chain prep (--cegs + --den-fst), or a raw-audio Kaldi data
+dir (--wav-dir: wav.scp -> fbank on the device -> per-speaker CMVN, with
+3-way speed perturbation by --speed-perturb and online i-vectors appended
+by --ivector-dim).  The chunk supervisions can be compiled up front in
+worker processes (--precompile-egs), saved to and loaded from an egs
+archive (--save-egs, --load-egs), and the minibatches materialized once in
+host memory or on the device (--materialize-egs).  On the synthetic
 corpora, --flat-start-ladder trains flat-start (e2e) first, force-aligns
 the corpus with that model and trains on the generated alignments; --decode
 then decodes every utterance (the model's forward one utterance at a time,
@@ -32,6 +38,9 @@ Usage:
       --decode --lmwt-min 1 --lmwt-max 12 --mbr
   python -m torchain_tpu_torch.cli.train --cegs 'exp/egs/cegs.*.ark' \\
       --den-fst exp/chain/den.fst --checkpoint-dir exp/ckpt
+  python -m torchain_tpu_torch.cli.train --wav-dir data/train --cmvn speaker \\
+      --speed-perturb --ivector-dim 100 --precompile-egs 8 --save-egs egs.npz \\
+      --materialize-egs device
 """
 
 from __future__ import annotations
@@ -119,6 +128,15 @@ def build_argparser() -> argparse.ArgumentParser:
     )
     p.add_argument("--optimizer", choices=("adam", "sgd"), default="adam")
     p.add_argument(
+        "--ivector-dim",
+        type=int,
+        default=0,
+        help="train an online iVector extractor on the training utterances "
+        "and append iVectors to the features (Kaldi online-ivector stages; "
+        "0 = off)",
+    )
+    p.add_argument("--ivector-gauss", type=int, default=32)
+    p.add_argument(
         "--dropout-schedule", default="",
         help="Kaldi --trainer.dropout-schedule, e.g. '0,0@0.20,0.5@0.50,0' "
         "(continuous per-dim dropout; '' = off)",
@@ -143,6 +161,33 @@ def build_argparser() -> argparse.ArgumentParser:
         help="Kaldi --trainer.backstitch-training-scale (e.g. 0.3; 0 = off)",
     )
     p.add_argument("--backstitch-interval", type=int, default=1)
+    p.add_argument(
+        "--save-egs", default="", metavar="PATH",
+        help="after (pre)compiling, write all chunk supervisions to a .npz "
+        "archive (nnet3-chain-get-egs archive role: prep once, train many)",
+    )
+    p.add_argument(
+        "--load-egs", default="", metavar="PATH",
+        help="load a --save-egs archive instead of compiling supervisions "
+        "(refuses archives whose corpus/tree/options fingerprint differs)",
+    )
+    p.add_argument(
+        "--materialize-egs", nargs="?", const="ram", choices=("ram", "device"),
+        default="",
+        help="materialize all merged minibatches once and replay them per "
+        "epoch (the Kaldi merged-cegs-archive economics; "
+        "data/materialize.py).  'ram' (default when the flag is bare) "
+        "keeps host arrays and removes the per-epoch pad/stack cost; "
+        "'device' places every batch on --device once, removing the "
+        "per-step host-to-device copies too (the corpus must fit).  "
+        "Incompatible with --frame-shift-cycle; not applied to --cegs",
+    )
+    p.add_argument(
+        "--precompile-egs", type=int, default=0, metavar="WORKERS",
+        help="compile all chunk supervisions up-front in N parallel worker "
+        "processes (nnet3-chain-get-egs offline-prep role); they are "
+        "cached across epochs either way",
+    )
     p.add_argument("--l2-regularize", type=float, default=5e-4)
     p.add_argument("--leaky-hmm-coefficient", type=float, default=0.1)
     p.add_argument("--xent-regularize", type=float, default=0.1)
@@ -182,6 +227,27 @@ def build_argparser() -> argparse.ArgumentParser:
         default=0.0,
         help="added to phone-emitting arcs at decode time (counters "
         "deletion-heavy error patterns; Kaldi insertion-penalty role)",
+    )
+    p.add_argument(
+        "--wav-dir",
+        default="",
+        help="train from a RAW-AUDIO Kaldi data dir (wav.scp [+segments] "
+        "[+utt2spk], ali.txt; text/lexicon/words.txt enable the word "
+        "decode stage) — the real-corpus front; see data/synth_wav.py "
+        "for a self-contained generator.  The filterbank runs on --device",
+    )
+    p.add_argument(
+        "--cmvn",
+        choices=("none", "speaker", "utterance"),
+        default="speaker",
+        help="feature normalization for --wav-dir (apply-cmvn role; "
+        "'speaker' uses utt2spk / cmvn stats)",
+    )
+    p.add_argument(
+        "--speed-perturb",
+        action="store_true",
+        help="3-way 0.9/1.0/1.1 speed perturbation at the wav front "
+        "(perturb_data_dir_speed_3way.sh role; --wav-dir only)",
     )
     p.add_argument("--seed", type=int, default=0)
     p.add_argument(
@@ -409,6 +475,69 @@ def tied_tree_stage(args, corpus) -> None:
     )
 
 
+def ivector_stage(args, corpus, valid_utts: list) -> None:
+    """Stage 0i (Kaldi's online-ivector stages): a UBM of --ivector-gauss
+    Gaussians and an extractor of --ivector-dim trained on the training
+    utterances (host NumPy, float64), their online i-vectors appended to
+    each frame; the same extractor applied to the held-out utterances (one
+    i-vector every 10 frames, repeated).  Widens --feat-dim in place."""
+    import dataclasses
+
+    from torchain_tpu_torch.data import append_corpus_ivectors, extract_ivectors_online
+
+    print(f"[stage 0i] training iVector extractor (dim {args.ivector_dim}, "
+          f"{args.ivector_gauss} Gaussians)")
+    corpus.utts, ivec_ext = append_corpus_ivectors(
+        corpus.utts,
+        ivector_dim=args.ivector_dim,
+        num_gauss=args.ivector_gauss,
+        seed=args.seed,
+    )
+    for i, u in enumerate(valid_utts):
+        ivecs = extract_ivectors_online(ivec_ext, u.feats)
+        per_frame = np.repeat(ivecs, 10, axis=0)[: u.feats.shape[0]]
+        valid_utts[i] = dataclasses.replace(
+            u, feats=np.concatenate([u.feats, per_frame.astype(u.feats.dtype)], axis=1)
+        )
+    args.feat_dim += args.ivector_dim
+
+
+def _archive_bytes(path: str) -> int:
+    """The size of an egs archive (np.savez_compressed adds ".npz" to a
+    path without it)."""
+    import os
+
+    return os.path.getsize(path if os.path.exists(path) else path + ".npz")
+
+
+def egs_stage(args, dataset, stages: dict) -> dict:
+    """Stage 1's egs work on a ChainDataset (nothing elsewhere): compile
+    every chunk's supervision in --precompile-egs worker processes, load a
+    --load-egs archive, write a --save-egs archive, in that order.  Returns
+    what was done: counts, host seconds and archive bytes."""
+    egs: dict = {}
+    if args.precompile_egs and hasattr(dataset, "precompile"):
+        t0 = time.perf_counter()
+        egs["precompiled"] = dataset.precompile(num_workers=args.precompile_egs)
+        stages["precompile_s"] = time.perf_counter() - t0
+        print(f"[stage 1] precompiled {egs['precompiled']} egs in "
+              f"{stages['precompile_s']:.1f}s ({args.precompile_egs} workers)")
+    if args.load_egs and hasattr(dataset, "load_egs"):
+        t0 = time.perf_counter()
+        egs["loaded"] = dataset.load_egs(args.load_egs)
+        stages["load_egs_s"] = time.perf_counter() - t0
+        egs["load_bytes"] = _archive_bytes(args.load_egs)
+        print(f"[stage 1] loaded {egs['loaded']} egs from {args.load_egs}")
+    if args.save_egs and hasattr(dataset, "save_egs"):
+        t0 = time.perf_counter()
+        egs["saved"] = dataset.save_egs(args.save_egs)
+        stages["save_egs_s"] = time.perf_counter() - t0
+        egs["save_bytes"] = _archive_bytes(args.save_egs)
+        print(f"[stage 1] wrote {egs['saved']} egs to {args.save_egs} "
+              f"in {stages['save_egs_s']:.1f}s")
+    return egs
+
+
 def _posteriors(model, utts, left: int, right: int, fsf: int):
     """The chain head's output [T_out, P] of every utterance, one at a time
     at B=1 on the model's device (the decode stages' forward, as the
@@ -510,10 +639,11 @@ def main(argv=None) -> dict:
     args = build_argparser().parse_args(argv)
     if args.synthetic_words:
         args.synthetic = True
-    if not args.synthetic and not args.cegs:
+    if not args.synthetic and not args.wav_dir and not args.cegs:
         print(
             "Pass --synthetic (or --synthetic-words) for the built-in corpus, "
-            "or --cegs + --den-fst for a completed Kaldi chain prep.",
+            "--wav-dir for a raw-audio Kaldi data dir, or --cegs + --den-fst "
+            "for a completed Kaldi chain prep.",
             file=sys.stderr,
         )
         sys.exit(2)
@@ -530,7 +660,26 @@ def main(argv=None) -> dict:
     stages: dict[str, float] = {}
     t_stage = time.perf_counter()
     word_corpus = None
-    if args.synthetic_words:
+    if args.wav_dir:
+        from torchain_tpu_torch.data import load_wav_dir
+
+        print(
+            f"[stage 0] assembling corpus from raw-audio dir {args.wav_dir} "
+            f"(cmvn={args.cmvn}, speed_perturb={args.speed_perturb})"
+        )
+        word_corpus = load_wav_dir(
+            args.wav_dir,
+            cmvn=None if args.cmvn == "none" else args.cmvn,
+            speed_perturb=args.speed_perturb,
+            context_width=args.context_width,
+            device=device,
+            timings=stages,
+        )
+        corpus = word_corpus.corpus
+        args.feat_dim = corpus.feat_dim
+        if word_corpus.lexicon is None or not any(word_corpus.transcripts):
+            word_corpus = None  # no word decode without lexicon+text
+    elif args.synthetic_words:
         from torchain_tpu_torch.data import synthetic_word_dataset
 
         print(f"[stage 0] preparing synthetic WORD corpus ({args.num_utts} utts, "
@@ -560,6 +709,10 @@ def main(argv=None) -> dict:
         if word_corpus is not None:
             word_corpus.transcripts = word_corpus.transcripts[: -args.valid_utts]
     stages["corpus_s"] = time.perf_counter() - t_stage
+    if args.ivector_dim > 0:
+        t_stage = time.perf_counter()
+        ivector_stage(args, corpus, valid_utts)
+        stages["ivector_s"] = time.perf_counter() - t_stage
     if args.tied_tree_pdfs > 0:
         t_stage = time.perf_counter()
         tied_tree_stage(args, corpus)
@@ -598,6 +751,7 @@ def main(argv=None) -> dict:
     else:
         dataset = chain_dataset()
         n_records = len(dataset.chunks)
+    egs = egs_stage(args, dataset, stages)
     t_stage = time.perf_counter()
     # the phone LM and tree offer the de Bruijn lift on the card (a triphone
     # tree's right context rules it out)
@@ -633,11 +787,31 @@ def main(argv=None) -> dict:
         stages["ladder_align_s"] = time.perf_counter() - t_stage
         trainer.begin_stage()
         print("[ladder 3] tolerance-lattice training on generated alignments")
+    if args.materialize_egs:
+        if args.frame_shift_cycle:
+            raise SystemExit(
+                "--materialize-egs pins the frame shift; drop "
+                "--frame-shift-cycle or materialization"
+            )
+        from torchain_tpu_torch.data import MaterializedBatches
+
+        t_stage = time.perf_counter()
+        dataset = MaterializedBatches(
+            dataset, args.batch_size,
+            device=device if args.materialize_egs == "device" else False,
+        )
+        stages["materialize_s"] = time.perf_counter() - t_stage
+        egs.update(materialized=len(dataset), materialized_bytes=dataset.nbytes,
+                   materialized_on=args.materialize_egs)
+        print(f"[stage 2] materialized {len(dataset)} minibatches "
+              f"({dataset.nbytes / 1e6:.0f} MB, {args.materialize_egs})")
     print(f"[stage 2] training {args.model} on {n_records} "
           + ("utterances" if e2e else "chunks"))
     t_stage = time.perf_counter()
     out = _fit(args, trainer, dataset, "stage 2", t0, restore=not args.flat_start_ladder)
     stages["train_s"] = time.perf_counter() - t_stage
+    if egs:
+        out["egs"] = egs
     if args.flat_start_ladder:
         out["ladder_steps"] = ladder_steps  # the e2e stage's; the rest are stage 3's
     if valid_utts and not e2e:

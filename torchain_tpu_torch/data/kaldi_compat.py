@@ -1,6 +1,5 @@
 """Kaldi-format corpus adapter: build Utterances from standard data dirs (a
-port of torchain_tpu/data/kaldi_compat.py, less its two feature-computing
-functions).
+port of torchain_tpu/data/kaldi_compat.py).
 
 The reference consumed Kaldi egs archives; real deployments of this
 framework instead read the PORTABLE pieces of a Kaldi data directory and
@@ -22,11 +21,9 @@ do the egs work in-process (data/loader.py):
 No Kaldi binaries or compiled IO are required; everything is line-based
 text that Kaldi tools can import/export losslessly.
 
-Two functions of the JAX module are not here: `compute_feats_from_wav_scp`
-(wav.scp -> fbank/mfcc features) and `load_wav_dir` (a raw-audio data dir
--> a trainable corpus).  Both compute features with the JAX package's
-data/features.py, which has no counterpart in the port yet; they come with
-it.  This module imports no features module.
+Features from raw audio (`compute_feats_from_wav_scp`, `load_wav_dir`)
+are computed by data/features.py on a torch device: the card unless the
+caller passes `device`; everything else here is host NumPy.
 """
 
 from __future__ import annotations
@@ -313,6 +310,45 @@ def read_wav_scp(path: str, skip_pipes: bool = False) -> dict[str, str]:
     return out
 
 
+
+def compute_feats_from_wav_scp(
+    scp_path: str,
+    opts=None,
+    feat_type: str = "fbank",
+    channel: int = 0,
+    segments_path: str | None = None,
+    device=None,
+) -> dict[str, np.ndarray]:
+    """compute-fbank-feats / compute-mfcc-feats role: wav.scp -> per-utt
+    feature matrices using the in-repo feature frontend (data/features.py,
+    Povey window + mel bank + optional DCT) on `device` (default the
+    card), returned as float32 NumPy.  Sample rates must match
+    `opts.sample_rate` (Kaldi errors here too rather than resampling).
+
+    With `segments_path`, wav.scp keys are RECORDING ids and each
+    `segments` row yields one utterance from its recording's
+    [start_s, end_s) sample slice (extract-segments role); each recording
+    is read once."""
+    from torchain_tpu_torch.data.features import FbankOptions, fbank, mfcc
+
+    if opts is None:
+        opts = FbankOptions()
+    if feat_type not in ("fbank", "mfcc"):
+        raise ValueError(
+            f"unsupported feat_type {feat_type!r}: expected 'fbank' or 'mfcc'"
+        )
+    fn = {"fbank": fbank, "mfcc": mfcc}[feat_type]
+    waves = extract_utterance_waves(
+        scp_path,
+        segments_path=segments_path,
+        channel=channel,
+        expected_rate=opts.sample_rate,
+    )
+    return {
+        utt: fn(x, opts, device=device).cpu().numpy().astype(np.float32)
+        for utt, x in waves.items()
+    }
+
 def extract_utterance_waves(
     scp_path: str,
     segments_path: str | None = None,
@@ -485,6 +521,185 @@ def apply_cmvn_by_speaker(
         out[utt] = apply_cmvn_stats_matrix(f, stats_by_spk[spk], norm_var)
     return out
 
+
+
+def load_wav_dir(
+    data_dir: str,
+    opts=None,
+    cmvn: str | None = "speaker",
+    norm_var: bool = False,
+    speed_perturb: bool = False,
+    context_width: int = 1,
+    lm_order: int = 2,
+    lm_extra_states: int = 200,
+    frame_subsampling_factor: int | None = None,
+    num_phones: int | None = None,
+    device=None,
+    timings: dict | None = None,
+):
+    """Assemble a trainable WordCorpus from a RAW-AUDIO Kaldi data dir:
+    wav.scp [+ segments] -> fbank -> [3-way speed perturb] ->
+    [per-speaker CMVN] -> Utterances + phone LM + den graph, with the
+    word transcripts/lexicon for HCLG decoding.  The full front of a Kaldi
+    chain recipe with zero Kaldi binaries.
+
+    Expects: `wav.scp` (+`segments`), `ali.txt` (phone alignments at the
+    input frame rate), and for word decoding `text` + `words.txt` +
+    `lexicon.txt` + `phones.txt`.  `utt2spk` enables cmvn="speaker".
+    A `frontend.json` (written by synth_wav.make_wav_data_dir) supplies
+    feature options; explicit arguments override it.
+
+    The filterbank runs on `device` (default the card); the rest on the
+    host.  Where `timings` is a dict, the host seconds of each stage go
+    into it: wav_read_s, speed_perturb_s, fbank_s (the device's work
+    included: the features come back to the host), cmvn_s, graph_s."""
+    import json as _json
+    import time as _time
+
+    from torchain_tpu_torch.data.features import FbankOptions, fbank, num_frames
+    from torchain_tpu_torch.data.words import WordCorpus
+
+    tm = timings if timings is not None else {}
+    t0 = _time.perf_counter()
+    root = pathlib.Path(data_dir)
+    meta = {}
+    if (root / "frontend.json").exists():
+        meta = _json.loads((root / "frontend.json").read_text())
+    if opts is None:
+        opts = FbankOptions(**meta.get("fbank", {}))
+    fsf = frame_subsampling_factor or meta.get("frame_subsampling_factor", 3)
+
+    waves = extract_utterance_waves(
+        str(root / "wav.scp"),
+        segments_path=str(root / "segments") if (root / "segments").exists() else None,
+        expected_rate=opts.sample_rate,
+    )
+    alis = read_alignments(str(root / "ali.txt"))
+    utt2spk = (
+        read_utt2spk(str(root / "utt2spk"))
+        if (root / "utt2spk").exists()
+        else {u: "global" for u in waves}
+    )
+    transcripts: dict[str, list[int]] = {}
+    lexicon = None
+    if (root / "text").exists() and (root / "words.txt").exists():
+        words_tab = read_phone_table(str(root / "words.txt"))
+        transcripts = read_text_transcripts(str(root / "text"), words_tab)
+        if (root / "lexicon.txt").exists() and (root / "phones.txt").exists():
+            from torchain_tpu_torch.graphs.hclg import Lexicon
+
+            phones_tab = read_phone_table(str(root / "phones.txt"))
+            prons: dict[int, list[tuple[int, ...]]] = {}
+            for line in open(root / "lexicon.txt"):
+                parts = line.split()
+                if len(parts) < 2:
+                    continue
+                w = words_tab[parts[0]]
+                prons.setdefault(w, []).append(
+                    tuple(phones_tab[q] for q in parts[1:])
+                )
+            lexicon = Lexicon(prons=prons)
+    if num_phones is None:
+        num_phones = meta.get("num_phones") or max(
+            p for ali in alis.values() for p, _ in ali
+        )
+    tm["wav_read_s"] = _time.perf_counter() - t0
+
+    t0 = _time.perf_counter()
+    if speed_perturb:
+        from torchain_tpu_torch.data.augment import (
+            perturb_alignment,
+            speed_perturb_key_map,
+            speed_perturb_wavs,
+        )
+
+        waves = speed_perturb_wavs(waves)
+        keymap = speed_perturb_key_map(list(alis))
+        new_alis, new_u2s, new_tr = {}, {}, {}
+        for key, (src, f) in keymap.items():
+            if key not in waves or src not in alis:
+                continue
+            t_in = num_frames(waves[key].shape[0], opts)
+            new_alis[key] = (
+                alis[src] if f == 1.0 else perturb_alignment(alis[src], f, t_in)
+            )
+            spk = utt2spk.get(src, "global")
+            new_u2s[key] = spk if f == 1.0 else f"sp{f:g}-{spk}"
+            if src in transcripts:
+                new_tr[key] = transcripts[src]
+        alis, utt2spk, transcripts = new_alis, new_u2s, new_tr
+    tm["speed_perturb_s"] = _time.perf_counter() - t0
+
+    t0 = _time.perf_counter()
+    feats = {
+        u: fbank(x, opts, device=device).cpu().numpy().astype(np.float32)
+        for u, x in waves.items()
+    }
+    tm["fbank_s"] = _time.perf_counter() - t0
+    t0 = _time.perf_counter()
+    if cmvn == "speaker":
+        stats = compute_cmvn_stats_per_spk(feats, utt2spk)
+        feats = apply_cmvn_by_speaker(feats, utt2spk, stats, norm_var)
+    elif cmvn == "utterance":
+        feats = {
+            u: apply_cmvn_stats_matrix(f, cmvn_stats_from_feats([f]), norm_var)
+            for u, f in feats.items()
+        }
+    elif cmvn is not None:
+        raise ValueError(f"unsupported cmvn mode {cmvn!r}")
+    tm["cmvn_s"] = _time.perf_counter() - t0
+
+    from torchain_tpu_torch.data.loader import SyntheticCorpus
+    from torchain_tpu_torch.graphs import (
+        ContextTree,
+        PhoneLmOptions,
+        compile_den_graph,
+        estimate_phone_lm,
+        make_den_fst,
+        make_dense_den_graph,
+        make_normalization_fst,
+    )
+
+    t0 = _time.perf_counter()
+    utts = []
+    tr_list = []
+    for utt in sorted(feats):
+        if utt not in alis:
+            continue
+        f, ali = feats[utt], alis[utt]
+        t_ali = sum(d for _, d in ali)
+        if abs(t_ali - f.shape[0]) > 2:
+            raise ValueError(
+                f"{utt}: alignment covers {t_ali} frames, features have {f.shape[0]}"
+            )
+        utts.append(Utterance(feats=f, alignment=ali, utt_id=utt))
+        tr_list.append(transcripts.get(utt, []))
+    if not utts:
+        raise ValueError(f"no usable utterances in {data_dir}")
+    sents = [[p for p, _ in u.alignment] for u in utts]
+    tree = ContextTree(num_phones, context_width=context_width)
+    lm = estimate_phone_lm(
+        sents, PhoneLmOptions(ngram_order=lm_order, num_extra_lm_states=lm_extra_states)
+    )
+    den_fst = make_den_fst(lm, tree)
+    graph = compile_den_graph(den_fst, tree.num_pdfs)
+    # the dense Moore form only while its V stays small (the JAX package's
+    # threshold)
+    dense = make_dense_den_graph(graph) if graph.num_states <= 2500 else None
+    norm = make_normalization_fst(den_fst, graph.initial_probs)
+    corpus = SyntheticCorpus(
+        utts=utts,
+        tree=tree,
+        den_graph=graph,
+        dense_den=dense,
+        norm_fst=norm,
+        den_fst=den_fst,
+        feat_dim=utts[0].feats.shape[1],
+        pdf_means=np.zeros((tree.num_pdfs, utts[0].feats.shape[1]), np.float32),
+        phone_lm=lm,
+    )
+    tm["graph_s"] = _time.perf_counter() - t0
+    return WordCorpus(corpus=corpus, lexicon=lexicon, transcripts=tr_list)
 
 # Kaldi `tree` files (ContextDependency text format) parse into TiedTree —
 # the pdf-map import route for matching an existing Kaldi system's pdf

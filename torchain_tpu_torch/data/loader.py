@@ -8,6 +8,13 @@ per-chunk supervision FST tensors) without any ark/scp machinery.  Shape
 contract: feats are [B, T_in, F] with T_in = T_out *
 frame_subsampling_factor + left_context + right_context.
 
+`ChainDataset` keeps each chunk's compiled supervision in a cache bounded
+by count and bytes, compiles them all in forked worker processes
+(`precompile`), writes and reads them as one .npz egs archive bound to the
+dataset by a fingerprint (`save_egs`/`load_egs`; an archive written by
+either package loads in the other), and builds batches on a thread pool
+(`batches(num_threads=...)`).
+
 Also provides `synthetic_dataset`, a self-contained learnable toy corpus
 (per-pdf Gaussian feature emissions over random phone sequences) used by
 tests and chip_smoke.py.  For the same arguments and seed it yields the
@@ -16,7 +23,12 @@ same feats and supervision tables as the JAX package's loader.
 
 from __future__ import annotations
 
+import collections
+import concurrent.futures as cf
 import dataclasses
+import hashlib
+import os
+import threading
 
 import numpy as np
 
@@ -41,10 +53,25 @@ from torchain_tpu_torch.graphs.e2e import (
 from torchain_tpu_torch.graphs.supervision import (
     Supervision,
     frame_vocab_width,
+    numerator_tables,
     pad_and_stack_supervisions,
     split_alignment_into_chunks,
     subsample_alignment,
 )
+
+
+#: the dataset a precompile worker compiles from (set in each worker)
+_PRECOMPILE_DS = None
+
+
+def _precompile_init(ds):
+    global _PRECOMPILE_DS
+    _PRECOMPILE_DS = ds
+
+
+def _precompile_one(chunk_idx: int):
+    _ui, _c0, _t, ali, lc, rc = _PRECOMPILE_DS.chunks[chunk_idx]
+    return _PRECOMPILE_DS._chunk_supervision(ali, lc, rc)
 
 
 @dataclasses.dataclass
@@ -95,8 +122,16 @@ class ChainDataset:
         self._norm_ready = arcsort(norm_fst)
         #: compiled-supervision cache, chunk index -> Supervision | None;
         #: chunks are deterministic so entries stay valid for the dataset
-        #: lifetime (Kaldi's analogue: egs are compiled once, offline)
+        #: lifetime (Kaldi's analogue: egs are compiled once, offline).
+        #: Bounded by BOTH an entry cap and a byte budget (packed tables run
+        #: to hundreds of KB a chunk at production sizes).
         self._sup_cache: dict[int, Supervision | None] = {}
+        self._sup_cache_bytes = 0
+        #: guards num_dropped and the cache's byte count against the
+        #: threaded batch builder (batches(num_threads > 1))
+        self._stats_lock = threading.Lock()
+        self.sup_cache_size = 100_000
+        self.sup_cache_max_bytes = 4 * 1024**3
         self.left_context = left_context
         self.right_context = right_context
         self.sup_opts = sup_opts
@@ -152,17 +187,204 @@ class ChainDataset:
                 self.tree.num_pdfs,
             )
         except ValueError:
-            self.num_dropped += 1  # Kaldi drops failed egs the same way
+            with self._stats_lock:  # batches(num_threads > 1) builds concurrently
+                self.num_dropped += 1  # Kaldi drops failed egs the same way
             return None
+
+    def __getstate__(self):
+        # a pickled dataset (a spawned worker's) gets a fresh lock: locks
+        # do not pickle
+        d = self.__dict__.copy()
+        d["_stats_lock"] = None
+        return d
+
+    def __setstate__(self, d):
+        self.__dict__.update(d)
+        self._stats_lock = threading.Lock()
 
     def _sup_of(self, chunk_idx: int) -> Supervision | None:
         """Compiled supervision of chunk #chunk_idx, cached across epochs."""
-        if chunk_idx not in self._sup_cache:
-            _ui, _c0, _t, chunk_ali, left_ctx, right_ctx = self.chunks[chunk_idx]
-            self._sup_cache[chunk_idx] = self._chunk_supervision(
-                chunk_ali, left_ctx, right_ctx
+        if chunk_idx in self._sup_cache:
+            return self._sup_cache[chunk_idx]
+        _ui, _c0, _t, chunk_ali, left_ctx, right_ctx = self.chunks[chunk_idx]
+        sup = self._chunk_supervision(chunk_ali, left_ctx, right_ctx)
+        self._cache_store(chunk_idx, sup)
+        return sup
+
+    def _sup_nbytes(self, sup) -> int:
+        if sup is None:
+            return 0
+        return sum(
+            a.nbytes
+            for a in (
+                sup.in_src,
+                sup.in_pdf,
+                sup.in_logw,
+                sup.final_logw,
+                sup.frame_vocab,
+                sup.pdf_local,
             )
-        return self._sup_cache[chunk_idx]
+            if a is not None
+        )
+
+    def _cache_store(self, chunk_idx: int, sup) -> None:
+        n = self._sup_nbytes(sup)
+        with self._stats_lock:  # threaded batch builders store concurrently
+            if chunk_idx in self._sup_cache:
+                return  # a duplicate concurrent compile: count its bytes once
+            if (
+                len(self._sup_cache) < self.sup_cache_size
+                and self._sup_cache_bytes + n <= self.sup_cache_max_bytes
+            ):
+                self._sup_cache[chunk_idx] = sup
+                self._sup_cache_bytes += n
+
+    def precompile(self, num_workers: int | None = None) -> int:
+        """Compile every chunk's supervision in parallel worker processes
+        and fill the cache (nnet3-chain-get-egs role: egs preparation is an
+        offline, parallel stage in Kaldi).  Returns the number compiled.
+
+        The workers are forked: they inherit the dataset (NumPy and the
+        graph compilers only) and touch no device, so a parent that has
+        already initialised CUDA may fork them; the supervisions come back
+        pickled."""
+        import multiprocessing as mp
+
+        todo = [
+            i
+            for i in range(min(len(self.chunks), self.sup_cache_size))
+            if i not in self._sup_cache
+        ]
+        if not todo:
+            return 0
+        num_workers = num_workers or min(16, os.cpu_count() or 1)
+        if num_workers <= 1:
+            for i in todo:
+                self._sup_of(i)
+            return len(todo)
+        ctx = mp.get_context("fork")
+        with cf.ProcessPoolExecutor(
+            num_workers,
+            mp_context=ctx,
+            initializer=_precompile_init,
+            initargs=(self,),
+        ) as ex:
+            for i, sup in zip(todo, ex.map(_precompile_one, todo, chunksize=8)):
+                if sup is None:
+                    self.num_dropped += 1
+                self._cache_store(i, sup)
+        return len(todo)
+
+    # -- on-disk egs archives (nnet3-chain-get-egs archive role) ----------
+
+    def egs_fingerprint(self) -> str:
+        """Content hash binding an egs archive to THIS dataset: the chunk
+        plan (utterance alignments, boundaries, contexts), supervision
+        options, pdf map, and normalization FST.  A loaded archive whose
+        fingerprint differs would silently supervise a different objective,
+        so load_egs refuses it.  The JAX package hashes the same text, so an
+        archive written by either package loads in the other."""
+        h = hashlib.sha256()
+        h.update(repr(self.sup_opts).encode())
+        h.update(repr(self.chunks).encode())
+        tree = self.tree
+        if hasattr(tree, "pdf_map"):
+            h.update(np.asarray(tree.pdf_map).tobytes())
+        else:
+            h.update(
+                f"{type(tree).__name__}:{tree.num_pdfs}:"
+                f"{getattr(tree, 'context_width', 0)}".encode()
+            )
+        f = self.norm_fst
+        h.update(f"{f.num_states}".encode())
+        for s in range(f.num_states):
+            for a in f.arcs(s):
+                h.update(f"{s},{a.label},{a.dst},{a.weight:.6g};".encode())
+        return h.hexdigest()[:16]
+
+    _EGS_FIELDS = ("in_src", "in_pdf", "in_logw", "final_logw", "num_states")
+    #: numerator lookup tables (an archive without them has them derived
+    #: on load — cheap per chunk)
+    _EGS_TABLE_FIELDS = ("frame_vocab", "pdf_local")
+
+    def save_egs(self, path) -> int:
+        """Write every compiled supervision to one .npz archive — the
+        on-disk form of Kaldi's cegs archives (nnet3-chain-get-egs writes
+        them once; training jobs only read).  Chunks not yet compiled are
+        compiled first (call precompile() beforehand to parallelize).
+        Returns the number of chunks stored (dropped chunks are recorded
+        as dropped so reloads don't recompile-and-refail them)."""
+        arrays: dict[str, np.ndarray] = {}
+        dropped = []
+        n = 0
+        for i in range(len(self.chunks)):
+            sup = self._sup_of(i)
+            if sup is None:
+                dropped.append(i)
+                continue
+            for f in self._EGS_FIELDS:
+                arrays[f"{i}_{f}"] = getattr(sup, f)
+            for f in self._EGS_TABLE_FIELDS:
+                if getattr(sup, f) is not None:
+                    arrays[f"{i}_{f}"] = getattr(sup, f)
+            arrays[f"{i}_meta"] = np.asarray(
+                [
+                    sup.num_frames,
+                    sup.num_pdfs,
+                    sup.max_states,
+                    sup.max_arcs,
+                    sup.steady_need if sup.steady_need is not None else -1,
+                ],
+                np.int64,
+            )
+            arrays[f"{i}_weight"] = np.asarray(sup.weight, np.float32)
+            n += 1
+        arrays["__fingerprint__"] = np.frombuffer(self.egs_fingerprint().encode(), np.uint8)
+        arrays["__dropped__"] = np.asarray(dropped, np.int64)
+        arrays["__num_chunks__"] = np.asarray([len(self.chunks)], np.int64)
+        np.savez_compressed(path, **arrays)
+        return n
+
+    def load_egs(self, path) -> int:
+        """Fill the supervision cache from a save_egs archive.  Refuses an
+        archive whose fingerprint does not match this dataset (different
+        corpus/tree/options).  Returns the number of chunks loaded."""
+        with np.load(path) as z:
+            fp = bytes(z["__fingerprint__"]).decode()
+            if fp != self.egs_fingerprint():
+                raise ValueError(
+                    f"egs archive fingerprint {fp} does not match this "
+                    f"dataset ({self.egs_fingerprint()}); the archive was "
+                    "built from a different corpus, tree, normalization "
+                    "FST, or supervision options"
+                )
+            if int(z["__num_chunks__"][0]) != len(self.chunks):
+                raise ValueError("egs archive chunk count mismatch")
+            for i in z["__dropped__"]:
+                self._sup_cache[int(i)] = None
+            n = 0
+            for i in range(len(self.chunks)):
+                if f"{i}_meta" not in z:
+                    continue
+                meta = z[f"{i}_meta"]
+                sup = Supervision(
+                    num_frames=int(meta[0]),
+                    num_pdfs=int(meta[1]),
+                    max_states=int(meta[2]),
+                    max_arcs=int(meta[3]),
+                    weight=float(z[f"{i}_weight"]),
+                    **{f: z[f"{i}_{f}"] for f in self._EGS_FIELDS},
+                    **{f: z[f"{i}_{f}"] for f in self._EGS_TABLE_FIELDS if f"{i}_{f}" in z},
+                )
+                if len(meta) > 4 and int(meta[4]) >= 0:
+                    sup.steady_need = int(meta[4])
+                if sup.frame_vocab is None or sup.steady_need is None:
+                    # an archive without the tables: derive them once here
+                    fv, pl, need = numerator_tables(sup.in_src, sup.in_pdf)
+                    sup.frame_vocab, sup.pdf_local, sup.steady_need = fv, pl, need
+                self._cache_store(i, sup)
+                n += 1
+        return n
 
     def estimate_sup_caps(self) -> tuple[int, int, int, int]:
         """(max_states, max_arcs, max_frame_vocab, max_steady_arcs) over ALL
@@ -200,13 +422,20 @@ class ChainDataset:
         drop_last: bool = True,
         epoch: int | None = None,
         sup_caps: tuple[int, int, int, int] | None = None,
+        num_threads: int = 0,
     ):
         """Yield ChainBatch objects; chunks grouped by T_out.
 
         Passing `epoch` makes shuffling a pure function of (seed, epoch) so
         a resumed run replays the identical batch order.  `sup_caps` (from
         estimate_sup_caps: states, arcs, frame vocab, steady arcs) fixes the
-        supervision padding exactly; a chunk beyond it raises."""
+        supervision padding exactly; a chunk beyond it raises.
+
+        `num_threads > 1` builds batches on a thread pool, in order: the
+        per-batch NumPy pad/stack work releases the GIL, so the host-side
+        egs assembly scales past one core while the device runs.  Use after
+        precompile()/load_egs — concurrent cache misses would compile the
+        same supervision twice (correct, just wasted work)."""
         pad_s, pad_k, pad_v, pad_st = sup_caps or (None,) * 4
         rng = (
             np.random.default_rng((self.seed, epoch)) if epoch is not None else self.rng
@@ -218,37 +447,63 @@ class ChainDataset:
         if shuffle:
             for k in order:
                 rng.shuffle(by_len[k])
+        parts: list[list[int]] = []
         for t_out in order:
             group = by_len[t_out]
             for i in range(0, len(group), batch_size):
                 part = group[i : i + batch_size]
                 if drop_last and len(part) < batch_size:
                     continue
-                feats, sups = [], []
-                for ci in part:
-                    ui, c0, t, _ali, _lc, _rc = self.chunks[ci]
-                    sup = self._sup_of(ci)
-                    if sup is None:
-                        continue
-                    feats.append(self._chunk_feats(self.utts[ui], c0, t))
-                    sups.append(sup)
-                if not sups or (drop_last and len(sups) < batch_size):
+                parts.append(part)
+
+        def build(part: list[int]) -> ChainBatch | None:
+            feats, sups = [], []
+            for ci in part:
+                ui, c0, t, _ali, _lc, _rc = self.chunks[ci]
+                sup = self._sup_of(ci)
+                if sup is None:
                     continue
-                yield ChainBatch(
-                    feats=np.stack(feats).astype(np.float32),
-                    sup=pad_and_stack_supervisions(
-                        sups,
-                        round_states_to=self.sup_round_states,
-                        round_arcs_to=self.sup_round_arcs,
-                        pad_states_to=pad_s,
-                        pad_arcs_to=pad_k,
-                        pad_vocab_to=pad_v,
-                        pad_steady_to=pad_st,
-                        # the device consumes pdf_local/frame_vocab only;
-                        # the raw [B,T,S,K] pdf ids are dead weight here
-                        materialize_pdf=False,
-                    ),
-                )
+                feats.append(self._chunk_feats(self.utts[ui], c0, t))
+                sups.append(sup)
+            if not sups or (drop_last and len(sups) < batch_size):
+                return None
+            return ChainBatch(
+                feats=np.stack(feats).astype(np.float32),
+                sup=pad_and_stack_supervisions(
+                    sups,
+                    round_states_to=self.sup_round_states,
+                    round_arcs_to=self.sup_round_arcs,
+                    pad_states_to=pad_s,
+                    pad_arcs_to=pad_k,
+                    pad_vocab_to=pad_v,
+                    pad_steady_to=pad_st,
+                    # the device consumes pdf_local/frame_vocab only;
+                    # the raw [B,T,S,K] pdf ids are dead weight here
+                    materialize_pdf=False,
+                ),
+            )
+
+        # serial by default here; Trainer.fit passes TrainerConfig.
+        # loader_threads, which defaults to half the host's cores (at most 4)
+        num_threads = min(num_threads or 0, os.cpu_count() or 1)
+        if num_threads > 1:
+            with cf.ThreadPoolExecutor(num_threads) as ex:
+                pending: collections.deque = collections.deque()
+                for part in parts:
+                    pending.append(ex.submit(build, part))
+                    while len(pending) > num_threads + 1:
+                        b = pending.popleft().result()
+                        if b is not None:
+                            yield b
+                while pending:
+                    b = pending.popleft().result()
+                    if b is not None:
+                        yield b
+        else:
+            for part in parts:
+                b = build(part)
+                if b is not None:
+                    yield b
 
 
 class E2eChainDataset:

@@ -12,8 +12,9 @@ Here:
                         and write_ark_binary for binary FM/DM/CM archives,
                         so posteriors interoperate with Kaldi decoders
 
-Host-side NumPy; a copy of torchain_tpu/io.py without its JAX device
-helper, writing the same bytes for the same matrices.
+Host-side NumPy; a copy of torchain_tpu/io.py, writing the same bytes for
+the same matrices.  Its device helper, `select_device`, checks a torch
+device where the JAX one checked a JAX platform.
 """
 
 from __future__ import annotations
@@ -34,6 +35,32 @@ def __getattr__(name: str):
         return getattr(loader, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
+
+#: JAX's platform names for the torch device types they stand for
+_PLATFORM_ALIASES = {"gpu": "cuda"}
+
+
+def select_device(platform: str | None = None):
+    """The default torch device: the card (`cuda:0`) where one is present,
+    else the CPU.  With `platform` ("cuda", its JAX name "gpu", or "cpu"),
+    that platform's first device; a platform that is absent raises
+    RuntimeError, as the JAX package's check does for a platform that is
+    not its backend's.  (torchain's set_kaldi_device bound Kaldi to torch's
+    GPU; the entry points' --device flags take this role.)"""
+    import torch
+
+    if platform is None:
+        return torch.device("cuda:0" if torch.cuda.is_available() else "cpu")
+    kind = _PLATFORM_ALIASES.get(platform, platform)
+    if kind == "cpu":
+        return torch.device("cpu")
+    if kind == "cuda" and torch.cuda.is_available():
+        return torch.device("cuda:0")
+    default = "cuda" if torch.cuda.is_available() else "cpu"
+    raise RuntimeError(
+        f"requested platform {platform!r} but it is absent (the default device is "
+        f"{default!r})"
+    )
 
 class MatrixWriter:
     """Write float matrices to a Kaldi TEXT archive (`ark,t:` format).
