@@ -105,7 +105,18 @@ Phases, in order; any failure exits non-zero before the last line:
      from `--load-egs` (no compile; the first loss bit for bit), the live
      loader (serial and on a pool of threads) against materialized batches
      under `Trainer.fit`, and a B=8
-     batch on the card against the CPU.  The cegs phase also times
+     batch on the card against the CPU; then every trunk, lowering and
+     optimizer of the JAX package (`check_trunks`): `cli.train` on the
+     trigram corpus with the TDNN-LSTM at Kaldi run_tdnn_lstm_1a's widths
+     (1024, projections 256) and with its OPGRU ladder, the CNN-TDNN (Kaldi
+     cnn_tdnn_1a's filters), the TDNN-F with `--optimizer adam-lowmem` and
+     `ngsgd` (each optimizer's updates on the card against the CPU's from
+     one gradient, and its state's bytes), the TDNN-F under impl="conv",
+     time_major=False and bn_impl="flax" and the conformer under its four
+     other lowerings (each first loss against its path's), one traced step
+     of each new trunk, and B=8 card-vs-CPU checks of the new trunks (loss,
+     objf, gradient norm, the loss's gradient on the heads' outputs).  The
+     cegs phase also times
      `Trainer.fit` over the live `CegsDataset` against
      `MaterializedBatches` of it on the card;
   5. a reference check on a small input for each path: the first-step loss
@@ -139,6 +150,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 import warnings
 
 #: published H100 SXM peaks (NVIDIA data sheet): float32 outside the
@@ -468,9 +480,18 @@ def make_model(cfg, feat_dim: int, device, seed: int):
     """The path's model with weights drawn from `seed`."""
     import torch
 
-    from torchain_tpu_torch.models import TDNNF, Conformer, ConformerConfig
+    from torchain_tpu_torch.models import (
+        CNNTDNN,
+        TDNNF,
+        TDNNLSTM,
+        CnnTdnnConfig,
+        Conformer,
+        ConformerConfig,
+        TdnnLstmConfig,
+    )
 
-    cls = Conformer if isinstance(cfg, ConformerConfig) else TDNNF
+    cls = {ConformerConfig: Conformer, TdnnLstmConfig: TDNNLSTM,
+           CnnTdnnConfig: CNNTDNN}.get(type(cfg), TDNNF)
     return cls(cfg, feat_dim, device=device, generator=torch.Generator().manual_seed(seed))
 
 
@@ -3487,6 +3508,337 @@ def check_wav(args, result: dict, tmp: str) -> dict:
     return out
 
 
+#: the trunks phase (`check_trunks`): the TDNN-LSTM at Kaldi
+#: run_tdnn_lstm_1a's widths (`cli.train --hidden-dim`: TDNN and cell 1024,
+#: recurrent and non-recurrent projections 256), the B of its card-vs-CPU
+#: checks, the optimizer steps its first-update gate takes, and that gate's
+#: tolerance per optimizer (the CPU tests': tests/test_torch_lowmem_adam.py,
+#: tests/test_torch_ngsgd.py)
+TRUNK_LSTM_DIM = 1024
+TRUNK_REF_B = 8
+TRUNK_OPT_STEPS = 4
+TRUNK_OPT_RTOL = {"adam-lowmem": 1e-6, "ngsgd": 1e-4}
+#: first-loss gates of a lowering against the default one, by trunk dtype
+LOWERING_RTOL = {"float32": 1e-5, "bfloat16": 1e-2}
+
+
+def _trunk_cli_run(args, name: str, model_argv: list, tmp: str, smi: str,
+                   ladder=None) -> dict:
+    """One `cli.train --synthetic` run on the trigram path's corpus (its
+    `synthetic_dataset` replaced by the chip_smoke corpus of 256 utterances
+    over 40 phones, 40-dim features, the trigram phone LM; with `ladder`
+    the TDNN-LSTM's layers replaced), B=128, T_out=50, --steps steps,
+    supervisions compiled in 8 workers, batches materialized on the card.
+    Gates: the losses finite and falling (the mean of the last two below
+    the first two: the corpus is two batches an epoch); K1-K6 launched and
+    no other kernel.  Returns its numbers, with the run's model config
+    under "cfg"."""
+    import os
+
+    import torch
+
+    import torchain_tpu_torch.data as data_mod
+    import torchain_tpu_torch.models as models_mod
+    from torchain_tpu_torch.cli import train as cli_train
+
+    corpus = _corpus(args.seed, tuple(sorted(PATHS["trigram"]["corpus"].items())))
+
+    def synthetic(**kw):
+        if (kw["num_utts"], kw["num_phones"], kw["feat_dim"]) != (2 * B, 40, 40):
+            raise AssertionError(f"trunks {name}: cli.train asked for another corpus: {kw}")
+        return corpus
+
+    metrics = os.path.join(tmp, f"trunks_{name}.jsonl")
+    argv = ["--synthetic", "--num-utts", str(2 * B), "--num-phones", "40", "--feat-dim", "40",
+            "--chunk-frames", str(T_OUT), "--batch-size", str(B), "--epochs", str(args.steps),
+            "--steps", str(args.steps), "--precompile-egs", "8", "--materialize-egs", "device",
+            "--log-every", "1", "--seed", str(args.seed), "--metrics-out", metrics,
+            "--device", "cuda", *model_argv]
+    ladder_cfg = {}
+    if ladder is not None:
+        ladder_cfg = dict(TdnnLstmConfig=functools.partial(models_mod.TdnnLstmConfig,
+                                                           layers=ladder))
+    for fn in counters().values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _patched(data_mod, synthetic_dataset=synthetic), _patched(models_mod, **ladder_cfg):
+        res = cli_train.main(argv)
+        run_s = time.perf_counter() - t0
+        # the run's model config, as cli.train built it
+        _, cfg = cli_train._build_model(cli_train.build_argparser().parse_args(argv),
+                                        corpus.tree.num_pdfs, 40, "meta")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    launches = {k: fn.launches for k, fn in counters().items()}
+    lines = _jsonl(metrics)
+    losses = [m["loss"] for m in lines]
+    step_ms = res["timings"]["step_ms"]
+    per_step = {k: n / max(len(losses), 1) for k, n in launches.items() if n}
+    _log(f"trunks {name}: cli.train {' '.join(model_argv)}: {res['steps']} steps in"
+         f" {run_s:.1f} s (host clock, set-up included); steps 2..{args.steps} median"
+         f" {step_ms:.2f} ms between steps; peak device memory {peak_gib:.2f} GiB; port"
+         f" kernel launches a step {per_step}; losses {[round(x, 6) for x in losses]} ({smi})")
+    _launch_gate(f"trunks {name}", launches, DEN_NUM)
+    if (res["steps"] != args.steps or len(losses) != args.steps
+            or not all(map(math.isfinite, losses))
+            or not sum(losses[-2:]) < sum(losses[:2])):
+        raise AssertionError(f"trunks {name}: {res['steps']} steps, the loss did not fall:"
+                             f" {losses}")
+    return dict(argv=model_argv, run_s=run_s, step_ms=step_ms, peak_memory_gib=peak_gib,
+                losses=losses, launches=launches, launches_per_step=per_step,
+                timings=res["timings"], cfg=cfg)
+
+
+@functools.lru_cache(maxsize=None)
+def _trunk_dataset(seed: int, context: tuple):
+    """The trigram corpus's chunks at `context`, supervisions compiled in 8
+    workers (made once a context)."""
+    corpus = _corpus(seed, tuple(sorted(PATHS["trigram"]["corpus"].items())))
+    dataset = make_dataset(corpus, types.SimpleNamespace(context=context), e2e=False)
+    dataset.precompile(num_workers=8)
+    return dataset
+
+
+def _trunk_batch(corpus, cfg, n: int, device, seed: int):
+    """The first batch of `n` chunks of the trigram corpus at `cfg`'s
+    context, its denominator and supervision on `device`: (batch, feats,
+    den, sup)."""
+    import torch
+
+    batch = next(_trunk_dataset(seed, cfg.context).batches(n, shuffle=False))
+    den, sup = place("trigram", corpus, batch, device)
+    return batch, torch.as_tensor(batch.feats, device=device), den, sup
+
+
+def _trunk_reference(name: str, cfg, corpus, seed: int, smi: str) -> dict:
+    """(e): the first TRUNK_REF_B chunks at `cfg`'s context, on the card and
+    on the CPU from weights drawn from `seed` + 1: the loss, objf and
+    gradient norm, and the loss's own gradient with respect to both heads'
+    outputs (computed on each side from the CPU's outputs), each within
+    REFERENCE_RTOL["float32"] (Queue 3's rule for a ReLU trunk: its
+    parameter gradients move with the order of float32 sums)."""
+    import torch
+
+    from torchain_tpu_torch.ops import ChainLossOptions, chain_loss
+
+    opts = ChainLossOptions(l2_regularize=5e-4, leaky_hmm_coefficient=0.1, xent_regularize=0.1)
+    weights = make_model(cfg, corpus.feat_dim, "cpu", seed + 1)
+    out, heads = {}, {}
+    for dev in ("cuda", "cpu"):
+        _, feats, den, sup = _trunk_batch(corpus, cfg, TRUNK_REF_B, dev, seed)
+        model = copy.deepcopy(weights).to(dev)
+        chain, xent = model(feats, train=True)
+        loss, aux = chain_loss(chain, xent, den, sup, opts)
+        loss.backward()
+        gn = torch.sqrt(sum(torch.sum(p.grad.double() ** 2) for p in model.parameters()))
+        out[dev] = dict(loss=float(loss.detach()), objf=float(aux["objf"].detach()),
+                        grad_norm=float(gn))
+        heads[dev] = (den, sup)
+        if dev == "cpu":
+            outs = (chain.detach(), xent.detach())
+    dout = {}
+    for dev, (den, sup) in heads.items():
+        y, x = (o.to(dev).requires_grad_() for o in outs)
+        loss, _ = chain_loss(y, x, den, sup, opts)
+        loss.backward()
+        dout[dev] = (y.grad.cpu().double().flatten(), x.grad.cpu().double().flatten())
+    gate = REFERENCE_RTOL["float32"]
+    r = dict(cuda=out["cuda"], cpu=out["cpu"], rtol=gate,
+             dy_rel=_rel(dout["cuda"][0], dout["cpu"][0]),
+             dx_rel=_rel(dout["cuda"][1], dout["cpu"][1]))
+    for k in ("loss", "objf", "grad_norm"):
+        r[f"{k}_rel"] = abs(out["cuda"][k] - out["cpu"][k]) / max(abs(out["cpu"][k]), 1e-12)
+    _log(f"trunks {name} (e) B={TRUNK_REF_B} card vs CPU: loss {out['cuda']['loss']:.8g} vs"
+         f" {out['cpu']['loss']:.8g} rel {r['loss_rel']:.3g}, objf rel {r['objf_rel']:.3g},"
+         f" gradient norm rel {r['grad_norm_rel']:.3g}, the loss's gradient on the heads'"
+         f" outputs rel {r['dy_rel']:.3g} (chain) {r['dx_rel']:.3g} (xent) (gate {gate:g};"
+         f" {smi})")
+    held = ("loss_rel", "objf_rel", "grad_norm_rel", "dy_rel", "dx_rel")
+    if not (math.isfinite(out["cuda"]["loss"]) and all(r[k] <= gate for k in held)):
+        raise AssertionError(f"trunks {name} (e): the card departs from the CPU")
+    return r
+
+
+def _trunk_traced(name: str, cfg, corpus, seed: int, smi: str) -> dict:
+    """One train step of `cfg` at B=128 on the trigram batch at its context,
+    traced with torch.profiler after two untraced ones: kernel launches a
+    step (all of them, cuBLAS and elementwise included), device busy and
+    wall ms, and the traced idle share."""
+    _, feats, den, sup = _trunk_batch(corpus, cfg, B, "cuda", seed)
+    _, _, _, step, _ = train_steps(cfg, corpus.feat_dim, feats, den, sup, 2, seed)
+    prof = profile_steps(step, feats, den, sup, 1, None)
+    _log(f"trunks {name} traced step (B={B}): {prof['kernel_launches']} kernel launches,"
+         f" wall {prof['wall_ms']:.2f} ms, device busy {prof['device_busy_ms']:.2f} ms (traced"
+         f" idle share {prof['idle_share']:.3f}), cuBLAS GEMMs {prof['library_gemm_ms']:.2f} ms,"
+         f" port kernels {prof['port_kernels_ms']:.2f} ms ({smi})")
+    prof.pop("top")
+    return prof
+
+
+def _optimizer_updates(optimizer: str, cfg, corpus, seed: int, smi: str) -> dict:
+    """(c)'s gate: the trigram TDNN-F's gradient on the path's B=128 batch,
+    taken on the card, copied to a CPU copy of the model; `ChainOptimizer`
+    (clip 5, lr 1e-3) of `optimizer` on each side makes TRUNK_OPT_STEPS
+    updates from that same gradient (the fourth crosses NG-SGD's first
+    inverse refresh), each from parameters set to zero, so that they read
+    the update exactly.  Each update, card against CPU, within
+    TRUNK_OPT_RTOL of its largest magnitude.  Also the state's
+    bytes, beside torch's Adam's moment bytes for the same parameters."""
+    import torch
+
+    from torchain_tpu_torch.ops import ChainLossOptions, chain_loss
+    from torchain_tpu_torch.train import ChainOptimizer, TrainerConfig
+
+    _, feats, den, sup = _trunk_batch(corpus, cfg, B, "cuda", seed)
+    card = make_model(cfg, corpus.feat_dim, "cuda", seed)
+    chain, xent = card(feats, train=True)
+    loss, _ = chain_loss(chain, xent, den, sup, ChainLossOptions(
+        l2_regularize=5e-4, leaky_hmm_coefficient=0.1, xent_regularize=0.1))
+    loss.backward()
+    cpu = copy.deepcopy(card).to("cpu")
+    grads = {"cuda": [p.grad.detach().clone() for p in card.parameters()]}
+    grads["cpu"] = [g.cpu() for g in grads["cuda"]]
+    for p, g in zip(cpu.parameters(), grads["cpu"]):
+        p.grad = g.clone()
+    opts = {dev: ChainOptimizer(m.parameters(), TrainerConfig(optimizer=optimizer, lr=1e-3,
+                                                                device=dev))
+            for dev, m in (("cuda", card), ("cpu", cpu))}
+    worst = []
+    for _ in range(TRUNK_OPT_STEPS):
+        deltas = {}
+        for dev, m in (("cuda", card), ("cpu", cpu)):
+            # neither optimizer reads the parameters' values: from zero, a
+            # parameter after the step is the update itself, not rounded
+            # into the parameter's own magnitude
+            for p, g in zip(m.parameters(), grads[dev]):
+                p.detach().zero_()
+                p.grad.copy_(g)
+            opts[dev].step()
+            deltas[dev] = [p.detach().cpu().clone() for p in m.parameters()]
+        worst.append(max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                         for a, b in zip(deltas["cuda"], deltas["cpu"]) if b.abs().max() > 0))
+    state_bytes = opts["cuda"].inner.state_bytes()
+    adam = torch.optim.Adam(card.parameters())
+    adam.step()
+    adam_bytes = sum(st[k].numel() * st[k].element_size() for st in adam.state.values()
+                     for k in ("exp_avg", "exp_avg_sq"))
+    gate = TRUNK_OPT_RTOL[optimizer]
+    _log(f"trunks {optimizer} (c) updates on the same gradient, card vs CPU, largest"
+         f" difference relative to the update's largest magnitude, steps 1..{TRUNK_OPT_STEPS}:"
+         f" {[f'{w:.3g}' for w in worst]} (gate {gate:g}); optimizer state {state_bytes} bytes"
+         f" on the card, torch Adam's moments {adam_bytes} bytes"
+         f" ({state_bytes / adam_bytes:.3f}x; {smi})")
+    if not max(worst) <= gate:
+        raise AssertionError(f"trunks {optimizer} (c): the card's update departs from the CPU's")
+    return dict(update_rel=worst, state_bytes=state_bytes, adam_moment_bytes=adam_bytes)
+
+
+def _lowering_run(name: str, path: str, lowering: dict, args, result: dict, smi: str) -> dict:
+    """(d): the model of `path` (its corpus, weights and replayed B=128 batch)
+    under `lowering`, --steps steps through `make_train_step`: the loss
+    falls; K1-K6 launched and no other kernel (so no attention kernel under
+    "einsum"); the first loss within LOWERING_RTOL of the default lowering's
+    (the path's own run); median ms a step over steps 2..N, peak memory."""
+    import torch
+
+    corpus, cfg, dataset = build_path(path, args.seed)
+    cfg = dataclasses.replace(cfg, **lowering)
+    batch = next(dataset.batches(B, shuffle=False))
+    den, sup = place(path, corpus, batch, "cuda")
+    feats = torch.as_tensor(batch.feats, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times, launches, _, _ = train_steps(cfg, corpus.feat_dim, feats, den, sup,
+                                                args.steps, args.seed)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    first, ref = losses[0]["loss"], result[path]["losses"][0]["loss"]
+    rel = abs(first - ref) / abs(ref)
+    gate = LOWERING_RTOL[PATHS[path]["dtype"]]
+    step_ms = statistics.median(times[1:])
+    per_step = {k: n / args.steps for k, n in launches.items() if n}
+    _log(f"trunks {name} (d) {path} under {lowering}: first loss {first:.8g} vs the default"
+         f" lowering's {ref:.8g}: rel {rel:.3g} (gate {gate:g}); steps 2..{args.steps} median"
+         f" {step_ms:.2f} ms/step against the default's {result[path]['step_ms']:.2f}; peak"
+         f" device memory {peak_gib:.2f} GiB; port kernel launches a step {per_step}; last"
+         f" loss {losses[-1]['loss']:.6g} ({smi})")
+    _launch_gate(f"trunks {name}", launches, DEN_NUM)
+    if not (math.isfinite(first) and rel <= gate and losses[-1]["loss"] < first):
+        raise AssertionError(f"trunks {name}: the first loss departs from the default"
+                             " lowering's, or the loss did not fall")
+    return dict(lowering=lowering, first_loss=first, first_loss_rel=rel, step_ms=step_ms,
+                step_ms_all=times, peak_memory_gib=peak_gib, launches=launches,
+                losses=[m["loss"] for m in losses])
+
+
+def check_trunks(args, result: dict, tmp: str) -> dict:
+    """Phase 4, last: every trunk, lowering and optimizer of the JAX package
+    on the card, on the trigram path's corpus and resident den graph (B=128,
+    T_out=50, --steps steps each):
+
+      (a) `cli.train --model tdnn-lstm --hidden-dim 1024` (run_tdnn_lstm_1a's
+          widths: TDNN and cell 1024, projections 256; the default ladder of
+          3 LSTMP layers, warm-up 6, context (60, 42)), and the same with
+          each ("lstm", 1) of the ladder an ("gru", 1) (OPGRU);
+      (b) `cli.train --model cnn-tdnn --hidden-dim 768 --bottleneck-dim 96
+          --num-layers 9 --feat-dim 40` (CnnTdnnConfig's defaults, Kaldi
+          cnn_tdnn_1a: 48-48-64-64-64-128 filters, 3x3);
+      (c) `cli.train` with the trigram TDNN-F (9 x 768/96) and
+          `--optimizer adam-lowmem`, then `ngsgd`; each optimizer's updates
+          on the card against the CPU's from the same gradient
+          (`_optimizer_updates`), and its state's bytes;
+      (d) the trigram path's TDNN-F under impl="conv", time_major=False and
+          bn_impl="flax", and the conformer path's model under
+          attn_impl="einsum", ln_impl="flax", bn_impl="flax",
+          depthwise_impl="conv" (`_lowering_run`), each from its path's
+          weights and batch;
+      (e) B=8 card-vs-CPU gates for (a)'s two ladders and (b)
+          (`_trunk_reference`).
+
+    Every run: the loss falls, K1-K6 launched and no other kernel.  (a) and
+    (b) also trace one B=128 step for its kernel launches (`_trunk_traced`).
+    Returns the phase's numbers; each run's launch counts are under
+    "launches"."""
+    from torchain_tpu_torch.models.lstm import TDNN_LSTM_LAYERS
+
+    t_phase = time.perf_counter()
+    smi = result["nvidia_smi"]
+    corpus = _corpus(args.seed, tuple(sorted(PATHS["trigram"]["corpus"].items())))
+    gru = tuple(("gru", s[1]) if s[0] == "lstm" else s for s in TDNN_LSTM_LAYERS)
+    tdnnf = ["--model", "tdnnf", "--hidden-dim", "768", "--bottleneck-dim", "96",
+             "--num-layers", str(LAYERS)]
+    runs = {}
+    for name, argv, ladder in (
+            ("tdnn_lstm", ["--model", "tdnn-lstm", "--hidden-dim", str(TRUNK_LSTM_DIM)], None),
+            ("tdnn_opgru", ["--model", "tdnn-lstm", "--hidden-dim", str(TRUNK_LSTM_DIM)], gru),
+            ("cnn_tdnn", ["--model", "cnn-tdnn", "--hidden-dim", "768", "--bottleneck-dim",
+                          "96", "--num-layers", "9"], None),
+            ("adam_lowmem", [*tdnnf, "--optimizer", "adam-lowmem"], None),
+            ("ngsgd", [*tdnnf, "--optimizer", "ngsgd"], None)):
+        runs[name] = _trunk_cli_run(args, name, argv, tmp, smi, ladder)
+    for name, r in runs.items():
+        cfg = r.pop("cfg")
+        r["config"] = {k: str(v) for k, v in dataclasses.asdict(cfg).items()}
+        if name in ("tdnn_lstm", "tdnn_opgru", "cnn_tdnn"):
+            r["traced"] = _trunk_traced(name, cfg, corpus, args.seed, smi)
+            r["reference"] = _trunk_reference(name, cfg, corpus, args.seed, smi)
+    _, tdnnf_cfg, _ = build_path("trigram", args.seed)
+    for name in ("adam_lowmem", "ngsgd"):
+        runs[name]["updates"] = _optimizer_updates(name.replace("_", "-"), tdnnf_cfg, corpus,
+                                                   args.seed, smi)
+    for name, path, lowering in (
+            ("tdnnf_conv", "trigram", dict(impl="conv")),
+            ("tdnnf_batch_major", "trigram", dict(time_major=False)),
+            ("tdnnf_flax_bn", "trigram", dict(bn_impl="flax")),
+            ("conformer_lowerings", "conformer", dict(attn_impl="einsum", ln_impl="flax",
+                                                      bn_impl="flax", depthwise_impl="conv"))):
+        runs[name] = _lowering_run(name, path, lowering, args, result, smi)
+    out = dict(runs=runs, launches={k: r["launches"] for k, r in runs.items()})
+    out["phase_s"] = time.perf_counter() - t_phase
+    _log(f"trunks phase: {out['phase_s']:.1f} s ({smi})")
+    return out
+
+
 #: gates of the reference check, relative, per trunk dtype.  float32: sums
 #: in another order (cuBLAS vs the CPU BLAS, kernels vs plain) through 9
 #: layers, the 50-frame recursions and a backward.  bfloat16: the card's and
@@ -3808,6 +4160,9 @@ def main(argv=None) -> int:
             launches["kaldi_triphone"] = result["kaldi"]["launches_triphone"]
             result["wav"] = check_wav(args, result, prep)
             launches["wav"] = result["wav"]["launches"]
+            result["trunks"] = check_trunks(args, result, prep)
+            for name, n in result["trunks"]["launches"].items():
+                launches[f"trunks_{name}"] = n
     for name, m in second.items():
         numbers[name] = dict(**numbers[name], production=m)
     measured, probe_launches = check_probe()
@@ -3831,7 +4186,8 @@ def main(argv=None) -> int:
     # probe's: its own phase); every path's count is under "launches_by_path"
     must = {**{p: PATHS[p]["kernels"] for p in PATHS}, "cegs": DEN_NUM, "probe": PROBE,
             "recipe": DEN_NUM, "recipe_compute_prob": EVAL_DEN_NUM, "decode": DECODE_KERNELS,
-            "kaldi_left": DEN_NUM, "kaldi_triphone": NUM, "wav": DEN_NUM}
+            "kaldi_left": DEN_NUM, "kaldi_triphone": NUM, "wav": DEN_NUM,
+            **{k: DEN_NUM for k in launches if k.startswith("trunks_")}}
     records = []
     for name, (_, _, source, replaces) in KERNELS.items():
         first = next(p for p in must if name in must[p])

@@ -21,6 +21,7 @@ import pytest
 pytest.importorskip("jax")
 
 from torchain_tpu.cli.decode import main as j_decode
+from tests.test_torch_decode import jax_native_decoder
 from torchain_tpu_torch.cli.decode import main as t_decode
 from torchain_tpu_torch.data import train_word_lm
 from torchain_tpu_torch.eval.lattice import lattice_best_path, read_lattice_ark
@@ -30,6 +31,14 @@ from torchain_tpu_torch.graphs.topology import ContextTree
 from torchain_tpu_torch.io import write_ark_binary
 
 NUM_PHONES, VOCAB = 5, 6
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_native():
+    """The JAX package's native decoder, loaded before any test here runs its
+    native backend (tests/test_torch_decode.py `jax_native_decoder`)."""
+    return jax_native_decoder()
+
 
 
 def _fixture(tmp_path):

@@ -20,6 +20,7 @@ import pytest
 pytest.importorskip("jax")
 
 from tests.test_torch_cli_train import JAX_METRIC_KEYS, SMALL, _falls, _metrics
+from tests.test_torch_decode import jax_native_decoder
 from tests.test_torch_tied_tree import stats_pair
 from torchain_tpu.cli.decode import main as j_decode
 from torchain_tpu.cli.graphs import main as j_graphs
@@ -43,6 +44,14 @@ from torchain_tpu_torch.graphs import (
     write_transition_model,
 )
 from torchain_tpu_torch.io import write_ark_binary
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_native():
+    """The JAX package's native decoder, loaded before any test here runs its
+    native backend (tests/test_torch_decode.py `jax_native_decoder`)."""
+    return jax_native_decoder()
+
 
 
 def _run(main, argv, capsys):
@@ -184,6 +193,48 @@ def test_decode_over_a_kaldi_hclg_equals_the_jax_tool(tmp_path, capsys):
 
 @pytest.mark.parametrize("mode", ["phone", "word"])
 def test_decode_with_a_kaldi_tree_equals_the_jax_tool(tmp_path, capsys, mode):
+    _decode_with_a_kaldi_tree(tmp_path, capsys, mode)
+
+
+def test_a_failed_first_load_of_the_jax_decoder_is_recovered(tmp_path, capsys, monkeypatch):
+    """The race `jax_native_decoder` repairs, made in this process: the JAX
+    loader's library path points at a file cut short (32 bytes, less than
+    an ELF header, as another process's link has just begun it), and a
+    first load fails and marks the library as failed for the process.  A
+    thread completes the file 0.5 s later.  The helper does not map the
+    short file, re-arms the loader once the file is whole and returns the
+    library; both Kaldi-tree decodes then run against it."""
+    import shutil
+    import threading
+
+    from torchain_tpu.eval import native as jnative
+
+    real = jnative._SO
+    jax_native_decoder()
+    part = tmp_path / "libtorchain_tpu_native.so"
+    part.write_bytes(real.read_bytes()[:32])
+    monkeypatch.setattr(jnative, "_SO", part)
+    monkeypatch.setattr(jnative, "_lib", None)
+    monkeypatch.setattr(jnative, "_load_failed", False)
+    assert jnative.get_lib() is None and jnative._load_failed  # the first load fails
+
+    def finish():
+        shutil.copyfile(real, tmp_path / "whole.so")
+        (tmp_path / "whole.so").replace(part)
+
+    timer = threading.Timer(0.5, finish)
+    timer.start()
+    try:
+        lib = jax_native_decoder(wait_s=30.0)
+    finally:
+        timer.join()
+    assert lib is not None and jnative.get_lib() is lib and not jnative._load_failed
+    for mode in ("phone", "word"):
+        _decode_with_a_kaldi_tree(tmp_path / mode, capsys, mode)
+
+
+def _decode_with_a_kaldi_tree(tmp_path, capsys, mode):
+    tmp_path.mkdir(exist_ok=True)
     _j, t, sents = stats_pair("triphone", 0)
     tree = build_tied_tree(t, 40)
     assert tree.right_dependent(0) or tree.right_dependent(1)

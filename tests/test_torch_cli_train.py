@@ -322,12 +322,12 @@ def test_egs_get_from_raw_audio_writes_the_jax_tools_archive(tmp_path, wav_dir):
         np.testing.assert_allclose(fa, fb, rtol=0, atol=2 * TONE_ATOL)
 
 
-def test_the_flags_the_port_still_lacks_are_queue_1_items_6_to_9():
+def test_the_flags_the_port_still_lacks_are_queue_1_item_9():
     """An argparse comparison of the two train CLIs: every JAX flag and
-    choice is in the port but the multi-device flags (item 9), the
-    recurrent/CNN trunks (item 7) and the optimizers (item 8); the port adds
-    --device and --log-every.  `cli.egs get` lacks nothing (and adds
-    --device)."""
+    choice is in the port but the multi-device flags (item 9); every
+    --model and --optimizer choice is there; the port adds --device and
+    --log-every.  `cli.compute_prob` takes every --model choice of the JAX
+    tool.  `cli.egs get` lacks nothing (and adds --device)."""
     from torchain_tpu.cli.train import build_argparser as j_parser
     from torchain_tpu_torch.cli.train import build_argparser
 
@@ -337,12 +337,16 @@ def test_the_flags_the_port_still_lacks_are_queue_1_items_6_to_9():
     j, t = flags(j_parser()), flags(build_argparser())
     assert set(j) - set(t) == {"--data-parallel", "--model-parallel", "--distributed"}
     assert set(t) - set(j) == {"--device", "--log-every"}
-    assert set(j["--model"].choices) - set(t["--model"].choices) == {"tdnn-lstm", "cnn-tdnn"}
-    assert set(j["--optimizer"].choices) - set(t["--optimizer"].choices) == {"adam-lowmem",
-                                                                            "ngsgd"}
     for name in set(j) & set(t) - {"--model", "--optimizer", "--help", "-h"}:
         assert j[name].choices == t[name].choices, name
         assert j[name].default == t[name].default or name == "--log-every", name
+    for name in ("--model", "--optimizer"):
+        assert set(j[name].choices) == set(t[name].choices), name
+        assert j[name].default == t[name].default, name
+    from torchain_tpu.cli.compute_prob import build_argparser as j_cp
+    from torchain_tpu_torch.cli.compute_prob import build_argparser as t_cp
+
+    assert set(flags(j_cp())["--model"].choices) == set(flags(t_cp())["--model"].choices)
 
     import torchain_tpu.cli.egs as jegs
     import torchain_tpu_torch.cli.egs as tegs

@@ -247,8 +247,10 @@ def test_context_arithmetic(kernel, want):
 
 @pytest.mark.parametrize("field", ["ln_impl", "bn_impl", "depthwise_impl", "attn_impl", "ffn_impl"])
 def test_unported_lowerings_are_refused(field):
+    """Every lowering of the JAX package is ported (tests/test_torch_lowerings.py);
+    a value that names none of them is refused."""
     with pytest.raises(ValueError, match="not ported"):
-        ConformerConfig(**{field: "flax"})
+        ConformerConfig(**{field: "xla"})
 
 
 def test_continuous_dropout_identity_cases_and_mask_shape():

@@ -8,10 +8,25 @@ transition model.
 Both packages run the same NumPy and the same C++ on the same inputs, made
 from a seed: graphs, hypotheses and lattices are held exactly, Viterbi
 scores to 1e-6 relative.
+
+The JAX package builds its native decoder with `make -C csrc` at first use,
+straight onto the library's path, and gives it up for the rest of the
+process once a load fails.  Test processes that start together on a
+checkout without the library can each find it missing or half-written.  So
+every port test file that runs the JAX package's native backend first takes
+`jax_native_decoder()`: under a lock shared by the processes, it re-arms the
+JAX loader where this process has given up, and waits until the library
+loads (at most JAX_NATIVE_WAIT_S seconds, then it fails with a plain
+message).
 """
 
 import dataclasses
+import fcntl
+import os
+import struct
 import sys
+import tempfile
+import time
 
 import numpy as np
 import pytest
@@ -33,6 +48,65 @@ from torchain_tpu_torch.graphs import hclg as thclg
 from torchain_tpu_torch.graphs.phone_lm import PhoneLmOptions as TLmOpts
 from torchain_tpu_torch.graphs.phone_lm import estimate_phone_lm as p_estimate
 from torchain_tpu_torch.graphs.topology import ContextTree as TTree
+
+#: how long `jax_native_decoder` waits for the JAX package's native library
+JAX_NATIVE_WAIT_S = 120.0
+
+
+def _elf_complete(path) -> bool:
+    """Whether `path` is a 64-bit ELF file that holds all its headers say it
+    holds: the program and section header tables and every segment."""
+    try:
+        data = path.read_bytes()
+    except OSError:
+        return False
+    if len(data) < 64 or data[:4] != b"\x7fELF":
+        return False
+    phoff, shoff = struct.unpack_from("<QQ", data, 32)
+    phentsize, phnum, shentsize, shnum = struct.unpack_from("<HHHH", data, 54)
+    end = max(phoff + phentsize * phnum, shoff + shentsize * shnum)
+    if end > len(data):
+        return False
+    for i in range(phnum):
+        _, _, offset, _, _, filesz = struct.unpack_from("<IIQQQQ", data, phoff + i * phentsize)
+        end = max(end, offset + filesz)
+    return end <= len(data)
+
+
+def jax_native_decoder(wait_s: float = JAX_NATIVE_WAIT_S):
+    """The JAX package's native decoder library, loaded in this process.
+
+    Holds an exclusive `fcntl.flock` on a file in the temporary directory,
+    so that the port's test processes build it one at a time; where this
+    process's loader has marked the library as failed (a build that lost a
+    race, a load of a half-written file), it clears that mark and tries
+    again, every 0.2 s, until the library loads or `wait_s` has passed."""
+    from torchain_tpu.eval import native as jnative
+
+    lock = os.path.join(tempfile.gettempdir(), "torchain_tpu_native_decoder.lock")
+    deadline = time.monotonic() + wait_s
+    with open(lock, "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            while True:
+                if jnative._lib is None and jnative._load_failed:
+                    jnative._load_failed = False
+                lib = jnative.get_lib()
+                if lib is not None:
+                    return lib
+                if time.monotonic() > deadline:
+                    raise AssertionError(
+                        f"the JAX package's native decoder ({jnative._SO}) did not build or"
+                        f" load within {wait_s:.0f} s")
+                time.sleep(0.2)
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_native():
+    return jax_native_decoder()
+
 
 jwer = sys.modules["torchain_tpu.eval.wer"]
 twer = sys.modules["torchain_tpu_torch.eval.wer"]

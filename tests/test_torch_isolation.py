@@ -40,6 +40,40 @@ def test_port_imports_nothing_of_jax_in_a_fresh_interpreter():
     assert proc.stdout.strip().splitlines()[-1] == "[]"
 
 
+#: the recurrent and CNN trunks, the trunk lowerings, the optimizers and the
+#: entry points that take them
+NEW_MODULES = ("models.lstm", "models.cnn", "models.conformer", "models.tdnn",
+               "train.lowmem_adam", "train.ngsgd", "train.trainer", "convert", "cli.train",
+               "cli.compute_prob")
+
+
+@pytest.mark.parametrize("module", NEW_MODULES)
+def test_trunk_and_optimizer_modules_import_with_jax_blocked(module):
+    """Each imports, and builds its model or optimizer, in an interpreter
+    where importing jax, flax, optax or torchain_tpu raises."""
+    probe = (
+        "import sys\n"
+        f"for name in {BANNED[:-1]!r}: sys.modules[name] = None\n"
+        f"import torchain_tpu_torch.{module}\n"
+        "from torchain_tpu_torch.models import CNNTDNN, TDNNLSTM, CnnTdnnConfig, TdnnLstmConfig\n"
+        "from torchain_tpu_torch.train import NGSGD, LowmemAdam\n"
+        "import torch\n"
+        "m = TDNNLSTM(TdnnLstmConfig(hidden_dim=8, cell_dim=8, rec_proj_dim=2,"
+        " nonrec_proj_dim=2, prefinal_dim=4), 5, device='cpu')\n"
+        "c = CNNTDNN(CnnTdnnConfig(feat_dim=8, hidden_dim=8, bottleneck_dim=2, prefinal_dim=4,"
+        " num_tdnnf_layers=2), device='cpu')\n"
+        "NGSGD(list(m.parameters())); LowmemAdam(list(c.parameters()))\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", probe], cwd=str(ROOT), capture_output=True, text=True,
+        env={"PATH": "/usr/bin:/bin", "HOME": str(ROOT), "PYTHONPATH": str(ROOT)},
+        timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "ok"
+
+
 @pytest.mark.parametrize(
     "path", sorted(str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")) + ["chip_smoke.py"]
 )

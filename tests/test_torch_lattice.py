@@ -16,9 +16,17 @@ import pytest
 
 pytest.importorskip("jax")
 
-from tests.test_torch_decode import _graphs, loglikes, word_graphs
+from tests.test_torch_decode import _graphs, jax_native_decoder, loglikes, word_graphs
 from torchain_tpu.eval import lattice as jlat
 from torchain_tpu_torch.eval import lattice as tlat
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_native():
+    """The JAX package's native decoder, loaded before any test here runs its
+    native backend (tests/test_torch_decode.py `jax_native_decoder`)."""
+    return jax_native_decoder()
+
 
 
 def signature(lat):

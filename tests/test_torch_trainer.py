@@ -267,7 +267,12 @@ def test_resume_refuses_a_changed_den_graph(tmp_path):
 
 
 def test_optimizers_not_ported_are_refused():
-    for name in ("adam-lowmem", "ngsgd"):
+    """Every optimizer of the JAX package is taken (adam, adam-lowmem, sgd,
+    ngsgd); a name the JAX package does not have either is refused."""
+    for name in ("adam", "adam-lowmem", "sgd", "ngsgd"):
+        make_optimizer(TrainerConfig(optimizer=name, device="cpu"),
+                       [torch.nn.Parameter(torch.zeros(2))])
+    for name in ("lamb", "adafactor"):
         with pytest.raises(ValueError, match="not ported"):
             make_optimizer(TrainerConfig(optimizer=name, device="cpu"),
                            [torch.nn.Parameter(torch.zeros(2))])

@@ -31,7 +31,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoint-dir", default=None, help="trainer checkpoint to load (else random init)")
     p.add_argument("--num-pdfs", type=int, default=0, help="output dim (default: the egs' label_dim)")
     p.add_argument("--no-ivector", action="store_true", help="ignore the egs' ivector io")
-    p.add_argument("--model", choices=("tdnn", "tdnnf", "conformer"), default="tdnnf")
+    p.add_argument("--model", choices=("tdnn", "tdnnf", "cnn-tdnn", "tdnn-lstm", "conformer"),
+                   default="tdnnf")
     p.add_argument("--ignore-deriv-weights", action="store_true",
                    help="treat non-uniform deriv_weights as 1.0")
     p.add_argument("--hidden-dim", type=int, default=256)

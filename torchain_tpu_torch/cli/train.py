@@ -85,7 +85,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--num-phones", type=int, default=12)
     p.add_argument("--feat-dim", type=int, default=24)
     p.add_argument("--context-width", type=int, default=1, choices=(1, 2))
-    p.add_argument("--model", choices=("tdnn", "tdnnf", "conformer"), default="tdnnf")
+    p.add_argument("--model", choices=("tdnn", "tdnnf", "tdnn-lstm", "cnn-tdnn", "conformer"),
+                   default="tdnnf")
     p.add_argument(
         "--cegs",
         help="train directly from merged Kaldi cegs archives (comma-separated "
@@ -126,7 +127,7 @@ def build_argparser() -> argparse.ArgumentParser:
         help="after training, average the params of the last N checkpoints "
         "(Kaldi 'combine' stage); requires --checkpoint-dir",
     )
-    p.add_argument("--optimizer", choices=("adam", "sgd"), default="adam")
+    p.add_argument("--optimizer", choices=("adam", "adam-lowmem", "sgd", "ngsgd"), default="adam")
     p.add_argument(
         "--ivector-dim",
         type=int,
@@ -279,12 +280,16 @@ def _build_model(args, num_pdfs: int, feat_dim: int, device):
     """The --model family from CLI args, its parameters drawn from --seed;
     returns (model, cfg)."""
     from torchain_tpu_torch.models import (
+        CNNTDNN,
         TDNN,
         TDNNF,
+        TDNNLSTM,
+        CnnTdnnConfig,
         Conformer,
         ConformerConfig,
         TdnnConfig,
         TdnnfConfig,
+        TdnnLstmConfig,
     )
 
     gen = torch.Generator().manual_seed(args.seed)
@@ -299,6 +304,24 @@ def _build_model(args, num_pdfs: int, feat_dim: int, device):
             num_layers=args.num_layers,
         )
         return TDNNF(cfg, feat_dim, device=device, generator=gen), cfg
+    if args.model == "cnn-tdnn":
+        cfg = CnnTdnnConfig(
+            num_pdfs=num_pdfs,
+            feat_dim=feat_dim,
+            hidden_dim=args.hidden_dim,
+            bottleneck_dim=args.bottleneck_dim,
+            num_tdnnf_layers=args.num_layers,
+        )
+        return CNNTDNN(cfg, feat_dim, device=device, generator=gen), cfg
+    if args.model == "tdnn-lstm":
+        cfg = TdnnLstmConfig(
+            num_pdfs=num_pdfs,
+            hidden_dim=args.hidden_dim,
+            cell_dim=args.hidden_dim,
+            rec_proj_dim=max(8, args.hidden_dim // 4),
+            nonrec_proj_dim=max(8, args.hidden_dim // 4),
+        )
+        return TDNNLSTM(cfg, feat_dim, device=device, generator=gen), cfg
     cfg = ConformerConfig(num_pdfs=num_pdfs, dim=args.hidden_dim, num_layers=args.num_layers)
     return Conformer(cfg, feat_dim, device=device, generator=gen), cfg
 
@@ -354,7 +377,7 @@ def _trainer_config(args, device, batch_size: int, decay_steps: int):
         backstitch_interval=args.backstitch_interval,
         batch_size=batch_size,
         num_epochs=args.epochs,
-        semi_ortho_every=args.semi_ortho_every if args.model == "tdnnf" else 0,
+        semi_ortho_every=args.semi_ortho_every if args.model in ("tdnnf", "cnn-tdnn") else 0,
         checkpoint_dir=args.checkpoint_dir,
         loss=ChainLossOptions(
             l2_regularize=args.l2_regularize,

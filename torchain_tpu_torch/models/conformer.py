@@ -1,6 +1,12 @@
 """Conformer acoustic encoder (torch), port of torchain_tpu/models/conformer.py
-for its default lowerings (fused LayerNorm and batchnorm, shifted depthwise
-convolution, fused attention) and both feed-forward lowerings.
+under each of its lowerings: LayerNorm fused (ops.fused_ln) or flax's
+(`FlaxLayerNorm`, float32, cast back), batchnorm fused or flax's, attention
+fused (ops.attention, kernels K7f/K7b) or "einsum" (plain matrix products:
+q scaled first, the logits in float32, the softmax cast to v's dtype, as
+the JAX package runs it outside any Pallas kernel), the depthwise
+convolution as shifted multiply-adds or as a grouped convolution (a
+float32 island in a bfloat16 trunk, as in the JAX package), and the
+feed-forward dense or fused (K10f/K10b).
 
 Standard conformer blocks (Gulati et al. 2020): half-step feed-forward
 sandwiches around multi-head self-attention (with a T5-style relative
@@ -31,14 +37,17 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from torchain_tpu_torch.models.cnn import conv
 from torchain_tpu_torch.models.tdnn import (
-    ChainBatchNorm,
     Dense,
     Prefinal,
     _param,
+    batch_norm,
+    check_lowerings,
     continuous_dropout,
 )
 from torchain_tpu_torch.ops.attention import fused_relpos_attention
+from torchain_tpu_torch.ops.fused_bn import rounded_scalar
 from torchain_tpu_torch.ops.fused_ffn import ffn_apply
 from torchain_tpu_torch.ops.fused_ln import ln_apply
 
@@ -58,12 +67,18 @@ class ConformerConfig:
     dropout: float = 0.0
     #: compute dtype of the trunk (parameters stay float32)
     dtype: torch.dtype = torch.float32
-    #: run the depthwise taps in float32 whatever the trunk dtype
+    #: run the depthwise taps in float32 whatever the trunk dtype (the
+    #: "conv" lowering does so in a bfloat16 trunk in any case)
     depthwise_f32: bool = False
-    #: lowerings; only the listed values are ported
+    #: depthwise lowering: "shift" (shifted multiply-adds) or "conv" (a
+    #: grouped convolution)
     depthwise_impl: str = "shift"
+    #: batchnorm lowering: "fused" (ops.fused_bn) or "flax" (FlaxBatchNorm)
     bn_impl: str = "fused"
+    #: LayerNorm lowering: "fused" (ops.fused_ln) or "flax" (FlaxLayerNorm)
     ln_impl: str = "fused"
+    #: attention lowering: "fused" (ops.attention, kernels K7f / K7b) or
+    #: "einsum" (plain matrix products)
     attn_impl: str = "fused"
     #: feed-forward lowering: "dense" = two Dense layers around a swish
     #: (default, as in the JAX package), "fused" = ops.fused_ffn.ffn_apply
@@ -71,13 +86,9 @@ class ConformerConfig:
     ffn_impl: str = "dense"
 
     def __post_init__(self):
-        for field, ported in (("depthwise_impl", ("shift",)), ("bn_impl", ("fused",)),
-                              ("ln_impl", ("fused",)), ("attn_impl", ("fused",)),
-                              ("ffn_impl", ("dense", "fused"))):
-            if getattr(self, field) not in ported:
-                raise ValueError(
-                    f"{field}={getattr(self, field)!r} is not ported (have: {', '.join(ported)})"
-                )
+        check_lowerings(self, depthwise_impl=("shift", "conv"), bn_impl=("fused", "flax"),
+                        ln_impl=("fused", "flax"), attn_impl=("fused", "einsum"),
+                        ffn_impl=("dense", "fused"))
         if self.dim % self.num_heads:
             raise ValueError(f"dim {self.dim} is not a multiple of num_heads {self.num_heads}")
 
@@ -106,6 +117,41 @@ class FusedLayerNorm(nn.Module):
 
     def forward(self, x):
         return ln_apply(x.to(self.dtype), self.scale, self.bias, self.eps)
+
+
+class FlaxLayerNorm(nn.Module):
+    """flax's stock nn.LayerNorm over the last axis in float32: float32 row
+    statistics (the variance as max(0, E[x^2] - mean^2)), y = (x - mean) *
+    (rsqrt(var + eps) * scale) + bias, returned in float32; eps 1e-6."""
+
+    def __init__(self, C: int, eps: float = 1e-6, device=None):
+        super().__init__()
+        self.eps = eps
+        self.scale = _param((C,), device, fill=1.0)
+        self.bias = _param((C,), device, fill=0.0)
+
+    def forward(self, x):
+        xf = x.float()
+        mean = xf.mean(-1, keepdim=True)
+        var = torch.clamp(torch.square(xf).mean(-1, keepdim=True) - torch.square(mean), min=0.0)
+        return (xf - mean) * (torch.rsqrt(var + self.eps) * self.scale) + self.bias
+
+
+def einsum_attention(qkv: torch.Tensor, bias: torch.Tensor, num_heads: int,
+                     scale: float) -> torch.Tensor:
+    """softmax(scale * q k^T + bias) v per head, as the JAX package's
+    `attn_impl="einsum"` computes it: qkv [B, T, 3D] in the trunk dtype,
+    bias [H, T, T] float32; q scaled first (the scale rounded to q's dtype),
+    the logits and the softmax in float32, the probabilities cast to v's
+    dtype for the second product.  Returns [B, T, D]."""
+    B, T, D3 = qkv.shape
+    D = D3 // 3
+    q, k, v = (qkv[..., i * D:(i + 1) * D].reshape(B, T, num_heads, D // num_heads)
+               .transpose(1, 2) for i in range(3))
+    q = q * rounded_scalar(scale, q.dtype)
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) + bias
+    att = torch.matmul(torch.softmax(logits, dim=-1).to(v.dtype), v)
+    return att.transpose(1, 2).reshape(B, T, D)
 
 
 class RelPositionBias(nn.Module):
@@ -150,6 +196,18 @@ class DepthwiseShift(nn.Module):
         return y + self.bias.to(self.dtype)
 
 
+class DepthwiseConv(DepthwiseShift):
+    """The same depthwise convolution (SAME padding, the same parameters) as
+    a grouped convolution over [B, C, T] (`models.cnn.conv`)."""
+
+    def forward(self, x):  # [B, T, C]
+        K, dt = self.kernel_size, self.dtype
+        lo = (K - 1) // 2
+        xp = F.pad(x.transpose(1, 2), (lo, K - 1 - lo))
+        y = conv(xp, self.kernel.to(dt).permute(2, 1, 0), (1,), groups=x.shape[-1])
+        return y.transpose(1, 2) + self.bias.to(dt)
+
+
 class Frontend(nn.Module):
     """Strided VALID 1-D convolution over time (kernel [K, F, dim], flax
     nn.Conv layout) in `dtype`, as one matmul over the unfolded windows."""
@@ -181,14 +239,20 @@ class ConformerBlock(nn.Module):
             return Dense(i, o, device, generator, dt)
 
         def ln():
+            if cfg.ln_impl == "flax":
+                return FlaxLayerNorm(D, device=device)
             return FusedLayerNorm(D, dtype=dt, device=device)
 
         self.ln_ffn1, self.ffn1_in, self.ffn1_out = ln(), dense(D, Fh), dense(Fh, D)
         self.ln_attn, self.attn_qkv, self.attn_out = ln(), dense(D, 3 * D), dense(D, D)
         self.ln_conv, self.conv_in = ln(), dense(D, 2 * D)
-        self.dw_dtype = torch.float32 if cfg.depthwise_f32 else dt
-        self.depthwise = DepthwiseShift(D, cfg.conv_kernel, self.dw_dtype, device, generator)
-        self.BatchNorm_0 = ChainBatchNorm(D, device=device)
+        # the grouped convolution is a float32 island in a bfloat16 trunk
+        # whatever depthwise_f32 says, as in the JAX package
+        self.dw_dtype = (torch.float32 if cfg.depthwise_f32 or (
+            cfg.depthwise_impl == "conv" and dt == torch.bfloat16) else dt)
+        dw = DepthwiseConv if cfg.depthwise_impl == "conv" else DepthwiseShift
+        self.depthwise = dw(D, cfg.conv_kernel, self.dw_dtype, device, generator)
+        self.BatchNorm_0 = batch_norm(D, cfg.bn_impl, device)
         self.conv_out = dense(D, D)
         self.ln_ffn2, self.ffn2_in, self.ffn2_out = ln(), dense(D, Fh), dense(Fh, D)
         self.ln_out = ln()
@@ -199,26 +263,31 @@ class ConformerBlock(nn.Module):
             return ffn_apply(h, res, w_in.kernel, w_in.bias, w_out.kernel, w_out.bias, 0.5)
         return res + 0.5 * w_out(swish(w_in(h)))
 
+    def _ln(self, name, x):
+        # a float32 normalization island, its output in the trunk dtype
+        return getattr(self, name)(x).to(self.cfg.dtype)
+
     def forward(self, x, bias, train: bool = False):
         cfg = self.cfg
-        x = self._ffn_half(self.ln_ffn1(x), x, self.ffn1_in, self.ffn1_out)
+        x = self._ffn_half(self._ln("ln_ffn1", x), x, self.ffn1_in, self.ffn1_out)
 
         # self-attention with relative position bias
-        qkv = self.attn_qkv(self.ln_attn(x))
+        qkv = self.attn_qkv(self._ln("ln_attn", x))
         dh = cfg.dim // cfg.num_heads
-        att = fused_relpos_attention(qkv, bias, cfg.num_heads, 1.0 / math.sqrt(dh))
+        attention = einsum_attention if cfg.attn_impl == "einsum" else fused_relpos_attention
+        att = attention(qkv, bias, cfg.num_heads, 1.0 / math.sqrt(dh))
         x = x + self.attn_out(att)
 
         # convolution module
-        a, b = self.conv_in(self.ln_conv(x)).chunk(2, dim=-1)
+        a, b = self.conv_in(self._ln("ln_conv", x)).chunk(2, dim=-1)
         h = a * torch.sigmoid(b)  # GLU
         h = self.depthwise(h.to(self.dw_dtype))
         # float32 batchnorm island (the running statistics are float32)
         h = self.BatchNorm_0(h.float(), train).to(cfg.dtype)
         x = x + self.conv_out(swish(h))
 
-        x = self._ffn_half(self.ln_ffn2(x), x, self.ffn2_in, self.ffn2_out)
-        return self.ln_out(x)
+        x = self._ffn_half(self._ln("ln_ffn2", x), x, self.ffn2_in, self.ffn2_out)
+        return self._ln("ln_out", x)
 
 
 class Conformer(nn.Module):
@@ -233,8 +302,10 @@ class Conformer(nn.Module):
         self.rel_pos = RelPositionBias(cfg.num_heads, cfg.rel_pos_buckets, device, generator)
         for i in range(cfg.num_layers):
             setattr(self, f"block{i}", ConformerBlock(cfg, device, generator))
-        self.chain_head = Prefinal(cfg.dim, cfg.prefinal_dim, cfg.num_pdfs, device, generator, dt)
-        self.xent_head = Prefinal(cfg.dim, cfg.prefinal_dim, cfg.num_pdfs, device, generator, dt)
+        self.chain_head = Prefinal(cfg.dim, cfg.prefinal_dim, cfg.num_pdfs, device, generator, dt,
+                                   cfg.bn_impl)
+        self.xent_head = Prefinal(cfg.dim, cfg.prefinal_dim, cfg.num_pdfs, device, generator, dt,
+                                  cfg.bn_impl)
 
     def forward(self, feats, train: bool = False, dropout_rate=None,
                 generator: torch.Generator | None = None):

@@ -1,7 +1,8 @@
 """TDNN-F and TDNN acoustic encoders (torch), port of
-torchain_tpu/models/tdnn.py: TDNN-F in its default configuration (impl
-"dot", time-major trunk, fused batchnorm), and the plain TDNN (dilated
-convolutions with flax's stock batchnorm).
+torchain_tpu/models/tdnn.py: TDNN-F under each of the JAX package's
+lowerings (`impl` "dot" or "conv", a time-major trunk or not, fused or
+stock batchnorm), and the plain TDNN (dilated convolutions with flax's
+stock batchnorm).
 
 Behavioral reference: the Kaldi chain recipes' TDNN-F (factored layers with
 a semi-orthogonal bottleneck, batchnorm, and scaled bypass connections —
@@ -152,10 +153,10 @@ class Prefinal(nn.Module):
     loss runs its recursions in float32 whatever the trunk computes in)."""
 
     def __init__(self, in_dim, dim, num_pdfs, device=None, generator=None,
-                 dtype=torch.float32):
+                 dtype=torch.float32, bn_impl: str = "fused"):
         super().__init__()
         self.Dense_0 = Dense(in_dim, dim, device, generator, dtype)
-        self.BatchNorm_0 = ChainBatchNorm(dim, device=device)
+        self.BatchNorm_0 = batch_norm(dim, bn_impl, device)
         self.Dense_1 = Dense(dim, num_pdfs, device, generator)
 
     def forward(self, x, train: bool = False):
@@ -165,16 +166,17 @@ class Prefinal(nn.Module):
 
 
 class _TapDot(nn.Module):
-    """A width-2 dilated 1-D conv over the time-major [T, B, C] trunk as
-    two matmuls (kernel [2, in, out]; tap 0 looks back `dilation` frames).
-    With `defer_bias` the bias is returned unapplied as (y, bias) for the
-    fused batchnorm tail."""
+    """A width-2 dilated 1-D conv as two matmuls (kernel [2, in, out]; tap 0
+    looks back `dilation` frames) over the time-major [T, B, C] trunk
+    (`time_axis` 0) or [B, T, C] (`time_axis` 1).  With `defer_bias` the
+    bias is returned unapplied as (y, bias) for the fused batchnorm tail."""
 
     def __init__(self, in_feat, features, dilation=1, stride=1, use_bias=True,
-                 defer_bias=False, device=None, generator=None, dtype=torch.float32):
+                 defer_bias=False, device=None, generator=None, dtype=torch.float32,
+                 time_axis: int = 0):
         super().__init__()
         self.features, self.dilation, self.stride = features, dilation, stride
-        self.defer_bias, self.dtype = defer_bias, dtype
+        self.defer_bias, self.dtype, self.time_axis = defer_bias, dtype, time_axis
         # fan-in counts the receptive field, like nn.Conv's kernel
         self.kernel = _param((2, in_feat, features), device, fan_in=2 * in_feat,
                              generator=generator)
@@ -182,17 +184,18 @@ class _TapDot(nn.Module):
 
     def forward(self, x):
         in_feat = x.shape[-1]
-        d, s = self.dilation, self.stride
-        t_out = (x.shape[0] - d - 1) // s + 1
+        d, s, ta = self.dilation, self.stride, self.time_axis
+        t_out = (x.shape[ta] - d - 1) // s + 1
         kernel = self.kernel.to(self.dtype)
-        if s == 1 and 2 * self.features <= in_feat:
+        if ta == 0 and s == 1 and 2 * self.features <= in_feat:
             # narrowing factor: project first, shift the narrow result
             w = x @ kernel.permute(1, 0, 2).reshape(in_feat, 2 * self.features)
             y = w[:t_out, :, : self.features] + w[d:, :, self.features :]
         else:
-            lag = x[0 : (t_out - 1) * s + 1 : s]
-            now = x[d : d + (t_out - 1) * s + 1 : s]
-            y = lag @ kernel[0] + now @ kernel[1]
+            def taps(start):
+                return x[(slice(None),) * ta + (slice(start, start + (t_out - 1) * s + 1, s),)]
+
+            y = taps(0) @ kernel[0] + taps(d) @ kernel[1]
         if self.bias is None:
             return y
         if self.defer_bias:
@@ -202,30 +205,58 @@ class _TapDot(nn.Module):
 
 class TdnnfLayer(nn.Module):
     """One factored layer: linear (context [-d, 0]) -> bottleneck -> affine
-    (context [0, +d]) -> relu -> batchnorm, with a scaled bypass."""
+    (context [0, +d]) -> relu -> batchnorm, with a scaled bypass.
+
+    `impl` "dot" runs both factors as `_TapDot`s over the time axis
+    `time_axis` (0 for the time-major [T, B, C] trunk, 1 for [B, T, C]);
+    with `bn_impl` "fused" the affine's bias is deferred into `FusedPostBN`,
+    which runs bias + relu + batchnorm (+ bypass) as one op.  `impl` "conv"
+    runs them as VALID convolutions over [B, T, C] (`TdnnConv`, flax's
+    nn.Conv layout), the affine adding its own bias before relu and the
+    batchnorm.  `bn_impl` "flax" takes `FlaxBatchNorm` in place of the fused
+    batchnorm.  All compute the same function."""
 
     def __init__(self, in_dim, hidden_dim, bottleneck_dim, dilation=1, stride=1,
-                 bypass_scale=0.66, device=None, generator=None, dtype=torch.float32):
+                 bypass_scale=0.66, device=None, generator=None, dtype=torch.float32,
+                 impl: str = "dot", time_axis: int = 0, bn_impl: str = "fused"):
         super().__init__()
         self.dilation, self.stride, self.bypass_scale = dilation, stride, bypass_scale
-        self.linear_pre = _TapDot(in_dim, bottleneck_dim, dilation, stride, use_bias=False,
-                                  device=device, generator=generator, dtype=dtype)
-        self.affine = _TapDot(bottleneck_dim, hidden_dim, dilation, defer_bias=True,
-                              device=device, generator=generator, dtype=dtype)
-        self.BatchNorm_0 = FusedPostBN(hidden_dim, device=device)
+        self.time_axis = time_axis if impl == "dot" else 1
+        self.fuse_post = impl == "dot" and bn_impl == "fused"
+        if impl == "dot":
+            self.linear_pre = _TapDot(in_dim, bottleneck_dim, dilation, stride, use_bias=False,
+                                      device=device, generator=generator, dtype=dtype,
+                                      time_axis=time_axis)
+            self.affine = _TapDot(bottleneck_dim, hidden_dim, dilation,
+                                  defer_bias=self.fuse_post, device=device,
+                                  generator=generator, dtype=dtype, time_axis=time_axis)
+        else:
+            self.linear_pre = TdnnConv(in_dim, bottleneck_dim, 2, dilation, stride, device,
+                                       generator, dtype, use_bias=False)
+            self.affine = TdnnConv(bottleneck_dim, hidden_dim, 2, dilation, 1, device,
+                                   generator, dtype)
+        self.BatchNorm_0 = (FusedPostBN(hidden_dim, device=device) if self.fuse_post
+                            else batch_norm(hidden_dim, bn_impl, device))
 
-    def forward(self, x, train: bool = False, dropout_rate=None, generator=None):  # x [T, B, C]
-        h, cb = self.affine(self.linear_pre(x))
-        d = self.dilation
-        crop = x[d :: self.stride][: h.shape[0]]
+    def forward(self, x, train: bool = False, dropout_rate=None, generator=None):
+        ta, d = self.time_axis, self.dilation
+        h = self.affine(self.linear_pre(x))
+        if self.fuse_post:
+            h, cb = h
+        # the bypass source: x cropped to align with h (d left from factor 1,
+        # d right from factor 2, then the stride)
+        crop = x[(slice(None),) * ta + (slice(d, None, self.stride),)].narrow(ta, 0, h.shape[ta])
         has_bypass = crop.shape[-1] == h.shape[-1]
-        if has_bypass and dropout_rate is None:
-            return self.BatchNorm_0(h, cb, crop, self.bypass_scale, train=train)
-        # Kaldi's tdnnf-layer order: dropout after the batchnorm, before the
-        # scaled bypass joins, so with a rate given (even 0) the bypass add
-        # stays outside the fused op
-        h = self.BatchNorm_0(h, cb, train=train)
-        h = continuous_dropout(h, dropout_rate, train, generator, time_axis=0)
+        if self.fuse_post:
+            if has_bypass and dropout_rate is None:
+                return self.BatchNorm_0(h, cb, crop, self.bypass_scale, train=train)
+            # Kaldi's tdnnf-layer order: dropout after the batchnorm, before
+            # the scaled bypass joins, so with a rate given (even 0) the
+            # bypass add stays outside the fused op
+            h = self.BatchNorm_0(h, cb, train=train)
+        else:
+            h = self.BatchNorm_0(torch.relu(h), train)
+        h = continuous_dropout(h, dropout_rate, train, generator, time_axis=ta)
         if has_bypass:
             h = h + rounded_scalar(self.bypass_scale, h.dtype) * crop.to(h.dtype)
         return h
@@ -245,6 +276,16 @@ class TdnnfConfig:
     frame_subsampling_factor: int = 3
     #: dilation per layer after the subsample layer (Kaldi time-stride 3)
     dilation: int = 3
+    #: factored-layer lowering: "dot" (two matrix products per factor) or
+    #: "conv" (VALID convolutions with the affine's own bias)
+    impl: str = "dot"
+    #: run the trunk time-major [T, B, C] ("dot" only; "conv" is [B, T, C])
+    time_major: bool = True
+    #: batchnorm lowering: "fused" (ops.fused_bn) or "flax" (FlaxBatchNorm)
+    bn_impl: str = "fused"
+
+    def __post_init__(self):
+        check_lowerings(self, impl=("dot", "conv"), bn_impl=("fused", "flax"))
 
     def layer_geometry(self) -> list[tuple[int, int]]:
         """(dilation, stride) per tdnnf layer."""
@@ -292,15 +333,19 @@ class TDNNF(nn.Module):
         super().__init__()
         self.config = cfg
         H, dt = cfg.hidden_dim, cfg.dtype
+        self.time_major = cfg.time_major and cfg.impl == "dot"
         self.input_proj = InputProj(feat_dim, H, device, generator, dt)
-        self.BatchNorm_0 = ChainBatchNorm(H, device=device)
+        self.BatchNorm_0 = batch_norm(H, cfg.bn_impl, device)
         for i, (d, s) in enumerate(cfg.layer_geometry()):
             setattr(self, f"tdnnf{i}", TdnnfLayer(
                 H, H, cfg.bottleneck_dim, dilation=d, stride=s,
-                device=device, generator=generator, dtype=dt,
+                device=device, generator=generator, dtype=dt, impl=cfg.impl,
+                time_axis=0 if self.time_major else 1, bn_impl=cfg.bn_impl,
             ))
-        self.chain_head = Prefinal(H, cfg.prefinal_dim, cfg.num_pdfs, device, generator, dt)
-        self.xent_head = Prefinal(H, cfg.prefinal_dim, cfg.num_pdfs, device, generator, dt)
+        self.chain_head = Prefinal(H, cfg.prefinal_dim, cfg.num_pdfs, device, generator, dt,
+                                   cfg.bn_impl)
+        self.xent_head = Prefinal(H, cfg.prefinal_dim, cfg.num_pdfs, device, generator, dt,
+                                  cfg.bn_impl)
 
     def forward(self, feats, train: bool = False, dropout_rate=None, generator=None):
         """`dropout_rate` (a float, or None for none) is Kaldi's continuous
@@ -308,10 +353,12 @@ class TDNNF(nn.Module):
         `generator` (none given: no dropout)."""
         x = torch.relu(self.input_proj(feats))
         x = self.BatchNorm_0(x, train)
-        x = x.transpose(0, 1)  # [B, T, C] -> [T, B, C]
+        if self.time_major:
+            x = x.transpose(0, 1)  # [B, T, C] -> [T, B, C]
         for i in range(self.config.num_layers):
             x = getattr(self, f"tdnnf{i}")(x, train, dropout_rate, generator)
-        x = x.transpose(0, 1)
+        if self.time_major:
+            x = x.transpose(0, 1)
         return self.chain_head(x, train), self.xent_head(x, train)
 
 
@@ -347,29 +394,47 @@ class FlaxBatchNorm(nn.Module):
         return y.to(x.dtype)
 
 
+def batch_norm(C: int, impl: str, device=None) -> nn.Module:
+    """The batchnorm of a trunk by its lowering (the JAX package's
+    `batch_norm` factory): "fused" a ChainBatchNorm, "flax" a FlaxBatchNorm.
+    Both hold scale/bias and the running mean/var under the same names."""
+    if impl == "fused":
+        return ChainBatchNorm(C, device=device)
+    if impl == "flax":
+        return FlaxBatchNorm(C, device=device)
+    raise ValueError(f"bn_impl={impl!r}")
+
+
+def check_lowerings(cfg, **allowed) -> None:
+    """Raise for a config field whose value is not one of its lowerings."""
+    for field, values in allowed.items():
+        if getattr(cfg, field) not in values:
+            raise ValueError(f"{field}={getattr(cfg, field)!r} is not ported"
+                             f" (the lowerings are: {', '.join(values)})")
+
+
 class TdnnConv(nn.Module):
     """A dilated, strided VALID 1-D convolution over [B, T, C] (flax nn.Conv
-    layout: kernel [K, in, out], bias [out]) as a sum of K strided-slice
-    matrix products in `dtype`."""
+    layout: kernel [K, in, out], bias [out]) in `dtype`: the K strided time
+    slices side by side, times the kernel as one [K*in, out] matrix (one
+    rounding of the sum over taps, as a convolution makes it)."""
 
     def __init__(self, in_feat, features, kernel_size, dilation=1, stride=1, device=None,
-                 generator=None, dtype=torch.float32):
+                 generator=None, dtype=torch.float32, use_bias: bool = True):
         super().__init__()
         self.kernel_size, self.dilation, self.stride, self.dtype = (
             kernel_size, dilation, stride, dtype)
         self.kernel = _param((kernel_size, in_feat, features), device,
                              fan_in=kernel_size * in_feat, generator=generator)
-        self.bias = _param((features,), device)
+        self.bias = _param((features,), device) if use_bias else None
 
     def forward(self, x):
         K, d, s, dt = self.kernel_size, self.dilation, self.stride, self.dtype
         t_out = (x.shape[1] - d * (K - 1) - 1) // s + 1
-        x, kernel = x.to(dt), self.kernel.to(dt)
-        y = None
-        for j in range(K):
-            tap = x[:, j * d : j * d + (t_out - 1) * s + 1 : s] @ kernel[j]
-            y = tap if y is None else y + tap
-        return y + self.bias.to(dt)
+        x = x.to(dt)
+        taps = [x[:, j * d : j * d + (t_out - 1) * s + 1 : s] for j in range(K)]
+        y = torch.cat(taps, -1) @ self.kernel.to(dt).reshape(-1, self.kernel.shape[-1])
+        return y if self.bias is None else y + self.bias.to(dt)
 
 
 @dataclasses.dataclass(frozen=True)

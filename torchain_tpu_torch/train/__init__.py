@@ -1,5 +1,7 @@
 """train — the chain training step, its optimizer and the Trainer."""
 
+from torchain_tpu_torch.train.lowmem_adam import LowmemAdam
+from torchain_tpu_torch.train.ngsgd import NGSGD, NGOptions
 from torchain_tpu_torch.train.state import ChainTrainState, create_train_state
 from torchain_tpu_torch.train.step import (
     clip_by_global_norm_,
@@ -20,6 +22,9 @@ from torchain_tpu_torch.train.trainer import (
 __all__ = [
     "ChainOptimizer",
     "ChainTrainState",
+    "LowmemAdam",
+    "NGOptions",
+    "NGSGD",
     "Trainer",
     "TrainerConfig",
     "clip_by_global_norm_",

@@ -37,6 +37,8 @@ from torchain_tpu_torch.models.semi_orthogonal import constrain_semi_orthogonal
 from torchain_tpu_torch.ops.chain_loss import ChainLossOptions, ChainResults
 from torchain_tpu_torch.ops.device_graphs import DeviceSupervision
 from torchain_tpu_torch.ops.num_e2e import DeviceE2eSupervision
+from torchain_tpu_torch.train.lowmem_adam import LowmemAdam
+from torchain_tpu_torch.train.ngsgd import NGSGD
 from torchain_tpu_torch.train.state import ChainTrainState
 from torchain_tpu_torch.train.step import (
     clip_by_global_norm_,
@@ -61,7 +63,9 @@ class TrainerConfig:
     lr_final: float = 0.0
     lr_decay_steps: int = 0
     momentum: float = 0.9
-    optimizer: str = "adam"  # adam | sgd
+    #: adam | adam-lowmem (bfloat16 moments) | sgd | ngsgd (Kaldi's
+    #: natural-gradient SGD)
+    optimizer: str = "adam"
     grad_clip: float = 5.0
     #: accumulate gradients over N micro-batches before each optimizer
     #: update (optax.MultiSteps); the effective batch is N * batch_size
@@ -147,8 +151,10 @@ def max_change(per_component: float = 0.75, global_change: float = 2.0):
 
 class ChainOptimizer:
     """The JAX package's optax chain over torch.optim:
-    MultiSteps(k)( clip_by_global_norm -> adam | sgd(momentum) at
-    `lr_schedule` -> max_change ).
+    MultiSteps(k)( clip_by_global_norm -> adam | adam-lowmem |
+    sgd(momentum) | natural_gradient -> sgd(momentum) at `lr_schedule` ->
+    max_change ).  The inner optimizers are torch.optim.Adam and SGD,
+    `train.lowmem_adam.LowmemAdam` and `train.ngsgd.NGSGD`.
 
     `step(scale)` consumes the parameters' .grad.  With k > 1 the gradient
     is folded into a running mean (optax's Welford form) and the inner
@@ -161,14 +167,15 @@ class ChainOptimizer:
         self.params = [p for p in params if p.requires_grad]
         if cfg.optimizer == "adam":
             self.inner = torch.optim.Adam(self.params, lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8)
+        elif cfg.optimizer == "adam-lowmem":
+            self.inner = LowmemAdam(self.params, lr=cfg.lr)
         elif cfg.optimizer == "sgd":
             self.inner = torch.optim.SGD(self.params, lr=cfg.lr, momentum=cfg.momentum)
-        elif cfg.optimizer in ("adam-lowmem", "ngsgd"):
-            raise ValueError(
-                f"optimizer {cfg.optimizer!r} is not ported yet (ROADMAP.md, Queue 1: the "
-                "optimizers train/lowmem_adam.py and train/ngsgd.py); use adam or sgd")
+        elif cfg.optimizer == "ngsgd":
+            self.inner = NGSGD(self.params, lr=cfg.lr, momentum=cfg.momentum)
         else:
-            raise ValueError(cfg.optimizer)
+            raise ValueError(f"optimizer {cfg.optimizer!r} is not ported (the optimizers are:"
+                             " adam, adam-lowmem, sgd, ngsgd)")
         self.schedule = lr_schedule(cfg)
         self.grad_clip = cfg.grad_clip
         self.every = max(1, cfg.grad_accum_steps)
