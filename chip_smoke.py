@@ -115,7 +115,13 @@ Phases, in order; any failure exits non-zero before the last line:
      time_major=False and bn_impl="flax" and the conformer under its four
      other lowerings (each first loss against its path's), one traced step
      of each new trunk, and B=8 card-vs-CPU checks of the new trunks (loss,
-     objf, gradient norm, the loss's gradient on the heads' outputs).  The
+     objf, gradient norm, the loss's gradient on the heads' outputs); then
+     data parallelism (`check_parallel`): `cli.train --distributed` under
+     `torch.distributed.run --nproc-per-node 1` (NCCL, a world of one)
+     against the plain `cli.train` run, and `tools/multihost_worker.py`'s
+     trainer mode on two gloo ranks sharing the card against one rank on
+     the same global batches, at `trigram`'s widths (B=128, 64 rows a rank,
+     K1-K6 once a step on each) and with the bf16 conformer (B=8).  The
      cegs phase also times
      `Trainer.fit` over the live `CegsDataset` against
      `MaterializedBatches` of it on the card;
@@ -3839,6 +3845,271 @@ def check_trunks(args, result: dict, tmp: str) -> dict:
     return out
 
 
+#: the parallel phase (`check_parallel`): the global batch of its TDNN-F runs
+#: (each of two ranks holds half), the conformer's, and the gates against the
+#: one-rank run of the same global batches.  The first step starts both runs
+#: from the same weights: its loss, objf and gradient norm are held at the JAX
+#: package's sharded-vs-unsharded gates (tests/test_sharding.py, one step), and
+#: the gradients of the heads' output layers (HEAD_OUTPUTS: the affine maps
+#: after the last ReLU) within PARALLEL_HEADS_REL of their largest magnitude.
+#: A layer before a ReLU takes its derivative's jumps where float32 sum order
+#: moves a pre-activation across 0: every other group, the heads' first
+#: layers too, moves by 2e-3-7e-3 (probes on an H100; 2.5e-3 card against CPU
+#: in ROADMAP.md Queue 3), so those are logged.  Later steps part: Adam's
+#: g / (|g| + eps) turns sum-order noise in a near-zero gradient element into a
+#: step of +-lr (probes on an H100: from step 2 the TDNN-F's loss rel 2.2e-5,
+#: by step 10 the heads' parameters 7.4e-3 of their largest magnitude; under
+#: SGD 7e-5 and 5.9e-5), so they are held to PARALLEL_DRIFT_RTOL.  A world of one through
+#: `cli.train --distributed` is the plain run to PARALLEL_WORLD1_RTOL.  The
+#: sub-command CLI_RUNNER makes this script the program that
+#: `torch.distributed.run` starts for (a)
+PARALLEL_B = 128
+PARALLEL_CONFORMER_B = 8
+PARALLEL_CONFORMER_STEPS = 3
+PARALLEL_LOSS_RTOL = 1e-5
+PARALLEL_GRAD_RTOL = 1e-4
+PARALLEL_HEADS_REL = 1e-4
+HEAD_OUTPUTS = ("chain_head.Dense_1", "xent_head.Dense_1")
+PARALLEL_DRIFT_RTOL = 5e-2
+PARALLEL_WORLD1_RTOL = 1e-6
+PARALLEL_TIMEOUT_S = 300
+CLI_RUNNER = "_trigram_cli_train"
+
+
+def _trigram_cli(argv: list) -> int:
+    """CLI_RUNNER: `cli.train.main(argv)` with the trigram corpus in place of
+    `synthetic_dataset` (as `_trunk_cli_run` does in this process), the
+    kernel counters zeroed first; prints `CLI_RESULT {json}` (steps, ms
+    between steps, launches) on rank 0."""
+    import torch.distributed as dist
+
+    import torchain_tpu_torch.data as data_mod
+    from torchain_tpu_torch.cli import train as cli_train
+
+    seed = int(argv[argv.index("--seed") + 1])
+    corpus = _corpus(seed, tuple(sorted(PATHS["trigram"]["corpus"].items())))
+    for fn in counters().values():
+        fn.launches = 0
+    with _patched(data_mod, synthetic_dataset=lambda **kw: corpus):
+        res = cli_train.main(argv)
+    launches = {k: fn.launches for k, fn in counters().items()}
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    if rank == 0:
+        print("CLI_RESULT " + json.dumps(dict(steps=res["steps"], step_ms=res["timings"]["step_ms"],
+                                              launches=launches)), flush=True)
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    return 0
+
+
+def _parallel_world1(args, tmp: str, smi: str) -> dict:
+    """(a) `python -m torch.distributed.run --nproc-per-node 1` of this
+    script's CLI_RUNNER with `cli.train --distributed --data-parallel -1`
+    (NCCL, a world of one) against the plain `cli.train` run of the same
+    seed in this process: the losses to PARALLEL_WORLD1_RTOL, K1-K6 only."""
+    import os
+
+    tdnnf = ["--model", "tdnnf", "--hidden-dim", "768", "--bottleneck-dim", "96",
+             "--num-layers", str(LAYERS)]
+    plain = _trunk_cli_run(args, "parallel_plain", tdnnf, tmp, smi)
+    plain.pop("cfg")
+    metrics = os.path.join(tmp, "parallel_world1.jsonl")
+    argv = ["--synthetic", "--num-utts", str(2 * B), "--num-phones", "40", "--feat-dim", "40",
+            "--chunk-frames", str(T_OUT), "--batch-size", str(B), "--epochs", str(args.steps),
+            "--steps", str(args.steps), "--precompile-egs", "8", "--materialize-egs", "device",
+            "--log-every", "1", "--seed", str(args.seed), "--metrics-out", metrics,
+            "--device", "cuda", *tdnnf, "--distributed", "--data-parallel", "-1"]
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+           "1", str(pathlib.Path(__file__).resolve()), CLI_RUNNER, *argv]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            cwd=str(pathlib.Path(__file__).resolve().parent))
+    try:
+        out, _ = proc.communicate(timeout=PARALLEL_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    run_s = time.perf_counter() - t0
+    line = [ln for ln in out.splitlines() if ln.startswith("CLI_RESULT ")]
+    if proc.returncode != 0 or not line:
+        raise AssertionError(f"parallel (a): torch.distributed.run exited {proc.returncode}:\n"
+                             f"{out[-4000:]}")
+    res = json.loads(line[-1][len("CLI_RESULT "):])
+    losses = [m["loss"] for m in _jsonl(metrics)]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, plain["losses"]))
+    _log(f"parallel (a): cli.train --distributed under torch.distributed.run, NCCL, world 1:"
+         f" {res['steps']} steps in {run_s:.1f} s (process included); {res['step_ms']:.2f} ms"
+         f" between steps against the plain run's {plain['step_ms']:.2f} ms; losses against the"
+         f" plain run: max rel {rel:.3g} (gate {PARALLEL_WORLD1_RTOL:g}) ({smi})")
+    _launch_gate("parallel (a)", res["launches"], DEN_NUM)
+    if len(losses) != len(plain["losses"]) or not rel <= PARALLEL_WORLD1_RTOL:
+        raise AssertionError(f"parallel (a): the world-1 run departs from the plain run:"
+                             f" {losses} vs {plain['losses']}")
+    return dict(run_s=run_s, step_ms=res["step_ms"], plain_step_ms=plain["step_ms"],
+                losses=losses, plain_losses=plain["losses"], max_rel=rel,
+                launches=res["launches"], plain_launches=plain["launches"])
+
+
+def _parallel_config(args, model: str, batch: int, steps: int, tmp: str) -> dict:
+    """The worker's config for a full-width run on the trigram corpus (the
+    trigram path's data: T_out=50, tolerances 2) of `steps` steps."""
+    corpus = dict(num_utts=2 * B, num_phones=40, feat_dim=40, utt_frames_out=(T_OUT, T_OUT + 10),
+                  seed=args.seed, **PATHS["trigram"]["corpus"])
+    if model == "conformer":
+        model_cfg = dict(CONFORMER, dtype="bfloat16")
+    else:
+        model_cfg = dict(hidden_dim=768, bottleneck_dim=96, prefinal_dim=256, num_layers=LAYERS)
+    return dict(corpus=corpus, chunk_frames=T_OUT,
+                sup_opts=dict(left_tolerance=2, right_tolerance=2), data_seed=0,
+                model=model, model_cfg=model_cfg, model_seed=args.seed, batch_size=batch,
+                epochs=steps, steps=steps, trainer=dict(lr=1e-3, log_every=1),
+                loss=dict(l2_regularize=5e-4, leaky_hmm_coefficient=0.1, xent_regularize=0.1),
+                precompile=4, counters={k: f"{m}:{f}" for k, (m, f, _, _) in KERNELS.items()},
+                save_params=str(pathlib.Path(tmp) / f"parallel_{model}_params.pt"))
+
+
+def _groups_rel(got: dict, want: dict, depth: int = 1) -> dict:
+    """Each parameter group's (the first `depth` components of a name)
+    largest distance between two state dicts, over its largest magnitude in
+    `want`."""
+    import torch
+
+    acc = {}
+    for name, v in want.items():
+        if not torch.is_floating_point(v):
+            continue
+        d = float((got[name].double() - v.double()).abs().max())
+        m = float(v.double().abs().max())
+        g = acc.setdefault(".".join(name.split(".")[:depth]), [0.0, 0.0])
+        g[0], g[1] = max(g[0], d), max(g[1], m)
+    return {g: d / max(m, 1e-30) for g, (d, m) in acc.items()}
+
+
+def _parallel_pair(args, label: str, model: str, batch: int, steps: int, must: tuple,
+                   first: tuple, drift: float | None, tmp: str, smi: str) -> dict:
+    """Two ranks on the one card over gloo (the worker's trainer mode, each
+    rank `batch` / 2 rows) against a one-rank run of the same global batches
+    in this process.  Gates: the two ranks' curves equal; the first step
+    (both runs from the same weights) to `first` = (loss and objf rel,
+    gradient norm rel, the gradients of the heads' output layers
+    (HEAD_OUTPUTS) within this of their largest magnitude, or None: logged); every later step's loss, objf and gradient norm and the
+    heads' parameters after the run to `drift` where given (logged
+    otherwise: Adam's g / (|g| + eps) turns float32 sum-order noise in a
+    near-zero gradient element into a step of +-lr, so the trajectories
+    part); each rank's launches those of the one-rank run, `must` and no
+    other kernel.  Other parameter groups' distances are logged."""
+    import torch
+
+    from torchain_tpu_torch.tools import multihost_worker as mw
+
+    work = str(pathlib.Path(tmp) / f"parallel_{model}")
+    cfg2 = _parallel_config(args, model, batch, steps, work)
+    t0 = time.perf_counter()
+    two = mw.spawn(2, "trainer", cfg2, work, device="cuda:0", backend="gloo",
+                   timeout=PARALLEL_TIMEOUT_S)
+    two_s = time.perf_counter() - t0
+    two_saved = torch.load(cfg2["save_params"], weights_only=True)
+    cfg1 = dict(cfg2, save_params=cfg2["save_params"] + ".one")
+    for fn in counters().values():
+        fn.launches = 0
+    one = mw.run("trainer", 0, 1, "cuda", cfg1, work)
+    one_saved = torch.load(cfg1["save_params"], weights_only=True)
+    if not (len(one["curve"]) == len(two[0]["curve"]) == len(two[1]["curve"]) == steps):
+        raise AssertionError(f"parallel {label}: step counts {one['steps']} {two[0]['steps']}"
+                             f" {two[1]['steps']}")
+    keys = ("loss", "objf", "grad_norm")
+    ranks_equal = all(two[0]["curve"][i][k] == two[1]["curve"][i][k]
+                      for i in range(steps) for k in keys)
+    by_step = [{k: abs(two[0]["curve"][i][k] - b[k]) / abs(b[k]) for k in keys}
+               for i, b in enumerate(one["curve"])]
+    later = {k: max((r[k] for r in by_step[1:]), default=0.0) for k in keys}
+    grads = _groups_rel(two_saved["first_grads"], one_saved["first_grads"])
+    params = _groups_rel(two_saved["params"], one_saved["params"])
+    outputs = _groups_rel(two_saved["first_grads"], one_saved["first_grads"], depth=2)
+    heads_grad = max(outputs[g] for g in HEAD_OUTPUTS)
+    heads = max(params[g] for g in ("chain_head", "xent_head"))
+    stats = two[0]["collectives_per_step"]
+    grad_bytes = 4 * two[0]["parameters"]
+    per_rank = [{k: n / steps for k, n in r["launches"].items() if n} for r in two]
+    s1 = by_step[0]
+    _log(f"parallel {label}: 2 ranks x {batch // 2} rows on one card (gloo) against 1 rank x"
+         f" {batch}, {steps} steps; the ranks' curves equal: {ranks_equal}; step 1 (the same"
+         f" weights) rel loss {s1['loss']:.3g} objf {s1['objf']:.3g} (gate {first[0]:g}) grad norm"
+         f" {s1['grad_norm']:.3g} (gate {first[1]:g}), the heads' output layers' gradients"
+         f" {heads_grad:.3g} of their largest magnitude (gate {first[2]}); steps 2..{steps} max rel loss"
+         f" {later['loss']:.3g} objf {later['objf']:.3g} grad norm {later['grad_norm']:.3g}, the"
+         f" heads' parameters after the run {heads:.3g} (gate {drift}); by step"
+         f" {[tuple(float(f'{v:.3g}') for v in r.values()) for r in by_step]}; first-step"
+         f" gradients by group {{{', '.join(f'{g}: {v:.2g}' for g, v in sorted(grads.items()))}}};"
+         f" parameters after the run {{{', '.join(f'{g}: {v:.2g}' for g, v in sorted(params.items()))}}}"
+         f"; {two[0]['step_ms']:.2f} / {two[1]['step_ms']:.2f} ms between steps on ranks 0/1"
+         f" against {one['step_ms']:.2f} ms on one rank; all-reduces a step"
+         f" {stats['all_reduce']:g}, their bytes {stats['all_reduce_bytes']:.0f} (of which the"
+         f" gradient's {grad_bytes}: {two[0]['parameters']} float32 parameters); kernel"
+         f" launches a step on each rank {per_rank}; spawn to results {two_s:.1f} s ({smi})")
+    for i, r in enumerate(two):
+        _launch_gate(f"parallel {label} rank {i}", r["launches"], must)
+        if r["launches"] != one["launches"]:
+            raise AssertionError(f"parallel {label} rank {i}: launches {r['launches']} against"
+                                 f" one rank's {one['launches']}")
+    ok = (ranks_equal and s1["loss"] <= first[0] and s1["objf"] <= first[0]
+          and s1["grad_norm"] <= first[1] and (first[2] is None or heads_grad <= first[2]))
+    if drift is not None:
+        ok = ok and max(later.values()) <= drift and heads <= drift
+    if not ok:
+        raise AssertionError(f"parallel {label}: two ranks depart from one: step 1 {s1}, heads'"
+                             f" gradients {heads_grad}, later {later}, heads {heads}, ranks"
+                             f" equal {ranks_equal}")
+    return dict(two=two, one=one, rel_by_step=by_step, ranks_equal=ranks_equal,
+                first_grads_rel=grads, params_rel=params, heads_grad_rel=heads_grad,
+                heads_rel=heads, spawn_s=two_s, gradient_bytes=grad_bytes,
+                collectives_per_step=stats,
+                launches={f"rank{i}": r["launches"] for i, r in enumerate(two)})
+
+
+def check_parallel(args, result: dict, tmp: str) -> dict:
+    """Phase 4, after the trunks: data parallelism (parallel/, ops/sharded.py,
+    the data axis of `Trainer` and `cli.train`) on the card, at the trigram
+    path's widths (TDNN-F 9 x (768, 96), prefinal 256, the resident
+    2079-state trigram den graph, T_out=50, Adam 1e-3, --steps steps):
+
+      (a) a world of one through `torch.distributed.run` and `cli.train
+          --distributed` (NCCL) against the plain `cli.train` run;
+      (b) two ranks on the one card over gloo, 64 rows each of global
+          batches of 128, against one rank on the same global batches:
+          the ranks' curves equal, the first step's loss, objf, gradient
+          norm and the heads' output layers' gradients at the JAX gates, the later steps and
+          the heads' parameters after the run within PARALLEL_DRIFT_RTOL,
+          K1-K6 once a step on each rank and no other kernel; ms between
+          steps, all-reduces and their bytes a step;
+      (c) the bfloat16 conformer (8 x 256) at a global batch of 8 on two
+          ranks against one, its first step's loss, objf and gradient norm
+          at REFERENCE_RTOL["bfloat16"] (its batchnorm over both ranks, K7
+          on each; its parameter gradients and later steps logged: in bf16
+          they part by the rounding of sums in another order, as the
+          conformer paths' card-vs-CPU groups do, ~1e-1 in norm).
+
+    Nothing here is a scaling figure: both ranks share one card.  Returns
+    the phase's numbers; each run's launch counts are under "launches"."""
+    t_phase = time.perf_counter()
+    smi = result["nvidia_smi"]
+    out = dict(world1=_parallel_world1(args, tmp, smi))
+    out["tdnnf"] = _parallel_pair(args, "(b) TDNN-F", "tdnnf", PARALLEL_B, args.steps, DEN_NUM,
+                                  (PARALLEL_LOSS_RTOL, PARALLEL_GRAD_RTOL, PARALLEL_HEADS_REL),
+                                  PARALLEL_DRIFT_RTOL, tmp, smi)
+    gate = REFERENCE_RTOL["bfloat16"]
+    out["conformer"] = _parallel_pair(args, "(c) conformer", "conformer", PARALLEL_CONFORMER_B,
+                                      PARALLEL_CONFORMER_STEPS, DEN_NUM + ATTENTION,
+                                      (gate, gate, None), None, tmp, smi)
+    out["launches"] = dict(world1=out["world1"]["launches"],
+                           **{f"tdnnf_{k}": v for k, v in out["tdnnf"]["launches"].items()},
+                           **{f"conformer_{k}": v for k, v in out["conformer"]["launches"].items()})
+    out["phase_s"] = time.perf_counter() - t_phase
+    _log(f"parallel phase: {out['phase_s']:.1f} s ({smi})")
+    return out
+
+
 #: gates of the reference check, relative, per trunk dtype.  float32: sums
 #: in another order (cuBLAS vs the CPU BLAS, kernels vs plain) through 9
 #: layers, the 50-frame recursions and a backward.  bfloat16: the card's and
@@ -4163,6 +4434,9 @@ def main(argv=None) -> int:
             result["trunks"] = check_trunks(args, result, prep)
             for name, n in result["trunks"]["launches"].items():
                 launches[f"trunks_{name}"] = n
+            result["parallel"] = check_parallel(args, result, prep)
+            for name, n in result["parallel"]["launches"].items():
+                launches[f"parallel_{name}"] = n
     for name, m in second.items():
         numbers[name] = dict(**numbers[name], production=m)
     measured, probe_launches = check_probe()
@@ -4187,7 +4461,8 @@ def main(argv=None) -> int:
     must = {**{p: PATHS[p]["kernels"] for p in PATHS}, "cegs": DEN_NUM, "probe": PROBE,
             "recipe": DEN_NUM, "recipe_compute_prob": EVAL_DEN_NUM, "decode": DECODE_KERNELS,
             "kaldi_left": DEN_NUM, "kaldi_triphone": NUM, "wav": DEN_NUM,
-            **{k: DEN_NUM for k in launches if k.startswith("trunks_")}}
+            **{k: DEN_NUM for k in launches if k.startswith("trunks_")},
+            **{k: DEN_NUM for k in launches if k.startswith("parallel_")}}
     records = []
     for name, (_, _, source, replaces) in KERNELS.items():
         first = next(p for p in must if name in must[p])
@@ -4211,4 +4486,6 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == [CLI_RUNNER]:
+        sys.exit(_trigram_cli(sys.argv[2:]))
     sys.exit(main())

@@ -324,10 +324,11 @@ def test_egs_get_from_raw_audio_writes_the_jax_tools_archive(tmp_path, wav_dir):
 
 def test_the_flags_the_port_still_lacks_are_queue_1_item_9():
     """An argparse comparison of the two train CLIs: every JAX flag and
-    choice is in the port but the multi-device flags (item 9); every
-    --model and --optimizer choice is there; the port adds --device and
-    --log-every.  `cli.compute_prob` takes every --model choice of the JAX
-    tool.  `cli.egs get` lacks nothing (and adds --device)."""
+    choice is in the port but the model axis's (--model-parallel, the part
+    of item 9 still to port); every --model and --optimizer choice is
+    there; the port adds --device and --log-every.  `cli.compute_prob`
+    takes every --model choice of the JAX tool.  `cli.egs get` lacks
+    nothing (and adds --device)."""
     from torchain_tpu.cli.train import build_argparser as j_parser
     from torchain_tpu_torch.cli.train import build_argparser
 
@@ -335,7 +336,7 @@ def test_the_flags_the_port_still_lacks_are_queue_1_item_9():
         return {s: a for a in p._actions for s in a.option_strings}
 
     j, t = flags(j_parser()), flags(build_argparser())
-    assert set(j) - set(t) == {"--data-parallel", "--model-parallel", "--distributed"}
+    assert set(j) - set(t) == {"--model-parallel"}
     assert set(t) - set(j) == {"--device", "--log-every"}
     for name in set(j) & set(t) - {"--model", "--optimizer", "--help", "-h"}:
         assert j[name].choices == t[name].choices, name
@@ -377,3 +378,60 @@ def test_the_flags_the_port_still_lacks_are_queue_1_item_9():
 
     jg, tg = get_flags(jegs), get_flags(tegs)
     assert set(tg) - set(jg) == {"--device"} and not set(jg) - set(tg)
+
+
+def _two_ranks(argv, timeout=240):
+    """`cli.train argv` under `torch.distributed.run --standalone
+    --nproc-per-node 2`; returns (exit code, output), the launcher killed at
+    the timeout."""
+    import os
+    import subprocess
+    import sys
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+           "2", "-m", "torchain_tpu_torch.cli.train", *argv]
+    env = {**os.environ, "OMP_NUM_THREADS": "2"}
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            env=env)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    return proc.returncode, out
+
+
+def test_train_cli_on_two_gloo_ranks_is_the_one_process_run(tmp_path):
+    """`cli.train --distributed --data-parallel 2` under `torch.distributed.run
+    --standalone --nproc-per-node 2` (gloo on the CPU, each rank half of
+    every global batch) trains the one-process run's curve: loss, objf and
+    gradient norm rel 1e-5 a step.  Without a process group --data-parallel
+    2 exits with the mesh's error, and --model-parallel is refused."""
+    argv = ["--synthetic", "--device", "cpu", "--steps", "3", "--log-every", "1", *SMALL]
+    two, one = str(tmp_path / "two.jsonl"), str(tmp_path / "one.jsonl")
+    rc, out = _two_ranks([*argv, "--distributed", "--data-parallel", "2", "--metrics-out", two])
+    assert rc == 0, out[-3000:]
+    assert out.count("[distributed] rank") == 2
+    train_main([*argv, "--metrics-out", one])
+    a, b = _metrics(two), _metrics(one)
+    assert len(a) == len(b) == 3
+    for x, y in zip(a, b):
+        for k in ("loss", "objf", "grad_norm", "weight"):
+            assert x[k] == pytest.approx(y[k], rel=1e-5), (k, x, y)
+    with pytest.raises(SystemExit, match="mesh 2x1 != 1 devices"):
+        train_main([*argv, "--data-parallel", "2"])
+    with pytest.raises(SystemExit):
+        train_main([*argv, "--model-parallel", "2"])
+
+
+def test_train_cli_e2e_on_two_gloo_ranks_stops_every_rank_together():
+    """Flat-start e2e under two ranks: each rank batches its own utterances
+    (every second one) at half the global batch, and both stop at the
+    first rank's last batch of the epoch."""
+    rc, out = _two_ranks(["--synthetic", "--e2e", "--device", "cpu", "--distributed",
+                          "--epochs", "1", "--batch-size", "4", "--log-every", "1", *SMALL])
+    assert rc == 0, out[-3000:]
+    ends = [json.loads(ln) for ln in out.splitlines() if ln.startswith('{"objf"')]
+    assert len(ends) == 2 and ends[0]["steps"] == ends[1]["steps"] > 0
+    assert ends[0]["objf"] == ends[1]["objf"]

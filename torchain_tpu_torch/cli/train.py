@@ -29,8 +29,18 @@ It runs on the card unless asked otherwise: `--device cuda` (default)
 needs a CUDA device and exits 2 without one; `--device cpu` runs on the
 CPU, where every kernel wrapper takes its plain PyTorch version.
 
+Data parallelism runs one process a card under torch.distributed.run
+(where the JAX package runs one process a host): `--distributed` joins the
+process group (NCCL on the cards, gloo on the CPU; `--device cuda` takes
+cuda:LOCAL_RANK) and `--data-parallel` (default -1, every process) is the
+data axis.  `--batch-size` is the global batch: each rank trains on its
+rows of it (flat-start e2e: on its own utterances), and every rank takes
+the same update.  The model axis (`--model-parallel`) is not ported yet.
+
 Usage:
   python -m torchain_tpu_torch.cli.train --synthetic --steps 200
+  python -m torch.distributed.run --nproc-per-node 4 -m torchain_tpu_torch.cli.train \
+      --synthetic --distributed --batch-size 128 --steps 200
   python -m torchain_tpu_torch.cli.train --synthetic --model tdnnf --epochs 4
   python -m torchain_tpu_torch.cli.train --synthetic --num-phones 40 \\
       --tied-tree-pdfs 1000 --tied-tree-context triphone --steps 10
@@ -259,7 +269,48 @@ def build_argparser() -> argparse.ArgumentParser:
         "--device", default="cuda",
         help="torch device to train on (default cuda; cpu runs the plain versions of the kernels)",
     )
+    p.add_argument("--data-parallel", type=int, default=-1,
+                   help="the data axis of the mesh: -1 every process of the process group")
+    p.add_argument(
+        "--distributed",
+        action="store_true",
+        help="join the process group torch.distributed.run sets up (RANK, WORLD_SIZE, "
+        "LOCAL_RANK, MASTER_ADDR, MASTER_PORT): one process a card; the standard path "
+        "shards the rows of every global batch, the e2e path the utterances",
+    )
     return p
+
+
+def _join(args, device: torch.device) -> torch.device:
+    """--distributed: join the process group and return this rank's device;
+    check that --data-parallel matches the world either way (the model axis
+    is not ported: the data axis is every process)."""
+    from torchain_tpu_torch.parallel.mesh import init_distributed, world_size
+
+    if args.distributed:
+        device = init_distributed(device)
+        import torch.distributed as dist
+
+        print(f"[distributed] rank {dist.get_rank()}/{dist.get_world_size()} on {device} "
+              f"({dist.get_backend()})")
+    n = world_size()
+    data = args.data_parallel if args.data_parallel > 0 else n
+    if data != n:
+        raise SystemExit(
+            f"--data-parallel {data}: mesh {data}x1 != {n} devices; run one process a card "
+            "under `python -m torch.distributed.run --nproc-per-node N` with --distributed")
+    return device
+
+
+def _rank() -> tuple[int, int]:
+    """(this process's rank, the world size); (0, 1) without a process
+    group."""
+    from torchain_tpu_torch.parallel.mesh import world_size
+
+    import torch.distributed as dist
+
+    n = world_size()
+    return (dist.get_rank() if n > 1 else 0), n
 
 
 def resolve_device(name: str) -> torch.device:
@@ -361,6 +412,7 @@ def cegs_setup(args, device, tag: str = "cegs"):
 
 def _trainer_config(args, device, batch_size: int, decay_steps: int):
     from torchain_tpu_torch.ops import ChainLossOptions
+    from torchain_tpu_torch.parallel import MeshConfig
     from torchain_tpu_torch.train import TrainerConfig
 
     return TrainerConfig(
@@ -386,6 +438,7 @@ def _trainer_config(args, device, batch_size: int, decay_steps: int):
         ),
         log_every=args.log_every,
         device=str(device),
+        mesh=MeshConfig(data=args.data_parallel, model=1),
     )
 
 
@@ -412,7 +465,7 @@ def _fit(args, trainer, dataset, tag: str, t0: float, restore: bool = True) -> d
             "(or add data)"
         )
     print(f"[{tag}] done: {results} ({time.time() - t0:.1f}s)")
-    if args.metrics_out:
+    if args.metrics_out and _rank()[0] == 0:
         trainer.dump_metrics(args.metrics_out)
     if args.combine_last and args.checkpoint_dir:
         n = trainer.combine(args.combine_last)
@@ -551,7 +604,7 @@ def egs_stage(args, dataset, stages: dict) -> dict:
         stages["load_egs_s"] = time.perf_counter() - t0
         egs["load_bytes"] = _archive_bytes(args.load_egs)
         print(f"[stage 1] loaded {egs['loaded']} egs from {args.load_egs}")
-    if args.save_egs and hasattr(dataset, "save_egs"):
+    if args.save_egs and hasattr(dataset, "save_egs") and _rank()[0] == 0:
         t0 = time.perf_counter()
         egs["saved"] = dataset.save_egs(args.save_egs)
         stages["save_egs_s"] = time.perf_counter() - t0
@@ -670,7 +723,14 @@ def main(argv=None) -> dict:
             file=sys.stderr,
         )
         sys.exit(2)
-    device = resolve_device(args.device)
+    device = _join(args, resolve_device(args.device))
+    rank, world = _rank()
+    if world > 1 and args.flat_start_ladder:
+        raise SystemExit("--flat-start-ladder under several processes is not ported: its "
+                         "alignment stage runs on one process")
+    if world > 1 and args.materialize_egs == "device":
+        raise SystemExit("--materialize-egs device is single-process (as in the JAX package): "
+                         "several ranks stream their shards; use --materialize-egs ram")
     if args.cegs:
         return _train_from_cegs(args, device)
 
@@ -725,6 +785,11 @@ def main(argv=None) -> dict:
             context_width=args.context_width,
             seed=args.seed,
         )
+    if world > 1 and args.e2e:
+        # e2e path: each rank its own utterances (the standard path instead
+        # shards the rows of a (seed, epoch)-deterministic global batch plan
+        # inside Trainer.fit / ChainDataset.batches)
+        corpus.utts = corpus.utts[rank::world]
     valid_utts = []
     if args.valid_utts > 0:
         valid_utts = corpus.utts[-args.valid_utts :]
@@ -821,6 +886,8 @@ def main(argv=None) -> dict:
         t_stage = time.perf_counter()
         dataset = MaterializedBatches(
             dataset, args.batch_size,
+            process_index=rank if world > 1 else None,
+            process_count=world if world > 1 else None,
             device=device if args.materialize_egs == "device" else False,
         )
         stages["materialize_s"] = time.perf_counter() - t_stage
@@ -845,7 +912,7 @@ def main(argv=None) -> dict:
         vres = trainer.evaluate(valid_ds)
         print(f"[stage 2v] valid: {vres}")
         out["valid_objf"] = vres.objf
-    if args.decode:
+    if args.decode and rank == 0:
         posts, forward_s = _posteriors(model, corpus.utts, left, right, fsf)
         out["decode"] = dict(
             utts=len(posts),

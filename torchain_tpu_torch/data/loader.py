@@ -421,6 +421,8 @@ class ChainDataset:
         shuffle: bool = True,
         drop_last: bool = True,
         epoch: int | None = None,
+        process_index: int | None = None,
+        process_count: int | None = None,
         sup_caps: tuple[int, int, int, int] | None = None,
         num_threads: int = 0,
     ):
@@ -435,7 +437,27 @@ class ChainDataset:
         per-batch NumPy pad/stack work releases the GIL, so the host-side
         egs assembly scales past one core while the device runs.  Use after
         precompile()/load_egs — concurrent cache misses would compile the
-        same supervision twice (correct, just wasted work)."""
+        same supervision twice (correct, just wasted work).
+
+        Data parallelism: with `process_index`/`process_count`, `batch_size`
+        is the GLOBAL batch; every process plans the identical (seed,
+        epoch)-deterministic global batch sequence but builds only its
+        contiguous batch_size/process_count rows.  `sup_caps` (from
+        estimate_sup_caps, identical everywhere) fixes the supervision
+        padding so shapes agree across processes without communication; a
+        chunk whose supervision fails to compile becomes a weight-0 copy of
+        a sibling row (keeping shapes) instead of shrinking the batch."""
+        multi = process_count is not None and process_count > 1
+        pi = process_index or 0
+        pc = process_count or 1
+        if multi:
+            if batch_size % pc:
+                raise ValueError(f"global batch {batch_size} not divisible by {pc}")
+            if sup_caps is None:
+                raise ValueError("multi-host batches need sup_caps (estimate_sup_caps)")
+            if not drop_last:
+                raise ValueError("multi-host batches require drop_last=True")
+        local_bs = batch_size // pc
         pad_s, pad_k, pad_v, pad_st = sup_caps or (None,) * 4
         rng = (
             np.random.default_rng((self.seed, epoch)) if epoch is not None else self.rng
@@ -454,18 +476,40 @@ class ChainDataset:
                 part = group[i : i + batch_size]
                 if drop_last and len(part) < batch_size:
                     continue
+                if multi:
+                    part = part[pi * local_bs : (pi + 1) * local_bs]
                 parts.append(part)
 
         def build(part: list[int]) -> ChainBatch | None:
-            feats, sups = [], []
+            feats, sups, holes = [], [], []
             for ci in part:
                 ui, c0, t, _ali, _lc, _rc = self.chunks[ci]
                 sup = self._sup_of(ci)
                 if sup is None:
+                    if multi:
+                        # a placeholder keeps the local shapes; filled with
+                        # a weight-0 copy of a sibling row below
+                        holes.append(len(sups))
+                        feats.append(None)
+                        sups.append(None)
                     continue
                 feats.append(self._chunk_feats(self.utts[ui], c0, t))
                 sups.append(sup)
-            if not sups or (drop_last and len(sups) < batch_size):
+            if multi and holes:
+                donor = next((k for k, s in enumerate(sups) if s is not None), None)
+                if donor is None:
+                    # every row of this rank failed: the ranks would disagree
+                    # on the batch, so abort rather than hang a collective
+                    raise ValueError(
+                        "all rows of a host shard failed supervision "
+                        "compilation; regenerate data or lower batch size"
+                    )
+                for h in holes:
+                    s = dataclasses.replace(sups[donor])
+                    s.weight = 0.0
+                    sups[h] = s
+                    feats[h] = feats[donor]
+            if not sups or (drop_last and len(sups) < (local_bs if multi else batch_size)):
                 return None
             return ChainBatch(
                 feats=np.stack(feats).astype(np.float32),

@@ -53,6 +53,8 @@ class MaterializedBatches:
         batch_size: int,
         sup_caps: "tuple[int, ...] | None" = None,
         seed: int = 0,
+        process_index: "int | None" = None,
+        process_count: "int | None" = None,
         device=False,
     ):
         """`device` False keeps host batches.  True (the card) or a torch
@@ -63,8 +65,15 @@ class MaterializedBatches:
         Supervision tensors are constant across epochs by construction
         (Kaldi's merged archives are too), so nothing is lost.  `seed` and
         the epoch give the replay order, the JAX package's for the same
-        pair."""
+        pair.
+
+        With `process_index`/`process_count` (data parallelism) each batch
+        holds this rank's rows of a global batch of `batch_size` (the
+        source's `batches` cuts them); every rank then replays the same
+        order.  `device` with more than one process raises, as in the JAX
+        package: several ranks stream their shards."""
         self.seed = seed
+        self.process_count = process_count or 1
         self._caps = (
             sup_caps
             if sup_caps is not None
@@ -75,6 +84,14 @@ class MaterializedBatches:
         kw = {}
         if self._caps is not None:
             kw["sup_caps"] = self._caps
+        if self.process_count > 1:
+            if device:
+                raise ValueError(
+                    "device=True materialization is single-process; "
+                    "multi-host runs stream their shards"
+                )
+            kw["process_index"] = process_index
+            kw["process_count"] = process_count
         self._batches = list(dataset.batches(batch_size, shuffle=True, epoch=0, **kw))
         if not self._batches:
             raise ValueError("source dataset yielded no batches")
@@ -125,10 +142,18 @@ class MaterializedBatches:
         shuffle: bool = True,
         drop_last: bool = True,
         epoch: "int | None" = None,
+        process_index: "int | None" = None,
+        process_count: "int | None" = None,
         sup_caps: "tuple[int, ...] | None" = None,
         num_threads: "int | None" = None,
     ):
         del batch_size, drop_last, sup_caps, num_threads
+        if process_count is not None and process_count > 1:
+            raise ValueError(
+                "multi-host sharding must be applied at materialization "
+                "time (pass process_index/process_count to the "
+                "constructor)"
+            )
         order = np.arange(len(self._batches))
         if shuffle:
             rng = np.random.default_rng([self.seed & 0x7FFFFFFF, int(epoch or 0)])

@@ -24,7 +24,8 @@ class Prefetcher:
     """Iterate `iterable` on a background thread, `depth` items ahead.
 
     Exceptions raised by the producer are re-raised at the consumer's next
-    __next__ call.  Always either exhaust the iterator or call .close().
+    __next__ call.  Always either exhaust the iterator or call .close(),
+    which returns when the producer's thread has ended.
     """
 
     def __init__(self, iterable, depth: int = 2):
@@ -45,6 +46,11 @@ class Prefetcher:
         except BaseException as e:  # surfaced on the consumer side
             self._exc = e
         finally:
+            # a generator's own resources (a loader's thread pool) end here,
+            # on this thread, not at garbage collection
+            close = getattr(it, "close", None)
+            if close is not None:
+                close()
             self._q.put(_End)
 
     def __iter__(self):
@@ -59,13 +65,16 @@ class Prefetcher:
         return item
 
     def close(self):
+        """Stop the producer and wait for its thread to end (it finishes the
+        item it is making): no thread outlives the iterator."""
         self._closed = True
-        # drain so the producer unblocks
-        try:
-            while True:
-                self._q.get_nowait()
-        except queue.Empty:
-            pass
+        # drain so the producer unblocks, until it has put _End
+        while self._thread.is_alive():
+            try:
+                self._q.get(timeout=0.05)
+            except queue.Empty:
+                pass
+        self._thread.join()
 
     def __enter__(self):
         return self

@@ -37,6 +37,7 @@ from torchain_tpu_torch.ops.fused_bn import (
     brb_train,
     rounded_scalar,
 )
+from torchain_tpu_torch.parallel.mesh import active_mesh, all_reduce_sum
 
 _TRUNC_STD = 0.87962566103423978  # std of a unit normal truncated to [-2, 2]
 
@@ -136,14 +137,27 @@ def continuous_dropout(x, rate, train: bool, generator: torch.Generator | None =
     multiply each channel by a value uniform in [1 - 2p, 1 + 2p], shared
     across time within an utterance.  The expectation is exactly 1, so there
     is no train/eval rescale.  Identity when not training, when `rate` is
-    None, or when no generator is given.  `time_axis` names the axis the
+    None, or when no generator is given.  Inside a data-parallel step the
+    mask is the global batch's (`parallel.data_parallel`), so a sharded
+    step draws what the unsharded one does.  `time_axis` names the axis the
     mask is shared over (1 for [B, T, C], 0 for the time-major [T, B, C]).
     The mask is drawn on the generator's device."""
     if not train or rate is None or generator is None:
         return x
     shape = list(x.shape)
     shape[time_axis] = 1
-    u = torch.rand(shape, generator=generator, device=generator.device) * 2.0 - 1.0
+    mesh = active_mesh()
+    if mesh is None:
+        u = torch.rand(shape, generator=generator, device=generator.device)
+    else:
+        # the global batch's mask, from the same generator state on every
+        # rank; this rank keeps its rows
+        b_axis = 1 if time_axis == 0 else 0
+        rows = shape[b_axis]
+        shape[b_axis] = rows * mesh.data
+        u = torch.rand(shape, generator=generator, device=generator.device).narrow(
+            b_axis, mesh.rank * rows, rows)
+    u = u * 2.0 - 1.0
     return x * (1.0 + 2.0 * float(rate) * u.to(device=x.device, dtype=x.dtype))
 
 
@@ -368,7 +382,8 @@ class FlaxBatchNorm(nn.Module):
     max(0, E[x^2] - mean^2)), y = (x - mean) * (rsqrt(var + eps) * scale)
     + bias in float32, cast back to the input's dtype; running statistics
     m * old + (1 - m) * new with m = 0.99, eps 1e-5.  Autograd takes the
-    backward through the statistics."""
+    backward through the statistics.  Inside a data-parallel step the
+    moments are the global batch's (`parallel.data_parallel`)."""
 
     def __init__(self, C: int, momentum: float = 0.99, eps: float = 1e-5, device=None):
         super().__init__()
@@ -382,8 +397,18 @@ class FlaxBatchNorm(nn.Module):
         xf = x.float()
         if train:
             axes = tuple(range(x.dim() - 1))
-            mean = xf.mean(axes)
-            var = torch.clamp(torch.square(xf).mean(axes) - torch.square(mean), min=0.0)
+            mesh = active_mesh()
+            if mesh is None:
+                mean = xf.mean(axes)
+                msq = torch.square(xf).mean(axes)
+            else:
+                # the global batch's moments: the sums and the count
+                # all-reduced (autograd carries the sum back to every rank)
+                C = x.shape[-1]
+                n = xf.new_full((1,), float(xf.numel() // C))
+                v = all_reduce_sum(mesh, torch.cat([xf.sum(axes), torch.square(xf).sum(axes), n]))
+                mean, msq = v[:C] / v[2 * C], v[C:2 * C] / v[2 * C]
+            var = torch.clamp(msq - torch.square(mean), min=0.0)
             m = self.momentum
             with torch.no_grad():
                 self.mean.mul_(m).add_((1.0 - m) * mean)

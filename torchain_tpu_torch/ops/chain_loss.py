@@ -175,11 +175,22 @@ def chain_loss(
     | DeviceDenseDenGraph | den_table.DeviceDenTableGraph | DeviceDenGraph,
     sup: DeviceSupervision | DeviceE2eSupervision,
     opts: ChainLossOptions = ChainLossOptions(),
+    mesh=None,
 ) -> tuple[torch.Tensor, dict]:
     """Returns (loss scalar to minimize, aux dict of per-batch statistics).
 
     aux keys: objf (per-frame MMI objective), l2_term, oor_term, xent_objf
-    (all already normalized by `weight`), weight, num_failed."""
+    (all already normalized by `weight`), weight, num_failed.
+
+    With `mesh` (parallel.Mesh, a data axis larger than 1) the inputs are
+    this rank's rows of the global batch (`parallel.shard_batch`): the
+    recursions run on them as on one card, the sums are all-reduced
+    (ops/sharded.py), and every rank returns the global batch's loss and
+    statistics.  The loss's gradient is this rank's sums over the global
+    weight, so the sum over ranks of the gradients is the gradient of the
+    global loss (the train step sums them; the weight is a constant of the
+    batch).  A batch the data axis does not divide is computed whole on
+    every rank with mesh=None, as `shard_batch` leaves it."""
     y = nnet_output
     B, T, P = y.shape
     num_logp, den_logz, gamma_num = chain_logprobs(
@@ -224,16 +235,29 @@ def chain_loss(
         xent_objf = y.new_zeros(())
 
     total = objf + l2_term + oor_term + opts.xent_regularize * xent_objf
-    # guard: an all-zero-weight batch must not produce inf/nan loss
-    weight_safe = torch.clamp(weight, min=1e-8)
-    loss = -total / weight_safe
+    num_failed = torch.sum(~ok).float()
+    if mesh is not None and mesh.data > 1:
+        from torchain_tpu_torch.ops.sharded import reduce_loss_sums
+
+        g = reduce_loss_sums(mesh, torch.stack(
+            [objf, l2_term, oor_term, xent_objf, weight, num_failed]))
+        weight_safe = torch.clamp(g[4], min=1e-8)
+        local = -total / weight_safe
+        # the value is the global loss; the gradient is this rank's part
+        value = -(g[0] + g[1] + g[2] + opts.xent_regularize * g[3]) / weight_safe
+        loss = local - local.detach() + value
+        objf, l2_term, oor_term, xent_objf, weight, num_failed = g.unbind()
+    else:
+        # guard: an all-zero-weight batch must not produce inf/nan loss
+        weight_safe = torch.clamp(weight, min=1e-8)
+        loss = -total / weight_safe
     aux = dict(
         objf=objf / weight_safe,
         l2_term=l2_term / weight_safe,
         oor_term=oor_term / weight_safe,
         xent_objf=xent_objf / weight_safe,
         weight=weight,
-        num_failed=torch.sum(~ok).float(),
+        num_failed=num_failed,
     )
     return loss, aux
 

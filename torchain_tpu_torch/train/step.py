@@ -1,13 +1,21 @@
 """The chain training step: model forward (two heads) -> chain loss (custom
 gradient) -> gradients -> global-norm clip -> optimizer.  Port of
 torchain_tpu/train/step.py (make_train_step, make_eval_step,
-make_forward_fn, make_backstitch_step)."""
+make_forward_fn, make_backstitch_step).
+
+With `mesh` (parallel.Mesh, a data axis larger than 1) a step is one
+rank's share of a data-parallel step: `feats`, `sup` are this rank's rows of
+the global batch, the batchnorms and dropout see the global batch
+(`parallel.data_parallel`), the loss is the global batch's, and after each
+backward the gradients are summed over the data group, so grad_norm, the
+clip and the optimizer read the global gradient on every rank."""
 
 from __future__ import annotations
 
 import torch
 
 from torchain_tpu_torch.ops.chain_loss import ChainLossOptions, chain_loss
+from torchain_tpu_torch.parallel.mesh import all_reduce_tensors_, data_parallel
 from torchain_tpu_torch.train.state import ChainTrainState
 
 
@@ -27,15 +35,20 @@ def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float) -> torch.Te
     return norm
 
 
-def _grads(model, feats, den, sup, loss_opts, use_xent, dropout_rate=None, generator=None):
-    """Forward, chain loss and backward into the parameters' .grad.
-    Returns (loss, aux) detached."""
+def _grads(model, feats, den, sup, loss_opts, use_xent, dropout_rate=None, generator=None,
+           mesh=None):
+    """Forward, chain loss and backward into the parameters' .grad (with
+    `mesh`, summed over the data group).  Returns (loss, aux) detached."""
     model.train()
     kw = {} if dropout_rate is None else dict(dropout_rate=dropout_rate, generator=generator)
-    chain_out, xent_out = model(feats, train=True, **kw)
-    loss, aux = chain_loss(chain_out, xent_out if use_xent else None, den, sup, loss_opts)
-    model.zero_grad(set_to_none=False)
-    loss.backward()
+    with data_parallel(mesh):
+        chain_out, xent_out = model(feats, train=True, **kw)
+        loss, aux = chain_loss(chain_out, xent_out if use_xent else None, den, sup, loss_opts,
+                               mesh=mesh)
+        model.zero_grad(set_to_none=False)
+        loss.backward()
+    if mesh is not None and mesh.data > 1:
+        all_reduce_tensors_(mesh, [p.grad for p in model.parameters() if p.grad is not None])
     return loss.detach(), {k: v.detach() for k, v in aux.items()}
 
 
@@ -45,6 +58,7 @@ def make_train_step(
     use_xent: bool = True,
     max_grad_norm: float = 5.0,
     dropout: bool = False,
+    mesh=None,
 ):
     """Returns step(feats [B, T_in, F], den, sup) -> metrics, updating
     `state` in place (parameters, optimizer state, batchnorm running
@@ -64,7 +78,7 @@ def make_train_step(
 
     def step(feats, den, sup, dropout_rate=None, generator=None) -> dict:
         rate, gen = (dropout_rate, generator) if dropout else (None, None)
-        loss, metrics = _grads(model, feats, den, sup, loss_opts, use_xent, rate, gen)
+        loss, metrics = _grads(model, feats, den, sup, loss_opts, use_xent, rate, gen, mesh)
         grads = [p.grad for p in params]
         if max_grad_norm and max_grad_norm > 0:
             grad_norm = clip_by_global_norm_(grads, max_grad_norm)
@@ -79,17 +93,19 @@ def make_train_step(
     return step
 
 
-def make_eval_step(loss_opts: ChainLossOptions, use_xent: bool = True):
+def make_eval_step(loss_opts: ChainLossOptions, use_xent: bool = True, mesh=None):
     """Returns eval_step(model, feats, den, sup) -> the chain loss's aux
     dict (objf, l2_term, oor_term, xent_objf, weight, num_failed), with the
     model in eval mode (running batchnorm statistics) and no gradient: the
-    denominator's backward (K2) never runs."""
+    denominator's backward (K2) never runs.  With `mesh` the inputs are
+    this rank's rows and the sums are the global batch's."""
 
     @torch.no_grad()
     def eval_step(model, feats, den, sup) -> dict:
         model.eval()
         chain_out, xent_out = model(feats, train=False)
-        _, aux = chain_loss(chain_out, xent_out if use_xent else None, den, sup, loss_opts)
+        _, aux = chain_loss(chain_out, xent_out if use_xent else None, den, sup, loss_opts,
+                            mesh=mesh)
         return aux
 
     return eval_step
@@ -116,6 +132,7 @@ def make_backstitch_step(
     loss_opts: ChainLossOptions,
     alpha: float,
     use_xent: bool = True,
+    mesh=None,
 ):
     """Backstitch training step (Kaldi --trainer.backstitch-training-scale,
     nnet-training.cc TrainInternalBackstitch; Wang et al. 2017): on one
@@ -133,13 +150,13 @@ def make_backstitch_step(
     def step(feats, den, sup) -> dict:
         # pass 1 from the current point: its batchnorm update is undone
         saved = [b.clone() for b in stats]
-        _grads(model, feats, den, sup, loss_opts, use_xent)
+        _grads(model, feats, den, sup, loss_opts, use_xent, mesh=mesh)
         opt.step(scale=-alpha)
         with torch.no_grad():
             for b, s in zip(stats, saved):
                 b.copy_(s)
         # pass 2 from the moved point
-        loss, metrics = _grads(model, feats, den, sup, loss_opts, use_xent)
+        loss, metrics = _grads(model, feats, den, sup, loss_opts, use_xent, mesh=mesh)
         grad_norm = global_norm([p.grad for p in params])
         opt.step(scale=1.0 + alpha)
         state.step += 1

@@ -13,12 +13,21 @@ The device is explicit (`TrainerConfig.device`, default "cuda"): the model
 must live there.  On a CUDA device each batch is placed on a side stream
 by the prefetch thread, and the step's stream waits on an event recorded
 after the placement.
+
+Data parallelism (`TrainerConfig.mesh`, one process a card in a process
+group: parallel.init_distributed): rank 0's parameters and buffers are
+broadcast at construction; each rank loads its rows of every global batch
+(`batch_size` is the global batch) and the step sums the gradients over the
+ranks (train/step.py), so every rank takes the same update.  Every rank
+stops at the same batch; checkpoints are written by rank 0 and read by
+every rank; `evaluate` reports the global batch's statistics.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import hashlib
+import inspect
 import json
 import os
 import pathlib
@@ -30,13 +39,23 @@ import numpy as np
 import torch
 
 from torchain_tpu_torch.data.loader import ChainBatch
-from torchain_tpu_torch.data.materialize import PlacedBatch
+from torchain_tpu_torch.data.materialize import MaterializedBatches, PlacedBatch
 from torchain_tpu_torch.data.prefetch import Prefetcher
 from torchain_tpu_torch.graphs.e2e import E2eSupervision
 from torchain_tpu_torch.models.semi_orthogonal import constrain_semi_orthogonal
 from torchain_tpu_torch.ops.chain_loss import ChainLossOptions, ChainResults
 from torchain_tpu_torch.ops.device_graphs import DeviceSupervision
 from torchain_tpu_torch.ops.num_e2e import DeviceE2eSupervision
+from torchain_tpu_torch.ops.sharded import shardable
+from torchain_tpu_torch.parallel.mesh import (
+    MeshConfig,
+    barrier,
+    broadcast_object,
+    host_min,
+    make_mesh,
+    replicated,
+    shard_batch,
+)
 from torchain_tpu_torch.train.lowmem_adam import LowmemAdam
 from torchain_tpu_torch.train.ngsgd import NGSGD
 from torchain_tpu_torch.train.state import ChainTrainState
@@ -103,6 +122,9 @@ class TrainerConfig:
     use_xent: bool = True
     #: the torch device the model lives on and batches are placed on
     device: str = "cuda"
+    #: the (data, model) layout of the process group (data -1: every
+    #: process; without a process group, this one)
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
 
 
 def lr_schedule(cfg: TrainerConfig):
@@ -359,16 +381,24 @@ class Trainer:
                 "backstitch_scale and dropout_schedule are mutually "
                 "exclusive (the backstitch step carries no dropout rng)"
             )
+        self.mesh = make_mesh(cfg.mesh, device_type=self.device.type)
+        #: the mesh where its data axis is larger than 1, else None
+        self.dp = self.mesh if self.mesh.data > 1 else None
+        if self.dp is not None:
+            replicated(self.dp, self.model)
         self.state = ChainTrainState(model=self.model,
                                      optimizer=make_optimizer(cfg, self.model.parameters()))
-        # the optimizer clips (after accumulation): the step does not
+        # the optimizer clips (after accumulation): the step does not.  Under
+        # data parallelism the step all-reduces every micro-batch's gradient,
+        # so each micro-step's grad_norm is the global gradient's
         self.train_step = make_train_step(self.state, cfg.loss, use_xent=cfg.use_xent,
                                           max_grad_norm=0.0,
-                                          dropout=self._dropout_fn is not None)
+                                          dropout=self._dropout_fn is not None, mesh=self.dp)
         self.backstitch_step = None
         if cfg.backstitch_scale > 0:
             self.backstitch_step = make_backstitch_step(
-                self.state, cfg.loss, cfg.backstitch_scale, use_xent=cfg.use_xent)
+                self.state, cfg.loss, cfg.backstitch_scale, use_xent=cfg.use_xent,
+                mesh=self.dp)
         # per-step dropout noise from a generator seeded with the step:
         # a resumed run draws the same masks
         self._dropout_gen = (
@@ -455,8 +485,17 @@ class Trainer:
                       if p.name.isdigit() and (p / _CKPT_FILE).exists())
 
     def save_checkpoint(self):
+        """Write the train state (rank 0 writes; every rank waits for it)."""
         if self._ckpt_root is None:
             return
+        if self.dp is not None:
+            if self.dp.rank == 0:
+                self._write_checkpoint()
+            barrier(self.dp)
+            return
+        self._write_checkpoint()
+
+    def _write_checkpoint(self):
         if not self._run_config_path().exists():
             self.save_run_config()
         step = int(self.state.step)
@@ -538,12 +577,46 @@ class Trainer:
         return host
 
     def _batches(self, dataset, epoch: int):
+        """(this rank's batches of the epoch, whether the ranks must agree
+        on when it ends).  Under data parallelism `batch_size` is the global
+        batch: a dataset that takes process_index/process_count (ChainDataset,
+        CegsDataset) gives this rank its rows of every global batch, equal in
+        count on every rank; MaterializedBatches must have been materialized
+        with them; any other dataset (E2eChainDataset) is taken as this
+        rank's own utterances, batched at batch_size / data, and every rank
+        stops when the first runs out."""
         threads = self.cfg.loader_threads
         kw = dict(epoch=epoch,
                   num_threads=default_loader_threads() if threads is None else threads)
         if self._sup_caps is not None:
             kw["sup_caps"] = self._sup_caps
-        return dataset.batches(self.cfg.batch_size, **kw)
+        mesh = self.dp
+        if mesh is None:
+            return dataset.batches(self.cfg.batch_size, **kw), False
+        if isinstance(dataset, MaterializedBatches):
+            if dataset.process_count != mesh.data:
+                raise ValueError(
+                    f"MaterializedBatches of {dataset.process_count} process(es) under a data "
+                    f"axis of {mesh.data}: materialize each rank's rows with "
+                    "process_index=rank, process_count=world")
+            return dataset.batches(self.cfg.batch_size, **kw), False
+        if "process_index" in inspect.signature(dataset.batches).parameters:
+            return dataset.batches(self.cfg.batch_size, process_index=mesh.rank,
+                                   process_count=mesh.data, **kw), False
+        if self.cfg.batch_size % mesh.data:
+            raise ValueError(f"global batch {self.cfg.batch_size} not divisible by the data "
+                             f"axis {mesh.data}")
+        return dataset.batches(self.cfg.batch_size // mesh.data, **kw), True
+
+    def _stop_together(self, batches, agree: bool):
+        """`batches` until it ends; with `agree`, until it ends on any rank
+        (one host all-reduce a batch, on this thread)."""
+        for item in batches:
+            if agree and host_min(self.dp, 1) == 0:
+                return
+            yield item
+        if agree:
+            host_min(self.dp, 0)
 
     def fit(self, dataset, log_fn=print, max_steps: int = 0) -> ChainResults:
         """Train for the configured epochs (from the restored position),
@@ -569,6 +642,9 @@ class Trainer:
             if self._sup_caps is None and hasattr(dataset, "estimate_sup_caps"):
                 t0 = time.perf_counter()
                 self._sup_caps = dataset.estimate_sup_caps()
+                if self.dp is not None:
+                    # one padding on every rank: rank 0's
+                    self._sup_caps = broadcast_object(self.dp, self._sup_caps)
                 self.timings["sup_caps_s"] = time.perf_counter() - t0
 
             def _put_iter(it, skip_until: int):
@@ -583,8 +659,9 @@ class Trainer:
                     yield b, placed
 
             skip_until = self.skip_batches if epoch == self.start_epoch else 0
-            prefetch = Prefetcher(_put_iter(self._batches(dataset, epoch), skip_until))
-            for bi, (batch, placed) in enumerate(prefetch):
+            batches, agree = self._batches(dataset, epoch)
+            prefetch = Prefetcher(_put_iter(batches, skip_until))
+            for bi, (batch, placed) in enumerate(self._stop_together(prefetch, agree)):
                 if placed is None:
                     continue
                 self.batch_in_epoch = bi + 1
@@ -609,7 +686,7 @@ class Trainer:
                     constrain_semi_orthogonal(self.model)
                 self.timings["step_s"].append(time.perf_counter())
                 pending.append((step, epoch, metrics))
-                frames_done += batch.feats.shape[0] * batch.sup.num_frames
+                frames_done += batch.feats.shape[0] * batch.sup.num_frames * self.mesh.data
                 if step % cfg.log_every == 0:
                     host = self._flush_metrics(pending)
                     host["wall_s"] = time.time() - t_start
@@ -677,17 +754,25 @@ class Trainer:
 
     def evaluate(self, dataset, max_batches: int = 0) -> ChainResults:
         """Validation pass (nnet3-chain-compute-prob): objf over a held-out
-        dataset, no parameter updates."""
+        dataset, no parameter updates.  Under data parallelism every rank
+        reads the same global batches and scores its rows of each (the sums
+        all-reduced: every rank gets the global statistics); a batch the
+        data axis does not divide is scored whole on every rank."""
         if not hasattr(self, "_eval_step"):
             self._eval_step = make_eval_step(self.cfg.loss, use_xent=self.cfg.use_xent)
+            self._eval_step_dp = make_eval_step(self.cfg.loss, use_xent=self.cfg.use_xent,
+                                                mesh=self.dp)
         results = ChainResults()
         for i, batch in enumerate(
             dataset.batches(self.cfg.batch_size, shuffle=False, drop_last=False)
         ):
             if max_batches and i >= max_batches:
                 break
+            step = self._eval_step
+            if shardable(self.dp, batch.feats.shape[0]):
+                batch, step = shard_batch(self.dp, batch), self._eval_step_dp
             feats, sup = self._ready(self._put_batch(batch))
-            aux = self._eval_step(self.model, feats, self.den, sup)
+            aux = step(self.model, feats, self.den, sup)
             results.add({k: float(v) for k, v in aux.items()})
         return results
 
