@@ -36,7 +36,9 @@ Phases, in order; any failure exits non-zero before the last line:
      shared-memory probe against the device's opt-in limit; K3, K4, K8f and
      K8b also on the shared-memory plan their sizes did not choose, for
      equal bits and a time in the same turns, and K10 also at D 512,
-     F 2048 (rows cut into two column groups);
+     F 2048 (rows cut into two column groups) and as one model rank's share
+     of the model axis's split half-step (N 400, D 256, F 512, float32 out
+     and dx);
   4. six paths, each a full-width model trained for a few steps with the
      LF-MMI chain loss on one replayed batch through `make_train_step`:
      (a) TDNN-F (9 layers, hidden 768, bottleneck 96, prefinal 256) on the
@@ -121,7 +123,13 @@ Phases, in order; any failure exits non-zero before the last line:
      against the plain `cli.train` run, and `tools/multihost_worker.py`'s
      trainer mode on two gloo ranks sharing the card against one rank on
      the same global batches, at `trigram`'s widths (B=128, 64 rows a rank,
-     K1-K6 once a step on each) and with the bf16 conformer (B=8).  The
+     K1-K6 once a step on each) and with the bf16 conformer (B=8), and the
+     model axis: the worker's model mode on a data 1 x model 2 mesh of two
+     gloo ranks sharing the card, the bf16 conformer (B=8) sharded by
+     `shard_params`, its feed-forward split over the model group (K10f/K10b
+     on [256, 512] shards with the dense and the fused lowering), float32
+     copies, and a float32 step at a lower threshold whose qkv, conv_in,
+     attn_out and conv_out are gathered on use, each against one rank.  The
      cegs phase also times
      `Trainer.fit` over the live `CegsDataset` against
      `MaterializedBatches` of it on the card;
@@ -1084,6 +1092,11 @@ def check_conformer_kernels(seed: int, dtype_name: str) -> dict[str, dict]:
     measured.update(check_ffn(rng, dtype_name, D, Fh, N, label))
     for name, rec in check_ffn(rng, dtype_name, *FFN_WIDE, N, f"{label}, D 512").items():
         measured[name]["d512"] = rec
+    # and one model rank's share of the split half-step of the model axis's
+    # path (`check_parallel` (d)): F / 2 hidden columns, float32 out and dx
+    for name, rec in check_ffn(rng, dtype_name, D, Fh // MODEL_AXIS, PARALLEL_CONFORMER_B * T_OUT,
+                               f"{label}, model shard", partial=True).items():
+        measured[name]["model_shard"] = rec
     return measured
 
 
@@ -1091,10 +1104,14 @@ def check_conformer_kernels(seed: int, dtype_name: str) -> dict[str, dict]:
 FFN_WIDE = (512, 2048)
 
 
-def check_ffn(rng, dtype_name: str, D: int, Fh: int, N: int, label: str) -> dict[str, dict]:
+def check_ffn(rng, dtype_name: str, D: int, Fh: int, N: int, label: str,
+              partial: bool = False) -> dict[str, dict]:
     """K10f and K10b against their plain versions on N rows of width D
-    (hidden width Fh) with operands of one dtype, with times.  Returns the
-    measurements by kernel name; raises on disagreement."""
+    (hidden width Fh) with operands of one dtype, with times; with
+    `partial`, as one model rank's share of a split half-step (float32
+    out and dx, no residual and no b2; the library call the `Dense` chain
+    of that share).  Returns the measurements by kernel name; raises on
+    disagreement."""
     import numpy as np
     import torch
 
@@ -1117,14 +1134,20 @@ def check_ffn(rng, dtype_name: str, D: int, Fh: int, N: int, label: str) -> dict
     w1, w2 = rand(D, Fh, scale=D ** -0.5).to(dtype), rand(Fh, D, scale=Fh ** -0.5).to(dtype)
     b1, b2 = rand(Fh, scale=0.1), rand(D, scale=0.1)
     ffn_peak, ffn_ops = (PEAK_BF16_FLOPS, 1) if bf16 else (PEAK_TF32_FLOPS, TF32_PRODUCTS)
-    o_k = ff.ffn_forward(xn, res, w1, b1, w2, b2, 0.5)
+    pk = dict(partial=True) if partial else {}
+    o_k = ff.ffn_forward(xn, res, w1, b1, w2, b2, 0.5, **pk)
     torch.cuda.synchronize()
-    o_p = ff.ffn_forward_plain(xn, res, w1, b1, w2, b2, 0.5)
-    # float32: sums of D and F products in another order
-    tol = (2e-2, 1e-2) if bf16 else (1e-4, 1e-4)
+    o_p = ff.ffn_forward_plain(xn, res, w1, b1, w2, b2, 0.5, **pk)
+    # float32: sums of D and F products in another order.  A bfloat16
+    # share is float32 (not rounded to bf16): only h's roundings part it
+    # from the plain version (NVIDIA H100 80GB HBM3, 700 W: out 1.14e-3, dx
+    # 8.09e-4), so its limit is ~3.5x those and far below its entries (~0.3)
+    tol = (1e-4, 1e-4) if not bf16 else (4e-3, 0.0) if partial else (2e-2, 1e-2)
 
     def dense_chain(x, r, a1, c1, a2, c2):
         u = x @ a1 + c1.to(dtype)
+        if partial:
+            return 0.5 * ((u * torch.sigmoid(u)) @ a2).float()
         return r + 0.5 * ((u * torch.sigmoid(u)) @ a2 + c2.to(dtype))
 
     def record_ffn(name, checks, kernel, plain, library, flops, nbytes):
@@ -1135,16 +1158,20 @@ def check_ffn(rng, dtype_name: str, D: int, Fh: int, N: int, label: str) -> dict
         _record(measured, name, label, checks, t, ffn_ops * flops, nbytes, ffn_peak,
                 tflops=flops / t["ms"] / 1e9, bound_fraction=bound_ms / t["ms"])
 
+    # bytes: xn (and res) read, out written (float32 for a share), W1, W2
+    # and the biases read once
+    fwd_bytes = (esz * (N * D + 2 * D * Fh) + 4.0 * (N * D + Fh) if partial
+                 else esz * (3 * N * D + 2 * D * Fh) + 4.0 * (Fh + D))
     record_ffn(
         "ffn_forward", [_check(f"ffn_forward [{label}]", "out", o_k, o_p, *tol)],
-        lambda: ff.ffn_forward(xn, res, w1, b1, w2, b2, 0.5),
-        lambda: ff.ffn_forward_plain(xn, res, w1, b1, w2, b2, 0.5),
+        lambda: ff.ffn_forward(xn, res, w1, b1, w2, b2, 0.5, **pk),
+        lambda: ff.ffn_forward_plain(xn, res, w1, b1, w2, b2, 0.5, **pk),
         lambda: dense_chain(xn, res, w1, b1, w2, b2),
-        4.0 * N * D * Fh, esz * (3 * N * D + 2 * D * Fh) + 4.0 * (Fh + D),
+        4.0 * N * D * Fh, fwd_bytes,
     )
-    grads_k = ff.ffn_backward(xn, gf, w1, b1, w2, 0.5)
+    grads_k = ff.ffn_backward(xn, gf, w1, b1, w2, 0.5, **pk)
     torch.cuda.synchronize()
-    grads_p = ff.ffn_backward_plain(xn, gf, w1, b1, w2, 0.5)
+    grads_p = ff.ffn_backward_plain(xn, gf, w1, b1, w2, 0.5, **pk)
     # the weight and bias gradients are float32 sums over 6400 rows (entries
     # up to ~100).  With bfloat16 operands a hidden activation or a dh that
     # sits on a rounding boundary may round the other way (the float32
@@ -1154,18 +1181,24 @@ def check_ffn(rng, dtype_name: str, D: int, Fh: int, N: int, label: str) -> dict
     tols = dict(dx=tol, dw1=wtol, db1=(1e-3, 1e-4), dw2=wtol, db2=(1e-3, 1e-4))
     checks = [_check(f"ffn_backward [{label}]", what, a, b, *tols[what])
               for what, a, b in zip(tols, grads_k, grads_p)]
-    if not all(torch.equal(a, b) for a, b in zip(ff.ffn_backward(xn, gf, w1, b1, w2, 0.5),
+    if not all(torch.equal(a, b) for a, b in zip(ff.ffn_backward(xn, gf, w1, b1, w2, 0.5, **pk),
                                                    grads_k)):
         raise AssertionError(f"ffn_backward [{label}]: two launches differ")
     leaves = [t.clone().requires_grad_() for t in (xn, w1, b1, w2, b2)]
     chain_out = dense_chain(leaves[0], res, *leaves[1:])
+    chain_leaves = leaves[:4] if partial else leaves
+    g_chain = gf.float() if partial else gf
+    # bytes: xn and g read, dx written (float32 for a share), W1, W2 and b1
+    # read, the weight and bias gradients written in float32
+    bwd_bytes = (esz * (2 * N * D + 2 * D * Fh) + 4.0 * (N * D + Fh + 2 * D * Fh + Fh + D)
+                 if partial else
+                 esz * (3 * N * D + 2 * D * Fh) + 4.0 * (Fh + 2 * D * Fh + Fh + D))
     record_ffn(
         "ffn_backward", checks,
-        lambda: ff.ffn_backward(xn, gf, w1, b1, w2, 0.5),
-        lambda: ff.ffn_backward_plain(xn, gf, w1, b1, w2, 0.5),
-        lambda: torch.autograd.grad(chain_out, leaves, gf, retain_graph=True),
-        10.0 * N * D * Fh,
-        esz * (3 * N * D + 2 * D * Fh) + 4.0 * (Fh + 2 * D * Fh + Fh + D),
+        lambda: ff.ffn_backward(xn, gf, w1, b1, w2, 0.5, **pk),
+        lambda: ff.ffn_backward_plain(xn, gf, w1, b1, w2, 0.5, **pk),
+        lambda: torch.autograd.grad(chain_out, chain_leaves, g_chain, retain_graph=True),
+        10.0 * N * D * Fh, bwd_bytes,
     )
     return measured
 
@@ -1922,8 +1955,9 @@ def _fit_live_vs_materialized(what: str, source, cfg, feat_dim: int, den, bsz: i
     """The model of `cfg` under `Trainer.fit` for --steps steps, over the
     dataset `source()` read live (built and placed at every step on the
     prefetch thread) and through `MaterializedBatches(source(),
-    device=True)` (built and placed once), in turns, twice each.  With
-    `threads`, a third pair of turns reads live with `TrainerConfig(
+    device=True)` (built and placed once), in turns, once each (the run's
+    time limit allows no second turn).  With
+    `threads`, a third turn reads live with `TrainerConfig(
     loader_threads=threads)`: the batches built on a pool of that width.
     Records ms between steps (host clock, the Trainer's median) and the
     placement's median.  Gates: every loss finite; the pooled turns' first
@@ -1934,7 +1968,7 @@ def _fit_live_vs_materialized(what: str, source, cfg, feat_dim: int, den, bsz: i
 
     turns = ("live",) + (("threaded",) if threads else ()) + ("materialized",)
     fits = {}
-    for name in turns + tuple(f"{t}_again" for t in turns):
+    for name in turns:
         dataset = source()
         if name.startswith("materialized"):
             t0 = time.perf_counter()
@@ -1952,20 +1986,18 @@ def _fit_live_vs_materialized(what: str, source, cfg, feat_dim: int, den, bsz: i
         fits[name] = dict(step_ms=tr.step_ms(), sup_caps_s=tr.timings["sup_caps_s"],
                           place_ms_median=statistics.median(tr.timings["place_s"]) * 1e3,
                           losses=losses)
-    line = f"{what}: Trainer.fit, ms between steps: live {fits['live']['step_ms']:.2f} /" \
-           f" {fits['live_again']['step_ms']:.2f}"
+    line = f"{what}: Trainer.fit, ms between steps: live {fits['live']['step_ms']:.2f}"
     if threads:
-        first = [abs(fits[t]["losses"][0] - fits["live"]["losses"][0])
-                 / abs(fits["live"]["losses"][0]) for t in ("threaded", "threaded_again")]
-        fits["threads"], fits["threaded_first_loss_rel"] = threads, max(first)
-        line += (f", live with loader_threads={threads} {fits['threaded']['step_ms']:.2f} /"
-                 f" {fits['threaded_again']['step_ms']:.2f} (first loss rel {max(first):.3g}"
-                 f" to the serial turn's)")
-        if not max(first) <= REFERENCE_RTOL["float32"]:
+        first = abs(fits["threaded"]["losses"][0] - fits["live"]["losses"][0]) / abs(
+            fits["live"]["losses"][0])
+        fits["threads"], fits["threaded_first_loss_rel"] = threads, first
+        line += (f", live with loader_threads={threads} {fits['threaded']['step_ms']:.2f}"
+                 f" (first loss rel {first:.3g} to the serial turn's)")
+        if not first <= REFERENCE_RTOL["float32"]:
             raise AssertionError(f"{what} fit: the pooled loader's first loss departs from the"
                                  " serial one's")
-    _log(line + f", materialized on the card {fits['materialized']['step_ms']:.2f} /"
-         f" {fits['materialized_again']['step_ms']:.2f} (two turns each); placement median live"
+    _log(line + f", materialized on the card {fits['materialized']['step_ms']:.2f}"
+         f" (one turn each); placement median live"
          f" {fits['live']['place_ms_median']:.3f} ms, materialized"
          f" {fits['materialized']['place_ms_median']:.3f} ms; materialized"
          f" {fits['materialized_bytes'] / 1e6:.1f} MB in {fits['materialize_s']:.2f} s ({smi})")
@@ -3226,8 +3258,9 @@ def check_kaldi(args, result: dict, tmp: str) -> dict:
 #: utterances a recording, at Kaldi's 16 kHz 40-bin fbank; 3-way speed
 #: perturbation, online i-vectors of WAV_IVECTOR (dim, Gaussians), so the
 #: model's input is 40 + 100 dims, as a chain recipe's hires features plus
-#: i-vector; the supervisions compiled in WAV_WORKERS worker processes
-WAV_UTTS, WAV_PHONES, WAV_SPEAKERS, WAV_PER_REC = 160, 40, 8, 4
+#: i-vector; the supervisions compiled in WAV_WORKERS worker processes.
+#: 96 utterances (the run's time limit): 7 batches of 128 chunks an epoch
+WAV_UTTS, WAV_PHONES, WAV_SPEAKERS, WAV_PER_REC = 96, 40, 8, 4
 WAV_WORDS, WAV_VOCAB = (16, 25), 200
 WAV_IVECTOR = (100, 32)
 WAV_WORKERS = 8
@@ -3874,6 +3907,16 @@ PARALLEL_DRIFT_RTOL = 5e-2
 PARALLEL_WORLD1_RTOL = 1e-6
 PARALLEL_TIMEOUT_S = 300
 CLI_RUNNER = "_trigram_cli_train"
+#: (d), the model axis: data 1 x model 2 on two gloo ranks sharing the card,
+#: the bf16 conformer at global B=8 for MODEL_STEPS steps with each
+#: feed-forward lowering, float32 copies of both for one step, and (d2) a
+#: float32 step at MODEL_MIN_SHARD, where the rule also shards qkv
+#: [256, 768], conv_in [256, 512], attn_out and conv_out [256, 256] and the
+#: heads' first layers, which are gathered on use
+MODEL_AXIS = 2
+MODEL_STEPS = 3
+MODEL_MIN_SHARD = 2**16
+MODEL_GATHERED = ("attn_qkv", "conv_in", "attn_out", "conv_out")
 
 
 def _trigram_cli(argv: list) -> int:
@@ -4045,7 +4088,8 @@ def _parallel_pair(args, label: str, model: str, batch: int, steps: int, must: t
          f" parameters after the run {{{', '.join(f'{g}: {v:.2g}' for g, v in sorted(params.items()))}}}"
          f"; {two[0]['step_ms']:.2f} / {two[1]['step_ms']:.2f} ms between steps on ranks 0/1"
          f" against {one['step_ms']:.2f} ms on one rank; all-reduces a step"
-         f" {stats['all_reduce']:g}, their bytes {stats['all_reduce_bytes']:.0f} (of which the"
+         f" {stats['data']['all_reduce']:g}, their bytes {stats['data']['all_reduce_bytes']:.0f}"
+         f" (of which the"
          f" gradient's {grad_bytes}: {two[0]['parameters']} float32 parameters); kernel"
          f" launches a step on each rank {per_rank}; spawn to results {two_s:.1f} s ({smi})")
     for i, r in enumerate(two):
@@ -4068,6 +4112,109 @@ def _parallel_pair(args, label: str, model: str, batch: int, steps: int, must: t
                 launches={f"rank{i}": r["launches"] for i, r in enumerate(two)})
 
 
+def _model_axis(args, tmp: str, smi: str) -> dict:
+    """(d) the model axis: `tools/multihost_worker.py`'s model mode (the
+    model built from the seed on each rank, `shard_params`, then
+    `make_train_step` with `ChainOptimizer`, Adam 1e-3) on a data 1 x model
+    MODEL_AXIS mesh of gloo ranks sharing the card, against one unsharded
+    rank in this process, on the trigram corpus's first global batch of
+    PARALLEL_CONFORMER_B rows.  Variants, in one spawn: (d1) the bf16
+    conformer (8 x 256) with the dense and the fused feed-forward, split
+    over the model group (F 1024 / 2 a rank: K10f/K10b on [256, 512]
+    shards with `partial`), MODEL_STEPS steps; float32 copies of both, one
+    step; (d2) float32, one step, at MODEL_MIN_SHARD (qkv, conv_in,
+    attn_out, conv_out and the heads' first layers gathered on use).
+    Gates: every rank's first-step loss, objf and gradient norm against the
+    one rank's at REFERENCE_RTOL of the trunk dtype; the model ranks' curves
+    (loss, objf, gradient norm of every step) equal; each rank launches K1-K6
+    and K7 (and K10 with the fused feed-forward) and no other kernel; the
+    split leaves' shards are [256, 512] and [512, 256]; (d2) gathers the
+    MODEL_GATHERED leaves.  Logged: each rank's parameter and Adam-moment
+    bytes against one rank's, the collectives and bytes a step by group, ms
+    between steps.  Not a scaling figure: the ranks share one card."""
+    from torchain_tpu_torch.tools import multihost_worker as mw
+
+    work = str(pathlib.Path(tmp) / "parallel_model")
+    base = _parallel_config(args, "conformer", PARALLEL_CONFORMER_B, MODEL_STEPS, work)
+    bf16, f32 = dict(CONFORMER, dtype="bfloat16"), dict(CONFORMER, dtype="float32")
+    variants = {
+        "d1_dense": dict(model_cfg=bf16),
+        "d1_fused": dict(model_cfg=dict(bf16, ffn_impl="fused")),
+        "d1_dense_f32": dict(model_cfg=f32, steps=1),
+        "d1_fused_f32": dict(model_cfg=dict(f32, ffn_impl="fused"), steps=1),
+        "d2": dict(model_cfg=f32, steps=1, min_shard_size=MODEL_MIN_SHARD),
+    }
+    cfg = dict(base, precompile=0, save_params=None, variants=list(variants.values()),
+               mesh=dict(data=1, model=MODEL_AXIS))
+    t0 = time.perf_counter()
+    ranks = mw.spawn(MODEL_AXIS, "model", cfg, work, device="cuda:0", backend="gloo",
+                     timeout=PARALLEL_TIMEOUT_S)
+    spawn_s = time.perf_counter() - t0
+    one = mw.run("model", 0, 1, "cuda", dict(cfg, mesh=dict(data=1, model=1)), work)
+    out = dict(spawn_s=spawn_s, one_s=one["seconds"],
+               placement=[r["mesh"] for r in ranks], variants={})
+    failed = []
+    for i, name in enumerate(variants):
+        got = [r["variants"][i] for r in ranks]
+        ref = one["variants"][i]
+        dtype = cfg["variants"][i]["model_cfg"]["dtype"]
+        gate = REFERENCE_RTOL[dtype]
+        # step 1 of every rank against the one rank's
+        rel = {k: max(abs(g[k] - ref[k]) for g in got) / abs(ref[k])
+               for k in ("loss", "objf", "grad_norm")}
+        fused = cfg["variants"][i]["model_cfg"].get("ffn_impl") == "fused"
+        must = DEN_NUM + ATTENTION + (FFN if fused else ())
+        shapes = got[0]["shard_shapes"]
+        last = f"block{CONFORMER['num_layers'] - 1}.ffn2_out.kernel"
+        split = (shapes.get("block0.ffn1_in.kernel"), shapes.get(last))
+        gathered = sorted({k.split(".")[1] for k in shapes if k.split(".")[1] in MODEL_GATHERED})
+        steps = len(got[0]["curve"])
+        rec = dict(rel=rel, gate=gate, steps=steps, ranks_equal=got[0]["curve"] == got[1]["curve"],
+                   step_ms=[g["step_ms"] for g in got], one_step_ms=ref["step_ms"],
+                   param_bytes=[g["param_bytes"] for g in got], one_param_bytes=ref["param_bytes"],
+                   opt_state_bytes=[g["opt_state_bytes"] for g in got],
+                   one_opt_state_bytes=ref["opt_state_bytes"],
+                   state_ratio=(got[0]["param_bytes"] + got[0]["opt_state_bytes"])
+                   / (ref["param_bytes"] + ref["opt_state_bytes"]),
+                   collectives_per_step=got[0]["collectives_per_step"],
+                   launches=[{k: n / steps for k, n in g["launches"].items() if n} for g in got],
+                   one_launches={k: n / steps for k, n in ref["launches"].items() if n},
+                   sharded=len(shapes), split_shapes=split, gathered=gathered)
+        out["variants"][name] = rec
+        st = rec["collectives_per_step"]
+        _log(f"parallel (d) {name}: data 1 x model {MODEL_AXIS} (gloo, one card) against 1 rank,"
+             f" B={PARALLEL_CONFORMER_B}, {dtype}, {steps} step(s); step 1 (worst rank) rel loss"
+             f" {rel['loss']:.3g} objf {rel['objf']:.3g} grad norm {rel['grad_norm']:.3g} (gate"
+             f" {gate:g}); the ranks' curves equal: {rec['ranks_equal']}; parameter + Adam-moment"
+             f" bytes a rank {got[0]['param_bytes'] + got[0]['opt_state_bytes']} against one"
+             f" rank's {ref['param_bytes'] + ref['opt_state_bytes']} ({rec['state_ratio']:.4f}x);"
+             f" {len(shapes)} sharded leaves, split shards {split}, gathered {gathered};"
+             f" collectives a step: model group all-reduce {st['model']['all_reduce']:g}"
+             f" ({st['model']['all_reduce_bytes']:.0f} B), all-gather"
+             f" {st['model']['all_gather']:g} ({st['model']['all_gather_bytes']:.0f} B); data"
+             f" group {st['data']['all_reduce']:g} all-reduces; ms between steps"
+             f" {rec['step_ms']} against {ref['step_ms']}; launches a step a rank"
+             f" {rec['launches'][0]} ({smi})")
+        for r, g in enumerate(got):
+            _launch_gate(f"parallel (d) {name} rank {r}", g["launches"], must)
+        if not max(rel.values()) <= gate:
+            failed.append(f"{name}: step 1 {rel} (gate {gate})")
+        if not rec["ranks_equal"]:
+            failed.append(f"{name}: the model ranks' curves differ")
+        D = CONFORMER["dim"]
+        shard = (4 * D) // MODEL_AXIS
+        if split != ([D, shard], [shard, D]):
+            failed.append(f"{name}: the feed-forward is not split as [{D}, {shard}] /"
+                          f" [{shard}, {D}]: {split}")
+        if name == "d2" and tuple(gathered) != tuple(sorted(MODEL_GATHERED)):
+            failed.append(f"d2: gathered {gathered}, expected {sorted(MODEL_GATHERED)}")
+    if failed:
+        raise AssertionError("parallel (d): " + "; ".join(failed))
+    out["launches"] = {f"{name}_rank{r}": ranks[r]["variants"][i]["launches"]
+                       for i, name in enumerate(variants) for r in range(MODEL_AXIS)}
+    return out
+
+
 def check_parallel(args, result: dict, tmp: str) -> dict:
     """Phase 4, after the trunks: data parallelism (parallel/, ops/sharded.py,
     the data axis of `Trainer` and `cli.train`) on the card, at the trigram
@@ -4088,7 +4235,12 @@ def check_parallel(args, result: dict, tmp: str) -> dict:
           at REFERENCE_RTOL["bfloat16"] (its batchnorm over both ranks, K7
           on each; its parameter gradients and later steps logged: in bf16
           they part by the rounding of sums in another order, as the
-          conformer paths' card-vs-CPU groups do, ~1e-1 in norm).
+          conformer paths' card-vs-CPU groups do, ~1e-1 in norm);
+      (d) the model axis (`_model_axis`): the bf16 conformer split over a
+          model group of two ranks against one rank, with each
+          feed-forward lowering, float32 copies, and the float32 conformer
+          at a lower threshold whose other sharded leaves are gathered on
+          use.
 
     Nothing here is a scaling figure: both ranks share one card.  Returns
     the phase's numbers; each run's launch counts are under "launches"."""
@@ -4102,9 +4254,11 @@ def check_parallel(args, result: dict, tmp: str) -> dict:
     out["conformer"] = _parallel_pair(args, "(c) conformer", "conformer", PARALLEL_CONFORMER_B,
                                       PARALLEL_CONFORMER_STEPS, DEN_NUM + ATTENTION,
                                       (gate, gate, None), None, tmp, smi)
+    out["model"] = _model_axis(args, tmp, smi)
     out["launches"] = dict(world1=out["world1"]["launches"],
                            **{f"tdnnf_{k}": v for k, v in out["tdnnf"]["launches"].items()},
-                           **{f"conformer_{k}": v for k, v in out["conformer"]["launches"].items()})
+                           **{f"conformer_{k}": v for k, v in out["conformer"]["launches"].items()},
+                           **{f"model_{k}": v for k, v in out["model"]["launches"].items()})
     out["phase_s"] = time.perf_counter() - t_phase
     _log(f"parallel phase: {out['phase_s']:.1f} s ({smi})")
     return out
@@ -4439,6 +4593,11 @@ def main(argv=None) -> int:
                 launches[f"parallel_{name}"] = n
     for name, m in second.items():
         numbers[name] = dict(**numbers[name], production=m)
+    if not args.kernels_only:
+        # K10's launches at the model shard: the model axis's fused run, rank 0
+        for name in FFN:
+            numbers[name]["model_shard"]["launches"] = launches[
+                "parallel_model_d1_fused_rank0"].get(name, 0)
     measured, probe_launches = check_probe()
     numbers.update(measured)
     launches["probe"] = {k: (probe_launches if k in PROBE else 0) for k in KERNELS}

@@ -322,13 +322,12 @@ def test_egs_get_from_raw_audio_writes_the_jax_tools_archive(tmp_path, wav_dir):
         np.testing.assert_allclose(fa, fb, rtol=0, atol=2 * TONE_ATOL)
 
 
-def test_the_flags_the_port_still_lacks_are_queue_1_item_9():
+def test_the_port_takes_every_flag_of_the_jax_train_cli():
     """An argparse comparison of the two train CLIs: every JAX flag and
-    choice is in the port but the model axis's (--model-parallel, the part
-    of item 9 still to port); every --model and --optimizer choice is
-    there; the port adds --device and --log-every.  `cli.compute_prob`
-    takes every --model choice of the JAX tool.  `cli.egs get` lacks
-    nothing (and adds --device)."""
+    choice is in the port, with the JAX default (--model-parallel too);
+    every --model and --optimizer choice is there; the port adds --device
+    and --log-every.  `cli.compute_prob` takes every --model choice of the
+    JAX tool.  `cli.egs get` lacks nothing (and adds --device)."""
     from torchain_tpu.cli.train import build_argparser as j_parser
     from torchain_tpu_torch.cli.train import build_argparser
 
@@ -336,7 +335,7 @@ def test_the_flags_the_port_still_lacks_are_queue_1_item_9():
         return {s: a for a in p._actions for s in a.option_strings}
 
     j, t = flags(j_parser()), flags(build_argparser())
-    assert set(j) - set(t) == {"--model-parallel"}
+    assert not set(j) - set(t)
     assert set(t) - set(j) == {"--device", "--log-every"}
     for name in set(j) & set(t) - {"--model", "--optimizer", "--help", "-h"}:
         assert j[name].choices == t[name].choices, name
@@ -407,7 +406,7 @@ def test_train_cli_on_two_gloo_ranks_is_the_one_process_run(tmp_path):
     --standalone --nproc-per-node 2` (gloo on the CPU, each rank half of
     every global batch) trains the one-process run's curve: loss, objf and
     gradient norm rel 1e-5 a step.  Without a process group --data-parallel
-    2 exits with the mesh's error, and --model-parallel is refused."""
+    2 and --model-parallel 2 exit with the mesh's error."""
     argv = ["--synthetic", "--device", "cpu", "--steps", "3", "--log-every", "1", *SMALL]
     two, one = str(tmp_path / "two.jsonl"), str(tmp_path / "one.jsonl")
     rc, out = _two_ranks([*argv, "--distributed", "--data-parallel", "2", "--metrics-out", two])
@@ -421,8 +420,32 @@ def test_train_cli_on_two_gloo_ranks_is_the_one_process_run(tmp_path):
             assert x[k] == pytest.approx(y[k], rel=1e-5), (k, x, y)
     with pytest.raises(SystemExit, match="mesh 2x1 != 1 devices"):
         train_main([*argv, "--data-parallel", "2"])
-    with pytest.raises(SystemExit):
+    with pytest.raises(SystemExit, match="mesh 0x2 != 1 devices"):
         train_main([*argv, "--model-parallel", "2"])
+
+
+def test_train_cli_model_parallel_on_two_gloo_ranks_is_the_one_process_run(tmp_path):
+    """`cli.train --distributed --model-parallel 2` on two gloo ranks: a data
+    axis of 1, both ranks on the whole of every batch with the state
+    replicated (the JAX Trainer's model axis), the one-process run's
+    curve (loss, objf, gradient norm rel 1e-5 a step) written once, by
+    global rank 0, with its checkpoint."""
+    argv = ["--synthetic", "--device", "cpu", "--steps", "3", "--log-every", "1", *SMALL]
+    two, one = str(tmp_path / "two.jsonl"), str(tmp_path / "one.jsonl")
+    ck = tmp_path / "ck"
+    rc, out = _two_ranks([*argv, "--distributed", "--model-parallel", "2", "--metrics-out", two,
+                          "--checkpoint-dir", str(ck)])
+    assert rc == 0, out[-3000:]
+    assert out.count("[distributed] rank") == 2
+    ends = [json.loads(ln) for ln in out.splitlines() if ln.startswith('{"objf"')]
+    assert len(ends) == 2 and ends[0]["steps"] == ends[1]["steps"] == 3
+    train_main([*argv, "--metrics-out", one])
+    a, b = _metrics(two), _metrics(one)
+    assert len(a) == len(b) == 3
+    for x, y in zip(a, b):
+        for k in ("loss", "objf", "grad_norm", "weight"):
+            assert x[k] == pytest.approx(y[k], rel=1e-5), (k, x, y)
+    assert sorted(p.name for p in ck.iterdir() if p.name.isdigit()) == ["3"]
 
 
 def test_train_cli_e2e_on_two_gloo_ranks_stops_every_rank_together():

@@ -707,6 +707,28 @@ def test_ffn_kernels_match_plain(dev, N, D, F, init, dtype):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("dtype", DTYPES, ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("N,D,F", [(400, 256, 512), (70, 300, 130), (640, 512, 1024)],
+                         ids=["conformer_shard", "non_aligned", "column_groups"])
+def test_ffn_partial_kernels_match_plain(dev, N, D, F, dtype):
+    """K10f/K10b with `partial` (one model rank's share of a split
+    half-step: float32 out = alpha h W2 and float32 dx, no residual or b2)
+    against their plain versions, at the model axis's shard of the
+    conformer (B=8, F 1024 / 2) and at rows the kernels cut or pad."""
+    xn, res, w1, b1, w2, b2, g = _ffn_case(dev, N, D, F, dtype, init=True)
+    out = ff.ffn_forward(xn, None, w1, b1, w2, None, 0.5, partial=True)
+    grads = ff.ffn_backward(xn, g, w1, b1, w2, 0.5, partial=True)
+    torch.cuda.synchronize()
+    out_p = ff.ffn_forward_plain(xn, None, w1, b1, w2, None, 0.5, partial=True)
+    grads_p = ff.ffn_backward_plain(xn, g, w1, b1, w2, 0.5, partial=True)
+    assert out.dtype == grads[0].dtype == torch.float32
+    kw = (dict(atol=1e-4, rtol=1e-4) if dtype == torch.float32
+          else dict(atol=2e-2, rtol=1e-2))
+    for got, want, name in zip((out, *grads), (out_p, *grads_p),
+                               ("out", "dx", "dw1", "db1", "dw2", "db2")):
+        torch.testing.assert_close(got, want, **kw, msg=lambda m, name=name: f"{name}: {m}")
+
+
 def test_ffn_apply_on_card_matches_cpu(dev):
     xn, res, w1, b1, w2, b2, g = _ffn_case(dev, 2 * 13, 40, 72, torch.float32, seed=1)
     grads = {}

@@ -44,7 +44,8 @@ def test_port_imports_nothing_of_jax_in_a_fresh_interpreter():
 #: entry points that take them
 NEW_MODULES = ("models.lstm", "models.cnn", "models.conformer", "models.tdnn",
                "train.lowmem_adam", "train.ngsgd", "train.trainer", "convert", "cli.train",
-               "cli.compute_prob", "parallel.mesh", "ops.sharded", "tools.multihost_worker")
+               "cli.compute_prob", "parallel.mesh", "parallel.sharding", "ops.sharded",
+               "tools.multihost_worker")
 
 
 @pytest.mark.parametrize("module", NEW_MODULES)

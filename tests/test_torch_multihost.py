@@ -42,13 +42,13 @@ def trainer_runs(tmp_path_factory):
     parameters saved) and on one."""
     d = tmp_path_factory.mktemp("trainer")
     two = mw.spawn(2, "trainer", dict(save_params=str(d / "two.pt"), evaluate=True), str(d),
-                   env=ENV)
+                   device="cpu", env=ENV)
     one = mw.run("trainer", 0, 1, "cpu", dict(evaluate=True))
     return two, one, torch.load(d / "two.pt", weights_only=True)["params"]
 
 
 def test_two_rank_loss_matches_one_rank(tmp_path):
-    two = mw.spawn(2, "loss", {}, str(tmp_path), env=ENV)
+    two = mw.spawn(2, "loss", {}, str(tmp_path), device="cpu", env=ENV)
     assert two[0]["loss"] == pytest.approx(two[1]["loss"], abs=1e-6)
     one = mw.run("loss", 0, 1, "cpu", {})
     assert one["loss"] == pytest.approx(two[0]["loss"], abs=5e-6)
@@ -77,7 +77,7 @@ def test_two_rank_evaluate_reports_the_global_statistics(trainer_runs):
 
 
 def test_two_rank_cegs_training_matches_one_rank(tmp_path):
-    two = mw.spawn(2, "cegs", {}, str(tmp_path), env=ENV)
+    two = mw.spawn(2, "cegs", {}, str(tmp_path), device="cpu", env=ENV)
     assert two[0]["records"] == two[1]["records"] > 1
     assert two[0]["steps"] == two[1]["steps"] > 0
     assert two[0]["objf"] == pytest.approx(two[1]["objf"], abs=1e-6)
@@ -110,7 +110,7 @@ def test_two_rank_trainer_curve_matches_the_jax_trainer(tmp_path):
     torch.save(params_from_jax(params, stats, TdnnfConfig(num_pdfs=corpus.tree.num_pdfs,
                                                           **d["model_cfg"])), weights)
     jtr.fit(ds, log_fn=lambda s: None)
-    two = mw.spawn(2, "trainer", dict(weights=str(weights)), str(tmp_path), env=ENV)
+    two = mw.spawn(2, "trainer", dict(weights=str(weights)), str(tmp_path), device="cpu", env=ENV)
     want = [m["objf"] for m in jtr.metrics_log]
     for r in two:
         got = [m["objf"] for m in r["curve"]]
@@ -121,9 +121,9 @@ def test_two_rank_trainer_curve_matches_the_jax_trainer(tmp_path):
 def test_two_rank_cut_and_resume_is_the_uncut_run(tmp_path, trainer_runs):
     two, _, uncut_params = trainer_runs
     ck = dict(checkpoint_dir=str(tmp_path / "ck"))
-    first = mw.spawn(2, "trainer", dict(ck, steps=4), str(tmp_path), env=ENV)
+    first = mw.spawn(2, "trainer", dict(ck, steps=4), str(tmp_path), device="cpu", env=ENV)
     rest = mw.spawn(2, "trainer", dict(ck, restore=True, save_params=str(tmp_path / "r.pt")),
-                    str(tmp_path), env=ENV)
+                    str(tmp_path), device="cpu", env=ENV)
     assert first[0]["curve"] == two[0]["curve"][:4]
     assert [m["step"] for m in rest[0]["curve"]] == list(range(5, len(two[0]["curve"]) + 1))
     assert rest[0]["curve"] == rest[1]["curve"] == two[0]["curve"][4:]

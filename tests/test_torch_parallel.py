@@ -53,16 +53,6 @@ def test_make_mesh_sizes_and_errors_are_the_jax_packages(data, model):
     assert make_mesh(MeshConfig(data=data, model=model)).shape == want
 
 
-def test_make_mesh_refuses_the_model_axis(monkeypatch):
-    """A layout the JAX function takes (1 x 2 over two devices) raises here
-    with a pointer to the roadmap: the model axis is never run as 1."""
-    assert dict(j_make_mesh(JMeshConfig(data=1, model=2), jax.devices()[:2]).shape) == dict(
-        data=1, model=2)
-    monkeypatch.setattr(mesh_mod, "world_size", lambda: 2)
-    with pytest.raises(ValueError, match="model axis is not ported.*ROADMAP.md"):
-        make_mesh(MeshConfig(data=1, model=2))
-
-
 def _datasets():
     out = []
     for synth, cls, opts in ((synthetic_dataset, ChainDataset, SupervisionOptions),
@@ -171,7 +161,7 @@ def test_materialized_batches_take_the_process_arguments():
 @pytest.fixture(scope="module")
 def batchnorms(tmp_path_factory):
     d = tmp_path_factory.mktemp("bn")
-    mw.spawn(2, "bn", {"out": str(d / "two.npz")}, str(d), env=ENV)
+    mw.spawn(2, "bn", {"out": str(d / "two.npz")}, str(d), device="cpu", env=ENV)
     mw.run("bn", 0, 1, "cpu", {"out": str(d / "one.npz")})
     return np.load(d / "two.npz"), np.load(d / "one.npz")
 
@@ -189,7 +179,7 @@ def test_batchnorm_over_two_ranks_is_the_global_batchs(batchnorms, kind):
 
 
 def test_chain_loss_over_two_ranks_is_the_unsharded_loss(tmp_path):
-    two = mw.spawn(2, "loss", {}, str(tmp_path), env=ENV)
+    two = mw.spawn(2, "loss", {}, str(tmp_path), device="cpu", env=ENV)
     one = mw.run("loss", 0, 1, "cpu", {})
     assert two[0]["loss"] == two[1]["loss"]
     assert two[0]["weight"] == one["weight"] > 0
@@ -203,7 +193,7 @@ def test_a_dropout_run_on_two_ranks_is_the_unsharded_run(tmp_path):
     masks and keeps its rows, so the two-rank curve is the one-rank one."""
     cfg = dict(trainer=dict(lr=1e-3, log_every=1, semi_ortho_every=0, dropout_schedule="0.2"),
                steps=4)
-    two = mw.spawn(2, "trainer", cfg, str(tmp_path), env=ENV)
+    two = mw.spawn(2, "trainer", cfg, str(tmp_path), device="cpu", env=ENV)
     one = mw.run("trainer", 0, 1, "cpu", cfg)
     plain = mw.run("trainer", 0, 1, "cpu", dict(cfg, trainer=dict(cfg["trainer"],
                                                                   dropout_schedule="")))

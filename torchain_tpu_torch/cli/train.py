@@ -35,7 +35,10 @@ process group (NCCL on the cards, gloo on the CPU; `--device cuda` takes
 cuda:LOCAL_RANK) and `--data-parallel` (default -1, every process) is the
 data axis.  `--batch-size` is the global batch: each rank trains on its
 rows of it (flat-start e2e: on its own utterances), and every rank takes
-the same update.  The model axis (`--model-parallel`) is not ported yet.
+the same update.  `--model-parallel M` (default 1) is the model axis, as
+in the JAX CLI: the data axis becomes world / M, the ranks of a model group
+read their data rank's rows, and the state stays replicated on every rank
+(the JAX `Trainer` shards none of it).
 
 Usage:
   python -m torchain_tpu_torch.cli.train --synthetic --steps 200
@@ -270,7 +273,11 @@ def build_argparser() -> argparse.ArgumentParser:
         help="torch device to train on (default cuda; cpu runs the plain versions of the kernels)",
     )
     p.add_argument("--data-parallel", type=int, default=-1,
-                   help="the data axis of the mesh: -1 every process of the process group")
+                   help="the data axis of the mesh: -1 every process of the process group "
+                   "over the model axis")
+    p.add_argument("--model-parallel", type=int, default=1,
+                   help="the model axis of the mesh (the state stays replicated over it, as "
+                   "in the JAX Trainer)")
     p.add_argument(
         "--distributed",
         action="store_true",
@@ -283,8 +290,7 @@ def build_argparser() -> argparse.ArgumentParser:
 
 def _join(args, device: torch.device) -> torch.device:
     """--distributed: join the process group and return this rank's device;
-    check that --data-parallel matches the world either way (the model axis
-    is not ported: the data axis is every process)."""
+    check that --data-parallel x --model-parallel is the world either way."""
     from torchain_tpu_torch.parallel.mesh import init_distributed, world_size
 
     if args.distributed:
@@ -294,11 +300,13 @@ def _join(args, device: torch.device) -> torch.device:
         print(f"[distributed] rank {dist.get_rank()}/{dist.get_world_size()} on {device} "
               f"({dist.get_backend()})")
     n = world_size()
-    data = args.data_parallel if args.data_parallel > 0 else n
-    if data != n:
+    model = max(1, args.model_parallel)
+    data = args.data_parallel if args.data_parallel > 0 else n // model
+    if data * model != n:
         raise SystemExit(
-            f"--data-parallel {data}: mesh {data}x1 != {n} devices; run one process a card "
-            "under `python -m torch.distributed.run --nproc-per-node N` with --distributed")
+            f"--data-parallel {data} --model-parallel {model}: mesh {data}x{model} != {n} "
+            "devices; run one process a card under `python -m torch.distributed.run "
+            "--nproc-per-node N` with --distributed")
     return device
 
 
@@ -311,6 +319,14 @@ def _rank() -> tuple[int, int]:
 
     n = world_size()
     return (dist.get_rank() if n > 1 else 0), n
+
+
+def _data_rank(args) -> tuple[int, int]:
+    """(this process's data rank, the data axis's size): the global rank
+    over the model axis, laid out as `parallel.mesh_layout` places it."""
+    rank, world = _rank()
+    model = max(1, args.model_parallel)
+    return rank // model, world // model
 
 
 def resolve_device(name: str) -> torch.device:
@@ -438,7 +454,7 @@ def _trainer_config(args, device, batch_size: int, decay_steps: int):
         ),
         log_every=args.log_every,
         device=str(device),
-        mesh=MeshConfig(data=args.data_parallel, model=1),
+        mesh=MeshConfig(data=args.data_parallel, model=args.model_parallel),
     )
 
 
@@ -725,6 +741,7 @@ def main(argv=None) -> dict:
         sys.exit(2)
     device = _join(args, resolve_device(args.device))
     rank, world = _rank()
+    data_rank, data_size = _data_rank(args)
     if world > 1 and args.flat_start_ladder:
         raise SystemExit("--flat-start-ladder under several processes is not ported: its "
                          "alignment stage runs on one process")
@@ -785,11 +802,11 @@ def main(argv=None) -> dict:
             context_width=args.context_width,
             seed=args.seed,
         )
-    if world > 1 and args.e2e:
-        # e2e path: each rank its own utterances (the standard path instead
-        # shards the rows of a (seed, epoch)-deterministic global batch plan
-        # inside Trainer.fit / ChainDataset.batches)
-        corpus.utts = corpus.utts[rank::world]
+    if data_size > 1 and args.e2e:
+        # e2e path: each data rank its own utterances (the standard path
+        # instead shards the rows of a (seed, epoch)-deterministic global
+        # batch plan inside Trainer.fit / ChainDataset.batches)
+        corpus.utts = corpus.utts[data_rank::data_size]
     valid_utts = []
     if args.valid_utts > 0:
         valid_utts = corpus.utts[-args.valid_utts :]
@@ -886,8 +903,8 @@ def main(argv=None) -> dict:
         t_stage = time.perf_counter()
         dataset = MaterializedBatches(
             dataset, args.batch_size,
-            process_index=rank if world > 1 else None,
-            process_count=world if world > 1 else None,
+            process_index=data_rank if data_size > 1 else None,
+            process_count=data_size if data_size > 1 else None,
             device=device if args.materialize_egs == "device" else False,
         )
         stages["materialize_s"] = time.perf_counter() - t_stage

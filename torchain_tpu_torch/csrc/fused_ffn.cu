@@ -9,6 +9,12 @@
 //   h   = round(u * sigmoid(u))           rounded to the trunk dtype
 //   out = res + alpha * (h W2 + b2)       [N, D], trunk dtype
 //
+// With `partial` set, the kernels compute one model rank's share of a
+// half-step whose hidden columns are split over a model group: the forward
+// writes out = alpha * (h W2) in float32 (no res, no b2), and the backward
+// writes dx in float32, so that the sum over the group rounds once, as the
+// unsplit kernel rounds its output (the caller adds res and b2 after it).
+//
 // xn, res, W1, W2, g, out and dx are float32 or bfloat16 (the trunk dtype);
 // b1, b2 and the weight gradients are float32.  The backward recomputes u,
 // sigmoid and h, and keeps the roundings of the Pallas body: h and
@@ -675,8 +681,8 @@ __global__ void __launch_bounds__(THREADS, 1)
 ffn_fwd_kernel(const __grid_constant__ Maps maps, const T* __restrict__ xn,
                const T* __restrict__ res, const T* __restrict__ w1,
                const float* __restrict__ b1, const T* __restrict__ w2,
-               const float* __restrict__ b2, T* __restrict__ out, int N, int D, int F,
-               float alpha, int tma, int stream) {
+               const float* __restrict__ b2, void* __restrict__ out, int N, int D, int F,
+               float alpha, int tma, int stream, int partial) {
   constexpr int KS = Kind<T>::KS, ESZ = sizeof(T), S = row_stages(NA, ESZ);
   extern __shared__ unsigned char smem_raw[];
   uint32_t base;
@@ -766,10 +772,15 @@ ffn_fwd_kernel(const __grid_constant__ Maps maps, const T* __restrict__ xn,
     for (int i = 0; i < 32; i += 2) {
       const int row = row0 + frag_row(i), col = dc0 + 64 * NA * wg + 64 * a + frag_col(i);
       if (row < N && col < D) {
+        if (partial) {  // the share of a split half-step, float32
+          store_row_pair(reinterpret_cast<float*>(out) + (long long)row * D, col, D,
+                         alpha * acc[a][i], alpha * acc[a][i + 1]);
+          continue;
+        }
         const T* r = res + (long long)row * D;
         const float r1 = col + 1 < D ? to_f32(r[col + 1]) : 0.0f;
         const float b21 = col + 1 < D ? b2[col + 1] : 0.0f;
-        store_row_pair(out + (long long)row * D, col, D,
+        store_row_pair(reinterpret_cast<T*>(out) + (long long)row * D, col, D,
                        to_f32(r[col]) + alpha * (acc[a][i] + b2[col]),
                        r1 + alpha * (acc[a][i + 1] + b21));
       }
@@ -784,9 +795,10 @@ template <typename T, int NA>
 __global__ void __launch_bounds__(THREADS, 1)
 ffn_bwd_rows_kernel(const __grid_constant__ Maps maps, const T* __restrict__ xn,
                     const T* __restrict__ g, const T* __restrict__ w1,
-                    const float* __restrict__ b1, const T* __restrict__ w2, T* __restrict__ dx,
-                    T* __restrict__ hbuf, T* __restrict__ dhbuf, float* __restrict__ db1_part,
-                    float* __restrict__ db2_part, int N, int D, int F, float alpha, int tma) {
+                    const float* __restrict__ b1, const T* __restrict__ w2,
+                    void* __restrict__ dx, T* __restrict__ hbuf, T* __restrict__ dhbuf,
+                    float* __restrict__ db1_part, float* __restrict__ db2_part, int N, int D,
+                    int F, float alpha, int tma, int partial) {
   constexpr int KS = Kind<T>::KS, ESZ = sizeof(T), S = row_stages(NA, ESZ);
   extern __shared__ unsigned char smem_raw[];
   uint32_t base;
@@ -974,7 +986,14 @@ ffn_bwd_rows_kernel(const __grid_constant__ Maps maps, const T* __restrict__ xn,
 #pragma unroll
     for (int i = 0; i < 32; i += 2) {
       const int row = row0 + frag_row(i), col = dc0 + 64 * NA * wg + 64 * a + frag_col(i);
-      if (row < N) store_row_pair(dx + (long long)row * D, col, D, acc[a][i], acc[a][i + 1]);
+      if (row < N) {
+        if (partial)  // the share of a split half-step, float32
+          store_row_pair(reinterpret_cast<float*>(dx) + (long long)row * D, col, D, acc[a][i],
+                         acc[a][i + 1]);
+        else
+          store_row_pair(reinterpret_cast<T*>(dx) + (long long)row * D, col, D, acc[a][i],
+                         acc[a][i + 1]);
+      }
     }
   if (sizeof(T) == 2 && __any_sync(0xffffffffu, pending)) flush(std::integral_constant<int, 32>());
 }
@@ -1189,7 +1208,7 @@ bool make_maps(Maps& maps, std::initializer_list<std::tuple<const void*, int, in
 
 template <typename T, int NA>
 int forward_na(const void* xn, const void* res, const void* w1, const float* b1, const void* w2,
-               const float* b2, void* out, int N, int D, int F, float alpha,
+               const float* b2, void* out, int N, int D, int F, float alpha, int partial,
                cudaStream_t stream) {
   static long long granted = 0;
   const bool streams = fwd_streams(D, sizeof(T));
@@ -1200,18 +1219,19 @@ int forward_na(const void* xn, const void* res, const void* w1, const float* b1,
   const bool tma = make_maps<T>(maps, {{xn, N, D}, {w1, D, F}, {w2, F, D}});
   const dim3 grid((N + ROWS - 1) / ROWS, col_groups(D));
   ffn_fwd_kernel<T, NA><<<grid, THREADS, bytes, stream>>>(
-      maps, (const T*)xn, (const T*)res, (const T*)w1, b1, (const T*)w2, b2, (T*)out, N, D, F,
-      alpha, tma, streams);
+      maps, (const T*)xn, (const T*)res, (const T*)w1, b1, (const T*)w2, b2, out, N, D, F,
+      alpha, tma, streams, partial);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int forward(const void* xn, const void* res, const void* w1, const float* b1, const void* w2,
-            const float* b2, void* out, int N, int D, int F, float alpha, cudaStream_t stream) {
+            const float* b2, void* out, int N, int D, int F, float alpha, int partial,
+            cudaStream_t stream) {
   switch (na_of(D)) {
-    case 1: return forward_na<T, 1>(xn, res, w1, b1, w2, b2, out, N, D, F, alpha, stream);
-    case 2: return forward_na<T, 2>(xn, res, w1, b1, w2, b2, out, N, D, F, alpha, stream);
-    case 3: return forward_na<T, 3>(xn, res, w1, b1, w2, b2, out, N, D, F, alpha, stream);
+    case 1: return forward_na<T, 1>(xn, res, w1, b1, w2, b2, out, N, D, F, alpha, partial, stream);
+    case 2: return forward_na<T, 2>(xn, res, w1, b1, w2, b2, out, N, D, F, alpha, partial, stream);
+    case 3: return forward_na<T, 3>(xn, res, w1, b1, w2, b2, out, N, D, F, alpha, partial, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1219,7 +1239,7 @@ int forward(const void* xn, const void* res, const void* w1, const float* b1, co
 template <typename T, int NA>
 int rows_na(const void* xn, const void* g, const void* w1, const float* b1, const void* w2,
             void* dx, void* hbuf, void* dhbuf, float* db1_part, float* db2_part, int N, int D,
-            int F, float alpha, cudaStream_t stream) {
+            int F, float alpha, int partial, cudaStream_t stream) {
   static long long granted = 0;
   const long long bytes = shared_bytes(D, sizeof(T), 1);
   const int err = allow_shared(ffn_bwd_rows_kernel<T, NA>, bytes, granted);
@@ -1228,21 +1248,21 @@ int rows_na(const void* xn, const void* g, const void* w1, const float* b1, cons
   const bool tma = make_maps<T>(maps, {{xn, N, D}, {g, N, D}, {w1, D, F}, {w2, F, D}});
   const dim3 grid((N + ROWS - 1) / ROWS, col_groups(D));
   ffn_bwd_rows_kernel<T, NA><<<grid, THREADS, bytes, stream>>>(
-      maps, (const T*)xn, (const T*)g, (const T*)w1, b1, (const T*)w2, (T*)dx, (T*)hbuf,
-      (T*)dhbuf, db1_part, db2_part, N, D, F, alpha, tma);
+      maps, (const T*)xn, (const T*)g, (const T*)w1, b1, (const T*)w2, dx, (T*)hbuf,
+      (T*)dhbuf, db1_part, db2_part, N, D, F, alpha, tma, partial);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int backward(const void* xn, const void* g, const void* w1, const float* b1, const void* w2,
              void* dx, void* hbuf, void* dhbuf, float* db1_part, float* db2_part, float* dw1,
-             float* db1, float* dw2, float* db2, int N, int D, int F, float alpha,
+             float* db1, float* dw2, float* db2, int N, int D, int F, float alpha, int partial,
              cudaStream_t stream) {
   int err;
   switch (na_of(D)) {
-    case 1: err = rows_na<T, 1>(xn, g, w1, b1, w2, dx, hbuf, dhbuf, db1_part, db2_part, N, D, F, alpha, stream); break;
-    case 2: err = rows_na<T, 2>(xn, g, w1, b1, w2, dx, hbuf, dhbuf, db1_part, db2_part, N, D, F, alpha, stream); break;
-    case 3: err = rows_na<T, 3>(xn, g, w1, b1, w2, dx, hbuf, dhbuf, db1_part, db2_part, N, D, F, alpha, stream); break;
+    case 1: err = rows_na<T, 1>(xn, g, w1, b1, w2, dx, hbuf, dhbuf, db1_part, db2_part, N, D, F, alpha, partial, stream); break;
+    case 2: err = rows_na<T, 2>(xn, g, w1, b1, w2, dx, hbuf, dhbuf, db1_part, db2_part, N, D, F, alpha, partial, stream); break;
+    case 3: err = rows_na<T, 3>(xn, g, w1, b1, w2, dx, hbuf, dhbuf, db1_part, db2_part, N, D, F, alpha, partial, stream); break;
     default: err = (int)cudaErrorInvalidValue;
   }
   if (err) return err;
@@ -1284,30 +1304,32 @@ int ffn_shared_bytes(int D, int is_bf16, int backward) {
 int ffn_shared_limit() { return shared_limit(); }
 
 // K10f: xn, res [N, D], w1 [D, F], w2 [F, D] in the trunk dtype, b1 [F] and
-// b2 [D] f32 -> out [N, D] in the trunk dtype.
+// b2 [D] f32 -> out [N, D] in the trunk dtype; with `partial`, res and b2 are
+// not read and out = alpha * (h W2) [N, D] is float32.
 int ffn_forward(const void* xn, const void* res, const void* w1, const float* b1, const void* w2,
                 const float* b2, void* out, int N, int D, int F, float alpha, int is_bf16,
-                cudaStream_t stream) {
+                int partial, cudaStream_t stream) {
   if (N == 0 || D == 0) return 0;
   if (F == 0) return (int)cudaErrorInvalidValue;
-  return is_bf16 ? forward<bf16>(xn, res, w1, b1, w2, b2, out, N, D, F, alpha, stream)
-                 : forward<float>(xn, res, w1, b1, w2, b2, out, N, D, F, alpha, stream);
+  return is_bf16 ? forward<bf16>(xn, res, w1, b1, w2, b2, out, N, D, F, alpha, partial, stream)
+                 : forward<float>(xn, res, w1, b1, w2, b2, out, N, D, F, alpha, partial, stream);
 }
 
 // K10b, two launches: xn, g [N, D], w1 [D, F], w2 [F, D] in the trunk dtype,
 // b1 [F] f32 -> dx [N, D] (trunk dtype), dw1 [D, F], db1 [F], dw2 [F, D],
 // db2 [D] (f32); scratch hbuf, dhbuf [N, F] (trunk dtype), db1_part
-// [blocks, F] and db2_part [blocks, D] (f32), blocks = ceil(N / rows).
+// [blocks, F] and db2_part [blocks, D] (f32), blocks = ceil(N / rows); with
+// `partial`, dx is float32.
 int ffn_backward(const void* xn, const void* g, const void* w1, const float* b1, const void* w2,
                  void* dx, void* hbuf, void* dhbuf, float* db1_part, float* db2_part,
                  float* dw1, float* db1, float* dw2, float* db2, int N, int D, int F,
-                 float alpha, int is_bf16, cudaStream_t stream) {
+                 float alpha, int is_bf16, int partial, cudaStream_t stream) {
   if (N == 0 || D == 0) return 0;
   if (F == 0) return (int)cudaErrorInvalidValue;
   return is_bf16 ? backward<bf16>(xn, g, w1, b1, w2, dx, hbuf, dhbuf, db1_part, db2_part, dw1,
-                                   db1, dw2, db2, N, D, F, alpha, stream)
+                                   db1, dw2, db2, N, D, F, alpha, partial, stream)
                  : backward<float>(xn, g, w1, b1, w2, dx, hbuf, dhbuf, db1_part, db2_part, dw1,
-                                   db1, dw2, db2, N, D, F, alpha, stream);
+                                   db1, dw2, db2, N, D, F, alpha, partial, stream);
 }
 
 }  // extern "C"

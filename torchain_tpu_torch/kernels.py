@@ -109,11 +109,11 @@ SIGNATURES: dict[str, dict[str, list]] = {
         "attention_shared_limit": [],
     },
     "fused_ffn": {
-        # xn, res, w1, b1, w2, b2, out, N, D, F, alpha, is_bf16, stream
-        "ffn_forward": [_P] * 7 + [_I] * 3 + [_F, _I, _P],
+        # xn, res, w1, b1, w2, b2, out, N, D, F, alpha, is_bf16, partial, stream
+        "ffn_forward": [_P] * 7 + [_I] * 3 + [_F, _I, _I, _P],
         # xn, g, w1, b1, w2, dx, hbuf, dhbuf, db1_part, db2_part,
-        # dw1, db1, dw2, db2, N, D, F, alpha, is_bf16, stream
-        "ffn_backward": [_P] * 14 + [_I] * 3 + [_F, _I, _P],
+        # dw1, db1, dw2, db2, N, D, F, alpha, is_bf16, partial, stream
+        "ffn_backward": [_P] * 14 + [_I] * 3 + [_F, _I, _I, _P],
         # rows per block; D, is_bf16, backward -> bytes per block; the limit
         "ffn_rows_per_block": [],
         "ffn_shared_bytes": [_I] * 3,

@@ -26,6 +26,11 @@ Parameters keep the JAX package's names and shapes (`frontend.kernel
 [K, 1, dim]`, `rel_pos.rel_bias [2*buckets+1, H]`, ...) so
 `convert.params_from_jax` is a plain renaming.  The model returns
 (chain_out, xent_out): [B, T_out, num_pdfs].
+
+Under the model axis (`parallel.shard_params`) each block's feed-forward
+half-steps run split over the model group, their kernels held as this
+rank's column block of W1 and row block of W2 (`ConformerBlock.
+split_over_model`); any other sharded leaf is gathered on use.
 """
 
 from __future__ import annotations
@@ -48,8 +53,9 @@ from torchain_tpu_torch.models.tdnn import (
 )
 from torchain_tpu_torch.ops.attention import fused_relpos_attention
 from torchain_tpu_torch.ops.fused_bn import rounded_scalar
-from torchain_tpu_torch.ops.fused_ffn import ffn_apply
+from torchain_tpu_torch.ops.fused_ffn import ffn_apply, ffn_partial
 from torchain_tpu_torch.ops.fused_ln import ln_apply
+from torchain_tpu_torch.parallel.sharding import sum_over_model_group, to_model_group, whole
 
 
 @dataclasses.dataclass(frozen=True)
@@ -256,12 +262,51 @@ class ConformerBlock(nn.Module):
         self.conv_out = dense(D, D)
         self.ln_ffn2, self.ffn2_in, self.ffn2_out = ln(), dense(D, Fh), dense(Fh, D)
         self.ln_out = ln()
+        #: the model group of each half-step split over it (shard_params)
+        self._ffn_split: dict[str, object] = {}
 
-    def _ffn_half(self, h, res, w_in: Dense, w_out: Dense):
+    def split_over_model(self, mesh, axes: dict) -> list[str]:
+        """`shard_params`'s question: of this block's sharded leaves (`axes`,
+        name -> axis), the ones it computes on as shards: each half-step
+        whose W1 is cut by columns and W2 by rows (the rule's cut wherever
+        F is the largest axis and the model axis divides it) runs split
+        over `mesh`'s model group; its b1 stays whole, used by slices, and
+        its gradient is summed over the group after the backward."""
+        taken = []
+        for k in ("ffn1", "ffn2"):
+            if axes.get(f"{k}_in.kernel") == 1 and axes.get(f"{k}_out.kernel") == 0:
+                self._ffn_split[k] = mesh
+                getattr(self, f"{k}_in").bias.model_grad_sum = mesh
+                taken += [f"{k}_in.kernel", f"{k}_out.kernel"]
+        return taken
+
+    def _ffn_half(self, h, res, w_in: Dense, w_out: Dense, name: str):
         # half-step FFN: res + 0.5 * (swish(h @ W1 + b1) @ W2 + b2)
+        mesh = self._ffn_split.get(name)
+        if mesh is not None:
+            return self._ffn_half_split(mesh, h, res, w_in, w_out)
         if self.cfg.ffn_impl == "fused":
-            return ffn_apply(h, res, w_in.kernel, w_in.bias, w_out.kernel, w_out.bias, 0.5)
+            return ffn_apply(h, res, whole(w_in.kernel), w_in.bias, whole(w_out.kernel),
+                             w_out.bias, 0.5)
         return res + 0.5 * w_out(swish(w_in(h)))
+
+    def _ffn_half_split(self, mesh, h, res, w_in: Dense, w_out: Dense):
+        """The half-step on this rank's F / m hidden columns: a float32
+        partial summed over the model group, then the residual and b2 added
+        once.  The partial and xn's gradient stay float32 until the sums are
+        taken, so the split half-step rounds where the whole one does (the
+        fused form once, after the residual; the dense form at each
+        `Dense`'s output)."""
+        dt = self.cfg.dtype
+        w1, w2 = w_in.kernel, w_out.kernel
+        b1 = w_in.bias.narrow(0, mesh.model_rank * w1.shape[1], w1.shape[1])
+        x = to_model_group(mesh, h.float())
+        if self.cfg.ffn_impl == "fused":
+            part = sum_over_model_group(mesh, ffn_partial(x, w1, b1, w2, 0.5, dt))
+            return (res.float() + (part + 0.5 * w_out.bias.float())).to(dt)
+        u = (x @ w1.to(dt).float()).to(dt) + b1.to(dt)
+        part = sum_over_model_group(mesh, swish(u).float() @ w2.to(dt).float())
+        return res + 0.5 * (part.to(dt) + w_out.bias.to(dt))
 
     def _ln(self, name, x):
         # a float32 normalization island, its output in the trunk dtype
@@ -269,7 +314,7 @@ class ConformerBlock(nn.Module):
 
     def forward(self, x, bias, train: bool = False):
         cfg = self.cfg
-        x = self._ffn_half(self._ln("ln_ffn1", x), x, self.ffn1_in, self.ffn1_out)
+        x = self._ffn_half(self._ln("ln_ffn1", x), x, self.ffn1_in, self.ffn1_out, "ffn1")
 
         # self-attention with relative position bias
         qkv = self.attn_qkv(self._ln("ln_attn", x))
@@ -286,7 +331,7 @@ class ConformerBlock(nn.Module):
         h = self.BatchNorm_0(h.float(), train).to(cfg.dtype)
         x = x + self.conv_out(swish(h))
 
-        x = self._ffn_half(self._ln("ln_ffn2", x), x, self.ffn2_in, self.ffn2_out)
+        x = self._ffn_half(self._ln("ln_ffn2", x), x, self.ffn2_in, self.ffn2_out, "ffn2")
         return self._ln("ln_out", x)
 
 

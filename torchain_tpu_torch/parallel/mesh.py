@@ -1,4 +1,4 @@
-"""The data axis of the device mesh (torch.distributed), port of
+"""The (data, model) device mesh over torch.distributed, port of
 torchain_tpu/parallel/mesh.py.
 
 The JAX package runs every local chip from one process and lets GSPMD put
@@ -11,8 +11,11 @@ written out, and this module holds them:
     `torch.distributed.run` sets (RANK, WORLD_SIZE, LOCAL_RANK,
     MASTER_ADDR, MASTER_PORT) or from an explicit `init_method`;
   * `make_mesh(MeshConfig)` lays the world out as (data, model) on a
-    `DeviceMesh`; the model axis is not ported yet (it raises for
-    model > 1);
+    `DeviceMesh`, global rank d * model + m at (d, m) as the JAX package's
+    `reshape(data, model)` places its devices (`mesh_layout`): a model
+    group is the ranks of one data row, a data group those of one model
+    column.  The model axis's sharding rules and the sharded step are in
+    parallel/sharding.py;
   * a train step enters `data_parallel(mesh)`; while it is active, the
     batchnorms reduce their moments over the data group
     (ops/fused_bn.py, models/tdnn.py), dropout draws the global batch's
@@ -20,8 +23,9 @@ written out, and this module holds them:
     the chain loss divides by the global weight (ops/sharded.py).
 
 Every collective goes through `all_reduce_`, `all_reduce_sum` (the
-autograd form) or `broadcast_`, which count their calls and bytes in
-`Mesh.stats`.
+autograd form), `broadcast_` or `all_gather_`, over the data group or the
+model group (`axis`), and each counts its calls and bytes in that group's
+`Mesh.stats[axis]`.
 """
 
 from __future__ import annotations
@@ -47,27 +51,55 @@ class MeshConfig:
     model: int = 1
 
 
+AXES = ("data", "model")
+
+
+def _counts() -> dict:
+    return dict(all_reduce=0, all_reduce_bytes=0, broadcast=0, broadcast_bytes=0,
+                all_gather=0, all_gather_bytes=0)
+
+
 @dataclasses.dataclass
 class Mesh:
     """A (data, model) layout of the processes.  `shape` is a dict as the
     JAX mesh's is; `group` is the data axis's process group (None on one
     process), `rank` this process's place on it, `host_group` a gloo group
-    over the same ranks for host-side values (counts, flags, barriers), and
-    `stats` the collectives made through this module: calls and bytes of
-    each kind."""
+    over the same ranks for host-side values (counts, flags, barriers);
+    `model_group` and `model_rank` the same for the model axis (the ranks
+    of this process's data row); `world_host_group` a gloo group over every
+    rank (`host_group` where the model axis is 1; None: the default group
+    is gloo already).  `stats[axis]` counts
+    the collectives made through this module over each group: calls and
+    bytes of each kind."""
 
     shape: dict
     device_mesh: object = None
     group: object = None
     host_group: object = None
     rank: int = 0
+    model_group: object = None
+    model_rank: int = 0
+    world_host_group: object = None
     stats: dict = dataclasses.field(
-        default_factory=lambda: dict(all_reduce=0, all_reduce_bytes=0, broadcast=0,
-                                     broadcast_bytes=0, all_gather=0, all_gather_bytes=0))
+        default_factory=lambda: {axis: _counts() for axis in AXES})
 
     @property
     def data(self) -> int:
         return self.shape["data"]
+
+    @property
+    def model(self) -> int:
+        return self.shape["model"]
+
+    @property
+    def global_rank(self) -> int:
+        """This process's rank in the world: data rank * model + model rank."""
+        return self.rank * self.model + self.model_rank
+
+    def group_of(self, axis: str):
+        if axis not in AXES:
+            raise ValueError(f"axis {axis!r}: the mesh's axes are {AXES}")
+        return self.group if axis == "data" else self.model_group
 
 
 def init_distributed(device, backend: str | None = None, init_method: str | None = None,
@@ -106,6 +138,13 @@ def world_size() -> int:
     return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
 
 
+def mesh_layout(data: int, model: int) -> np.ndarray:
+    """The global rank at each (data, model) place: rank d * model + m at
+    [d, m], the row-major `reshape(data, model)` the JAX package applies to
+    its device list."""
+    return np.arange(data * model).reshape(data, model)
+
+
 def make_mesh(cfg: MeshConfig = MeshConfig(), device_type: str | None = None) -> Mesh:
     """The (data, model) mesh over the process group's ranks (one card
     each); data=-1 takes world // model.  Without a process group the
@@ -115,35 +154,44 @@ def make_mesh(cfg: MeshConfig = MeshConfig(), device_type: str | None = None) ->
     data = cfg.data if cfg.data > 0 else n // model
     if data * model != n:
         raise ValueError(f"mesh {data}x{model} != {n} devices")
-    if model > 1:
-        raise ValueError(
-            f"mesh {data}x{model}: the model axis is not ported yet (ROADMAP.md Queue 1, "
-            "the model axis); run with model=1")
     if n == 1:
         return Mesh(shape=dict(data=1, model=1))
-    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.device_mesh import DeviceMesh
 
     if device_type is None:
         backend = dist.get_backend()
         device_type = "cuda" if backend == "nccl" else "cpu"
-    dm = init_device_mesh(device_type, (data, model), mesh_dim_names=("data", "model"))
-    group = dm.get_group("data")
-    host = group if dist.get_backend(group) == "gloo" else dist.new_group(
-        backend="gloo", timeout=TIMEOUT)
+    layout = mesh_layout(data, model)
+    dm = DeviceMesh(device_type, torch.as_tensor(layout), mesh_dim_names=AXES)
+    group, model_group = dm.get_group("data"), dm.get_group("model")
+    if dist.get_backend(group) == "gloo":
+        host, world_host = group, None
+    else:
+        # every rank takes part in making every group; each keeps its own
+        host, _ = dist.new_subgroups_by_enumeration(
+            [layout[:, m].tolist() for m in range(model)], timeout=TIMEOUT, backend="gloo")
+        world_host = dist.new_group(backend="gloo", timeout=TIMEOUT) if model > 1 else None
+    if model == 1:
+        world_host = host
     return Mesh(shape=dict(data=data, model=model), device_mesh=dm, group=group,
-                host_group=host, rank=dist.get_rank(group))
+                host_group=host, rank=dist.get_rank(group), model_group=model_group,
+                model_rank=dist.get_rank(model_group), world_host_group=world_host)
 
 
 def replicated(mesh: Mesh, obj):
-    """Make every rank hold data rank 0's `obj` whole (the JAX package's
+    """Make every rank hold global rank 0's `obj` whole (the JAX package's
     NamedSharding(mesh, P()) placement): a module's parameters and buffers,
-    or a list of tensors, broadcast in place.  Returns `obj`."""
-    if mesh.data > 1:
+    or a list of tensors, broadcast in place, over the data group from data
+    rank 0, then over the model group from model rank 0.  Returns `obj`."""
+    if mesh.data * mesh.model > 1:
         tensors = ([*obj.parameters(), *obj.buffers()] if isinstance(obj, torch.nn.Module)
                    else list(obj))
         with torch.no_grad():
-            for t in tensors:
-                broadcast_(mesh, t.data if isinstance(t, torch.nn.Parameter) else t)
+            for axis in AXES:
+                if mesh.shape[axis] > 1:
+                    for t in tensors:
+                        broadcast_(mesh, t.data if isinstance(t, torch.nn.Parameter) else t,
+                                   axis=axis)
     return obj
 
 
@@ -178,11 +226,16 @@ def data_parallel(mesh: Mesh | None):
 # ---------------------------------------------------------------------------
 
 
-def all_reduce_(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
-    """Sum `t` over the data group, in place; returns it."""
-    dist.all_reduce(t, group=mesh.group)
-    mesh.stats["all_reduce"] += 1
-    mesh.stats["all_reduce_bytes"] += t.numel() * t.element_size()
+def _count(mesh: Mesh, axis: str, kind: str, nbytes: int) -> None:
+    st = mesh.stats[axis]
+    st[kind] += 1
+    st[f"{kind}_bytes"] += nbytes
+
+
+def all_reduce_(mesh: Mesh, t: torch.Tensor, axis: str = "data") -> torch.Tensor:
+    """Sum `t` over the `axis` group, in place; returns it."""
+    dist.all_reduce(t, group=mesh.group_of(axis))
+    _count(mesh, axis, "all_reduce", t.numel() * t.element_size())
     return t
 
 
@@ -206,17 +259,29 @@ def all_reduce_sum(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
     return _AllReduceSum.apply(x, mesh)
 
 
-def broadcast_(mesh: Mesh, t: torch.Tensor, src: int = 0) -> torch.Tensor:
-    """Overwrite `t` with data rank `src`'s, in place; returns it."""
-    dist.broadcast(t, src=dist.get_global_rank(mesh.group, src), group=mesh.group)
-    mesh.stats["broadcast"] += 1
-    mesh.stats["broadcast_bytes"] += t.numel() * t.element_size()
+def broadcast_(mesh: Mesh, t: torch.Tensor, src: int = 0, axis: str = "data") -> torch.Tensor:
+    """Overwrite `t` with that of rank `src` of the `axis` group, in place;
+    returns it."""
+    group = mesh.group_of(axis)
+    dist.broadcast(t, src=dist.get_global_rank(group, src), group=group)
+    _count(mesh, axis, "broadcast", t.numel() * t.element_size())
     return t
 
 
+def all_gather_(mesh: Mesh, t: torch.Tensor, dim: int = 0, axis: str = "model") -> torch.Tensor:
+    """Every rank's `t` of the `axis` group, concatenated along `dim` in
+    rank order (no gradient)."""
+    t = t.detach().contiguous()
+    n = mesh.shape[axis]
+    parts = [torch.empty_like(t) for _ in range(n)]
+    dist.all_gather(parts, t, group=mesh.group_of(axis))
+    _count(mesh, axis, "all_gather", t.numel() * t.element_size() * n)
+    return torch.cat(parts, dim)
+
+
 def broadcast_object(mesh: Mesh, obj, src: int = 0):
-    """Data rank `src`'s picklable `obj`, on every rank (over the host
-    group)."""
+    """Data rank `src`'s picklable `obj`, on every rank of the data group
+    (over the host group)."""
     box = [obj]
     dist.broadcast_object_list(box, src=dist.get_global_rank(mesh.host_group, src),
                                group=mesh.host_group)
@@ -231,15 +296,16 @@ def host_min(mesh: Mesh, value: int) -> int:
 
 
 def barrier(mesh: Mesh) -> None:
-    dist.barrier(group=mesh.host_group)
+    """Wait for every rank of the world (host group)."""
+    dist.barrier(group=mesh.world_host_group)
 
 
 #: the most bytes one all-reduce of `all_reduce_tensors_` carries
 BUCKET_BYTES = 32 << 20
 
 
-def all_reduce_tensors_(mesh: Mesh, tensors: list[torch.Tensor]) -> None:
-    """Sum each tensor over the data group, in place: flattened into
+def all_reduce_tensors_(mesh: Mesh, tensors: list[torch.Tensor], axis: str = "data") -> None:
+    """Sum each tensor over the `axis` group, in place: flattened into
     buckets of at most BUCKET_BYTES (one all-reduce a bucket), by dtype and
     device."""
     groups: dict = {}
@@ -250,7 +316,7 @@ def all_reduce_tensors_(mesh: Mesh, tensors: list[torch.Tensor]) -> None:
         for t in ts + [None]:
             nbytes = 0 if t is None else t.numel() * t.element_size()
             if bucket and (t is None or size + nbytes > BUCKET_BYTES):
-                flat = all_reduce_(mesh, torch.cat([b.reshape(-1) for b in bucket]))
+                flat = all_reduce_(mesh, torch.cat([b.reshape(-1) for b in bucket]), axis)
                 off = 0
                 for b in bucket:
                     b.copy_(flat[off:off + b.numel()].view_as(b))
@@ -318,11 +384,7 @@ def global_batch_from_local(mesh: Mesh, local):
             dist.all_gather(parts, torch.as_tensor(x).contiguous(), group=mesh.host_group)
             return torch.cat(parts).numpy()
         if isinstance(x, torch.Tensor) and x.ndim:
-            parts = [torch.empty_like(x) for _ in range(mesh.data)]
-            dist.all_gather(parts, x.contiguous(), group=mesh.group)
-            mesh.stats["all_gather"] += 1
-            mesh.stats["all_gather_bytes"] += x.numel() * x.element_size() * mesh.data
-            return torch.cat(parts)
+            return all_gather_(mesh, x, 0, "data")
         if dataclasses.is_dataclass(x) and not isinstance(x, type):
             return dataclasses.replace(x, **{
                 f.name: gather(getattr(x, f.name)) for f in dataclasses.fields(x) if f.init})

@@ -1,7 +1,7 @@
-"""One rank of a data-parallel run, port of tools/multihost_worker.py.
+"""One rank of a data- or model-parallel run, port of tools/multihost_worker.py.
 
     python -m torchain_tpu_torch.tools.multihost_worker RANK WORLD MODE \\
-        --init file:///tmp/store --device cpu [--backend gloo] [--config JSON]
+        --init file:///tmp/store [--device cpu] [--backend gloo] [--config JSON]
 
 Each rank joins the process group through `parallel.init_distributed` (an
 explicit backend and a `file://` store: no port to race for; WORLD 1 joins
@@ -13,10 +13,12 @@ none and runs the one-process path) and prints one line
            projection), `chain_loss(..., mesh=)` and its backward: the loss,
            objf and the L1 and squared sums of dL/dy over the global batch;
   trainer  `Trainer.fit` of a TDNN-F (or the conformer) over a ChainDataset,
-           `batch_size` the global batch: the curve (objf, loss, grad_norm,
-           weight a step), the step count, the total weight, ms between
-           steps, the collectives a step, the kernel launches
-           (config["counters"]), and the state dict after the run with the
+           `batch_size` the global batch, on config["mesh"] (a model axis
+           too: the state replicated, as in the JAX `Trainer`): the curve
+           (objf, loss, grad_norm, weight a step), the step count, the
+           total weight, ms between steps, the collectives a step by
+           group, the kernel launches (config["counters"]), and the state
+           dict after the run with the
            first step's gradients (after the optimizer's clip) written to
            config["save_params"] (rank 0); with config["evaluate"], then
            `Trainer.evaluate` over the same dataset;
@@ -26,7 +28,21 @@ none and runs the one-process path) and prints one line
            batchnorm on this rank's rows of one global input, forward and
            backward inside `parallel.data_parallel`: the gathered outputs
            and input gradients, the summed parameter gradients and the
-           running statistics, written to config["out"] (rank 0).
+           running statistics, written to config["out"] (rank 0);
+  model    the sharded step on a (data, model) mesh (config["mesh"]):
+           one global batch of config["batch_size"] rows (each data rank
+           its rows), the model built from config["model_seed"] (or
+           config["weights"]) and sharded by `parallel.shard_params` at
+           config["min_shard_size"], then config["steps"] steps of
+           `make_train_step` with `ChainOptimizer` (config["trainer"]):
+           each step's loss, objf and gradient norm, the parameters after
+           the run gathered whole (written to config["save_params"] by
+           global rank 0, with the first step's gradients, gathered), each
+           rank's parameter and optimizer-state bytes, the collectives a
+           step by group (`Mesh.stats`), ms between steps, the kernel
+           launches and the sharded leaves.  config["variants"], a list of
+           overrides of these keys, runs each in turn on the same batch
+           (one result each; save_params gets the variant's index).
 
 `spawn(world, mode, config, workdir)` starts the ranks, each with a
 timeout, and returns their results; tests/test_torch_multihost.py,
@@ -73,6 +89,10 @@ DEFAULTS = dict(
     checkpoint_dir=None,
     restore=False,
     evaluate=False,
+    mesh=dict(data=-1, model=1),
+    min_shard_size=2**18,
+    den="auto",
+    variants=None,
 )
 
 
@@ -95,14 +115,20 @@ def _corpus_and_dataset(c: dict, context):
 
 
 def _config(c: dict, num_pdfs: int = 1):
-    """(model class, its config) from config["model"], ["model_cfg"]."""
-    from torchain_tpu_torch.models import TDNNF, Conformer, ConformerConfig, TdnnfConfig
+    """(model class, its config) from config["model"] (tdnnf, conformer,
+    tdnn, tdnn-lstm or cnn-tdnn) and ["model_cfg"]."""
+    from torchain_tpu_torch import models
 
     kw = dict(c["model_cfg"])
     if "dtype" in kw:
         kw["dtype"] = getattr(torch, kw["dtype"])
-    cls, cfg_cls = (Conformer, ConformerConfig) if c["model"] == "conformer" else (
-        TDNNF, TdnnfConfig)
+    cls, cfg_cls = {
+        "tdnnf": (models.TDNNF, models.TdnnfConfig),
+        "conformer": (models.Conformer, models.ConformerConfig),
+        "tdnn": (models.TDNN, models.TdnnConfig),
+        "tdnn-lstm": (models.TDNNLSTM, models.TdnnLstmConfig),
+        "cnn-tdnn": (models.CNNTDNN, models.CnnTdnnConfig),
+    }[c["model"]]
     return cls, cfg_cls(num_pdfs=num_pdfs, **kw)
 
 
@@ -129,11 +155,13 @@ def _counters(c: dict) -> dict:
 
 def _trainer_config(c: dict, device, **kw):
     from torchain_tpu_torch.ops import ChainLossOptions
+    from torchain_tpu_torch.parallel import MeshConfig
     from torchain_tpu_torch.train import TrainerConfig
 
     return TrainerConfig(**{**dict(batch_size=c["batch_size"], num_epochs=c["epochs"],
                                    loss=ChainLossOptions(**c["loss"]), device=str(device),
-                                   checkpoint_dir=c["checkpoint_dir"]),
+                                   checkpoint_dir=c["checkpoint_dir"],
+                                   mesh=MeshConfig(**c["mesh"])),
                             **c["trainer"], **kw})
 
 
@@ -167,12 +195,14 @@ def trainer_mode(c: dict, device, rank: int) -> dict:
         return out
 
     trainer.train_step = keep_first
-    before = dict(trainer.mesh.stats)
+    stats = trainer.mesh.stats
+    before = {axis: dict(v) for axis, v in stats.items()}
     results = trainer.fit(ds, log_fn=lambda s: None, max_steps=c["steps"])
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     steps = max(len(trainer.metrics_log), 1)
-    per_step = {k: (trainer.mesh.stats[k] - before[k]) / steps for k in before}
+    per_step = {axis: {k: (stats[axis][k] - before[axis][k]) / steps for k in v}
+                for axis, v in before.items()}
     if c["save_params"] and rank == 0:
         torch.save(dict(params={k: v.detach().cpu()
                                 for k, v in trainer.model.state_dict().items()},
@@ -288,6 +318,111 @@ def bn_mode(c: dict, device, mesh) -> dict:
     return dict(stats=dict(mesh.stats), fields=sorted(arrays))
 
 
+def _den(c: dict, corpus, device):
+    """config["den"]: "auto" (`auto_den_graph`) or "dense" (the dense Moore
+    form through ops/den_dense.py, as tests/test_sharding.py's)."""
+    from torchain_tpu_torch.ops import DeviceDenseDenGraph, auto_den_graph
+
+    if c["den"] == "dense":
+        return DeviceDenseDenGraph.from_host(corpus.dense_den, device=device)
+    return auto_den_graph(corpus.den_graph, device=device)
+
+
+def _bytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if isinstance(t, torch.Tensor))
+
+
+def model_run(c: dict, device, mesh, corpus, batch) -> dict:
+    """One variant of the model mode on this rank's rows of `batch` (the
+    global batch)."""
+    from torchain_tpu_torch.ops import ChainLossOptions, DeviceSupervision
+    from torchain_tpu_torch.parallel.mesh import replicated, shard_batch
+    from torchain_tpu_torch.parallel.sharding import (
+        gather_leaf_value,
+        gathered_state_dict,
+        model_axis,
+        shard_params,
+    )
+    from torchain_tpu_torch.train import ChainTrainState, make_train_step
+    from torchain_tpu_torch.train.trainer import make_optimizer
+
+    model = _model(c, corpus.tree.num_pdfs, corpus.feat_dim, device)
+    replicated(mesh, model)
+    shard_params(mesh, model, c["min_shard_size"])
+    opt = make_optimizer(_trainer_config(c, device), model.parameters())
+    state = ChainTrainState(model=model, optimizer=opt)
+    step = make_train_step(state, ChainLossOptions(**c["loss"]), max_grad_norm=0.0, mesh=mesh)
+    local = shard_batch(mesh, batch) if mesh.data > 1 else batch
+    feats = torch.as_tensor(local.feats).to(device)
+    sup = DeviceSupervision.from_host(local.sup, device=device).with_kernel_tables()
+    den = _den(c, corpus, device)
+    counters = _counters(c)
+    for fn in counters.values():
+        fn.launches = 0
+    before = {axis: dict(v) for axis, v in mesh.stats.items()}
+    curve, ticks, first_grads = [], [], None
+    for i in range(max(1, c["steps"])):
+        m = step(feats, den, sup)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        ticks.append(time.perf_counter())
+        curve.append({k: float(m[k]) for k in ("loss", "objf", "grad_norm", "weight")})
+        if i == 0:
+            # gathered for the record, outside the step's counts
+            held = {axis: dict(v) for axis, v in mesh.stats.items()}
+            first_grads = {n: gather_leaf_value(p, p.grad).detach().cpu().clone()
+                           for n, p in model.named_parameters() if p.grad is not None}
+            for axis, v in held.items():
+                mesh.stats[axis].update(v)
+    steps = len(curve)
+    per_step = {axis: {k: (mesh.stats[axis][k] - before[axis][k]) / steps for k in v}
+                for axis, v in before.items()}
+    params = gathered_state_dict(model)
+    if c["save_params"] and mesh.global_rank == 0:
+        torch.save(dict(params={k: v.detach().cpu() for k, v in params.items()},
+                        first_grads=first_grads), c["save_params"])
+    opt_state = [t for st in getattr(opt.inner, "state", {}).values() for t in st.values()]
+    gaps = np.diff(ticks)
+    return dict(curve=curve, loss=curve[0]["loss"], objf=curve[0]["objf"],
+                grad_norm=curve[0]["grad_norm"],
+                step_ms=float(np.median(gaps)) * 1e3 if len(gaps) else None,
+                param_bytes=_bytes(model.parameters()), opt_state_bytes=_bytes(opt_state),
+                collectives_per_step=per_step,
+                launches={k: fn.launches for k, fn in counters.items()},
+                sharded={n: model_axis(p) for n, p in model.named_parameters()
+                         if model_axis(p) is not None},
+                shard_shapes={n: list(p.shape) for n, p in model.named_parameters()
+                              if model_axis(p) is not None},
+                rows=int(feats.shape[0]))
+
+
+def model_mode(c: dict, device, mesh) -> dict:
+    place = dict(data_rank=mesh.rank, model_rank=mesh.model_rank,
+                 global_rank=mesh.global_rank, shape=dict(mesh.shape))
+    made: dict = {}
+
+    def one(cv):
+        # the corpus and the first unshuffled global batch, once per
+        # corpus, data and context
+        key = json.dumps([cv[k] for k in ("corpus", "chunk_frames", "sup_opts", "data_seed",
+                                          "batch_size", "precompile")]
+                         + [_config(cv)[1].context])
+        if key not in made:
+            corpus, ds = _corpus_and_dataset(cv, _config(cv)[1].context)
+            made[key] = corpus, next(ds.batches(cv["batch_size"], shuffle=False))
+        return model_run(cv, device, mesh, *made[key])
+
+    if not c["variants"]:
+        return dict(mesh=place, **one(c))
+    runs = []
+    for i, v in enumerate(c["variants"]):
+        cv = {**c, **v}
+        if cv["save_params"]:
+            cv["save_params"] = f"{cv['save_params']}.{i}"
+        runs.append(one(cv))
+    return dict(mesh=place, variants=runs)
+
+
 def run(mode: str, rank: int, world: int, device, config: dict | None = None,
         workdir: str = ".") -> dict:
     """One rank (WORLD 1: no process group) in this process; the process
@@ -301,6 +436,8 @@ def run(mode: str, rank: int, world: int, device, config: dict | None = None,
         out = trainer_mode(c, device, rank)
     elif mode == "cegs":
         out = cegs_mode(c, device, rank, workdir)
+    elif mode == "model":
+        out = model_mode(c, device, make_mesh(MeshConfig(**c["mesh"]), device_type=device.type))
     else:
         mesh = make_mesh(MeshConfig(data=world, model=1), device_type=device.type)
         out = loss_mode(c, device, mesh) if mode == "loss" else bn_mode(c, device, mesh)
@@ -308,7 +445,7 @@ def run(mode: str, rank: int, world: int, device, config: dict | None = None,
                 seconds=time.perf_counter() - t0, **out)
 
 
-def spawn(world: int, mode: str, config: dict | None, workdir: str, device: str = "cpu",
+def spawn(world: int, mode: str, config: dict | None, workdir: str, device: str = "cuda",
           backend: str = "gloo", timeout: float = 240.0, env: dict | None = None) -> list[dict]:
     """Start WORLD ranks of this worker (one process each, a `file://`
     store under `workdir`) and return their results in rank order.  Every
@@ -352,9 +489,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("rank", type=int)
     ap.add_argument("world", type=int)
-    ap.add_argument("mode", choices=("loss", "trainer", "cegs", "bn"))
+    ap.add_argument("mode", choices=("loss", "trainer", "cegs", "bn", "model"))
     ap.add_argument("--init", default=None, help="rendezvous (file://...); default env://")
-    ap.add_argument("--device", default="cpu")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (default cuda, cuda:LOCAL_RANK; cpu runs the plain "
+                    "versions of the kernels)")
     ap.add_argument("--backend", default=None)
     ap.add_argument("--config", default="{}", help="JSON: keys of DEFAULTS to override")
     ap.add_argument("--workdir", default=".")

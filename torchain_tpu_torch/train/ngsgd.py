@@ -21,6 +21,11 @@ parameters keep flax's layout, so this is the same view); sides wider than
 gradients first); it slots into `train.trainer.ChainOptimizer`, which puts
 the clip before it and max-change after it.  Its `state_dict` carries each
 side's covariance and inverse, the momentum buffers and the count.
+
+A leaf sharded over the model axis (`parallel.shard_params`) is
+preconditioned whole, as the JAX function sees it: its gradient is
+gathered over the model group, preconditioned, and this rank's block kept;
+its covariances have the whole leaf's sides.
 """
 
 from __future__ import annotations
@@ -28,6 +33,8 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+from torchain_tpu_torch.parallel.sharding import full_shape, gather_leaf_value, shard_of
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,7 +110,7 @@ class NGSGD(torch.optim.SGD):
         for group in self.param_groups:
             group["ng_count"] = 0
             for p in group["params"]:
-                row, col = _eligible(tuple(p.shape), opts.max_dim)
+                row, col = _eligible(full_shape(p), opts.max_dim)
                 for side, d in (("row", row), ("col", col)):
                     if d is not None:
                         eye = torch.eye(d, dtype=torch.float32, device=p.device)
@@ -116,8 +123,9 @@ class NGSGD(torch.optim.SGD):
             group["ng_count"] += 1
             for p in group["params"]:
                 if p.grad is not None:
-                    p.grad.copy_(precondition(p.grad, self.state[p], group["ng_count"],
-                                              self.opts))
+                    g = precondition(gather_leaf_value(p, p.grad), self.state[p],
+                                     group["ng_count"], self.opts)
+                    p.grad.copy_(shard_of(p, g))
         return super().step(closure)
 
     def state_bytes(self) -> int:

@@ -8,7 +8,11 @@ rank's share of a data-parallel step: `feats`, `sup` are this rank's rows of
 the global batch, the batchnorms and dropout see the global batch
 (`parallel.data_parallel`), the loss is the global batch's, and after each
 backward the gradients are summed over the data group, so grad_norm, the
-clip and the optimizer read the global gradient on every rank."""
+clip and the optimizer read the global gradient on every rank.  A model
+sharded over the mesh's model axis (`parallel.shard_params`) takes each
+rank's block of its sharded leaves: the step sums the split products'
+bias gradients over the model group, and the norm and the clip count a
+replicated leaf once and a sharded one's squares over the model group."""
 
 from __future__ import annotations
 
@@ -16,19 +20,24 @@ import torch
 
 from torchain_tpu_torch.ops.chain_loss import ChainLossOptions, chain_loss
 from torchain_tpu_torch.parallel.mesh import all_reduce_tensors_, data_parallel
+from torchain_tpu_torch.parallel.sharding import model_grad_sums, squared_norms
 from torchain_tpu_torch.train.state import ChainTrainState
 
 
-def global_norm(grads: list[torch.Tensor]) -> torch.Tensor:
-    """optax.global_norm: the 2-norm of all the tensors together."""
-    return torch.sqrt(sum(torch.sum(torch.square(g)) for g in grads))
+def global_norm(grads: list[torch.Tensor], params=None) -> torch.Tensor:
+    """optax.global_norm: the 2-norm of all the tensors together.  With
+    `params` (the tensors' parameters) a leaf sharded over the model axis
+    adds its squares summed over the model group."""
+    return torch.sqrt(sum(squared_norms(grads, params)))
 
 
-def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float,
+                         params=None) -> torch.Tensor:
     """optax.clip_by_global_norm semantics: g * max_norm / ||g|| when
     ||g|| >= max_norm, else unchanged (torch's clip_grad_norm_ divides by
-    ||g|| + 1e-6 instead).  Returns ||g|| before clipping."""
-    norm = global_norm(grads)
+    ||g|| + 1e-6 instead).  Returns ||g|| before clipping (`params` as in
+    `global_norm`)."""
+    norm = global_norm(grads, params)
     factor = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
     for g in grads:
         g.mul_(factor)
@@ -38,7 +47,8 @@ def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float) -> torch.Te
 def _grads(model, feats, den, sup, loss_opts, use_xent, dropout_rate=None, generator=None,
            mesh=None):
     """Forward, chain loss and backward into the parameters' .grad (with
-    `mesh`, summed over the data group).  Returns (loss, aux) detached."""
+    `mesh`, summed over the data group; a split product's bias gradients
+    over the model group).  Returns (loss, aux) detached."""
     model.train()
     kw = {} if dropout_rate is None else dict(dropout_rate=dropout_rate, generator=generator)
     with data_parallel(mesh):
@@ -47,6 +57,7 @@ def _grads(model, feats, den, sup, loss_opts, use_xent, dropout_rate=None, gener
                                mesh=mesh)
         model.zero_grad(set_to_none=False)
         loss.backward()
+    model_grad_sums(model)
     if mesh is not None and mesh.data > 1:
         all_reduce_tensors_(mesh, [p.grad for p in model.parameters() if p.grad is not None])
     return loss.detach(), {k: v.detach() for k, v in aux.items()}
@@ -81,9 +92,9 @@ def make_train_step(
         loss, metrics = _grads(model, feats, den, sup, loss_opts, use_xent, rate, gen, mesh)
         grads = [p.grad for p in params]
         if max_grad_norm and max_grad_norm > 0:
-            grad_norm = clip_by_global_norm_(grads, max_grad_norm)
+            grad_norm = clip_by_global_norm_(grads, max_grad_norm, params)
         else:
-            grad_norm = global_norm(grads)
+            grad_norm = global_norm(grads, params)
         opt.step()
         state.step += 1
         metrics["loss"] = loss
@@ -157,7 +168,7 @@ def make_backstitch_step(
                 b.copy_(s)
         # pass 2 from the moved point
         loss, metrics = _grads(model, feats, den, sup, loss_opts, use_xent, mesh=mesh)
-        grad_norm = global_norm([p.grad for p in params])
+        grad_norm = global_norm([p.grad for p in params], params)
         opt.step(scale=1.0 + alpha)
         state.step += 1
         metrics["loss"] = loss

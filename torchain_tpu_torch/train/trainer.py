@@ -21,6 +21,13 @@ broadcast at construction; each rank loads its rows of every global batch
 ranks (train/step.py), so every rank takes the same update.  Every rank
 stops at the same batch; checkpoints are written by rank 0 and read by
 every rank; `evaluate` reports the global batch's statistics.
+
+A model axis (`MeshConfig.model` > 1) is taken as the JAX `Trainer` takes
+it: the data axis is world / model, the ranks of a model group read the
+same rows (their data rank's), and the state stays replicated on every
+rank (the JAX `Trainer` shards none of it; `parallel.shard_params` is the
+sharded step's, outside the `Trainer`).  The loaders, the batchnorms, the
+loss and `evaluate` read the data rank and the data size.
 """
 
 from __future__ import annotations
@@ -56,6 +63,7 @@ from torchain_tpu_torch.parallel.mesh import (
     replicated,
     shard_batch,
 )
+from torchain_tpu_torch.parallel.sharding import squared_norms
 from torchain_tpu_torch.train.lowmem_adam import LowmemAdam
 from torchain_tpu_torch.train.ngsgd import NGSGD
 from torchain_tpu_torch.train.state import ChainTrainState
@@ -155,15 +163,15 @@ def max_change(per_component: float = 0.75, global_change: float = 2.0):
     actual motion per step.  Returns updates -> updates over a list of
     tensors (the last transform of the optimizer chain)."""
 
-    def apply(updates: list[torch.Tensor]) -> list[torch.Tensor]:
+    def apply(updates: list[torch.Tensor], params=None) -> list[torch.Tensor]:
+        # `params`: the updates' parameters, where leaves sharded over the
+        # model axis take their norms over the model group
         if per_component > 0:
-            updates = [
-                u * torch.clamp(per_component / torch.clamp(torch.linalg.vector_norm(u.float()),
-                                                            min=1e-30), max=1.0)
-                for u in updates
-            ]
+            norms = [torch.sqrt(sq) for sq in squared_norms(updates, params)]
+            updates = [u * torch.clamp(per_component / torch.clamp(n, min=1e-30), max=1.0)
+                       for u, n in zip(updates, norms)]
         if global_change > 0:
-            g = global_norm(updates)
+            g = global_norm(updates, params)
             scale = torch.clamp(global_change / torch.clamp(g, min=1e-30), max=1.0)
             updates = [u * scale for u in updates]
         return updates
@@ -225,7 +233,7 @@ class ChainOptimizer:
                 g.copy_(a)
                 a.zero_()
         if self.grad_clip > 0:
-            clip_by_global_norm_(grads, self.grad_clip)
+            clip_by_global_norm_(grads, self.grad_clip, self.params)
         for group in self.inner.param_groups:
             group["lr"] = self.schedule(self.count)
         moved = self.max_change is not None or scale != 1.0
@@ -235,7 +243,7 @@ class ChainOptimizer:
         if moved:
             deltas = [p - o for p, o in zip(self.params, old)]
             if self.max_change is not None:
-                deltas = self.max_change(deltas)
+                deltas = self.max_change(deltas, self.params)
             for p, o, d in zip(self.params, old, deltas):
                 p.copy_(o + scale * d)
         return True
@@ -384,8 +392,7 @@ class Trainer:
         self.mesh = make_mesh(cfg.mesh, device_type=self.device.type)
         #: the mesh where its data axis is larger than 1, else None
         self.dp = self.mesh if self.mesh.data > 1 else None
-        if self.dp is not None:
-            replicated(self.dp, self.model)
+        replicated(self.mesh, self.model)
         self.state = ChainTrainState(model=self.model,
                                      optimizer=make_optimizer(cfg, self.model.parameters()))
         # the optimizer clips (after accumulation): the step does not.  Under
@@ -485,13 +492,14 @@ class Trainer:
                       if p.name.isdigit() and (p / _CKPT_FILE).exists())
 
     def save_checkpoint(self):
-        """Write the train state (rank 0 writes; every rank waits for it)."""
+        """Write the train state (global rank 0 writes; every rank waits
+        for it)."""
         if self._ckpt_root is None:
             return
-        if self.dp is not None:
-            if self.dp.rank == 0:
+        if self.mesh.data * self.mesh.model > 1:
+            if self.mesh.global_rank == 0:
                 self._write_checkpoint()
-            barrier(self.dp)
+            barrier(self.mesh)
             return
         self._write_checkpoint()
 
