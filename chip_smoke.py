@@ -51,7 +51,29 @@ Phases, in order; any failure exits non-zero before the last line:
      fused form.  Every kernel launch counter is zeroed just before a path
      and read just after, each kernel of that path must have moved and no
      other, and the loss must fall; (d)'s first loss must agree with (c)'s
-     and (f)'s with (a)'s.  Then (a)'s model and batch on the forms
+     and (f)'s with (a)'s.  Then each path's step as one captured CUDA
+     graph (`check_captured`, `make_train_step(..., capture=True)`): two
+     batches A and B of its corpus at one set of supervision caps and one
+     `L_cap`, one model with capturable Adam, captured on A; in each of 3
+     rounds 10 eager and 10 captured steps on A, B, A, ... from the same
+     initial state, the counters zeroed before each run; the captured
+     metrics held to the eager ones (step 1 rel 1e-6, later 1e-4; a
+     bfloat16 trunk 1e-5 and 1e-3); each mode's ms a step (host and card
+     clocks, medians), capture seconds, the graph pool's bytes and peak
+     memory; then a traced run of 2 steps of each mode (device busy,
+     device and host launches): a replay runs no Python, so its kernels'
+     launches are counted in its trace, by each kernel's device name, and
+     must equal the eager trace's, which must equal the eager run's
+     counters (this path's kernels only); on
+     (e) also the eager step with the arcs' vocabulary sum as the product
+     and as the `scatter_add_` it replaced (ms, peak memory, launches,
+     bits run to run); on (a) also a fresh state's eager run (equal bits:
+     the warm-up leaves no trace), and torch's default Adam against
+     capturable Adam: closed loop, against a control started one float32
+     step away, and open loop (capturable Adam fed the default's
+     gradients, gated at 1.25 times the gap that computing the bias
+     corrections in float32 makes).  Then (a)'s
+     model and batch on the forms
      `auto_den_graph` falls through to where the slot-dense one does not
      fit (its fit test made to refuse it: the fused dense Moore form; the
      card's limit taken as below K2's carried state: the sparse scan of
@@ -159,6 +181,7 @@ import functools
 import json
 import math
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -1496,48 +1519,49 @@ def check_probe() -> tuple[dict[str, dict], int]:
     return measured, launches
 
 
-#: the fifteen kernels: (wrapper module, wrapper, source, the TPU kernel replaced)
+#: the fifteen kernels: (wrapper module, wrapper, source, the TPU kernel replaced,
+#: the device kernel that one call of the wrapper launches once)
 KERNELS = {
     "den_forward": ("ops.den_resident", "den_forward_kernel",
                     "torchain_tpu_torch/csrc/den_resident.cu",
-                    "torchain_tpu/ops/den_resident.py:565"),
+                    "torchain_tpu/ops/den_resident.py:565", "den_fwd_kernel"),
     "den_backward": ("ops.den_resident", "den_backward_kernel",
                      "torchain_tpu_torch/csrc/den_resident.cu",
-                     "torchain_tpu/ops/den_resident.py:615"),
+                     "torchain_tpu/ops/den_resident.py:615", "den_bwd_kernel"),
     "num_steady_forward": ("ops.num_resident", "steady_forward",
                            "torchain_tpu_torch/csrc/num_resident.cu",
-                           "torchain_tpu/ops/num_resident.py:158"),
+                           "torchain_tpu/ops/num_resident.py:158", "steady_fwd_kernel"),
     "num_steady_backward": ("ops.num_resident", "steady_backward",
                             "torchain_tpu_torch/csrc/num_resident.cu",
-                            "torchain_tpu/ops/num_resident.py:207"),
+                            "torchain_tpu/ops/num_resident.py:207", "steady_bwd_kernel"),
     "vocab_gather": ("ops.num_scan", "vocab_gather", "torchain_tpu_torch/csrc/num_vocab.cu",
-                     "torchain_tpu/ops/num_scan.py:140"),
+                     "torchain_tpu/ops/num_scan.py:140", "vocab_gather_kernel"),
     "vocab_scatter": ("ops.num_scan", "vocab_scatter", "torchain_tpu_torch/csrc/num_vocab.cu",
-                      "torchain_tpu/ops/num_scan.py:179"),
+                      "torchain_tpu/ops/num_scan.py:179", "vocab_scatter_kernel"),
     "attention_forward": ("ops.attention", "attention_forward",
                           "torchain_tpu_torch/csrc/attention.cu",
-                          "torchain_tpu/ops/attention.py:219"),
+                          "torchain_tpu/ops/attention.py:219", "attn_fwd_kernel"),
     "attention_backward": ("ops.attention", "attention_backward",
                            "torchain_tpu_torch/csrc/attention.cu",
-                           "torchain_tpu/ops/attention.py:258"),
+                           "torchain_tpu/ops/attention.py:258", "attn_bwd_cols_kernel"),
     "ffn_forward": ("ops.fused_ffn", "ffn_forward", "torchain_tpu_torch/csrc/fused_ffn.cu",
-                    "torchain_tpu/ops/fused_ffn.py:200"),
+                    "torchain_tpu/ops/fused_ffn.py:200", "ffn_fwd_kernel"),
     "ffn_backward": ("ops.fused_ffn", "ffn_backward", "torchain_tpu_torch/csrc/fused_ffn.cu",
-                     "torchain_tpu/ops/fused_ffn.py:239"),
+                     "torchain_tpu/ops/fused_ffn.py:239", "ffn_bwd_weights_kernel"),
     "e2e_forward": ("ops.num_resident", "e2e_forward_resident",
                     "torchain_tpu_torch/csrc/num_e2e.cu",
-                    "torchain_tpu/ops/num_resident.py:319"),
+                    "torchain_tpu/ops/num_resident.py:319", "e2e_fwd_kernel"),
     "e2e_backward": ("ops.num_resident", "e2e_backward_resident",
                      "torchain_tpu_torch/csrc/num_e2e.cu",
-                     "torchain_tpu/ops/num_resident.py:356"),
+                     "torchain_tpu/ops/num_resident.py:356", "e2e_bwd_kernel"),
     "dense_den_forward": ("ops.den_pallas", "dense_forward_kernel",
                           "torchain_tpu_torch/csrc/den_dense.cu",
-                          "torchain_tpu/ops/den_pallas.py:118"),
+                          "torchain_tpu/ops/den_pallas.py:118", "dense_fwd_kernel"),
     "dense_den_backward": ("ops.den_pallas", "dense_backward_kernel",
                            "torchain_tpu_torch/csrc/den_dense.cu",
-                           "torchain_tpu/ops/den_pallas.py:160"),
+                           "torchain_tpu/ops/den_pallas.py:160", "dense_bwd_kernel"),
     "probe_smem": ("tools.probe_smem", "try_size", "torchain_tpu_torch/csrc/probe_smem.cu",
-                   "tools/probe_vmem.py:27"),
+                   "tools/probe_vmem.py:27", "probe_kernel"),
 }
 
 
@@ -1547,7 +1571,7 @@ def counters():
 
     return {
         name: getattr(importlib.import_module(f"torchain_tpu_torch.{mod}"), fn)
-        for name, (mod, fn, _, _) in KERNELS.items()
+        for name, (mod, fn, *_) in KERNELS.items()
     }
 
 
@@ -1585,26 +1609,38 @@ def train_steps(cfg, feat_dim, feats, den, sup, steps: int, seed: int, after_ste
 
 
 def profile_steps(step, feats, den, sup, n: int, out_path: pathlib.Path | None) -> dict:
-    """--profile: torch.profiler over `n` more train steps.  Writes the
+    """--profile: torch.profiler over `n` more train steps on one batch
+    (`_trace`)."""
+    def run():
+        for _ in range(n):
+            step(feats, den, sup)
+
+    return _trace(run, n, out_path)
+
+
+def _trace(run, n: int, out_path: pathlib.Path | None = None) -> dict:
+    """torch.profiler over `run()`, which makes `n` train steps.  Writes the
     per-kernel table to `out_path`, where given; returns wall and
     device-busy ms per step (device busy = the sum of the kernels' device
     time; one stream, so they do not overlap), split into the port's
-    kernels, cuBLAS GEMMs and the rest."""
+    kernels, cuBLAS GEMMs and the rest, launches a step on the card and on
+    the host, and `port_launches`: each kernel of KERNELS by name, the
+    launches of its device kernel (one a wrapper call) in the whole run."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(n):
-            step(feats, den, sup)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n
     from torch.autograd import DeviceType
 
     # device kernels and copies only: an operator's own row repeats its
     # kernels' time, and a user annotation's device row spans them
-    kern = [e for e in prof.key_averages()
+    avg = prof.key_averages()
+    kern = [e for e in avg
             if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
             and "#" not in e.key]
     if not kern:
@@ -1629,6 +1665,15 @@ def profile_steps(step, feats, den, sup, n: int, out_path: pathlib.Path | None) 
     port = sum(dev_us(e) for e, o in zip(kern, is_ours) if o) / 1e3 / n
     gemm = sum(dev_us(e) for e, g in zip(kern, is_gemm) if g) / 1e3 / n
     launches = sum(e.count for e in kern) // n
+    port_launches = {
+        name: sum(e.count for e in kern if re.search(rf"\b{entry[4]}\b", e.key))
+        for name, entry in KERNELS.items()}
+    # the host's calls that put work on the card (a kernel, a copy, a fill,
+    # a graph)
+    host_launches = sum(e.count for e in avg
+                        if e.device_type == DeviceType.CPU and e.key.startswith(
+                            ("cudaLaunch", "cudaGraphLaunch", "cudaMemcpy", "cudaMemset",
+                             "cuLaunch"))) // n
     rows = sorted(kern, key=dev_us, reverse=True)
     lines = [f"{dev_us(e) / 1e3 / n:10.3f} ms/step {e.count // n:7d} launches/step  {e.key[:100]}"
              for e in rows][:40]
@@ -1636,7 +1681,8 @@ def profile_steps(step, feats, den, sup, n: int, out_path: pathlib.Path | None) 
         out_path.write_text("\n".join(lines) + "\n")
     return dict(wall_ms=wall_ms, device_busy_ms=busy, idle_share=1.0 - busy / wall_ms,
                 port_kernels_ms=port, library_gemm_ms=gemm, other_ms=busy - port - gemm,
-                kernel_launches=launches, top=lines[:12])
+                kernel_launches=launches, host_launches=host_launches, top=lines[:12],
+                port_launches=port_launches)
 
 
 def _den_form_run(name: str, cfg, feat_dim, feats, den, sup, must: tuple, ref: float | None,
@@ -1706,6 +1752,392 @@ def _patched(module, **attrs):
     finally:
         for k, v in saved.items():
             setattr(module, k, v)
+
+
+#: the captured phase (`check_captured`): rounds of eager and captured runs
+#: in turn; the gates of the captured step's metrics against the eager
+#: step's on the same batches, by the path's trunk dtype: step 1, then every
+#: later step (the same kernels in the same order: equal bits expected)
+CAPTURED_ROUNDS = 3
+CAPTURED_RTOL = {"float32": (1e-6, 1e-4), "bfloat16": (1e-5, 1e-3)}
+CAPTURED_KEYS = ("loss", "objf", "grad_norm")
+#: steps of each traced run of the captured phase, on A, B (the trace's
+#: processing, not the steps, takes its time)
+TRACED_STEPS = 2
+#: each path's corpus, model config, dataset and denominator graph, kept by
+#: `run_path` for the captured phase
+_PATH_DATA: dict[str, tuple] = {}
+
+
+def _captured_batches(path: str, dataset) -> tuple[list, dict]:
+    """Batches A and B of the path's corpus on the card, padded to one set
+    of supervision caps and with live-arc lists of one width (`L_cap`), as
+    a captured step takes them."""
+    import torch
+
+    from torchain_tpu_torch.ops import DeviceE2eSupervision, DeviceSupervision
+
+    if PATHS[path].get("sup") == "e2e":
+        caps = dataset.estimate_e2e_caps()
+        it, L, caps = dataset.batches(B, shuffle=False, sup_caps=caps), caps[3], caps[:3]
+
+        def put(s):
+            return DeviceE2eSupervision.from_host(s, device="cuda", vocab_cap=caps[2])
+    else:
+        caps = dataset.estimate_sup_caps()
+        it, L = dataset.batches(B, shuffle=False, sup_caps=caps), dataset.estimate_live_arcs()
+
+        def put(s):
+            return DeviceSupervision.from_host(s, device="cuda")
+    batches = [next(it), next(it)]
+    placed = [(torch.as_tensor(b.feats, device="cuda"), put(b.sup).with_kernel_tables(L_cap=L))
+              for b in batches]
+    return placed, dict(caps=list(caps), L_cap=L)
+
+
+def _run_steps(step, den, batches, steps: int) -> dict:
+    """`steps` steps on batches A, B, A, ... from the launch counters at 0:
+    each step's metrics, host ms (a synchronize on either side) and card ms
+    (CUDA events around it), and the counters (an eager step's launches; a
+    replay moves none)."""
+    import torch
+
+    for fn in counters().values():
+        fn.launches = 0
+    metrics, host, card = [], [], []
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for i in range(steps):
+        feats, sup = batches[i % 2]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        m = step(feats, den, sup)
+        end.record()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+        card.append(start.elapsed_time(end))
+        metrics.append({k: float(v) for k, v in m.items()})
+    return dict(metrics=metrics, host_ms=host, card_ms=card,
+                launches={k: fn.launches for k, fn in counters().items()})
+
+
+def _worst_rel(a: list[dict], b: list[dict], keys=CAPTURED_KEYS) -> list[float]:
+    """Per step, the largest |a - b| / |b| over `keys`."""
+    return [max(abs(x[k] - y[k]) / max(abs(y[k]), 1e-30) for k in keys) for x, y in zip(a, b)]
+
+
+def _steps_on(step, den, batches, steps: int):
+    """A callable that makes `steps` steps on batches A, B, A, ... with no
+    synchronize between them (for `_trace`)."""
+    def run():
+        for i in range(steps):
+            feats, sup = batches[i % 2]
+            step(feats, den, sup)
+
+    return run
+
+
+def _vocab_sum_scatter(post, pdf_local, Pv: int):
+    """The flat-start vocabulary sum as `ops/num_e2e.py` wrote it before the
+    one-hot product (`arcs_to_vocab`): one `scatter_add_`, whose atomic adds
+    land in another order run after run."""
+    B, T, S, K = post.shape
+    index = pdf_local.reshape(B, 1, S * K).expand(B, T, S * K)
+    return post.new_zeros((B, T, Pv)).scatter_add_(2, index, post.reshape(B, T, S * K))
+
+
+def _e2e_vocab_sum(eager, captured, init, state, den, batches, steps: int) -> dict:
+    """The `e2e` path's eager step with the arcs' vocabulary sum as the
+    one-hot product and as the `scatter_add_` it replaced, from one state
+    in turns scatter, product, product, scatter: ms a step (medians of
+    steps 2.., host and card clocks), the peak memory the run adds, whether
+    each form repeats its bits, how far the forms part by step; then a
+    traced run of TRACED_STEPS steps of each (device busy, launches a
+    step).  Printed, not gated."""
+    import torch
+
+    from torchain_tpu_torch.ops import num_e2e
+
+    def form(name):
+        return _patched(num_e2e, **({"arcs_to_vocab": _vocab_sum_scatter}
+                                    if name == "scatter" else {}))
+
+    runs = {"scatter": [], "product": []}
+    for name in ("scatter", "product", "product", "scatter"):
+        captured.restore(init)
+        state.step = 0
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with form(name):
+            r = _run_steps(eager, den, batches, steps)
+        r["peak_added_bytes"] = torch.cuda.max_memory_allocated() - base
+        runs[name].append(r)
+    out = {}
+    for name, rs in runs.items():
+        captured.restore(init)
+        state.step = 0
+        with form(name):
+            prof = _trace(_steps_on(eager, den, batches, TRACED_STEPS), TRACED_STEPS)
+        out[name] = dict(
+            host_ms=[statistics.median(r["host_ms"][1:]) for r in rs],
+            card_ms=[statistics.median(r["card_ms"][1:]) for r in rs],
+            peak_added_bytes=[r["peak_added_bytes"] for r in rs],
+            repeats_bits=rs[0]["metrics"] == rs[1]["metrics"],
+            rel_between_runs=max(_worst_rel(rs[0]["metrics"], rs[1]["metrics"])),
+            **{k: prof[k] for k in ("wall_ms", "device_busy_ms", "kernel_launches",
+                                    "host_launches")})
+    out["rel_by_step"] = _worst_rel(runs["scatter"][0]["metrics"], runs["product"][0]["metrics"])
+    for name in runs:
+        _log(f"  e2e eager, vocabulary sum by {name}: {json.dumps(out[name])}")
+    _log(f"  e2e eager, scatter against product, rel by step: {json.dumps(out['rel_by_step'])}")
+    return out
+
+
+#: `_adam_forms`: capturable Adam fed the default Adam's gradients, no
+#: model in the loop, must keep its parameters within this many times the
+#: sum of `_bias_correction_gap` over the steps so far of the default run's,
+#: relative to |p| + lr: the two differ by that factor and rounding
+ADAM_OPEN_LOOP_MARGIN = 1.25
+#: `_adam_forms`: bins of |step 1's gradient| for where the parameters part
+GRAD_BINS = (0.0, 1e-8, 1e-6, 1e-4, math.inf)
+
+
+def _bias_correction_gap(t: int, b1: float = 0.9, b2: float = 0.999) -> float:
+    """|1 - capturable Adam's update over the default's| at step t (|g| >>
+    eps): capturable Adam computes the bias corrections 1 - b**t in
+    float32, as optax does (b rounded to float32 first: 1 - 0.999 becomes
+    0.0009999871), torch's default Adam in float64 on the host."""
+    import torch
+
+    st = torch.tensor(float(t))
+    bc1, bc2 = (float(1 - torch.pow(b, st)) for b in (b1, b2))
+    return abs(1 - (1 - b1**t) / bc1 * math.sqrt(bc2 / (1 - b2**t)))
+
+
+def _adam_forms(cfg, feat_dim: int, seed: int, opts, den, batches, steps: int,
+                captured_round: list[dict]) -> dict:
+    """`trigram`: why capturable Adam parts from torch's default Adam.
+    Eager runs from the seed's weights on A, B, A, ...: capturable (it must
+    give the captured phase's round 1 bits: the warm-up and the restores
+    leave no trace); the default, its gradients and parameters kept step by
+    step; the default again from weights one float32 step up (`nextafter`),
+    a control for how far training carries a rounding.  Then the open loop:
+    capturable Adam fed the default run's gradients on a copy of the first
+    weights, no model in the loop, against the default run's parameters
+    step by step, gated at ADAM_OPEN_LOOP_MARGIN times the summed
+    `_bias_correction_gap`: the one difference of the two forms' arithmetic
+    beyond rounding.  And where the closed loops'
+    parameters part after the last step, by the size of step 1's gradient
+    (GRAD_BINS)."""
+    import torch
+
+    from torchain_tpu_torch.train import create_train_state, make_train_step
+
+    lr = 1e-3
+
+    def run(capturable: bool, nudge: bool = False, keep: tuple | None = None):
+        st = create_train_state(make_model(cfg, feat_dim, "cuda", seed), lr=lr,
+                                capturable=capturable)
+        params = list(st.model.parameters())
+        first = [p.detach().clone() for p in params]
+        if nudge:
+            with torch.no_grad():
+                for p in params:
+                    p.copy_(torch.nextafter(p, torch.full_like(p, math.inf)))
+        step = make_train_step(st, opts, max_grad_norm=5.0)
+
+        def kept(feats, den_, sup):
+            m = step(feats, den_, sup)
+            keep[0].append([None if p.grad is None else p.grad.detach().clone()
+                            for p in params])
+            keep[1].append([p.detach().clone() for p in params])
+            return m
+
+        metrics = _run_steps(kept if keep else step, den, batches, steps)["metrics"]
+        return metrics, first, [p.detach().clone() for p in params]
+
+    cap, _, cap_last = run(True)
+    grads, after = [], []
+    default, first, default_last = run(False, keep=(grads, after))
+    nudged, _, nudged_last = run(False, nudge=True)
+
+    copies = [p.clone().requires_grad_(True) for p in first]
+    opt = torch.optim.Adam(copies, lr=lr, betas=(0.9, 0.999), eps=1e-8, capturable=True)
+    open_loop = []
+    for g, ref in zip(grads, after):
+        for c, gi in zip(copies, g):
+            c.grad = gi
+        opt.step()
+        open_loop.append(max(float(((c.detach() - r).abs() / (r.abs() + lr)).max())
+                             for c, r in zip(copies, ref)))
+
+    g1 = torch.cat([g.abs().flatten() for g in grads[0] if g is not None])
+
+    def where(last):
+        d = torch.cat([(a - b).abs().flatten() for a, b, g in zip(last, default_last, grads[0])
+                       if g is not None])
+        bins = {}
+        for lo, hi in zip(GRAD_BINS, GRAD_BINS[1:]):
+            m = (g1 >= lo) & (g1 < hi)
+            bins[f"[{lo:g},{hi:g})"] = dict(
+                elements=int(m.sum()), max_dp=float(d[m].max()) if m.any() else 0.0,
+                over_tenth_lr=int((d[m] > lr / 10).sum()))
+        return bins
+
+    gap = [_bias_correction_gap(t) for t in range(1, steps + 1)]
+    bound = [ADAM_OPEN_LOOP_MARGIN * sum(gap[:t]) for t in range(1, steps + 1)]
+    out = dict(
+        fresh_state_bits_equal=cap == captured_round,
+        capturable_vs_default={k: _worst_rel(cap, default, (k,)) for k in ("loss", "grad_norm")},
+        nudged_vs_default={k: _worst_rel(nudged, default, (k,)) for k in ("loss", "grad_norm")},
+        open_loop_rel=open_loop, bias_correction_gap=gap, open_loop_bound=bound,
+        where_capturable_parts=where(cap_last), where_nudged_parts=where(nudged_last))
+    _log(f"  trigram: a fresh state's eager steps equal round 1's bits:"
+         f" {out['fresh_state_bits_equal']}")
+    for k in ("capturable_vs_default", "nudged_vs_default", "where_capturable_parts",
+              "where_nudged_parts"):
+        _log(f"  trigram Adam, {k}: {json.dumps(out[k])}")
+    _log(f"  trigram Adam, open loop (capturable fed the default's gradients), rel by step:"
+         f" {json.dumps(open_loop)}; the float32 bias correction's gap by step"
+         f" {json.dumps(gap)}, gate by step {json.dumps(bound)}")
+    if not out["fresh_state_bits_equal"]:
+        raise AssertionError("captured [trigram]: the warm-up and the restores left a trace"
+                             " (a fresh state trains to other bits)")
+    if not all(x <= b for x, b in zip(open_loop, bound)):
+        raise AssertionError(f"captured [trigram]: capturable Adam's update departs from the"
+                             f" default's on the same gradients beyond the bias correction's"
+                             f" gap ({open_loop} against {bound})")
+    del grads, after
+    return out
+
+
+def _captured_path(path: str, args, smi: str) -> tuple[dict, dict]:
+    """One path's eager step against its captured step: one model and one
+    capturable Adam from the seed, captured once on batch A; then
+    CAPTURED_ROUNDS rounds, each an eager run and a captured run of
+    `--steps` steps on A, B, A, ... from the initial state (restored before
+    each run); then a traced run of each mode.  Gated on the first round's
+    metrics (CAPTURED_RTOL), and on the launches: a replay runs no Python,
+    so the counters cannot see it, and its launches are read from the
+    trace.  Each kernel's launches in the eager trace must equal the
+    counters of that run, the captured trace's the eager trace's (a trace
+    that lost events is taken once more), and be this path's kernels only.
+    Returns the numbers and the captured run's traced launches."""
+    import gc
+
+    import torch
+
+    from torchain_tpu_torch.ops import ChainLossOptions
+    from torchain_tpu_torch.train import create_train_state, make_train_step
+
+    t0 = time.perf_counter()
+    corpus, cfg, dataset, den = _PATH_DATA[path]
+    batches, sizes = _captured_batches(path, dataset)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    opts = ChainLossOptions(l2_regularize=5e-4, leaky_hmm_coefficient=0.1, xent_regularize=0.1)
+    state = create_train_state(make_model(cfg, corpus.feat_dim, "cuda", args.seed), lr=1e-3,
+                               capturable=True)
+    eager = make_train_step(state, opts, max_grad_norm=5.0)
+    captured = make_train_step(state, opts, max_grad_norm=5.0, capture=True)
+    init = captured.snapshot()
+    torch.cuda.reset_peak_memory_stats()
+    captured.capture(batches[0][0], den, batches[0][1])
+    runs = {"eager": [], "captured": []}
+    for _ in range(CAPTURED_ROUNDS):
+        for mode, step in (("eager", eager), ("captured", captured)):
+            captured.restore(init)
+            state.step = 0
+            runs[mode].append(_run_steps(step, den, batches, args.steps))
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    e, c = runs["eager"][0], runs["captured"][0]
+    rtol1, rtol = CAPTURED_RTOL[PATHS[path]["dtype"]]
+    rel = _worst_rel(c["metrics"], e["metrics"])
+    bits = c["metrics"] == e["metrics"]
+    # whether each mode gives its own first round's bits again
+    repeat = {mode: all(r["metrics"] == rs[0]["metrics"] for r in rs) for mode, rs in runs.items()}
+    out = dict(setup_s=setup_s, sizes=sizes, capture_s=captured.capture_s,
+               pool_bytes=captured.pool_bytes, peak_memory_gib=peak_gib,
+               step1_rel=rel[0], later_rel_max=max(rel[1:]), bits_equal=bits,
+               rounds_repeat_bits=repeat, rtol=[rtol1, rtol],
+               rel_by_key={k: max(_worst_rel(c["metrics"], e["metrics"], (k,)))
+                           for k in CAPTURED_KEYS},
+               eager_losses=[m["loss"] for m in e["metrics"]],
+               captured_losses=[m["loss"] for m in c["metrics"]])
+    for mode in runs:
+        for clock in ("host_ms", "card_ms"):
+            per_round = [statistics.median(r[clock][1:]) for r in runs[mode]]
+            out[f"{mode}_{clock}_rounds"] = per_round
+            out[f"{mode}_{clock}"] = statistics.median(per_round)
+    # traced runs of TRACED_STEPS steps each from the initial state: device
+    # busy, launches on the card and on the host (a replay is one graph
+    # launch beside the copies of its inputs and the clones of its
+    # metrics), and each kernel's launches, held to the eager run's
+    # counters (eager) and to the eager run's trace (captured)
+    traced = {}
+    for mode, step in (("eager", eager), ("captured", captured)):
+        for attempt in range(2):
+            captured.restore(init)
+            state.step = 0
+            for fn in counters().values():
+                fn.launches = 0
+            prof = _trace(_steps_on(step, den, batches, TRACED_STEPS), TRACED_STEPS)
+            want = ({k: fn.launches for k, fn in counters().items()} if mode == "eager"
+                    else traced["eager"]["port_launches"])
+            if prof["port_launches"] == want:
+                break
+            _log(f"  {path} {mode}: traced launches {prof['port_launches']} against"
+                 f" {want} (attempt {attempt + 1})")
+        traced[mode] = dict(prof, want=want)
+        out[f"{mode}_profile"] = {k: prof[k] for k in (
+            "wall_ms", "device_busy_ms", "idle_share", "kernel_launches", "host_launches",
+            "port_launches")}
+    if path == "e2e":
+        out["vocab_sum"] = _e2e_vocab_sum(eager, captured, init, state, den, batches, args.steps)
+    _log(f"captured {path} ({smi}): set-up {setup_s:.1f} s (caps {sizes['caps']}, L_cap"
+         f" {sizes['L_cap']}); capture {captured.capture_s:.2f} s, graph pool"
+         f" {captured.pool_bytes} B, peak {peak_gib:.2f} GiB; step 1 rel {rel[0]:.3g} (gate"
+         f" {rtol1:g}), later {max(rel[1:]):.3g} (gate {rtol:g}); bits equal {bits}; each"
+         f" mode's rounds the same bits {repeat}")
+    for mode in runs:
+        p = out[f"{mode}_profile"]
+        _log(f"  {path} {mode}: steps 2..{args.steps} median ms host"
+             f" {out[f'{mode}_host_ms']:.3f} {out[f'{mode}_host_ms_rounds']}, card"
+             f" {out[f'{mode}_card_ms']:.3f} {out[f'{mode}_card_ms_rounds']}; traced over"
+             f" {TRACED_STEPS} steps: wall {p['wall_ms']:.2f} ms, device busy"
+             f" {p['device_busy_ms']:.2f} ms, idle {p['idle_share']:.3f},"
+             f" {p['kernel_launches']} device launches and {p['host_launches']} host launches a"
+             f" step; the port's kernels {json.dumps({k: v for k, v in p['port_launches'].items() if v})}")
+    if path == "trigram":
+        out["adam"] = _adam_forms(cfg, corpus.feat_dim, args.seed, opts, den, batches,
+                                  args.steps, e["metrics"])
+    if not (math.isfinite(rel[0]) and rel[0] <= rtol1 and max(rel[1:]) <= rtol):
+        raise AssertionError(f"captured [{path}]: the captured step departs from the eager one"
+                             f" (step 1 {rel[0]:.3g}, later {max(rel[1:]):.3g})")
+    for mode, prof in traced.items():
+        if prof["port_launches"] != prof["want"]:
+            raise AssertionError(f"captured [{path}]: {mode}'s traced launches"
+                                 f" {prof['port_launches']} against {prof['want']}")
+    launches = traced["captured"]["port_launches"]
+    _launch_gate(f"captured {path}", launches, PATHS[path]["kernels"])
+    del eager, captured, state, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def check_captured(args, result: dict) -> dict:
+    """The captured phase: each of the six paths's step as one CUDA graph
+    against its eager step (`_captured_path`)."""
+    t0 = time.perf_counter()
+    out, launches = {}, {}
+    for path in PATHS:
+        out[path], launches[path] = _captured_path(path, args, result["nvidia_smi"])
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t0
+    _log(f"captured phase: {out['phase_s']:.1f} s")
+    return out
 
 
 def check_den_forms(args, result: dict) -> dict:
@@ -4008,7 +4440,7 @@ def _parallel_config(args, model: str, batch: int, steps: int, tmp: str) -> dict
                 model=model, model_cfg=model_cfg, model_seed=args.seed, batch_size=batch,
                 epochs=steps, steps=steps, trainer=dict(lr=1e-3, log_every=1),
                 loss=dict(l2_regularize=5e-4, leaky_hmm_coefficient=0.1, xent_regularize=0.1),
-                precompile=4, counters={k: f"{m}:{f}" for k, (m, f, _, _) in KERNELS.items()},
+                precompile=4, counters={k: f"{m}:{f}" for k, (m, f, *_) in KERNELS.items()},
                 save_params=str(pathlib.Path(tmp) / f"parallel_{model}_params.pt"))
 
 
@@ -4451,6 +4883,7 @@ def run_path(path: str, args, result: dict, checks: tuple = ()):
     out = result[path] = dict(setup_s=setup_s, sizes=sizes)
     if args.kernels_only:
         return measured, {}
+    _PATH_DATA[path] = (corpus, cfg, dataset, den)
 
     # phase 4: the path itself
     torch.cuda.reset_peak_memory_stats()
@@ -4571,6 +5004,10 @@ def main(argv=None) -> int:
     measured, launches["dense"] = run_path("dense", args, result, ("dense",))
     numbers.update(measured)
     if not args.kernels_only:
+        result["captured"] = check_captured(args, result)
+        for path, n in result["captured"]["launches"].items():
+            launches[f"captured_{path}"] = n
+        _PATH_DATA.clear()
         result["den_forms"] = check_den_forms(args, result)
         with tempfile.TemporaryDirectory() as prep:
             result["cegs"] = check_cegs(args, result, prep)
@@ -4617,13 +5054,15 @@ def main(argv=None) -> int:
                 raise AssertionError(f"the first loss of {b_path} departs from {a_path}'s")
     # `launches` is the count of the first path that must run the kernel (the
     # probe's: its own phase); every path's count is under "launches_by_path"
-    must = {**{p: PATHS[p]["kernels"] for p in PATHS}, "cegs": DEN_NUM, "probe": PROBE,
+    must = {**{p: PATHS[p]["kernels"] for p in PATHS},
+            **{f"captured_{p}": PATHS[p]["kernels"] for p in PATHS},
+            "cegs": DEN_NUM, "probe": PROBE,
             "recipe": DEN_NUM, "recipe_compute_prob": EVAL_DEN_NUM, "decode": DECODE_KERNELS,
             "kaldi_left": DEN_NUM, "kaldi_triphone": NUM, "wav": DEN_NUM,
             **{k: DEN_NUM for k in launches if k.startswith("trunks_")},
             **{k: DEN_NUM for k in launches if k.startswith("parallel_")}}
     records = []
-    for name, (_, _, source, replaces) in KERNELS.items():
+    for name, (_, _, source, replaces, _) in KERNELS.items():
         first = next(p for p in must if name in must[p])
         by_path = {p: n.get(name, 0) for p, n in launches.items()}
         records.append(dict(name=name, route="cuda", source=source, replaces=replaces,

@@ -1511,3 +1511,144 @@ def test_tied_tree_chain_loss_on_card_matches_cpu(tied_setup, context):
     assert out["cuda"][3] == out["cpu"][3] == 0.0
     torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(out["cuda"][2], out["cpu"][2], rtol=1e-4, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# The train step as one captured CUDA graph (train/captured.py)
+# ---------------------------------------------------------------------------
+
+CAPTURE_OPTS = dict(l2_regularize=5e-4, leaky_hmm_coefficient=0.1, xent_regularize=0.1)
+
+
+def _captured_case(dev, sup_kind: str, model_kind: str):
+    """A small corpus's batches A and B, padded to one set of caps with
+    lists of one width, on the card; its den graph; a model config."""
+    from torchain_tpu_torch.models import ConformerConfig, TdnnfConfig
+    from torchain_tpu_torch.ops import DeviceDenseDenGraph, DeviceE2eSupervision
+
+    c = tdata.synthetic_dataset(num_utts=12, num_phones=6, feat_dim=8, utt_frames_out=(9, 12),
+                                seed=1, lm_order=3, lm_extra_states=50)
+    if model_kind == "conformer":
+        cfg = ConformerConfig(num_pdfs=c.tree.num_pdfs, dim=32, num_layers=2, num_heads=2,
+                              prefinal_dim=16, ffn_impl="fused", dtype=torch.bfloat16)
+    else:
+        cfg = TdnnfConfig(num_pdfs=c.tree.num_pdfs, hidden_dim=64, bottleneck_dim=16,
+                          prefinal_dim=32, num_layers=3)
+    left, right = cfg.context
+    common = dict(chunk_frames_out=9, left_context=left, right_context=right)
+    if sup_kind == "e2e":
+        ds = tdata.E2eChainDataset(c.utts, c.tree, c.norm_fst, **common)
+        caps = ds.estimate_e2e_caps()
+        it, L = ds.batches(4, shuffle=False, sup_caps=caps), caps[3]
+
+        def put(s):
+            return DeviceE2eSupervision.from_host(s, device=dev, vocab_cap=caps[2])
+    else:
+        ds = tdata.ChainDataset(c.utts, c.tree, c.norm_fst,
+                                sup_opts=tgraphs.SupervisionOptions(), **common)
+        it = ds.batches(4, shuffle=False, sup_caps=ds.estimate_sup_caps())
+        L = ds.estimate_live_arcs()
+
+        def put(s):
+            return DeviceSupervision.from_host(s, device=dev)
+    batches = [(torch.as_tensor(b.feats, device=dev), put(b.sup).with_kernel_tables(L_cap=L))
+               for b in (next(it), next(it))]
+    if sup_kind == "dense":
+        den = DeviceDenseDenGraph.from_host(tgraphs.make_dense_den_graph(c.den_graph, pad_to=8),
+                                            device=dev, fused=True)
+    else:
+        den = auto_den_graph(c.den_graph, pad_to=32, device=dev)
+    return c, cfg, batches, den
+
+
+def _train(step, den, batches, n):
+    out = []
+    for i in range(n):
+        feats, sup = batches[i % 2]
+        out.append({k: float(v) for k, v in step(feats, den, sup).items()})
+    return out
+
+
+#: the port's kernels, by their device names (`_device_launches`)
+PORT_KERNELS = ("den_fwd_kernel", "den_bwd_kernel", "steady_fwd_kernel", "steady_bwd_kernel",
+                "vocab_gather_kernel", "vocab_scatter_kernel", "attn_fwd_kernel",
+                "attn_bwd_rows_kernel", "attn_bwd_cols_kernel", "dbias_reduce_kernel",
+                "ffn_fwd_kernel", "ffn_bwd_rows_kernel", "ffn_bwd_weights_kernel",
+                "e2e_fwd_kernel", "e2e_bwd_kernel", "dense_fwd_kernel", "dense_bwd_kernel")
+
+
+@pytest.mark.parametrize("sup_kind,model_kind", [
+    ("standard", "tdnnf"), ("e2e", "tdnnf"), ("dense", "tdnnf"), ("standard", "conformer")])
+def test_captured_step_replays_the_eager_step(dev, sup_kind, model_kind):
+    """Captured on batch A, replayed on A, B, A, B, A: the eager step's
+    metrics (float32 trunk: step 1 rel 1e-6, later 1e-4; bf16: 1e-5, 1e-3)
+    and its launch counts."""
+    from torchain_tpu_torch.models import TDNNF, Conformer
+    from torchain_tpu_torch.ops import ChainLossOptions
+    from torchain_tpu_torch.train import create_train_state, make_train_step
+
+    c, cfg, batches, den = _captured_case(dev, sup_kind, model_kind)
+    cls = Conformer if model_kind == "conformer" else TDNNF
+    model = cls(cfg, c.feat_dim, device=dev, generator=torch.Generator().manual_seed(0))
+    state = create_train_state(model, capturable=True)
+    opts = ChainLossOptions(**CAPTURE_OPTS)
+    eager = make_train_step(state, opts)
+    captured = make_train_step(state, opts, capture=True)
+    init = captured.snapshot()
+    captured.capture(batches[0][0], den, batches[0][1])
+    assert captured.pool_bytes is not None and captured.capture_s > 0
+    captured.restore(init)
+    want = _train(eager, den, batches, 5)
+    captured.restore(init)
+    state.step = 0
+    got = _train(captured, den, batches, 5)
+    assert state.step == 5
+    rtol1, rtol = (1e-5, 1e-3) if model_kind == "conformer" else (1e-6, 1e-4)
+    for i, (g, w) in enumerate(zip(got, want)):
+        for k in ("loss", "objf", "grad_norm"):
+            assert math.isclose(g[k], w[k], rel_tol=rtol1 if i == 0 else rtol), (i, k, g, w)
+    assert got[-1]["loss"] < got[0]["loss"]
+    # a replay runs no Python: its launches are read from a trace
+    n = {mode: {k: v for k, v in _device_launches(lambda: _train(step, den, batches, 5)).items()
+                if k in PORT_KERNELS}
+         for mode, step in (("eager", eager), ("captured", captured))}
+    assert n["captured"] == n["eager"]
+    assert n["eager"].get("den_bwd_kernel", 0) == (0 if sup_kind == "dense" else 5)
+
+
+def test_captured_step_refuses_another_shape_or_graph(dev):
+    from torchain_tpu_torch.models import TDNNF
+    from torchain_tpu_torch.ops import ChainLossOptions
+    from torchain_tpu_torch.train import create_train_state, make_train_step
+
+    c, cfg, batches, den = _captured_case(dev, "standard", "tdnnf")
+    state = create_train_state(TDNNF(cfg, c.feat_dim, device=dev), capturable=True)
+    step = make_train_step(state, ChainLossOptions(**CAPTURE_OPTS), capture=True)
+    step(batches[0][0], den, batches[0][1])
+    feats, sup = batches[1]
+    with pytest.raises(ValueError, match="sup.arcs_k"):
+        step(feats, den, sup.with_kernel_tables(L_cap=sup.arcs_k.shape[1] + 1))
+    with pytest.raises(ValueError, match="den"):
+        step(feats, auto_den_graph(c.den_graph, pad_to=32, device=dev), sup)
+    with pytest.raises(ValueError, match="capturable=True"):
+        make_train_step(create_train_state(TDNNF(cfg, c.feat_dim, device=dev)),
+                        ChainLossOptions(**CAPTURE_OPTS), capture=True)
+
+
+def test_capturable_adam_steps_like_the_default(dev):
+    """Five eager steps with Adam(capturable=True) and with the default,
+    from the same weights: float32 rounding apart."""
+    from torchain_tpu_torch.models import TDNNF
+    from torchain_tpu_torch.ops import ChainLossOptions
+    from torchain_tpu_torch.train import create_train_state, make_train_step
+
+    c, cfg, batches, den = _captured_case(dev, "standard", "tdnnf")
+    runs = []
+    for capturable in (True, False):
+        model = TDNNF(cfg, c.feat_dim, device=dev, generator=torch.Generator().manual_seed(0))
+        step = make_train_step(create_train_state(model, capturable=capturable),
+                               ChainLossOptions(**CAPTURE_OPTS))
+        runs.append(_train(step, den, batches, 5))
+    for a, b in zip(*runs):
+        for k in ("loss", "grad_norm"):
+            assert math.isclose(a[k], b[k], rel_tol=1e-5), (k, a, b)

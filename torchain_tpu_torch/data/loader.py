@@ -415,6 +415,19 @@ class ChainDataset:
             r(mst, 4),
         )
 
+    def estimate_live_arcs(self) -> int:
+        """The most live steady arcs (frames >= 1) of any chunk's compiled
+        supervision: the `L_cap` of `DeviceSupervision.with_kernel_tables`
+        that gives every batch of a run one live-arc list shape, as a
+        captured train step needs.  Compiles the supervisions as
+        `estimate_sup_caps` does (cached)."""
+        need = 1
+        for ci in range(len(self.chunks)):
+            sup = self._sup_of(ci)
+            if sup is not None:
+                need = max(need, int((sup.in_src[1:] >= 0).sum()))
+        return need
+
     def batches(
         self,
         batch_size: int,
@@ -612,9 +625,32 @@ class E2eChainDataset:
                     sup = compile_e2e_supervision(fst, t_out, self.tree.num_pdfs)
                 except ValueError:
                     sup = None
+        if sup is None:  # counted once: a dropped utterance is cached too
+            self.num_dropped += 1
         if len(self._sup_cache) < self.sup_cache_size:
             self._sup_cache[ui] = sup
         return sup
+
+    def _sups(self):
+        """Every utterance's compiled supervision that is kept (cached)."""
+        for ui in range(len(self.utts)):
+            sup = self._sup_of(ui)
+            if sup is not None:
+                yield sup
+
+    def estimate_e2e_caps(self) -> tuple[int, int, int, int]:
+        """(states, arcs, per-sequence vocabulary width rounded to 8, live
+        arcs) over every utterance's compiled supervision: with `caps` this
+        tuple, `batches(sup_caps=caps)`, `DeviceE2eSupervision.from_host(...,
+        vocab_cap=caps[2])` and `with_kernel_tables(L_cap=caps[3])` give
+        every batch of a run one shape, as a captured train step needs."""
+        ms = ma = mv = ml = 1
+        for sup in self._sups():
+            live = sup.in_src >= 0
+            ms, ma = max(ms, sup.max_states), max(ma, sup.max_arcs)
+            mv = max(mv, len(np.unique(sup.in_pdf[live])))
+            ml = max(ml, int(live.sum()))
+        return ms, ma, -(-mv // 8) * 8, ml
 
     def batches(
         self,
@@ -625,7 +661,12 @@ class E2eChainDataset:
         num_threads: int = 0,  # accepted for ChainDataset API parity;
         # e2e batches stack cached per-utterance supervisions, so the
         # threaded batch assembly has nothing to parallelize here
+        sup_caps: tuple[int, ...] | None = None,
     ):
+        """Yield ChainBatch objects of whole utterances.  `sup_caps`
+        (`estimate_e2e_caps()`: its states and arcs) fixes the supervision
+        padding; a sequence beyond it raises."""
+        pad_s, pad_k = sup_caps[:2] if sup_caps else (None, None)
         rng = (
             np.random.default_rng((self.seed, epoch)) if epoch is not None else self.rng
         )
@@ -636,11 +677,8 @@ class E2eChainDataset:
         feats_buf, sups_buf = [], []
         for ui in order:
             utt = self.utts[ui]
-            first_visit = ui not in self._sup_cache
             sup = self._sup_of(ui)
             if sup is None:
-                if first_visit:  # count each dropped utterance once
-                    self.num_dropped += 1
                 continue
             t0 = -self.left_context
             t1 = t_out * self.fsf + self.right_context
@@ -650,13 +688,13 @@ class E2eChainDataset:
             if len(sups_buf) == batch_size:
                 yield ChainBatch(
                     feats=np.stack(feats_buf).astype(np.float32),
-                    sup=pad_and_stack_e2e(sups_buf),
+                    sup=pad_and_stack_e2e(sups_buf, pad_s, pad_k),
                 )
                 feats_buf, sups_buf = [], []
         if feats_buf and not drop_last:
             yield ChainBatch(
                 feats=np.stack(feats_buf).astype(np.float32),
-                sup=pad_and_stack_e2e(sups_buf),
+                sup=pad_and_stack_e2e(sups_buf, pad_s, pad_k),
             )
 
 

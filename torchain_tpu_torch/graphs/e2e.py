@@ -146,7 +146,11 @@ def compile_e2e_supervision(
     )
 
 
-def pad_and_stack_e2e(sups: list[E2eSupervision]) -> E2eSupervision:
+def pad_and_stack_e2e(sups: list[E2eSupervision], pad_states_to: int | None = None,
+                      pad_arcs_to: int | None = None) -> E2eSupervision:
+    """One batch [B, S, K] of the sequences' tables, padded to the batch's
+    most states and arcs, or to `pad_states_to` and `pad_arcs_to` where
+    given (a sequence beyond them raises)."""
     if not sups:
         raise ValueError("no supervisions")
     T = sups[0].num_frames
@@ -154,6 +158,10 @@ def pad_and_stack_e2e(sups: list[E2eSupervision]) -> E2eSupervision:
         raise ValueError("all sequences in a batch must share num_frames")
     S = max(s.max_states for s in sups)
     K = max(s.max_arcs for s in sups)
+    for name, need, cap in (("states", S, pad_states_to), ("arcs", K, pad_arcs_to)):
+        if cap is not None and need > cap:
+            raise ValueError(f"a sequence needs {need} {name}, more than the cap {cap}")
+    S, K = pad_states_to or S, pad_arcs_to or K
     B = len(sups)
     P = sups[0].num_pdfs
     in_src = np.full((B, S, K), -1, dtype=np.int32)

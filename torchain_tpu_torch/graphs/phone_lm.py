@@ -199,3 +199,22 @@ def estimate_phone_lm(
     out.debruijn_compatible = truncation
     out.ngram_order = order
     return out
+
+
+def lm_log_prob(lm: Fst, sentence: list[int]) -> float:
+    """Score one sentence under the LM (for tests/diagnostics).  Follows the
+    deterministic arc for each phone; returns -inf if a phone is impossible."""
+    state = 0
+    logp = 0.0
+    for w in sentence:
+        nxt = [a for a in lm.arcs(state) if a.label == w]
+        if not nxt:
+            return float("-inf")
+        # hard-backoff LMs are deterministic: at most one arc per label
+        if len(nxt) != 1:
+            raise ValueError("phone LM must be deterministic")
+        logp += nxt[0].weight
+        state = nxt[0].dst
+    if not lm.is_final(state):
+        return float("-inf")
+    return logp + lm.final(state)

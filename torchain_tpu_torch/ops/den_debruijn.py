@@ -25,7 +25,7 @@ gathers strided slices of y, or a one-hot product where the tree's group
 map is not affine.  Every product runs in full float32: the JAX package
 contracts at `Precision.HIGHEST` (a product in bfloat16 or TF32 breaks the
 occupancies' sum to one), so this module turns TF32 off around its own
-products (`_full_float32`) whatever the caller's setting.
+products (`full_float32`) whatever the caller's setting.
 """
 
 from __future__ import annotations
@@ -43,7 +43,7 @@ NEG_BIG = -1e30  # "log zero" that exps to exactly 0.0 without inf-inf NaNs
 
 
 @contextlib.contextmanager
-def _full_float32():
+def full_float32():
     """float32 products at full precision (no TF32), restored after."""
     prev = torch.get_float32_matmul_precision()
     torch.set_float32_matmul_precision("highest")
@@ -271,7 +271,7 @@ def den_forward(
     a, l = a / k0[:, None], l / k0[:, None]
     As, Ls = y.new_empty((T, B, C)), y.new_empty((T, B, C))
     logks, mts = y.new_empty((T, B)), y.new_empty((T, B))
-    with _full_float32():
+    with full_float32():
         for t in range(T):
             As[t], Ls[t] = a, l
             p0, p1, mts[t] = _pdf_probs(y[:, t], g)
@@ -312,7 +312,7 @@ def den_backward(
     ba = torch.exp(-logks[-1])[:, None].expand(B, C)  # 1/kappa_T
     bl = ba
     gamma = y.new_empty((B, T, P))
-    with _full_float32():
+    with full_float32():
         for t in range(T - 1, -1, -1):
             ta, tl = _leak_t(ba, bl, g, leaky)  # btilde
             v = e_end * ta + e_cont * tl  # [B, C] the destination-side factor

@@ -370,15 +370,16 @@ class DeviceSupervision:
     def to(self, device) -> "DeviceSupervision":
         return _to_device(self, device)
 
-    def with_kernel_tables(self) -> "DeviceSupervision":
+    def with_kernel_tables(self, L_cap: int | None = None) -> "DeviceSupervision":
         """A copy that also carries the live-arc list K3 and K4 read,
         prepared once when the batch is placed so that a replayed batch pays
         nothing per step (sizing the list syncs with the device once, here).
-        The int64 tables stay for the plain path."""
+        The int64 tables stay for the plain path.  `L_cap` fixes the list's
+        width for a run (`kernel_tables`)."""
         if self.in_src_r.shape[1] == 0:
             return self
         arc_off_k, arcs_k, dst_off_k = kernel_tables(
-            self.in_src_r, self.pdf_local_r, self.in_logw_r
+            self.in_src_r, self.pdf_local_r, self.in_logw_r, L_cap=L_cap
         )
         return dataclasses.replace(self, arc_off_k=arc_off_k, arcs_k=arcs_k, dst_off_k=dst_off_k)
 

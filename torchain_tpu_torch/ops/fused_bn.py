@@ -121,7 +121,7 @@ class _BrbTrain(torch.autograd.Function):
         xp = x + cb.to(x.dtype)
         h = torch.clamp(xp, min=0)
         dh, dscale, dbias = _bwd_core(h, mean, rstd, sf32, dy, ctx.n, ctx.mesh)
-        dx = torch.where(xp > 0, dh, torch.zeros((), dtype=x.dtype))
+        dx = torch.where(xp > 0, dh, 0.0)
         dcb = torch.sum(dx, dim=tuple(range(x.dim() - 1)), dtype=torch.float32)
         dbyp = rounded_scalar(ctx.bypass_scale, dy.dtype) * dy if ctx.has_byp else None
         return dx, dcb, dscale, dbias, dbyp, None, None

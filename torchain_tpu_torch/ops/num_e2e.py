@@ -11,13 +11,17 @@ over time, so the recursions carry only [B, S] state vectors.
     [B, Pv]; y -> ysmall [B, T, Pv] is one gather;
   * each arc's local pdf id expands ysmall to per-arc emissions ylocal
     [B, T, S, K] (a second gather), which both passes share;
-  * the per-arc posteriors are summed back to vocabulary space and then to
-    pdf space (two `scatter_add_`).
+  * the per-arc posteriors are summed back to vocabulary space (one
+    product with the arcs' one-hot vocabulary slots) and then to pdf space
+    (a `scatter_add_` of distinct slots).
 
 The JAX package writes these four index operations as one-hot matrix
 products because its accelerator gathers badly; they are outside its
-kernels, so here they are plain PyTorch indexing, and exact.  The
-recursions are ops/num_resident.py `e2e_forward_resident` (K8f) and
+kernels, so here the gathers are plain PyTorch indexing, and exact.  The
+sum over arcs stays a product (float32, TF32 off): a `scatter_add_` of many
+arcs into one slot sums in the order its atomic adds land on the card,
+which changes from run to run, and Adam turns that into other parameters a
+few steps later.  The recursions are ops/num_resident.py `e2e_forward_resident` (K8f) and
 `e2e_backward_resident` (K8b): kernels on CUDA tensors, their plain
 versions on CPU tensors, and no switch between forms.
 """
@@ -32,17 +36,21 @@ import torch
 from torchain_tpu_torch.graphs.e2e import E2eSupervision
 from torchain_tpu_torch.graphs.supervision import _frame_vocab_tables
 from torchain_tpu_torch.ops import num_resident
+from torchain_tpu_torch.ops.den_debruijn import full_float32
 from torchain_tpu_torch.ops.device_graphs import _to_device
 
 NEG_INF = float("-inf")
 
 
-def _seq_vocab_tables(in_src, in_pdf, round_to=8):
+def _seq_vocab_tables(in_src, in_pdf, round_to=8, pad_to=None):
     """Per-sequence pdf vocabulary: returns (vocab [B, Pv] int32 0-padded,
     pdf_local [B, S, K] int32 indices into vocab, 0 for pad arcs).  The
     per-frame tables of the standard supervision, for one "frame" that
-    holds the whole time-constant graph."""
-    vocab, local = _frame_vocab_tables(in_src[:, None], in_pdf[:, None], round_to=round_to)
+    holds the whole time-constant graph.  Pv is the most distinct pdfs of
+    a sequence rounded up to `round_to`, or `pad_to` where given (a batch
+    that needs more raises)."""
+    vocab, local = _frame_vocab_tables(in_src[:, None], in_pdf[:, None], round_to=round_to,
+                                       pad_to=pad_to)
     return vocab[:, 0], local[:, 0]
 
 
@@ -77,24 +85,30 @@ class DeviceE2eSupervision:
             moved.kernel_pre = tuple(x.to(device) for x in self.kernel_pre)
         return moved
 
-    def with_kernel_tables(self) -> "DeviceE2eSupervision":
+    def with_kernel_tables(self, L_cap: int | None = None) -> "DeviceE2eSupervision":
         """A copy that also carries the tables in the kernels' types and the
         by-source order of each sequence's arcs, prepared once when the
-        batch is placed so that a replayed batch pays nothing per step."""
+        batch is placed so that a replayed batch pays nothing per step.
+        `L_cap` fixes the lists' width for a run (`e2e_kernel_tables`)."""
         return dataclasses.replace(
-            self, kernel_pre=num_resident.e2e_kernel_tables(self.in_src, self.in_logw)
+            self, kernel_pre=num_resident.e2e_kernel_tables(self.in_src, self.in_logw, L_cap)
         )
 
     @staticmethod
-    def from_host(s: E2eSupervision, device="cuda") -> "DeviceE2eSupervision":
+    def from_host(s: E2eSupervision, device="cuda",
+                  vocab_cap: int | None = None) -> "DeviceE2eSupervision":
         """From a batched (pad_and_stack_e2e) or single supervision; a
-        single one gets a leading batch dim of 1."""
+        single one gets a leading batch dim of 1.  The vocabulary's width
+        is `vocab_cap` where given (a run's one width: `E2eChainDataset.
+        estimate_e2e_caps`; a sequence that needs more raises), else the
+        batch's own."""
         in_src = s.in_src if s.in_src.ndim == 3 else s.in_src[None]
         in_pdf = s.in_pdf if s.in_pdf.ndim == 3 else s.in_pdf[None]
         in_logw = s.in_logw if s.in_logw.ndim == 3 else s.in_logw[None]
         final = s.final_logw if s.final_logw.ndim == 2 else s.final_logw[None]
         B = in_src.shape[0]
-        vocab, pdf_local = _seq_vocab_tables(np.asarray(in_src), np.asarray(in_pdf))
+        vocab, pdf_local = _seq_vocab_tables(np.asarray(in_src), np.asarray(in_pdf),
+                                             pad_to=vocab_cap)
 
         def t(a, dtype):
             return torch.as_tensor(np.ascontiguousarray(a)).to(device=device, dtype=dtype)
@@ -158,7 +172,6 @@ def e2e_backward(
     """Returns gamma [B, T, P] = d(log_prob)/dy; zero for sequences whose
     log_prob is not finite."""
     B, T, P = y.shape
-    S, K = sup.in_src.shape[1:]
     if ylocal is None:
         ylocal = _arc_emissions(y, sup)
     post = num_resident.e2e_backward_resident(
@@ -166,9 +179,20 @@ def e2e_backward(
         pre=sup.kernel_pre,
     )  # [B, T, S, K], exactly 0 on pad arcs
     # to vocabulary space, then to pdf space.  Pad vocabulary slots repeat
-    # pdf 0 but no arc refers to them, so they carry exactly 0
+    # pdf 0 but no arc refers to them, so they carry exactly 0 and the
+    # scatter's order does not matter
     Pv = sup.vocab.shape[-1]
-    index = sup.pdf_local.reshape(B, 1, S * K).expand(B, T, S * K)
-    gamma_small = post.new_zeros((B, T, Pv)).scatter_add_(2, index, post.view(B, T, S * K))
+    gamma_small = arcs_to_vocab(post, sup.pdf_local, Pv)
     vocab = sup.vocab[:, None, :].expand(B, T, Pv)
     return post.new_zeros((B, T, P)).scatter_add_(2, vocab, gamma_small)
+
+
+def arcs_to_vocab(post: torch.Tensor, pdf_local: torch.Tensor, Pv: int) -> torch.Tensor:
+    """Arc posteriors post [B, T, S, K] summed into each sequence's
+    vocabulary slots (pdf_local [B, S, K]): [B, T, Pv].  A product with each
+    arc's one-hot slot, float32 with TF32 off: one sum order, run after run
+    (a pad arc's zero posterior adds 0)."""
+    B, T, S, K = post.shape
+    onehot = post.new_zeros((B, S * K, Pv)).scatter_(2, pdf_local.reshape(B, S * K, 1), 1.0)
+    with full_float32():
+        return torch.bmm(post.view(B, T, S * K), onehot)

@@ -81,7 +81,20 @@ def backward_step(beta, ysm, src, lpdf, logw, alpha_t, log_p):
     return prev, gsm
 
 
-def kernel_tables(src, lpdf, logw):
+def _live_cap(need: int, L_cap: int | None, what: str) -> int:
+    """The list width: `need` (the longest list, at least 1), or `L_cap`
+    where given, which fixes the width over a run's batches; a batch that
+    needs more raises rather than losing arcs."""
+    if L_cap is None:
+        return max(1, need)
+    if L_cap < 1:
+        raise ValueError(f"{what}: L_cap must be at least 1, got {L_cap}")
+    if need > L_cap:
+        raise ValueError(f"{what}: a sequence has {need} live arcs, more than L_cap {L_cap}")
+    return L_cap
+
+
+def kernel_tables(src, lpdf, logw, L_cap: int | None = None):
     """The steady tables as K3 and K4 read them, from src, lpdf (any integer
     dtype, src -1 = pad) and logw, each [B, T-1, S, Kr]:
 
@@ -89,15 +102,18 @@ def kernel_tables(src, lpdf, logw):
         sequence's list, and (last column) one past the list's end (K4);
       arcs int32 [B, L, 4]: each sequence's live slots (src >= 0), frame by
         frame in slot order, as (src, dst = slot // Kr, lpdf, logw's float32
-        bits); L is the longest list of the batch, at least 1, and a shorter
-        list ends in zeros (K3, K4);
+        bits); L is the longest list of the batch, at least 1, or `L_cap`
+        where given (a batch over it raises), and a shorter list ends in
+        zeros, which the kernels never read (K3, K4);
       dst_off int32 [B, T-1, S+1]: where the run of each destination state
         (its in-arcs: slot order is destination order) of each frame starts
         in its sequence's list, and (last column) one past the frame's last
         record (K3).
 
-    Sizing the list reads one number back to the host (a sync): call it
-    where a batch is placed, not inside a step."""
+    Sizing (or checking) the list reads one number back to the host (a
+    sync): call it where a batch is placed, not inside a step.  `L_cap`
+    gives every batch of a run one shape, as a captured step needs
+    (`data.ChainDataset.estimate_live_arcs`)."""
     src32 = src.to(torch.int32)
     B, Tm1, S, Kr = src32.shape
     A = S * Kr
@@ -109,7 +125,7 @@ def kernel_tables(src, lpdf, logw):
     dst_off[:, 1:, 0] = ends[:, :-1, -1]
     arc_off = torch.zeros((B, Tm1 + 1), device=src.device, dtype=torch.int32)
     arc_off[:, 1:] = ends[:, :, -1]
-    L = max(1, int(arc_off[:, -1].max())) if B else 1
+    L = _live_cap(int(arc_off[:, -1].max()) if B else 1, L_cap, "kernel_tables")
     dst = torch.arange(S, device=src.device, dtype=torch.int32).repeat_interleave(Kr)
     rec = torch.stack(
         [src32.reshape(B, Tm1, A), dst.expand(B, Tm1, A),
@@ -363,7 +379,7 @@ steady_backward.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def e2e_kernel_tables(src: torch.Tensor, logw: torch.Tensor):
+def e2e_kernel_tables(src: torch.Tensor, logw: torch.Tensor, L_cap: int | None = None):
     """The tables of one batch as K8f/K8b read them, from src [B, S, K] (any
     integer dtype, -1 = pad) and logw [B, S, K]:
 
@@ -376,13 +392,15 @@ def e2e_kernel_tables(src: torch.Tensor, logw: torch.Tensor):
         by source state, slot order within one source, and where each
         source's run starts (K8b; the tail of a shorter list is unused).
 
-    L is the most live slots of any sequence, at least 1.  Sizing the lists
-    reads one number back to the host (a sync): call it where a batch is
-    placed, not inside a step."""
+    L is the most live slots of any sequence, at least 1, or `L_cap` where
+    given (a batch over it raises; `data.E2eChainDataset.
+    estimate_e2e_caps()[3]`).  Sizing (or checking) the lists reads one number
+    back to the host (a sync): call it where a batch is placed, not inside
+    a step."""
     B, S, K = src.shape
     src32 = src.to(torch.int32).contiguous()
     live = (src32 >= 0).reshape(B, S * K)
-    L = max(1, int(live.sum(1).max())) if B else 1
+    L = _live_cap(int(live.sum(1).max()) if B else 1, L_cap, "e2e_kernel_tables")
     in_off = torch.zeros((B, S + 1), device=src.device, dtype=torch.int32)
     in_off[:, 1:] = torch.cumsum(live.view(B, S, K).sum(-1), 1)
     # each live slot's place in its sequence's list; pads go to column L,
@@ -397,7 +415,9 @@ def e2e_kernel_tables(src: torch.Tensor, logw: torch.Tensor):
     counts.scatter_add_(1, key, torch.ones_like(key))
     by_off = torch.zeros((B, S + 1), device=src.device, dtype=torch.int32)
     by_off[:, 1:] = torch.cumsum(counts[:, :S], 1)
-    by_arc = order[:, :L].to(torch.int32).contiguous()
+    by_arc = torch.zeros((B, L), device=src.device, dtype=torch.int32)
+    n = min(L, S * K)
+    by_arc[:, :n] = order[:, :n]
     return (src32, logw.to(torch.float32).contiguous(), in_off, in_arc[:, :L].contiguous(),
             by_off, by_arc)
 

@@ -21,6 +21,7 @@ import torch
 from torchain_tpu_torch.ops.chain_loss import ChainLossOptions, chain_loss
 from torchain_tpu_torch.parallel.mesh import all_reduce_tensors_, data_parallel
 from torchain_tpu_torch.parallel.sharding import model_grad_sums, squared_norms
+from torchain_tpu_torch.train.captured import CapturedStep, check_capturable
 from torchain_tpu_torch.train.state import ChainTrainState
 
 
@@ -70,6 +71,7 @@ def make_train_step(
     max_grad_norm: float = 5.0,
     dropout: bool = False,
     mesh=None,
+    capture: bool = False,
 ):
     """Returns step(feats [B, T_in, F], den, sup) -> metrics, updating
     `state` in place (parameters, optimizer state, batchnorm running
@@ -83,11 +85,20 @@ def make_train_step(
     accumulated gradient).  With `dropout=True` the step takes two more
     arguments, step(feats, den, sup, dropout_rate, generator): the rate a
     float, the masks drawn from the torch.Generator (the JAX step's traced
-    rate and PRNG key)."""
+    rate and PRNG key).
+
+    With `capture=True` the step is one CUDA graph captured on its first
+    call and replayed on every later one (`train.captured.CapturedStep`:
+    the counterpart of the JAX step's one jitted, donated program).  It
+    needs a model on the card, torch's Adam built with capturable=True
+    (`create_train_state(..., capturable=True)`), every batch of one shape
+    (one set of supervision caps and one `L_cap`) and the same `den`; it
+    raises ValueError for a CPU model, a mesh axis larger than 1 or
+    dropout, where the step stays eager."""
     model, opt = state.model, state.optimizer
     params = [p for p in model.parameters() if p.requires_grad]
 
-    def step(feats, den, sup, dropout_rate=None, generator=None) -> dict:
+    def body(feats, den, sup, dropout_rate=None, generator=None) -> dict:
         rate, gen = (dropout_rate, generator) if dropout else (None, None)
         loss, metrics = _grads(model, feats, den, sup, loss_opts, use_xent, rate, gen, mesh)
         grads = [p.grad for p in params]
@@ -96,9 +107,17 @@ def make_train_step(
         else:
             grad_norm = global_norm(grads, params)
         opt.step()
-        state.step += 1
         metrics["loss"] = loss
         metrics["grad_norm"] = grad_norm
+        return metrics
+
+    if capture:
+        check_capturable(state, dropout, mesh)
+        return CapturedStep(state, body)
+
+    def step(feats, den, sup, dropout_rate=None, generator=None) -> dict:
+        metrics = body(feats, den, sup, dropout_rate, generator)
+        state.step += 1
         return metrics
 
     return step
