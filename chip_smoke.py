@@ -54,7 +54,7 @@ Phases, in order; any failure exits non-zero before the last line:
      and (f)'s with (a)'s.  Then each path's step as one captured CUDA
      graph (`check_captured`, `make_train_step(..., capture=True)`): two
      batches A and B of its corpus at one set of supervision caps and one
-     `L_cap`, one model with capturable Adam, captured on A; in each of 3
+     `L_cap`, one model with capturable Adam, captured on A; in each of 2
      rounds 10 eager and 10 captured steps on A, B, A, ... from the same
      initial state, the counters zeroed before each run; the captured
      metrics held to the eager ones (step 1 rel 1e-6, later 1e-4; a
@@ -72,7 +72,23 @@ Phases, in order; any failure exits non-zero before the last line:
      capturable Adam: closed loop, against a control started one float32
      step away, and open loop (capturable Adam fed the default's
      gradients, gated at 1.25 times the gap that computing the bias
-     corrections in float32 makes).  Then (a)'s
+     corrections in float32 makes).  Then the Trainer's steps as captured
+     graphs (`_trainer_round`, `Trainer(TrainerConfig(capture=True))`): on
+     (a) at full width and depth and on (c) at full width and 4 of its 8
+     blocks, `Trainer.fit` for 12 steps of the recipe chain (LR 1e-3 ->
+     1e-4 over 20 updates, clip 5.0, max-change 0.75 and 2.0, accumulation
+     2, backstitch 0.3 every 4th step, the semi-orthogonal constraint every
+     4th) from one initial state, eagerly and captured, both on the same
+     batches placed once: the captured run's metrics held to the eager
+     run's (the gates above), its final parameters, capture seconds and
+     pool bytes, 4 more steps of each mode timed on the live loader and on
+     the placed batches (host ms between steps, wall ms a step) and 2
+     traced (launches a step, the port's kernels by device name: the
+     eager trace held to its counters, the captured to the eager, this
+     path's only), and on (a) `evaluate` over 4 batches eager and captured
+     (rel 1e-6; captured on the live loader bit for bit) and a round with
+     dropout 0.1 in place of backstitch (the captured masks against the
+     eager ones).  Then (a)'s
      model and batch on the forms
      `auto_den_graph` falls through to where the slot-dense one does not
      fit (its fit test made to refuse it: the fused dense Moore form; the
@@ -1755,10 +1771,11 @@ def _patched(module, **attrs):
 
 
 #: the captured phase (`check_captured`): rounds of eager and captured runs
-#: in turn; the gates of the captured step's metrics against the eager
-#: step's on the same batches, by the path's trunk dtype: step 1, then every
-#: later step (the same kernels in the same order: equal bits expected)
-CAPTURED_ROUNDS = 3
+#: in turn (two, for the script's time limit); the gates of the captured
+#: step's metrics against the eager step's on the same batches, by the
+#: path's trunk dtype: step 1, then every later step (the same kernels in
+#: the same order: equal bits expected)
+CAPTURED_ROUNDS = 2
 CAPTURED_RTOL = {"float32": (1e-6, 1e-4), "bfloat16": (1e-5, 1e-3)}
 CAPTURED_KEYS = ("loss", "objf", "grad_norm")
 #: steps of each traced run of the captured phase, on A, B (the trace's
@@ -2127,14 +2144,245 @@ def _captured_path(path: str, args, smi: str) -> tuple[dict, dict]:
     return out, launches
 
 
+#: the Trainer round's recipe chain (`_trainer_round`)
+TRAINER_CHAIN = dict(lr=1e-3, lr_final=1e-4, lr_decay_steps=20, grad_clip=5.0,
+                     max_change_per_component=0.75, max_param_change=2.0, grad_accum_steps=2,
+                     backstitch_scale=0.3, backstitch_interval=4, semi_ortho_every=4)
+#: `fit` steps of each run, then of the timed and the traced turns
+TRAINER_STEPS, TRAINER_TIMED, TRAINER_TRACED = 12, 4, 2
+#: batches of the captured `evaluate` (B / 2: the trigram path's 256 chunks)
+TRAINER_EVAL_BATCHES = 4
+#: the Trainer rounds: (path, dropout)
+TRAINER_ROUNDS = (("trigram", False), ("conformer", False), ("trigram", True))
+#: the conformer round's blocks (of its 8: the round's share of the script's
+#: time limit)
+TRAINER_CONFORMER_LAYERS = 4
+
+
+def _trainer(path: str, args, mode: str, dropout: bool):
+    """A Trainer on the path's model (the seed's weights) and den, with the
+    recipe chain: `mode` "eager" or "captured"; with `dropout`, dropout
+    0.1 in place of backstitch (the two exclusive); a conformer at
+    TRAINER_CONFORMER_LAYERS blocks."""
+    from torchain_tpu_torch.ops import ChainLossOptions
+    from torchain_tpu_torch.train import Trainer, TrainerConfig
+
+    corpus, cfg, _, den = _PATH_DATA[path]
+    if PATHS[path]["model"] == "conformer":
+        cfg = dataclasses.replace(cfg, num_layers=TRAINER_CONFORMER_LAYERS)
+    kw = dict(TRAINER_CHAIN, **(dict(backstitch_scale=0.0, dropout_schedule="0.1")
+                                if dropout else {}))
+    tcfg = TrainerConfig(batch_size=B, num_epochs=10**4, log_every=1, device="cuda",
+                         loss=ChainLossOptions(l2_regularize=5e-4, leaky_hmm_coefficient=0.1,
+                                               xent_regularize=0.1),
+                         capture=mode == "captured", **kw)
+    return Trainer(make_model(cfg, corpus.feat_dim, "cuda", args.seed), den, tcfg)
+
+
+class _PlacedRun:
+    """The path's batches of `batch_size` placed once on the card at the
+    run's one shape (`estimate_sup_caps`, `estimate_live_arcs`, as a
+    captured Trainer places them), given to `Trainer.fit` and `evaluate`
+    in order: the eager and the captured run read the same inputs, and
+    the steps run without the live loader."""
+
+    def __init__(self, dataset, batch_size: int, drop_last: bool = True):
+        import torch
+
+        from torchain_tpu_torch.data.materialize import PlacedBatch
+        from torchain_tpu_torch.ops import DeviceSupervision
+
+        self.caps, self.L = dataset.estimate_sup_caps(), dataset.estimate_live_arcs()
+        self.items = [PlacedBatch(torch.as_tensor(b.feats, device="cuda"),
+                                  DeviceSupervision.from_host(b.sup, device="cuda")
+                                  .with_kernel_tables(L_cap=self.L))
+                      for b in dataset.batches(batch_size, shuffle=False, drop_last=drop_last,
+                                               sup_caps=self.caps)]
+
+    def estimate_sup_caps(self):
+        return self.caps
+
+    def estimate_live_arcs(self):
+        return self.L
+
+    def batches(self, batch_size, **kw):
+        yield from self.items
+
+
+def _more_steps(tr, dataset, n: int) -> None:
+    """`n` more `fit` steps (a new `fit` starts again at the first batch)."""
+    tr.fit(dataset, log_fn=lambda *_: None, max_steps=tr.state.step + n)
+
+
+def _trainer_round(path: str, dropout: bool, args, smi: str) -> tuple[dict, dict]:
+    """`Trainer.fit` on the path for TRAINER_STEPS steps from one initial
+    state, eagerly and captured, both on the same batches placed once
+    (`_PlacedRun`).  Each run's counters are zeroed just before it and read
+    just after; a replay moves none, so the captured run's launches are
+    those of a trace of TRAINER_TRACED more steps, by device name, held as
+    `_captured_path` holds them: the eager trace's launches against that
+    run's counters, the captured trace's against the eager trace's at the
+    same steps (traces that lost events are taken once more, both modes
+    together), this path's kernels only.  Gates: the captured run against
+    the eager one (CAPTURED_RTOL), no graph captured after the first run
+    (the captured Trainer's own placement on the live loader gives the
+    placed batches' shape), and on the trigram round `evaluate` over
+    TRAINER_EVAL_BATCHES placed batches eager and captured within rel
+    1e-6, and captured on the live loader bit for bit.  Returns the
+    numbers and the launches by run."""
+    import gc
+
+    import torch
+
+    t_round = time.perf_counter()
+    corpus, cfg, dataset, den = _PATH_DATA[path]
+    dtype = PATHS[path]["dtype"]
+    label = f"{path}_dropout" if dropout else path
+    placed = _PlacedRun(dataset, B)
+    trainers, runs, launches = {}, {}, {}
+    for mode in ("eager", "captured"):
+        for fn in counters().values():
+            fn.launches = 0
+        tr = _trainer(path, args, mode, dropout)
+        t0 = time.perf_counter()
+        tr.fit(placed, log_fn=lambda *_: None, max_steps=TRAINER_STEPS)
+        torch.cuda.synchronize()
+        trainers[mode] = tr
+        runs[mode] = dict(fit_s=time.perf_counter() - t0,
+                          metrics=[{k: m[k] for k in CAPTURED_KEYS} for m in tr.metrics_log],
+                          params=[p.detach().clone() for p in tr.model.parameters()])
+        if mode == "eager":
+            launches[f"trainer_{label}_eager"] = {k: fn.launches for k, fn in counters().items()}
+    e, c = runs["eager"], runs["captured"]
+    rtol1, rtol = CAPTURED_RTOL[dtype]
+    rel = _worst_rel(c["metrics"], e["metrics"])
+    param_dmax = max(float((a - b).abs().max()) for a, b in zip(c["params"], e["params"]))
+    cap = trainers["captured"]
+    graphs = cap.graphs
+    out = dict(steps=TRAINER_STEPS, rtol=[rtol1, rtol], step1_rel=rel[0],
+               later_rel_max=max(rel[1:]), metrics_bits_equal=c["metrics"] == e["metrics"],
+               params_bits_equal=param_dmax == 0.0, params_max_abs_diff=param_dmax,
+               updates=cap.state.optimizer.count,
+               graphs=sorted(str(k[:2]) if isinstance(k, tuple) else k for k in graphs),
+               capture_s=sum(g.capture_s for g in graphs.values()),
+               pool_bytes=sum(g.pool_bytes for g in graphs.values()),
+               fit_s={m: r["fit_s"] for m, r in runs.items()},
+               eager_losses=[m["loss"] for m in e["metrics"]],
+               captured_losses=[m["loss"] for m in c["metrics"]])
+    # timed turns on the live loader and on the placed batches; the graphs
+    # made, no flush a step
+    for mode in ("eager", "captured"):
+        tr = trainers[mode]
+        tr.cfg.log_every = 10**6
+        for source, data in (("live", dataset), ("placed", placed)):
+            tr.timings["step_s"].clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _more_steps(tr, data, TRAINER_TIMED)
+            torch.cuda.synchronize()
+            out[f"{mode}_{source}_wall_ms"] = (time.perf_counter() - t0) * 1e3 / TRAINER_TIMED
+            out[f"{mode}_{source}_step_ms"] = tr.step_ms()
+    # traced turns of both modes at the same steps: the eager trace held to
+    # its counters, the captured trace to the eager trace
+    for attempt in range(2):
+        traced = {}
+        for mode in ("eager", "captured"):
+            for fn in counters().values():
+                fn.launches = 0
+            prof = _trace(lambda tr=trainers[mode]: _more_steps(tr, placed, TRAINER_TRACED),
+                          TRAINER_TRACED)
+            want = ({k: fn.launches for k, fn in counters().items()} if mode == "eager"
+                    else traced["eager"]["port_launches"])
+            traced[mode] = dict(prof, want=want)
+        if all(t["port_launches"] == t["want"] for t in traced.values()):
+            break
+        _log(f"  trainer {label}: traced launches"
+             f" {json.dumps({m: t['port_launches'] for m, t in traced.items()})} against"
+             f" {json.dumps({m: t['want'] for m, t in traced.items()})} (attempt {attempt + 1})")
+    for mode, prof in traced.items():
+        out[f"{mode}_profile"] = {k: prof[k] for k in (
+            "wall_ms", "device_busy_ms", "idle_share", "kernel_launches", "host_launches",
+            "port_launches")}
+    launches[f"trainer_{label}_captured"] = traced["captured"]["port_launches"]
+    if len(cap.graphs) != len(graphs):
+        raise AssertionError(f"trainer [{label}]: the later steps captured new graphs")
+    must = PATHS[path]["kernels"]
+    for name, n in launches.items():
+        _launch_gate(name, n, must)
+    if path == "trigram" and not dropout:
+        # `evaluate` on the eager run's weights at half the batch: both
+        # modes on TRAINER_EVAL_BATCHES placed batches of the path's
+        # chunks, and the captured one on the live loader
+        cap.model.load_state_dict(trainers["eager"].model.state_dict())
+        held = _PlacedRun(dataset, B // 2, drop_last=False)
+        res = {}
+        for mode, data in (("eager", held), ("captured", held), ("captured_live", dataset)):
+            tr = trainers[mode.split("_")[0]]
+            tr.cfg.batch_size = B // 2
+            t0 = time.perf_counter()
+            r = tr.evaluate(data, max_batches=TRAINER_EVAL_BATCHES)
+            res[mode] = dict(objf=r.objf, tot_objf=r.tot_objf, tot_weight=r.tot_weight,
+                             steps=r.steps, s=time.perf_counter() - t0)
+        eval_rel = abs(res["captured"]["tot_objf"] - res["eager"]["tot_objf"]) / abs(
+            res["eager"]["tot_objf"])
+        live_equal = res["captured_live"]["tot_objf"] == res["captured"]["tot_objf"]
+        out["evaluate"] = dict(res, rel=eval_rel, bits_equal=res["captured"]["tot_objf"]
+                               == res["eager"]["tot_objf"], live_bits_equal=live_equal)
+        _log(f"  trainer {label} evaluate over {res['eager']['steps']} batches: objf eager"
+             f" {res['eager']['objf']:.6g}, captured {res['captured']['objf']:.6g} (rel"
+             f" {eval_rel:.3g}, bits equal {out['evaluate']['bits_equal']}), captured on the"
+             f" live loader bits equal {live_equal}; s eager {res['eager']['s']:.2f}, captured"
+             f" {res['captured']['s']:.2f} (capture included), live"
+             f" {res['captured_live']['s']:.2f}")
+        if not (res["eager"]["steps"] == TRAINER_EVAL_BATCHES and eval_rel <= 1e-6
+                and live_equal):
+            raise AssertionError(f"trainer [{label}]: captured evaluate departs from the eager"
+                                 f" or from its own placement")
+    out["round_s"] = time.perf_counter() - t_round
+    _log(f"trainer {label} ({smi}): {TRAINER_STEPS} fit steps, {out['updates']} updates;"
+         f" captured against eager: step 1 rel {rel[0]:.3g} (gate {rtol1:g}), later"
+         f" {max(rel[1:]):.3g} (gate {rtol:g}), metrics bits equal {out['metrics_bits_equal']},"
+         f" parameters max |diff| {param_dmax:.3g}; {len(graphs)} graphs {out['graphs']},"
+         f" capture {out['capture_s']:.2f} s, pool {out['pool_bytes']} B; round"
+         f" {out['round_s']:.1f} s")
+    for mode in ("eager", "captured"):
+        p = out[f"{mode}_profile"]
+        _log(f"  trainer {label} {mode}: {TRAINER_TIMED} steps each, host ms between steps"
+             f" and wall ms a step: live loader {out[f'{mode}_live_step_ms']:.3f},"
+             f" {out[f'{mode}_live_wall_ms']:.3f}; placed batches"
+             f" {out[f'{mode}_placed_step_ms']:.3f}, {out[f'{mode}_placed_wall_ms']:.3f};"
+             f" traced over {TRAINER_TRACED} placed: wall {p['wall_ms']:.2f} ms, device busy"
+             f" {p['device_busy_ms']:.2f} ms, idle {p['idle_share']:.3f},"
+             f" {p['kernel_launches']} device and {p['host_launches']} host launches a step;"
+             f" the port's kernels {json.dumps({k: v for k, v in p['port_launches'].items() if v})}")
+    if not (math.isfinite(rel[0]) and rel[0] <= rtol1 and max(rel[1:]) <= rtol):
+        raise AssertionError(f"trainer [{label}]: the captured steps depart from the eager"
+                             f" ones (step 1 {rel[0]:.3g}, later {max(rel[1:]):.3g})")
+    for mode, prof in traced.items():
+        if prof["port_launches"] != prof["want"]:
+            raise AssertionError(f"trainer [{label}]: {mode}'s traced launches"
+                                 f" {prof['port_launches']} against {prof['want']}")
+    del trainers, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, launches
+
+
 def check_captured(args, result: dict) -> dict:
     """The captured phase: each of the six paths's step as one CUDA graph
-    against its eager step (`_captured_path`)."""
+    against its eager step (`_captured_path`), then the Trainer's rounds
+    (`_trainer_round`)."""
     t0 = time.perf_counter()
     out, launches = {}, {}
     for path in PATHS:
         out[path], launches[path] = _captured_path(path, args, result["nvidia_smi"])
     out["launches"] = launches
+    out["trainer_launches"], out["trainer_must"] = {}, {}
+    for path, dropout in TRAINER_ROUNDS:
+        key = f"trainer_{path}{'_dropout' if dropout else ''}"
+        out[key], n = _trainer_round(path, dropout, args, result["nvidia_smi"])
+        out["trainer_launches"].update(n)
+        out["trainer_must"].update({k: PATHS[path]["kernels"] for k in n})
     out["phase_s"] = time.perf_counter() - t0
     _log(f"captured phase: {out['phase_s']:.1f} s")
     return out
@@ -3121,9 +3369,9 @@ def _tied_run(args, context: str, root: str, smi: str) -> tuple[dict, dict]:
             return m
         return run
 
-    def kept_batch(self, batch):
+    def kept_batch(self, batch, *shapes):
         keep.setdefault("batch", batch)
-        return put(self, batch)
+        return put(self, batch, *shapes)
 
     metrics = os.path.join(root, f"metrics_{context}.jsonl")
     argv = ["--synthetic", "--num-utts", str(KALDI_UTTS), "--num-phones", str(KALDI_PHONES),
@@ -4189,7 +4437,7 @@ def _optimizer_updates(optimizer: str, cfg, corpus, seed: int, smi: str) -> dict
             deltas[dev] = [p.detach().cpu().clone() for p in m.parameters()]
         worst.append(max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
                          for a, b in zip(deltas["cuda"], deltas["cpu"]) if b.abs().max() > 0))
-    state_bytes = opts["cuda"].inner.state_bytes()
+    state_bytes = opts["cuda"].state_bytes()
     adam = torch.optim.Adam(card.parameters())
     adam.step()
     adam_bytes = sum(st[k].numel() * st[k].element_size() for st in adam.state.values()
@@ -5007,6 +5255,7 @@ def main(argv=None) -> int:
         result["captured"] = check_captured(args, result)
         for path, n in result["captured"]["launches"].items():
             launches[f"captured_{path}"] = n
+        launches.update(result["captured"]["trainer_launches"])
         _PATH_DATA.clear()
         result["den_forms"] = check_den_forms(args, result)
         with tempfile.TemporaryDirectory() as prep:
@@ -5056,6 +5305,7 @@ def main(argv=None) -> int:
     # probe's: its own phase); every path's count is under "launches_by_path"
     must = {**{p: PATHS[p]["kernels"] for p in PATHS},
             **{f"captured_{p}": PATHS[p]["kernels"] for p in PATHS},
+            **(result["captured"]["trainer_must"] if "captured" in result else {}),
             "cegs": DEN_NUM, "probe": PROBE,
             "recipe": DEN_NUM, "recipe_compute_prob": EVAL_DEN_NUM, "decode": DECODE_KERNELS,
             "kaldi_left": DEN_NUM, "kaldi_triphone": NUM, "wav": DEN_NUM,

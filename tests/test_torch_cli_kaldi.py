@@ -200,13 +200,10 @@ def test_a_failed_first_load_of_the_jax_decoder_is_recovered(tmp_path, capsys, m
     """The race `jax_native_decoder` repairs, made in this process: the JAX
     loader's library path points at a file cut short (32 bytes, less than
     an ELF header, as another process's link has just begun it), and a
-    first load fails and marks the library as failed for the process.  A
-    thread completes the file 0.5 s later.  The helper does not map the
-    short file, re-arms the loader once the file is whole and returns the
-    library; both Kaldi-tree decodes then run against it."""
-    import shutil
-    import threading
-
+    first load fails and marks the library as failed for the process.  The
+    helper re-arms the loader and points it at its own whole build, and
+    leaves the short file as it was; both Kaldi-tree decodes then run
+    against the library it returns."""
     from torchain_tpu.eval import native as jnative
 
     real = jnative._SO
@@ -217,18 +214,9 @@ def test_a_failed_first_load_of_the_jax_decoder_is_recovered(tmp_path, capsys, m
     monkeypatch.setattr(jnative, "_lib", None)
     monkeypatch.setattr(jnative, "_load_failed", False)
     assert jnative.get_lib() is None and jnative._load_failed  # the first load fails
-
-    def finish():
-        shutil.copyfile(real, tmp_path / "whole.so")
-        (tmp_path / "whole.so").replace(part)
-
-    timer = threading.Timer(0.5, finish)
-    timer.start()
-    try:
-        lib = jax_native_decoder(wait_s=30.0)
-    finally:
-        timer.join()
+    lib = jax_native_decoder()
     assert lib is not None and jnative.get_lib() is lib and not jnative._load_failed
+    assert jnative._SO != part and part.stat().st_size == 32
     for mode in ("phone", "word"):
         _decode_with_a_kaldi_tree(tmp_path / mode, capsys, mode)
 

@@ -1652,3 +1652,154 @@ def test_capturable_adam_steps_like_the_default(dev):
     for a, b in zip(*runs):
         for k in ("loss", "grad_norm"):
             assert math.isclose(a[k], b[k], rel_tol=1e-5), (k, a, b)
+
+
+# ---------------------------------------------------------------------------
+# The Trainer's steps as captured graphs (train/trainer.py, capture=True)
+# ---------------------------------------------------------------------------
+
+#: the recipe chain at small size: LR decay, clip, max-change, accumulation
+#: 2, backstitch 0.3 every 2nd step, the semi-orthogonal constraint
+TRAINER_CHAIN = dict(lr=3e-3, lr_final=3e-4, lr_decay_steps=6, grad_clip=1.0,
+                     max_change_per_component=0.05, max_param_change=0.1, semi_ortho_every=2,
+                     grad_accum_steps=2, backstitch_scale=0.3, backstitch_interval=2)
+
+
+def _trainer_case(dev, capture: bool, e2e: bool = False, **kw):
+    from torchain_tpu_torch.models import TDNNF, TdnnfConfig
+    from torchain_tpu_torch.ops import ChainLossOptions
+    from torchain_tpu_torch.train import Trainer, TrainerConfig
+
+    c = tdata.synthetic_dataset(num_utts=12, num_phones=6, feat_dim=8, utt_frames_out=(9, 12),
+                                seed=1, lm_order=3, lm_extra_states=50)
+    cfg = TdnnfConfig(num_pdfs=c.tree.num_pdfs, hidden_dim=64, bottleneck_dim=16,
+                      prefinal_dim=32, num_layers=3)
+    common = dict(chunk_frames_out=9, left_context=cfg.context[0], right_context=cfg.context[1])
+    if e2e:
+        ds = tdata.E2eChainDataset(c.utts, c.tree, c.norm_fst, **common)
+    else:
+        ds = tdata.ChainDataset(c.utts, c.tree, c.norm_fst, sup_opts=tgraphs.SupervisionOptions(),
+                                **common)
+    model = TDNNF(cfg, c.feat_dim, device=dev, generator=torch.Generator().manual_seed(0))
+    tcfg = TrainerConfig(device="cuda", capture=capture,
+                         loss=ChainLossOptions(**CAPTURE_OPTS),
+                         **{**TRAINER_CHAIN, "batch_size": 4, "num_epochs": 4, "log_every": 1,
+                            **kw})
+    return Trainer(model, auto_den_graph(c.den_graph, pad_to=32, device=dev), tcfg), ds
+
+
+class _Placed:
+    """`ds`'s batches placed once on the card as the captured Trainer
+    `tr` places them (`Trainer._shapes_of`, `_place`), for `fit` and
+    `evaluate`: an eager and a captured Trainer read the same inputs."""
+
+    def __init__(self, tr, ds, batch_size: int, drop_last: bool = True):
+        from torchain_tpu_torch.data.materialize import PlacedBatch
+
+        self.caps, shapes = tr._shapes_of(ds)
+        self.L = shapes[0]
+        self.items = [PlacedBatch(*tr._place(b, shapes)) for b in ds.batches(
+            batch_size, shuffle=False, drop_last=drop_last, sup_caps=self.caps)]
+
+    def estimate_sup_caps(self):
+        return self.caps
+
+    def estimate_live_arcs(self):
+        return self.L
+
+    def batches(self, batch_size, **kw):
+        yield from self.items
+
+
+def _fit_log(trainer, ds, steps):
+    trainer.fit(ds, log_fn=lambda s: None, max_steps=steps)
+    return [{k: v for k, v in m.items() if k not in ("wall_s", "frames_per_s")}
+            for m in trainer.metrics_log]
+
+
+def _close_logs(got, want):
+    """The gates of a captured step against its eager one (as in
+    `test_captured_step_replays_the_eager_step`): step 1 rel 1e-6, later
+    rel 1e-4."""
+    assert len(got) == len(want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        for k in ("loss", "objf", "grad_norm"):
+            assert math.isclose(g[k], w[k], rel_tol=1e-6 if i == 0 else 1e-4), (i, k, g, w)
+
+
+@pytest.mark.parametrize("optimizer,e2e", [("adam", False), ("adam-lowmem", False),
+                                           ("sgd", False), ("ngsgd", False), ("adam", True)],
+                         ids=["adam", "adam-lowmem", "sgd", "ngsgd", "adam-flat-start"])
+def test_trainer_captured_steps_replay_the_eager_sync_free_steps(dev, optimizer, e2e):
+    """Six `fit` steps of the recipe chain, eager and captured, from one
+    initial state on the same placed batches, with each optimizer (and
+    flat-start supervision): the same metrics and parameters, one graph a
+    plan (backstitch's two passes and the plain step, each accumulating or
+    updating; NG-SGD's 4th update also refreshes its inverses) and the
+    constraint's."""
+    cases = {capture: _trainer_case(dev, capture, e2e, optimizer=optimizer)
+             for capture in (False, True)}
+    placed = _Placed(*cases[True], 4)
+    runs = {capture: (tr, _fit_log(tr, placed, 6)) for capture, (tr, _) in cases.items()}
+    (eager, want), (cap, got) = runs[False], runs[True]
+    _close_logs(got, want)
+    assert eager.state.optimizer.count == cap.state.optimizer.count == 4
+    for (k, a), b in zip(cap.model.state_dict().items(), eager.model.state_dict().values()):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5, msg=k)
+    kinds = {k[:2] for k in cap.graphs if isinstance(k, tuple)}
+    assert kinds == {("backstitch", ("accumulate", "update")),
+                     ("backstitch", ("update", "accumulate")), ("plain", ("accumulate",)),
+                     ("plain", ("update",))} | (
+        {("backstitch", ("accumulate", "refresh"))} if optimizer == "ngsgd" else set())
+    assert "semi_orthogonal" in cap.graphs
+    assert all(g.graph is not None for g in cap.graphs.values())
+
+
+def test_trainer_restores_a_checkpoint_into_its_captured_graphs(dev, tmp_path):
+    """A captured Trainer that has captured its graphs restores a checkpoint
+    written after step 3 and trains on to step 6: the run that was never
+    cut, to the captured step's gates.  A restore that left a graph reading
+    the tensors it replaced would train on from the old state."""
+    whole, ds = _trainer_case(dev, True)
+    want = _fit_log(whole, ds, 6)
+    writer, ds = _trainer_case(dev, True, checkpoint_dir=str(tmp_path))
+    _fit_log(writer, ds, 3)
+    assert writer.all_steps() == [3]
+    reader, ds = _trainer_case(dev, True)
+    _fit_log(reader, ds, 4)  # every kind of step the run takes
+    evaluated = reader.evaluate(ds).objf
+    n_graphs = len(reader.graphs)
+    reader.cfg.checkpoint_dir = str(tmp_path)
+    reader._ckpt_root = tmp_path
+    reader.metrics_log.clear()
+    assert reader.restore_checkpoint() and reader.state.step == 3
+    got = _fit_log(reader, ds, 6)
+    assert len(reader.graphs) == n_graphs  # replayed, not captured again
+    _close_logs(got, want[3:])
+    for (k, a), b in zip(reader.model.state_dict().items(), whole.model.state_dict().values()):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5, msg=k)
+    assert reader.evaluate(ds).objf != evaluated
+
+
+def test_trainer_evaluate_captured_matches_eager(dev):
+    """`evaluate` over the dataset's placed batches (the last one smaller:
+    a second graph), captured against eager on the same weights; and the
+    captured pass over the dataset itself (its own placement) gives the
+    placed batches' bits on the same graphs."""
+    out = {}
+    cases = {capture: _trainer_case(dev, capture, batch_size=5) for capture in (False, True)}
+    tr, ds = cases[True]
+    placed = _Placed(tr, ds, 5, drop_last=False)
+    for capture, (tr, _) in cases.items():
+        res = tr.evaluate(placed)
+        out[capture] = (res.tot_objf, res.tot_l2, res.tot_xent, res.tot_weight, res.steps)
+    for a, b in zip(out[True], out[False]):
+        assert math.isclose(a, b, rel_tol=1e-6), (out[True], out[False])
+    tr = cases[True][0]
+    want = {b.feats.shape for b in ds.batches(5, shuffle=False, drop_last=False)}
+    assert len(want) == 2, want
+    assert {k[1][0][0] for k in tr.graphs if isinstance(k[0], int)} == want
+    n_graphs = len(tr.graphs)
+    res = tr.evaluate(ds)
+    assert (res.tot_objf, res.tot_l2, res.tot_xent, res.tot_weight, res.steps) == out[True]
+    assert len(tr.graphs) == n_graphs

@@ -11,22 +11,27 @@ scores to 1e-6 relative.
 
 The JAX package builds its native decoder with `make -C csrc` at first use,
 straight onto the library's path, and gives it up for the rest of the
-process once a load fails.  Test processes that start together on a
-checkout without the library can each find it missing or half-written.  So
-every port test file that runs the JAX package's native backend first takes
-`jax_native_decoder()`: under a lock shared by the processes, it re-arms the
-JAX loader where this process has given up, and waits until the library
-loads (at most JAX_NATIVE_WAIT_S seconds, then it fails with a plain
-message).
+process once a load fails; the JAX package's own tests build it so, and a
+test process that loads it while another links it skips the native tests.
+So that no port test is one more writer of that path, every port test file
+that runs the JAX package's native backend first takes
+`jax_native_decoder()`: it compiles the JAX package's decoder source into a
+file of its own in the temporary directory (under a lock shared by the test
+processes, written under a private name and renamed into place), points
+the JAX loader at that file, re-arms it where this process has given up,
+and loads it.  This module also calls it when it is collected, so that the
+loader of every test process holds the library before any test runs.
 """
 
 import dataclasses
 import fcntl
+import hashlib
 import os
+import pathlib
 import struct
+import subprocess
 import sys
 import tempfile
-import time
 
 import numpy as np
 import pytest
@@ -51,6 +56,8 @@ from torchain_tpu_torch.graphs.topology import ContextTree as TTree
 
 #: how long `jax_native_decoder` waits for the JAX package's native library
 JAX_NATIVE_WAIT_S = 120.0
+#: csrc/Makefile's CXXFLAGS and LDFLAGS
+JAX_DECODER_FLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-Wall", "-shared")
 
 
 def _elf_complete(path) -> bool:
@@ -76,31 +83,56 @@ def _elf_complete(path) -> bool:
 def jax_native_decoder(wait_s: float = JAX_NATIVE_WAIT_S):
     """The JAX package's native decoder library, loaded in this process.
 
-    Holds an exclusive `fcntl.flock` on a file in the temporary directory,
-    so that the port's test processes build it one at a time; where this
-    process's loader has marked the library as failed (a build that lost a
-    race, a load of a half-written file), it clears that mark and tries
-    again, every 0.2 s, until the library loads or `wait_s` has passed."""
+    Where this process's JAX loader holds none, compiles the JAX package's
+    `csrc/decoder.cc` with the flags of `csrc/Makefile` into
+    `torchain_tpu_jax_decoder_<source digest>.so` in the temporary
+    directory, unless a whole one is there: under an exclusive
+    `fcntl.flock` on a file beside it, into a name of this process's own,
+    then renamed into place, so that no process maps a half-written
+    library.  The JAX loader's path is then that file; its mark of a failed
+    load is cleared and it loads the library (a compile that has not ended
+    within `wait_s` seconds, or a load that fails, is an AssertionError)."""
     from torchain_tpu.eval import native as jnative
 
-    lock = os.path.join(tempfile.gettempdir(), "torchain_tpu_native_decoder.lock")
-    deadline = time.monotonic() + wait_s
-    with open(lock, "a") as f:
+    if jnative._lib is not None:
+        return jnative._lib
+    src = jnative._CSRC / "decoder.cc"
+    tmp = tempfile.gettempdir()
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    so = pathlib.Path(tmp, f"torchain_tpu_jax_decoder_{digest}.so")
+    with open(os.path.join(tmp, "torchain_tpu_native_decoder.lock"), "a") as f:
         fcntl.flock(f, fcntl.LOCK_EX)
         try:
-            while True:
-                if jnative._lib is None and jnative._load_failed:
-                    jnative._load_failed = False
-                lib = jnative.get_lib()
-                if lib is not None:
-                    return lib
-                if time.monotonic() > deadline:
-                    raise AssertionError(
-                        f"the JAX package's native decoder ({jnative._SO}) did not build or"
-                        f" load within {wait_s:.0f} s")
-                time.sleep(0.2)
+            if not _elf_complete(so):
+                part = f"{so}.{os.getpid()}.part"
+                try:
+                    subprocess.run(["g++", *JAX_DECODER_FLAGS, "-o", part, str(src)],
+                                   check=True, capture_output=True, timeout=wait_s)
+                except (OSError, subprocess.SubprocessError) as e:
+                    err = (getattr(e, "stderr", None) or b"")[-2000:].decode(errors="replace")
+                    raise AssertionError(f"the JAX package's native decoder did not compile:"
+                                         f" {e}\n{err}") from e
+                os.replace(part, so)
         finally:
             fcntl.flock(f, fcntl.LOCK_UN)
+    jnative._SO, jnative._load_failed = so, False
+    lib = jnative.get_lib()
+    if lib is None:
+        raise AssertionError(f"the JAX package's native decoder ({so}) did not load")
+    return lib
+
+
+# at this module's collection, in every test process: the JAX package's
+# tests/test_native_lattice.py calls its loader when it is collected, so
+# every process of a parallel run has run `make -C csrc` onto one file
+# before any test starts, and a process that mapped that file half-written
+# has given the library up; its later native tests would skip.  A compile
+# or load that fails here stops no collection: each native test calls the
+# helper again and fails with the reason
+try:
+    jax_native_decoder()
+except AssertionError:
+    pass
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -45,7 +45,7 @@ def test_port_imports_nothing_of_jax_in_a_fresh_interpreter():
 NEW_MODULES = ("models.lstm", "models.cnn", "models.conformer", "models.tdnn",
                "train.lowmem_adam", "train.ngsgd", "train.trainer", "convert", "cli.train",
                "cli.compute_prob", "parallel.mesh", "parallel.sharding", "ops.sharded",
-               "tools.multihost_worker", "train.captured")
+               "tools.multihost_worker", "train.captured", "train.chain_tx")
 
 
 @pytest.mark.parametrize("module", NEW_MODULES)

@@ -426,6 +426,14 @@ def cegs_setup(args, device, tag: str = "cegs"):
                 feat_dim=feat_dim, num_pdfs=num_pdfs)
 
 
+def _print_line(text: str) -> None:
+    """`text` and its newline in one write: the ranks of a distributed run
+    share one stdout, and unbuffered `print` writes the two apart, so two
+    ranks' summary lines could merge into one."""
+    sys.stdout.write(text + "\n")
+    sys.stdout.flush()
+
+
 def _trainer_config(args, device, batch_size: int, decay_steps: int):
     from torchain_tpu_torch.ops import ChainLossOptions
     from torchain_tpu_torch.parallel import MeshConfig
@@ -525,7 +533,7 @@ def _train_from_cegs(args, device) -> dict:
                       _trainer_config(args, device, setup["bsz"], decay))
     out = _fit(args, trainer, dataset, "cegs", t0)
     print(f"[cegs] chain objf/frame={out['objf']:.4f}")
-    print(json.dumps(out))
+    _print_line(json.dumps(out))
     return out
 
 
@@ -942,7 +950,7 @@ def main(argv=None) -> dict:
     out["timings"]["stages_s"] = stages
     out["den"] = dict(form=type(den).__name__, states=corpus.den_graph.num_states,
                       arcs=corpus.den_graph.num_arcs, pdfs=corpus.tree.num_pdfs)
-    print(json.dumps(out))
+    _print_line(json.dumps(out))
     return out
 
 

@@ -779,8 +779,8 @@ class CegsDataset:
     example workflow (example/train.py over src/io.cc's ExampleReader: a
     completed Kaldi chain prep ships den.fst + merged cegs, and training
     iterates the archives).  Duck-types the ChainDataset surface
-    (`batches`, `estimate_sup_caps`), so a training loop written for the
-    in-process dataset runs unchanged on foreign egs.
+    (`batches`, `estimate_sup_caps`, `estimate_live_arcs`), so a training
+    loop written for the in-process dataset runs unchanged on foreign egs.
 
     Each merged record IS one minibatch (its num_sequences is the batch
     size chosen at merge time), so the `batch_size` argument of
@@ -816,6 +816,7 @@ class CegsDataset:
         self.seed = seed
         self.ignore_deriv_weights = ignore_deriv_weights
         self._n_records: "int | None" = None
+        self._scan_result = None
 
     def count_records(self) -> int:
         """Total merged records across all archives (one counting pass on
@@ -850,8 +851,30 @@ class CegsDataset:
         """Maxima of the per-record padded supervision dims (states, arcs,
         frame vocab, steady arcs) over every archive — the fixed padding
         multi-host runs need.  One full pass (compiles each record's
-        supervision once; O(egs))."""
-        ms = ma = mv = mst = 1
+        supervision once; O(egs)), shared with `estimate_live_arcs`."""
+        return self._scan()[0]
+
+    def estimate_live_arcs(self) -> int:
+        """The most live steady arcs (frames >= 1) of any sequence of any
+        record: the `L_cap` of `DeviceSupervision.with_kernel_tables` that
+        gives every batch one live-arc list shape, as a captured train step
+        needs (`ChainDataset.estimate_live_arcs`).  Flat-start records have
+        no fixed shape of their own: ValueError."""
+        live = self._scan()[1]
+        if live is None:
+            raise ValueError("flat-start (e2e) cegs records: no live-arc width fixes their"
+                             " batches' shape")
+        return live
+
+    def _scan(self):
+        """(estimate_sup_caps, estimate_live_arcs or None where a record is
+        flat-start), one pass over every archive, kept."""
+        if self._scan_result is not None:
+            return self._scan_result
+        from torchain_tpu_torch.graphs.e2e import E2eSupervision
+
+        ms = ma = mv = mst = live = 1
+        e2e = False
         for p in self.paths:
             for _key, b in batches_from_cegs(
                 p, self.append_ivector, self.ignore_deriv_weights
@@ -867,8 +890,16 @@ class CegsDataset:
                 sn = getattr(s, "steady_need", None)
                 if sn is not None:
                     mst = max(mst, int(np.max(sn)))
+                if isinstance(s, E2eSupervision):
+                    e2e = True
+                else:
+                    src = s.in_src if s.in_src.ndim == 4 else s.in_src[None]
+                    n = (src[:, 1:] >= 0).reshape(src.shape[0], -1).sum(1)
+                    live = max(live, int(n.max()))
         r = lambda x, m: ((x + m - 1) // m) * m  # noqa: E731
-        return r(ms, 4), r(ma, 4), r(mv, 8), r(mst, 4)
+        caps = r(ms, 4), r(ma, 4), r(mv, 8), r(mst, 4)
+        self._scan_result = caps, (None if e2e else live)
+        return self._scan_result
 
     def batches(
         self,

@@ -30,6 +30,22 @@ import dataclasses
 import numpy as np
 
 
+def live_arcs(batches) -> "int | None":
+    """The most live steady arcs (frames >= 1) of any sequence of the host
+    `batches` (ChainBatch): the `L_cap` that places all of them at one
+    live-arc list width; None where a batch is flat-start (its
+    supervision has no such list)."""
+    from torchain_tpu_torch.graphs.e2e import E2eSupervision
+
+    need = 1
+    for b in batches:
+        if isinstance(b.sup, E2eSupervision):
+            return None
+        src = b.sup.in_src if b.sup.in_src.ndim == 4 else b.sup.in_src[None]
+        need = max(need, int((src[:, 1:] >= 0).reshape(src.shape[0], -1).sum(1).max()))
+    return need
+
+
 @dataclasses.dataclass
 class PlacedBatch:
     """A minibatch already resident on a device: `feats` a tensor, `sup` a
@@ -44,8 +60,8 @@ class PlacedBatch:
 
 class MaterializedBatches:
     """Duck-types the dataset surface Trainer.fit consumes (`batches`,
-    `estimate_sup_caps`) over a fixed list of pre-built ChainBatch (or
-    PlacedBatch) objects."""
+    `estimate_sup_caps`, `estimate_live_arcs`) over a fixed list of
+    pre-built ChainBatch (or PlacedBatch) objects."""
 
     def __init__(
         self,
@@ -60,7 +76,8 @@ class MaterializedBatches:
         """`device` False keeps host batches.  True (the card) or a torch
         device (or its name) places every batch there ONCE at
         materialization — feats as a tensor, the supervision as
-        `DeviceSupervision.from_host(sup).with_kernel_tables()` — and epochs
+        `DeviceSupervision.from_host(sup).with_kernel_tables(L_cap=
+        estimate_live_arcs())` — and epochs
         replay the resident tensors with no per-step host->device traffic.
         Supervision tensors are constant across epochs by construction
         (Kaldi's merged archives are too), so nothing is lost.  `seed` and
@@ -95,6 +112,7 @@ class MaterializedBatches:
         self._batches = list(dataset.batches(batch_size, shuffle=True, epoch=0, **kw))
         if not self._batches:
             raise ValueError("source dataset yielded no batches")
+        self._live = live_arcs(self._batches)
         if device:
             import torch
 
@@ -106,7 +124,9 @@ class MaterializedBatches:
                     feats=torch.as_tensor(b.feats, device=dev),
                     # kernel-layout numerator tables prepared once at
                     # placement: every epoch's replay pays nothing for them
-                    sup=DeviceSupervision.from_host(b.sup, device=dev).with_kernel_tables(),
+                    # at one live-arc list width, as a captured step needs
+                    sup=DeviceSupervision.from_host(b.sup, device=dev).with_kernel_tables(
+                        L_cap=self._live),
                 )
                 for b in self._batches
             ]
@@ -135,6 +155,14 @@ class MaterializedBatches:
         if self._caps is None:
             raise ValueError("source dataset had no estimate_sup_caps")
         return self._caps
+
+    def estimate_live_arcs(self) -> int:
+        """The live-arc list width that places every batch at one shape
+        (`live_arcs`; device batches were placed at it).  Flat-start
+        batches have none: ValueError."""
+        if self._live is None:
+            raise ValueError("flat-start batches: no live-arc width fixes their shape")
+        return self._live
 
     def batches(
         self,

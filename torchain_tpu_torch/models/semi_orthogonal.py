@@ -47,17 +47,21 @@ def orthogonality_error(M: torch.Tensor) -> torch.Tensor:
     return torch.linalg.norm(P / alpha - eye) / P.shape[0]
 
 
+def constrained_parameters(model: torch.nn.Module) -> list[torch.nn.Parameter]:
+    """The parameters `constrain_semi_orthogonal` acts on: every one whose
+    name contains 'linear_pre' (the factored bottleneck kernels of TDNN-F)
+    with two or more dimensions."""
+    return [p for name, p in model.named_parameters() if "linear_pre" in name and p.ndim >= 2]
+
+
 @torch.no_grad()
 def constrain_semi_orthogonal(model: torch.nn.Module, nu: float = 0.25) -> int:
-    """Apply the constraint step in place to every parameter whose name
-    contains 'linear_pre' (the factored bottleneck kernels of TDNN-F).  A
-    tap kernel [2, in, out] is constrained as the flattened (2*in) -> out
-    linear map, Kaldi's ConstrainOrthonormal semantics.  Returns the number
-    of parameters constrained."""
-    n = 0
-    for name, p in model.named_parameters():
-        if "linear_pre" in name and p.ndim >= 2:
-            flat = p.reshape(-1, p.shape[-1])
-            p.copy_(semi_orthogonal_step(flat, nu).reshape(p.shape))
-            n += 1
-    return n
+    """Apply the constraint step in place to every parameter of
+    `constrained_parameters`.  A tap kernel [2, in, out] is constrained as
+    the flattened (2*in) -> out linear map, Kaldi's ConstrainOrthonormal
+    semantics.  Returns the number of parameters constrained."""
+    params = constrained_parameters(model)
+    for p in params:
+        flat = p.reshape(-1, p.shape[-1])
+        p.copy_(semi_orthogonal_step(flat, nu).reshape(p.shape))
+    return len(params)

@@ -141,7 +141,8 @@ def continuous_dropout(x, rate, train: bool, generator: torch.Generator | None =
     mask is the global batch's (`parallel.data_parallel`), so a sharded
     step draws what the unsharded one does.  `time_axis` names the axis the
     mask is shared over (1 for [B, T, C], 0 for the time-major [T, B, C]).
-    The mask is drawn on the generator's device."""
+    The mask is drawn on the generator's device.  `rate` is a float or a
+    float32 0-d tensor on x's device (the same bits)."""
     if not train or rate is None or generator is None:
         return x
     shape = list(x.shape)
@@ -157,8 +158,12 @@ def continuous_dropout(x, rate, train: bool, generator: torch.Generator | None =
         shape[b_axis] = rows * mesh.data
         u = torch.rand(shape, generator=generator, device=generator.device).narrow(
             b_axis, mesh.rank * rows, rows)
-    u = u * 2.0 - 1.0
-    return x * (1.0 + 2.0 * float(rate) * u.to(device=x.device, dtype=x.dtype))
+    u = (u * 2.0 - 1.0).to(device=x.device, dtype=x.dtype)
+    if isinstance(rate, torch.Tensor):
+        # a device scalar (a captured step's): the float32 product a Python
+        # rate makes, rounded to x's dtype once, with no read on the host
+        return x * (1.0 + (u.float() * (2.0 * rate)).to(x.dtype))
+    return x * (1.0 + 2.0 * float(rate) * u)
 
 
 class Prefinal(nn.Module):

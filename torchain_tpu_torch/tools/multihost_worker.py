@@ -381,12 +381,11 @@ def model_run(c: dict, device, mesh, corpus, batch) -> dict:
     if c["save_params"] and mesh.global_rank == 0:
         torch.save(dict(params={k: v.detach().cpu() for k, v in params.items()},
                         first_grads=first_grads), c["save_params"])
-    opt_state = [t for st in getattr(opt.inner, "state", {}).values() for t in st.values()]
     gaps = np.diff(ticks)
     return dict(curve=curve, loss=curve[0]["loss"], objf=curve[0]["objf"],
                 grad_norm=curve[0]["grad_norm"],
                 step_ms=float(np.median(gaps)) * 1e3 if len(gaps) else None,
-                param_bytes=_bytes(model.parameters()), opt_state_bytes=_bytes(opt_state),
+                param_bytes=_bytes(model.parameters()), opt_state_bytes=opt.state_bytes(),
                 collectives_per_step=per_step,
                 launches={k: fn.launches for k, fn in counters.items()},
                 sharded={n: model_axis(p) for n, p in model.named_parameters()
@@ -509,6 +508,12 @@ def main(argv=None) -> int:
     try:
         out = run(args.mode, args.rank, args.world, device, json.loads(args.config),
                   args.workdir)
+        if args.world > 1:
+            import torch.distributed as dist
+
+            # no rank tears the group down while another still works in it
+            # (rank 0 writes the results' files after the last collective)
+            dist.barrier()
     finally:
         if args.world > 1:
             import torch.distributed as dist

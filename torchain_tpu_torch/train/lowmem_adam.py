@@ -8,10 +8,11 @@ float32 `1 - b^count`, as the JAX `update_fn` computes them, and the
 update is optax's: step = (m / bc1) / (sqrt(v / bc2) + eps), scaled by
 -lr and added to the parameter.
 
-`LowmemAdam` is a `torch.optim.Optimizer` that slots into
-`train.trainer.ChainOptimizer` (TrainerConfig(optimizer="adam-lowmem")).
-Its `state_dict` carries the bfloat16 moments and the count; a resumed run
-is bit-equal to the uncut one.
+`LowmemAdam` is a `torch.optim.Optimizer`.  Its `state_dict` carries the
+bfloat16 moments and the count; a resumed run is bit-equal to the uncut
+one.  It is the checkpoint format of `train.chain_tx.ChainOptimizer`
+(TrainerConfig(optimizer="adam-lowmem")), which computes the same update
+on the device with its bias corrections from a device count.
 """
 
 from __future__ import annotations

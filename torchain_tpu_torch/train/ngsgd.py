@@ -18,9 +18,10 @@ parameters keep flax's layout, so this is the same view); sides wider than
 
 `NGSGD` is the JAX chain natural_gradient() -> sgd(lr, momentum) as one
 `torch.optim.Optimizer` (a `torch.optim.SGD` whose step preconditions the
-gradients first); it slots into `train.trainer.ChainOptimizer`, which puts
-the clip before it and max-change after it.  Its `state_dict` carries each
-side's covariance and inverse, the momentum buffers and the count.
+gradients first).  Its `state_dict` carries each side's covariance and
+inverse, the momentum buffers and the count: the checkpoint format of
+`train.chain_tx.ChainOptimizer`, which computes the same update on the
+device (`precondition_`) with the clip before it and max-change after it.
 
 A leaf sharded over the model axis (`parallel.shard_params`) is
 preconditioned whole, as the JAX function sees it: its gradient is
@@ -65,31 +66,36 @@ def _eligible(shape, max_dim: int):
     return (rows if rows <= max_dim else None), (cols if cols <= max_dim else None)
 
 
-def _damped_inverse(cov: torch.Tensor, alpha: float) -> torch.Tensor:
+def _damped_inverse(cov: torch.Tensor, alpha: float, check_errors: bool = True) -> torch.Tensor:
     d = cov.shape[0]
     eye = torch.eye(d, dtype=cov.dtype, device=cov.device)
     damp = alpha * (torch.trace(cov) / d) + 1e-30
-    return torch.linalg.solve(cov + damp * eye, eye)
+    if check_errors:
+        return torch.linalg.solve(cov + damp * eye, eye)
+    # the same solve without the check that reads its status on the host
+    return torch.linalg.solve_ex(cov + damp * eye, eye)[0]
 
 
-def precondition(g: torch.Tensor, state: dict, count: int, opts: NGOptions) -> torch.Tensor:
-    """One natural-gradient update of one parameter's gradient: updates the
-    sides in `state` ("row_cov", "row_inv", "col_cov", "col_inv", those that
-    exist) and returns the preconditioned gradient in g's dtype and shape.
-    `count` is the count after this update."""
+def _precondition(g, state: dict, refresh: bool, opts: NGOptions, in_place: bool):
     if "row_cov" not in state and "col_cov" not in state:
         return g
     m = _as_matrix(g).float()
     r, c = m.shape
-    refresh = count % opts.inverse_period == 0
     out = m
     for side, scatter in (("row", lambda: (m @ m.T) / c), ("col", lambda: (m.T @ m) / r)):
         if f"{side}_cov" not in state:
             continue
         cov = opts.ema * state[f"{side}_cov"] + (1.0 - opts.ema) * scatter()
-        state[f"{side}_cov"] = cov
         if refresh:
-            state[f"{side}_inv"] = _damped_inverse(cov, opts.alpha)
+            inv = _damped_inverse(cov, opts.alpha, check_errors=not in_place)
+        if in_place:
+            state[f"{side}_cov"].copy_(cov)
+            if refresh:
+                state[f"{side}_inv"].copy_(inv)
+        else:
+            state[f"{side}_cov"] = cov
+            if refresh:
+                state[f"{side}_inv"] = inv
         inv = state[f"{side}_inv"]
         out = inv @ out if side == "row" else out @ inv
     # Kaldi: keep the raw gradient's Frobenius norm
@@ -97,6 +103,23 @@ def precondition(g: torch.Tensor, state: dict, count: int, opts: NGOptions) -> t
     nrm_out = torch.sqrt(torch.sum(out * out))
     out = out * (nrm_in / torch.clamp(nrm_out, min=1e-30))
     return out.reshape(g.shape).to(g.dtype)
+
+
+def precondition(g: torch.Tensor, state: dict, count: int, opts: NGOptions) -> torch.Tensor:
+    """One natural-gradient update of one parameter's gradient: updates the
+    sides in `state` ("row_cov", "row_inv", "col_cov", "col_inv", those that
+    exist) and returns the preconditioned gradient in g's dtype and shape.
+    `count` is the count after this update."""
+    return _precondition(g, state, count % opts.inverse_period == 0, opts, in_place=False)
+
+
+def precondition_(g: torch.Tensor, state: dict, refresh: bool, opts: NGOptions) -> torch.Tensor:
+    """`precondition` writing the sides into `state`'s tensors in place,
+    with no read on the host (the Trainer's chain's form, train/chain_tx.py):
+    `refresh` (known on the host from the count) says whether this update
+    recomputes the inverses, and the solve skips torch's error check, which
+    reads its status on the host.  The same bits as `precondition`."""
+    return _precondition(g, state, refresh, opts, in_place=True)
 
 
 class NGSGD(torch.optim.SGD):

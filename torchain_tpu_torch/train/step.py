@@ -16,12 +16,19 @@ replicated leaf once and a sharded one's squares over the model group."""
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from torchain_tpu_torch.ops.chain_loss import ChainLossOptions, chain_loss
 from torchain_tpu_torch.parallel.mesh import all_reduce_tensors_, data_parallel
 from torchain_tpu_torch.parallel.sharding import model_grad_sums, squared_norms
-from torchain_tpu_torch.train.captured import CapturedStep, check_capturable
+from torchain_tpu_torch.train.captured import (
+    CapturedStep,
+    check_capturable,
+    check_on_card,
+    shape_key,
+)
 from torchain_tpu_torch.train.state import ChainTrainState
 
 
@@ -72,6 +79,8 @@ def make_train_step(
     dropout: bool = False,
     mesh=None,
     capture: bool = False,
+    update=None,
+    pool=None,
 ):
     """Returns step(feats [B, T_in, F], den, sup) -> metrics, updating
     `state` in place (parameters, optimizer state, batchnorm running
@@ -81,22 +90,31 @@ def make_train_step(
 
     `max_grad_norm` > 0 clips the gradient before `state.optimizer` steps
     (the head of the JAX package's optax chain); pass 0 where the optimizer
-    clips itself (`train.trainer.ChainOptimizer`, whose clip sees the
+    clips itself (`train.chain_tx.ChainOptimizer`, whose clip sees the
     accumulated gradient).  With `dropout=True` the step takes two more
     arguments, step(feats, den, sup, dropout_rate, generator): the rate a
     float, the masks drawn from the torch.Generator (the JAX step's traced
     rate and PRNG key).
 
+    `update(0, 1.0)` is the optimizer's call (default `state.optimizer.
+    step()`); the captured Trainer passes one that fixes the kind of the
+    call (`train.chain_tx.ChainOptimizer.apply`).
+
     With `capture=True` the step is one CUDA graph captured on its first
-    call and replayed on every later one (`train.captured.CapturedStep`:
-    the counterpart of the JAX step's one jitted, donated program).  It
-    needs a model on the card, torch's Adam built with capturable=True
-    (`create_train_state(..., capturable=True)`), every batch of one shape
-    (one set of supervision caps and one `L_cap`) and the same `den`; it
-    raises ValueError for a CPU model, a mesh axis larger than 1 or
-    dropout, where the step stays eager."""
+    call and replayed on every later one (`train.captured.CapturedStep`,
+    its memory in `pool` where given: the counterpart of the JAX step's
+    one jitted, donated program).  It needs a model on the card, torch's
+    Adam built with capturable=True (`create_train_state(...,
+    capturable=True)`) or `ChainOptimizer` with `update`, every batch of
+    one shape (one set of supervision caps and one `L_cap`) and the same
+    `den`; with dropout, a rate and the same generator at every call.  It
+    raises ValueError for a CPU model, a mesh axis larger than 1 or another
+    optimizer, where the step stays eager."""
     model, opt = state.model, state.optimizer
     params = [p for p in model.parameters() if p.requires_grad]
+    if capture:
+        check_capturable(state, dropout, mesh, update)
+    update = update or (lambda i, scale: opt.step())
 
     def body(feats, den, sup, dropout_rate=None, generator=None) -> dict:
         rate, gen = (dropout_rate, generator) if dropout else (None, None)
@@ -106,14 +124,13 @@ def make_train_step(
             grad_norm = clip_by_global_norm_(grads, max_grad_norm, params)
         else:
             grad_norm = global_norm(grads, params)
-        opt.step()
+        update(0, 1.0)
         metrics["loss"] = loss
         metrics["grad_norm"] = grad_norm
         return metrics
 
     if capture:
-        check_capturable(state, dropout, mesh)
-        return CapturedStep(state, body)
+        return CapturedStep(state, body, pool)
 
     def step(feats, den, sup, dropout_rate=None, generator=None) -> dict:
         metrics = body(feats, den, sup, dropout_rate, generator)
@@ -123,12 +140,19 @@ def make_train_step(
     return step
 
 
-def make_eval_step(loss_opts: ChainLossOptions, use_xent: bool = True, mesh=None):
+def make_eval_step(loss_opts: ChainLossOptions, use_xent: bool = True, mesh=None,
+                   capture: bool = False, pool=None):
     """Returns eval_step(model, feats, den, sup) -> the chain loss's aux
     dict (objf, l2_term, oor_term, xent_objf, weight, num_failed), with the
     model in eval mode (running batchnorm statistics) and no gradient: the
     denominator's backward (K2) never runs.  With `mesh` the inputs are
-    this rank's rows and the sums are the global batch's."""
+    this rank's rows and the sums are the global batch's.
+
+    With `capture=True` each model and batch shape (`captured.shape_key`)
+    gets its own graph, captured at its first batch and replayed after
+    (the JAX eval step's jit keeps a program a shape too), its memory in
+    `pool` where given; `eval_step.graphs` holds them.  A model off the
+    card or a mesh axis larger than 1 raises ValueError."""
 
     @torch.no_grad()
     def eval_step(model, feats, den, sup) -> dict:
@@ -138,7 +162,23 @@ def make_eval_step(loss_opts: ChainLossOptions, use_xent: bool = True, mesh=None
                             mesh=mesh)
         return aux
 
-    return eval_step
+    if not capture:
+        return eval_step
+    if mesh is not None and (mesh.data > 1 or mesh.model > 1):
+        raise ValueError(f"capture=True: a mesh of data {mesh.data} x model {mesh.model} stays"
+                         " eager (its collectives cannot be captured)")
+    graphs = {}
+
+    def captured_eval(model, feats, den, sup) -> dict:
+        key = (id(model), shape_key(feats, sup))
+        graph = graphs.get(key)
+        if graph is None:
+            check_on_card(model)
+            graph = graphs[key] = CapturedStep(None, functools.partial(eval_step, model), pool)
+        return graph(feats, den, sup)
+
+    captured_eval.graphs = graphs
+    return captured_eval
 
 
 def make_forward_fn(model):
@@ -163,35 +203,51 @@ def make_backstitch_step(
     alpha: float,
     use_xent: bool = True,
     mesh=None,
+    capture: bool = False,
+    update=None,
+    pool=None,
 ):
     """Backstitch training step (Kaldi --trainer.backstitch-training-scale,
     nnet-training.cc TrainInternalBackstitch; Wang et al. 2017): on one
     minibatch, a negative update scaled -alpha from the current parameters,
     then a positive one scaled (1 + alpha) from the moved point.  The
     scales apply to the optimizer's update (after its clip, learning rate
-    and max-change), so `state.optimizer` must take `step(scale=...)`
-    (`train.trainer.ChainOptimizer`); its state advances twice.  The
+    and max-change), so the optimizer's call is `update(i, scale)` for
+    pass i, by default `state.optimizer.step(scale=scale)`
+    (`train.chain_tx.ChainOptimizer`); its state advances twice.  The
     batchnorm running statistics keep the second pass's update, and
-    grad_norm is the norm of the second pass's gradient."""
+    grad_norm is the norm of the second pass's gradient.  `capture` and
+    `pool` as in `make_train_step`: both passes and both updates in one
+    graph."""
     model, opt = state.model, state.optimizer
     params = [p for p in model.parameters() if p.requires_grad]
     stats = [b for _, b in model.named_buffers()]
+    if capture:
+        check_capturable(state, False, mesh, update)
+    update = update or (lambda i, scale: opt.step(scale=scale))
 
-    def step(feats, den, sup) -> dict:
+    def body(feats, den, sup) -> dict:
         # pass 1 from the current point: its batchnorm update is undone
         saved = [b.clone() for b in stats]
         _grads(model, feats, den, sup, loss_opts, use_xent, mesh=mesh)
-        opt.step(scale=-alpha)
+        update(0, -alpha)
         with torch.no_grad():
             for b, s in zip(stats, saved):
                 b.copy_(s)
         # pass 2 from the moved point
         loss, metrics = _grads(model, feats, den, sup, loss_opts, use_xent, mesh=mesh)
         grad_norm = global_norm([p.grad for p in params], params)
-        opt.step(scale=1.0 + alpha)
-        state.step += 1
+        update(1, 1.0 + alpha)
         metrics["loss"] = loss
         metrics["grad_norm"] = grad_norm
+        return metrics
+
+    if capture:
+        return CapturedStep(state, body, pool)
+
+    def step(feats, den, sup) -> dict:
+        metrics = body(feats, den, sup)
+        state.step += 1
         return metrics
 
     return step

@@ -33,6 +33,7 @@ loss and `evaluate` read the data rank and the data size.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
 import inspect
 import json
@@ -49,7 +50,10 @@ from torchain_tpu_torch.data.loader import ChainBatch
 from torchain_tpu_torch.data.materialize import MaterializedBatches, PlacedBatch
 from torchain_tpu_torch.data.prefetch import Prefetcher
 from torchain_tpu_torch.graphs.e2e import E2eSupervision
-from torchain_tpu_torch.models.semi_orthogonal import constrain_semi_orthogonal
+from torchain_tpu_torch.models.semi_orthogonal import (
+    constrain_semi_orthogonal,
+    constrained_parameters,
+)
 from torchain_tpu_torch.ops.chain_loss import ChainLossOptions, ChainResults
 from torchain_tpu_torch.ops.device_graphs import DeviceSupervision
 from torchain_tpu_torch.ops.num_e2e import DeviceE2eSupervision
@@ -63,13 +67,20 @@ from torchain_tpu_torch.parallel.mesh import (
     replicated,
     shard_batch,
 )
-from torchain_tpu_torch.parallel.sharding import squared_norms
-from torchain_tpu_torch.train.lowmem_adam import LowmemAdam
-from torchain_tpu_torch.train.ngsgd import NGSGD
+from torchain_tpu_torch.train.captured import (
+    CapturedCall,
+    CapturedStep,
+    check_capturable,
+    shape_key,
+)
+from torchain_tpu_torch.train.chain_tx import (  # noqa: F401 (the chain's names, kept here)
+    ChainOptimizer,
+    lr_schedule,
+    make_optimizer,
+    max_change,
+)
 from torchain_tpu_torch.train.state import ChainTrainState
 from torchain_tpu_torch.train.step import (
-    clip_by_global_norm_,
-    global_norm,
     make_backstitch_step,
     make_eval_step,
     make_train_step,
@@ -133,133 +144,14 @@ class TrainerConfig:
     #: the (data, model) layout of the process group (data -1: every
     #: process; without a process group, this one)
     mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
-
-
-def lr_schedule(cfg: TrainerConfig):
-    """count -> learning rate: optax.exponential_decay(lr, lr_decay_steps,
-    lr_final / lr, end_value=lr_final) where both are set, else constant;
-    evaluated in float32 at the count of updates made before this one, as
-    optax's scale_by_schedule does."""
-    if not (cfg.lr_final > 0.0 and cfg.lr_decay_steps > 0):
-        return lambda count: cfg.lr
-    lr, rate = np.float32(cfg.lr), np.float32(cfg.lr_final / cfg.lr)
-    steps, end = np.float32(cfg.lr_decay_steps), np.float32(cfg.lr_final)
-
-    def schedule(count: int) -> float:
-        if count <= 0:
-            return float(lr)
-        value = lr * np.power(rate, np.float32(count) / steps)
-        return float(max(value, end) if rate < 1 else min(value, end))
-
-    return schedule
-
-
-def max_change(per_component: float = 0.75, global_change: float = 2.0):
-    """Kaldi max-change update clipping (every chain recipe trains with
-    per-component max-change 0.75 and --trainer.max-param-change 2.0):
-    each component's parameter DELTA (post-LR) is rescaled to 2-norm <=
-    per_component, then the whole update so that its global 2-norm <=
-    global_change.  Unlike gradient clipping this bounds the parameters'
-    actual motion per step.  Returns updates -> updates over a list of
-    tensors (the last transform of the optimizer chain)."""
-
-    def apply(updates: list[torch.Tensor], params=None) -> list[torch.Tensor]:
-        # `params`: the updates' parameters, where leaves sharded over the
-        # model axis take their norms over the model group
-        if per_component > 0:
-            norms = [torch.sqrt(sq) for sq in squared_norms(updates, params)]
-            updates = [u * torch.clamp(per_component / torch.clamp(n, min=1e-30), max=1.0)
-                       for u, n in zip(updates, norms)]
-        if global_change > 0:
-            g = global_norm(updates, params)
-            scale = torch.clamp(global_change / torch.clamp(g, min=1e-30), max=1.0)
-            updates = [u * scale for u in updates]
-        return updates
-
-    return apply
-
-
-class ChainOptimizer:
-    """The JAX package's optax chain over torch.optim:
-    MultiSteps(k)( clip_by_global_norm -> adam | adam-lowmem |
-    sgd(momentum) | natural_gradient -> sgd(momentum) at `lr_schedule` ->
-    max_change ).  The inner optimizers are torch.optim.Adam and SGD,
-    `train.lowmem_adam.LowmemAdam` and `train.ngsgd.NGSGD`.
-
-    `step(scale)` consumes the parameters' .grad.  With k > 1 the gradient
-    is folded into a running mean (optax's Welford form) and the inner
-    update runs on every k-th call only, on the mean; the schedule's count
-    advances once per inner update.  Max-change (and the backstitch
-    `scale`) act on the update the inner optimizer made, taken as
-    p_new - p_old around its step."""
-
-    def __init__(self, params, cfg: TrainerConfig):
-        self.params = [p for p in params if p.requires_grad]
-        if cfg.optimizer == "adam":
-            self.inner = torch.optim.Adam(self.params, lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8)
-        elif cfg.optimizer == "adam-lowmem":
-            self.inner = LowmemAdam(self.params, lr=cfg.lr)
-        elif cfg.optimizer == "sgd":
-            self.inner = torch.optim.SGD(self.params, lr=cfg.lr, momentum=cfg.momentum)
-        elif cfg.optimizer == "ngsgd":
-            self.inner = NGSGD(self.params, lr=cfg.lr, momentum=cfg.momentum)
-        else:
-            raise ValueError(f"optimizer {cfg.optimizer!r} is not ported (the optimizers are:"
-                             " adam, adam-lowmem, sgd, ngsgd)")
-        self.schedule = lr_schedule(cfg)
-        self.grad_clip = cfg.grad_clip
-        self.every = max(1, cfg.grad_accum_steps)
-        self.max_change = (
-            max_change(cfg.max_change_per_component, cfg.max_param_change)
-            if cfg.max_change_per_component > 0 or cfg.max_param_change > 0 else None)
-        self.count = 0  # inner updates made
-        self.mini_step = 0
-        self.acc: list[torch.Tensor] | None = None
-
-    @torch.no_grad()
-    def step(self, scale: float = 1.0) -> bool:
-        """Apply the gradients; returns whether the parameters moved."""
-        grads = [p.grad for p in self.params]
-        if self.every > 1:
-            if self.acc is None:
-                self.acc = [torch.zeros_like(g) for g in grads]
-            n = self.mini_step
-            for a, g in zip(self.acc, grads):
-                a.add_((g - a) / (n + 1))
-            self.mini_step = (n + 1) % self.every
-            if n != self.every - 1:
-                return False
-            for g, a in zip(grads, self.acc):
-                g.copy_(a)
-                a.zero_()
-        if self.grad_clip > 0:
-            clip_by_global_norm_(grads, self.grad_clip, self.params)
-        for group in self.inner.param_groups:
-            group["lr"] = self.schedule(self.count)
-        moved = self.max_change is not None or scale != 1.0
-        old = [p.detach().clone() for p in self.params] if moved else None
-        self.inner.step()
-        self.count += 1
-        if moved:
-            deltas = [p - o for p, o in zip(self.params, old)]
-            if self.max_change is not None:
-                deltas = self.max_change(deltas, self.params)
-            for p, o, d in zip(self.params, old, deltas):
-                p.copy_(o + scale * d)
-        return True
-
-    def state_dict(self) -> dict:
-        return dict(inner=self.inner.state_dict(), count=self.count, mini_step=self.mini_step,
-                    acc=self.acc)
-
-    def load_state_dict(self, state: dict) -> None:
-        self.inner.load_state_dict(state["inner"])
-        self.count, self.mini_step = int(state["count"]), int(state["mini_step"])
-        self.acc = state["acc"]
-
-
-def make_optimizer(cfg: TrainerConfig, params) -> ChainOptimizer:
-    return ChainOptimizer(params, cfg)
+    #: every step replayed from a captured CUDA graph (train/captured.py):
+    #: one a kind of step (plain or with dropout, backstitch; accumulate or
+    #: update), the semi-orthogonal constraint one more, `evaluate` one a
+    #: batch shape; batches placed at one shape a run (live-arc lists to
+    #: `estimate_live_arcs`, flat-start to `estimate_e2e_caps`; a dataset
+    #: with neither raises ValueError).  On the card only, with no mesh
+    #: axis larger than 1 (ValueError)
+    capture: bool = False
 
 
 def parse_dropout_schedule(schedule: str):
@@ -369,7 +261,19 @@ def _tensors(obj):
 class Trainer:
     """`model` (a TDNNF, TDNN or Conformer on `cfg.device`), `den_device`
     (from auto_den_graph on the same device) and the config; `tree` (the
-    ContextTree), where given, is fingerprinted into the checkpoints."""
+    ContextTree), where given, is fingerprinted into the checkpoints.
+
+    With `cfg.capture` the host plans the kinds of each step's optimizer
+    calls (`ChainOptimizer.plan`: accumulate or update, NG-SGD's refresh;
+    two for backstitch) and replays the step's graph for that plan and the
+    batch's shape (`captured.shape_key`), as `jax.jit` keeps a program per
+    shape; `fit` places every batch of a run at one shape, so a run
+    captures one graph a plan, and `evaluate`'s last, smaller batch one
+    more.  All share one memory pool.  Capture raises ValueError where the
+    step cannot be captured (a CPU model, a mesh axis larger than 1,
+    dropout where torch cannot register a generator with a graph, a
+    dataset that cannot fix its batches' shape); no step falls back to the
+    eager one."""
 
     def __init__(self, model, den_device, cfg: TrainerConfig, tree=None):
         self.cfg = cfg
@@ -395,17 +299,35 @@ class Trainer:
         replicated(self.mesh, self.model)
         self.state = ChainTrainState(model=self.model,
                                      optimizer=make_optimizer(cfg, self.model.parameters()))
+        if cfg.capture:
+            # where a captured step cannot run, ValueError now
+            check_capturable(self.state, self._dropout_fn is not None, self.mesh,
+                             update=self.state.optimizer.apply)
+        #: under capture, the live-arc lists' width and the flat-start
+        #: vocabulary's of every batch of a run (`fit` estimates them)
+        self._shapes = (None, None)
+        #: the captured steps by kind, plan and batch shape, their graphs'
+        #: memory pool, and the semi-orthogonal constraint's graph
+        self._steps: dict = {}
+        self._pool = torch.cuda.graph_pool_handle() if cfg.capture else None
+        self._ortho = None
         # the optimizer clips (after accumulation): the step does not.  Under
         # data parallelism the step all-reduces every micro-batch's gradient,
         # so each micro-step's grad_norm is the global gradient's
-        self.train_step = make_train_step(self.state, cfg.loss, use_xent=cfg.use_xent,
-                                          max_grad_norm=0.0,
-                                          dropout=self._dropout_fn is not None, mesh=self.dp)
+        dropout = self._dropout_fn is not None
         self.backstitch_step = None
-        if cfg.backstitch_scale > 0:
-            self.backstitch_step = make_backstitch_step(
-                self.state, cfg.loss, cfg.backstitch_scale, use_xent=cfg.use_xent,
-                mesh=self.dp)
+        if cfg.capture:
+            self.train_step = functools.partial(self._chain_step,
+                                                "dropout" if dropout else "plain")
+            if cfg.backstitch_scale > 0:
+                self.backstitch_step = functools.partial(self._chain_step, "backstitch")
+        else:
+            self.train_step = make_train_step(self.state, cfg.loss, use_xent=cfg.use_xent,
+                                              max_grad_norm=0.0, dropout=dropout, mesh=self.dp)
+            if cfg.backstitch_scale > 0:
+                self.backstitch_step = make_backstitch_step(
+                    self.state, cfg.loss, cfg.backstitch_scale, use_xent=cfg.use_xent,
+                    mesh=self.dp)
         # per-step dropout noise from a generator seeded with the step:
         # a resumed run draws the same masks
         self._dropout_gen = (
@@ -429,28 +351,80 @@ class Trainer:
             self._ckpt_root = pathlib.Path(cfg.checkpoint_dir).absolute()
             self._ckpt_root.mkdir(parents=True, exist_ok=True)
 
+    # -- the captured steps -------------------------------------------------
+
+    def _chain_step(self, kind: str, feats, den, sup, *dropout) -> dict:
+        """One captured step of `kind` ("plain", "dropout", "backstitch"):
+        the graph for the plan of its optimizer calls and the batch's
+        shape, then the chain's host counters."""
+        cfg, opt = self.cfg, self.state.optimizer
+        plan = opt.plan(2 if kind == "backstitch" else 1)
+        key = (kind, plan, shape_key(feats, sup))
+        step = self._steps.get(key)
+        if step is None:
+            def update(i, scale, plan=plan):
+                opt.apply(plan[i], scale)
+
+            kw = dict(use_xent=cfg.use_xent, mesh=self.dp, capture=True, update=update,
+                      pool=self._pool)
+            if kind == "backstitch":
+                step = make_backstitch_step(self.state, cfg.loss, cfg.backstitch_scale, **kw)
+            else:
+                step = make_train_step(self.state, cfg.loss, max_grad_norm=0.0,
+                                       dropout=kind == "dropout", **kw)
+            self._steps[key] = step
+        metrics = step(feats, den, sup, *dropout)
+        opt.advance(plan)
+        return metrics
+
+    def _semi_orthogonal(self) -> None:
+        """The constraint on every `linear_pre`, in place: under capture one
+        graph of its own (where the model has such a parameter), outside
+        the steps' (the JAX Trainer calls it between its jitted steps too)."""
+        if self.cfg.capture and self._ortho is None and constrained_parameters(self.model):
+            self._ortho = CapturedCall(self.state, lambda: constrain_semi_orthogonal(self.model),
+                                       self._pool)
+        if self._ortho is not None:
+            self._ortho()
+        else:
+            constrain_semi_orthogonal(self.model)
+
+    @property
+    def graphs(self) -> dict:
+        """The captured graphs: each step's by (kind, plan, batch shape),
+        "semi_orthogonal", and `evaluate`'s by (model, batch shape)."""
+        out = {k: v for k, v in self._steps.items() if isinstance(v, CapturedStep)}
+        if self._ortho is not None:
+            out["semi_orthogonal"] = self._ortho
+        out.update(getattr(getattr(self, "_eval_step", None), "graphs", {}))
+        return out
+
     # -- placement --------------------------------------------------------
 
-    def _place(self, batch: ChainBatch):
+    def _place(self, batch: ChainBatch, shapes=(None, None)):
+        """The batch on the device, its live-arc lists `shapes[0]` wide and
+        a flat-start vocabulary `shapes[1]` wide where given."""
+        L_cap, vocab_cap = shapes
         if isinstance(batch.sup, E2eSupervision):
-            sup = DeviceE2eSupervision.from_host(batch.sup, device=self.device)
+            sup = DeviceE2eSupervision.from_host(batch.sup, device=self.device,
+                                                 vocab_cap=vocab_cap)
         else:
             sup = DeviceSupervision.from_host(batch.sup, device=self.device)
-        return torch.as_tensor(batch.feats).to(self.device), sup.with_kernel_tables()
+        return torch.as_tensor(batch.feats).to(self.device), sup.with_kernel_tables(L_cap=L_cap)
 
-    def _put_batch(self, batch: ChainBatch):
-        """(feats, sup, event): the batch on the device.  On a CUDA device
-        the copies and the kernel tables' sizing (which reads one number
-        back) run on the side stream, so they wait for nothing the step
-        has queued; `event` marks their end (None elsewhere).  A
+    def _put_batch(self, batch: ChainBatch, shapes=(None, None)):
+        """(feats, sup, event): the batch on the device (`_place`).  On a
+        CUDA device the copies and the kernel tables' sizing (which reads
+        one number back) run on the side stream, so they wait for nothing
+        the step has queued; `event` marks their end (None elsewhere).  A
         PlacedBatch (MaterializedBatches(..., device=...)) is already there:
         it passes through with no copy and no event."""
         if isinstance(batch, PlacedBatch):
             return batch.feats, batch.sup, None
         if self._stream is None:
-            return (*self._place(batch), None)
+            return (*self._place(batch, shapes), None)
         with torch.cuda.stream(self._stream):
-            feats, sup = self._place(batch)
+            feats, sup = self._place(batch, shapes)
             event = torch.cuda.Event()
             event.record(self._stream)
         return feats, sup, event
@@ -647,12 +621,16 @@ class Trainer:
                 # mid-epoch resume reproduces it
                 dataset.frame_shift = epoch % dataset.fsf
             # one fixed supervision padding for the whole run
-            if self._sup_caps is None and hasattr(dataset, "estimate_sup_caps"):
+            if self._sup_caps is None and (cfg.capture or hasattr(dataset, "estimate_sup_caps")):
                 t0 = time.perf_counter()
-                self._sup_caps = dataset.estimate_sup_caps()
+                if cfg.capture:
+                    self._sup_caps, self._shapes = self._shapes_of(dataset)
+                else:
+                    self._sup_caps = dataset.estimate_sup_caps()
                 if self.dp is not None:
                     # one padding on every rank: rank 0's
-                    self._sup_caps = broadcast_object(self.dp, self._sup_caps)
+                    self._sup_caps, self._shapes = broadcast_object(
+                        self.dp, (self._sup_caps, self._shapes))
                 self.timings["sup_caps_s"] = time.perf_counter() - t0
 
             def _put_iter(it, skip_until: int):
@@ -662,7 +640,7 @@ class Trainer:
                         yield b, None
                         continue
                     t0 = time.perf_counter()
-                    placed = self._put_batch(b)
+                    placed = self._put_batch(b, self._shapes)
                     self.timings["place_s"].append(time.perf_counter() - t0)
                     yield b, placed
 
@@ -691,7 +669,7 @@ class Trainer:
                     metrics = self.train_step(feats, self.den, sup)
                 step += 1
                 if cfg.semi_ortho_every and step % cfg.semi_ortho_every == 0:
-                    constrain_semi_orthogonal(self.model)
+                    self._semi_orthogonal()
                 self.timings["step_s"].append(time.perf_counter())
                 pending.append((step, epoch, metrics))
                 frames_done += batch.feats.shape[0] * batch.sup.num_frames * self.mesh.data
@@ -731,7 +709,25 @@ class Trainer:
         self.batch_in_epoch = 0
         self.skip_batches = 0
         self._sup_caps = None
+        self._shapes = (None, None)
         self._batches_per_epoch = None
+
+    @staticmethod
+    def _shapes_of(dataset):
+        """(sup_caps, (L_cap, vocab_cap)) that give every batch of
+        `dataset` one shape, as capture needs: flat-start
+        `estimate_e2e_caps`, else `estimate_sup_caps` and
+        `estimate_live_arcs`.  A dataset with neither raises ValueError:
+        each of its batches would capture a graph of its own."""
+        if hasattr(dataset, "estimate_e2e_caps"):
+            caps = dataset.estimate_e2e_caps()
+            return caps, (caps[3], caps[2])
+        for name in ("estimate_sup_caps", "estimate_live_arcs"):
+            if not hasattr(dataset, name):
+                raise ValueError(f"capture=True: {type(dataset).__name__} has no {name}, so"
+                                 " its batches have no one shape (each would capture a graph"
+                                 " of its own)")
+        return dataset.estimate_sup_caps(), (dataset.estimate_live_arcs(), None)
 
     def step_ms(self) -> float | None:
         """Median host wall ms between consecutive steps of the last fit
@@ -762,26 +758,40 @@ class Trainer:
 
     def evaluate(self, dataset, max_batches: int = 0) -> ChainResults:
         """Validation pass (nnet3-chain-compute-prob): objf over a held-out
-        dataset, no parameter updates.  Under data parallelism every rank
-        reads the same global batches and scores its rows of each (the sums
-        all-reduced: every rank gets the global statistics); a batch the
-        data axis does not divide is scored whole on every rank."""
+        dataset, no parameter updates; the batches' statistics stay on the
+        device and are read once, at the end.  Under data parallelism every
+        rank reads the same global batches and scores its rows of each (the
+        sums all-reduced: every rank gets the global statistics); a batch
+        the data axis does not divide is scored whole on every rank.  With
+        `capture` the batches are padded to one shape a pass
+        (`_shapes_of(dataset)`; the last, smaller batch has its own), and
+        each shape replays its own graph."""
+        cfg = self.cfg
         if not hasattr(self, "_eval_step"):
-            self._eval_step = make_eval_step(self.cfg.loss, use_xent=self.cfg.use_xent)
-            self._eval_step_dp = make_eval_step(self.cfg.loss, use_xent=self.cfg.use_xent,
-                                                mesh=self.dp)
-        results = ChainResults()
+            self._eval_step = make_eval_step(cfg.loss, use_xent=cfg.use_xent,
+                                             capture=cfg.capture, pool=self._pool)
+            self._eval_step_dp = make_eval_step(cfg.loss, use_xent=cfg.use_xent, mesh=self.dp)
+        kw, shapes = {}, (None, None)
+        if cfg.capture:
+            kw["sup_caps"], shapes = self._shapes_of(dataset)
+        pending = []
         for i, batch in enumerate(
-            dataset.batches(self.cfg.batch_size, shuffle=False, drop_last=False)
+            dataset.batches(cfg.batch_size, shuffle=False, drop_last=False, **kw)
         ):
             if max_batches and i >= max_batches:
                 break
             step = self._eval_step
             if shardable(self.dp, batch.feats.shape[0]):
                 batch, step = shard_batch(self.dp, batch), self._eval_step_dp
-            feats, sup = self._ready(self._put_batch(batch))
-            aux = step(self.model, feats, self.den, sup)
-            results.add({k: float(v) for k, v in aux.items()})
+            feats, sup = self._ready(self._put_batch(batch, shapes))
+            pending.append(step(self.model, feats, self.den, sup))
+        results = ChainResults()
+        if pending:
+            keys = list(pending[0])
+            rows = torch.stack([torch.stack([a[k].float() for k in keys])
+                                for a in pending]).cpu().numpy()
+            for row in rows:
+                results.add({k: float(v) for k, v in zip(keys, row)})
         return results
 
     def dump_metrics(self, path: str):
